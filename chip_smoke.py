@@ -8,15 +8,28 @@ non-zero without printing a result:
 
 1. set-up: TF32 off, the kernels built from paddle_tpu_torch/csrc with
    nvcc, the card's name and power limit;
-2. each CUDA kernel against its plain PyTorch version at the shapes of
-   Llama-3-8B (bf16, seeded inputs, trash page 0 filled with NaN), with
+2. kernels: each CUDA kernel against its plain PyTorch version, with
+   per-element limits, at the shapes of its path: the serving kernels at
+   Llama-3-8B's (bf16, seeded inputs, trash page 0 filled with NaN), the
+   training kernels (RMSNorm dx, SwiGLU backward, flash attention
+   forward, dk/dv and dq) at the training phase's, in bf16 and f32; with
    its time, the plain version's, the bound and a library call's;
-3. the serving path at full width: a 32-layer Llama-3-8B with seeded
-   random weights served by the continuous-batching engine (12 requests
-   through 8 slots), with the kernels' launch counters read around it;
+3. serve: the serving path at full width: a 32-layer Llama-3-8B with
+   seeded random weights served by the continuous-batching engine (12
+   requests through 8 slots), with the kernels' launch counters read
+   around it;
 4. parity: the same width at depth 2 in f32, greedy streams on the GPU
    against the CPU (plain versions), token for token;
-5. the ``kernels`` JSON line, then the result line.
+5. train: Llama-3-8B width at 8 layers in bf16, the port's AdamW, 2
+   warm-up and 5 timed steps on [2, 2049] token ids (step time, tokens/s,
+   model-FLOP share, peak memory, losses, launches per step), one step
+   timed by part (forward, backward, optimizer) and one profiled (device
+   time by layer, idle share), then 5 steps on one batch that must lower
+   its loss;
+6. train_parity: Llama-1B width at depth 2 in f32, one forward, backward
+   and AdamW step on the card and on the CPU: loss, every gradient and
+   every updated weight;
+7. the ``kernels`` JSON line, then the result line.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -152,6 +165,56 @@ def check_close(what, out, ref, tol):
             f"max abs err {err.max().item():.4g}, worst err/limit "
             f"{ratio:.3g}")
     return err.max().item(), ratio
+
+
+def attention_scales(q, k, v, grad, lse, delta, causal, scale=None):
+    """Per-element error scales of flash attention's gradients: each
+    gradient's products taken over magnitudes, in f32. With p the
+    probabilities and |ds| <= p * (|dO.V^T| + |delta|) * scale:
+    A_dv = p^T |dO|, A_dk = |ds|^T |q| (summed over the query heads of a
+    kv head), A_dq = |ds| |k|. Rounding p or ds to bf16 moves a gradient
+    by at most 2^-8 of its scale (bf16's unit roundoff); summation order
+    in f32 by a few 1e-7.
+    Returns (A_dq, A_dk, A_dv) in the layouts of dq, dk, dv."""
+    import math
+
+    import torch
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    qh, gh = q.transpose(1, 2).float(), grad.transpose(1, 2).float()
+    kh = k.repeat_interleave(rep, 2).transpose(1, 2).float()
+    vh = v.repeat_interleave(rep, 2).transpose(1, 2).float()
+    logits = (qh @ kh.transpose(-1, -2)) * s
+    valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        valid = valid.tril(sk - sq)
+    p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
+    del logits
+    dsa = p * ((gh @ vh.transpose(-1, -2)).abs_() + delta.abs()[..., None])
+    dsa *= s
+    a_dv = p.transpose(-1, -2) @ gh.abs()
+    del p
+    a_dq = dsa @ kh.abs()
+    a_dk = dsa.transpose(-1, -2) @ qh.abs()
+    del dsa
+    a_dk = a_dk.reshape(b, kvh, rep, sk, d).sum(2).transpose(1, 2)
+    a_dv = a_dv.reshape(b, kvh, rep, sk, d).sum(2).transpose(1, 2)
+    return a_dq.transpose(1, 2), a_dk, a_dv
+
+
+def adam_first_step_limit(g_ref, g, w_ref, lr, eps=1e-8):
+    """Per-element limit between two weights after one AdamW step from
+    the same weights that differ only in their gradients (numpy arrays
+    g_ref, g). The first step moves a weight by lr * g / (|g| + eps),
+    whose slope is lr * eps / (|x| + eps)^2 for x between the two
+    gradients (x may be 0 if their signs differ): that times |g - g_ref|,
+    never more than 2 lr, plus f32 rounding of the weight."""
+    same = np.sign(g) == np.sign(g_ref)
+    low = np.where(same, np.minimum(np.abs(g), np.abs(g_ref)), 0.0)
+    move = lr * eps * np.abs(g - g_ref) / (low + eps) ** 2
+    return np.minimum(move, 2 * lr) + 1e-6 * np.abs(w_ref) + 1e-9
 
 
 def bound(n_bytes, ops, peak):
@@ -317,6 +380,275 @@ def phase_kernels(cfg, dev="cuda"):
     return res
 
 
+def phase_train_kernels(cfg, batch=2, seq=2049, dev="cuda"):
+    """The training kernels K2, K6, K7, K8 and K9 against their plain
+    versions at the shapes of the training phase (batch x seq tokens of
+    Llama-3-8B width), in bf16 (timed) and in f32."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import rms_norm as krms
+    from paddle_tpu_torch.ops.kernels import swiglu as ksw
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    nh, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    n, eps = batch * seq, cfg.rms_norm_eps
+    res = {}
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    # K2: RMSNorm dx
+    for dtype in (torch.bfloat16, torch.float32):
+        x, g = rand(n, H, dtype=dtype), rand(n, H, dtype=dtype)
+        w = 1 + 0.1 * rand(H, dtype=dtype)
+        dx = krms.rms_norm_dx(x, w, g, eps)
+        ref = krms.rms_norm_dx_reference(x, w, g, eps)
+        # per element. Both sides f32 inside and rounded once; the row
+        # sums and the difference inv*g*w - x*c come in another order,
+        # which moves dx by f32 noise of the magnitudes summed, mag (c
+        # taken over |g*w*x|: the row sum may cancel); in bf16 that may
+        # flip the output's rounding: one ulp of |ref|
+        xf, gw = x.float(), g.float() * w.float()
+        inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        c = inv ** 3 * (gw * xf).abs().mean(-1, keepdim=True)
+        mag = (inv * gw).abs() + xf.abs() * c
+        ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5
+        err, worst = check_close(f"rms_norm_dx {dtype}", dx, ref,
+                                 ulp * ref.float().abs() + 1e-5 * mag
+                                 + 1e-6)
+        del xf, gw, inv, c, mag
+        log(f"[kernels] rms_norm_dx N={n} D={H} {dtype}: max abs err "
+            f"{err:.3g} (limit {'1 ulp' if ulp == BF16_ULP else '1e-5'} "
+            f"of each |ref| + 1e-5 of |inv*g*w| + |x*c|, worst err/limit "
+            f"{worst:.3g})")
+        if dtype == torch.bfloat16:
+            args = (x, w, g, eps)
+            ms = time_ms(krms.rms_norm_dx, args)
+            eager = eager_ms(krms.rms_norm_dx, args)
+            plain = time_ms(krms.rms_norm_dx_reference, args)
+            b_ms, b_by = bound((3 * n * H + H) * 2, 8 * n * H,
+                               PEAK_F32_CORES)
+            log(f"[kernels] rms_norm_dx: kernel {ms:.4f} ms (eager "
+                f"{eager:.4f}) plain {plain:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by})")
+            res["rms_norm_dx"] = dict(
+                max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=f"x,g[{n},{H}] bf16")
+        else:
+            res["rms_norm_dx"]["max_abs_err_f32"] = err
+        del x, g, w, dx, ref
+
+    # K6: SwiGLU backward
+    for dtype in (torch.bfloat16, torch.float32):
+        gate, up = 2 * rand(n, I, dtype=dtype), rand(n, I, dtype=dtype)
+        go = rand(n, I, dtype=dtype)
+        dg, du = ksw.swiglu_bwd(gate, up, go)
+        rg, ru = ksw.swiglu_bwd_reference(gate, up, go)
+        # per element: the same f32 formula rounded once on both sides;
+        # the exp implementations differ in the last f32 bits, which may
+        # flip a bf16 rounding: one ulp (f32: 1e-5 of |ref|)
+        ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5
+        err, worst = check_close(f"swiglu_bwd dgate {dtype}", dg, rg,
+                                 ulp * rg.float().abs() + 1e-6)
+        err2, worst2 = check_close(f"swiglu_bwd dup {dtype}", du, ru,
+                                   ulp * ru.float().abs() + 1e-6)
+        log(f"[kernels] swiglu_bwd N={n} I={I} {dtype}: max abs err "
+            f"{max(err, err2):.3g} (limit {ulp:.3g} of each |ref|, worst "
+            f"err/limit {max(worst, worst2):.3g})")
+        del dg, du, rg, ru
+        if dtype == torch.bfloat16:
+            args = (gate, up, go)
+            ms = time_ms(ksw.swiglu_bwd, args)
+            eager = eager_ms(ksw.swiglu_bwd, args)
+            plain = time_ms(ksw.swiglu_bwd_reference, args)
+            b_ms, b_by = bound(5 * n * I * 2, 12 * n * I, PEAK_F32_CORES)
+            log(f"[kernels] swiglu_bwd: kernel {ms:.4f} ms (eager "
+                f"{eager:.4f}) plain {plain:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by})")
+            res["swiglu_bwd"] = dict(
+                max_abs_err=max(err, err2), ms=ms, eager_ms=eager,
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, shape=f"gate,up,grad[{n},{I}] bf16")
+        else:
+            res["swiglu_bwd"]["max_abs_err_f32"] = max(err, err2)
+        del gate, up, go
+    torch.cuda.empty_cache()
+    res.update(flash_checks(batch, seq, nh, kvh, d, rand))
+    return res
+
+
+def flash_checks(batch, seq, nh, kvh, d, rand):
+    """K7, K8 and K9 at the training shapes, causal, against the plain
+    versions, with per-element limits. ``a = sum_i p_i |v_i|`` scales a
+    forward output's rounding error and ``attention_scales`` the
+    gradients'. A key dropped from or added to a row of n keys moves its
+    output by about a / n (4e-4 at n = 2048 for unit values); the f32
+    limit, 1e-5 * a, is checked to refuse both."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    res = {}
+    s_tok = seq
+    pairs = s_tok * (s_tok + 1) // 2            # causal (query, key) pairs
+    bh = batch * nh
+    for dtype in (torch.bfloat16, torch.float32):
+        q = rand(batch, s_tok, nh, d, dtype=dtype)
+        k = rand(batch, s_tok, kvh, d, dtype=dtype)
+        v = rand(batch, s_tok, kvh, d, dtype=dtype)
+        go = rand(batch, s_tok, nh, d, dtype=dtype)
+        out, lse = kfa.flash_attention_fwd(q, k, v, True)
+        ref, ref_lse = kfa.flash_attention_fwd_reference(q, k, v, True)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v)]
+        a = kfa.flash_attention_fwd_reference(f32[0], f32[1], f32[2].abs(),
+                                              True)[0]
+        if dtype == torch.bfloat16:
+            # both sides round each probability to bf16 before P.V (at
+            # most 2^-8 * a each: bf16's unit roundoff is 2^-8) and round
+            # the output (half an ulp each)
+            err, worst = check_close(
+                "flash fwd bf16", out, ref,
+                1.01 * (2 ** -7 * a + BF16_ULP * ref.float().abs()) + 1e-6)
+            ref32, _ = kfa.flash_attention_fwd_reference(*f32, True)
+            # against f32 throughout: the kernel's P rounding (2^-8 * a)
+            # and its output rounding
+            _, worst1 = check_close("flash fwd bf16 vs f32 plain", out,
+                                    ref32, 2 ** -8 * a + BF16_ULP
+                                    * ref32.abs() + 1e-5 * a + 1e-6)
+            del ref32
+        else:
+            err, worst = check_close("flash fwd f32", out, ref,
+                                     1e-5 * a + 1e-6)
+            tol = 1e-5 * a + 1e-6
+            # the same check must refuse a plain version whose rows each
+            # lose their last key (causal offset -1) or gain one (+1)
+            dropped = kfa.flash_attention_fwd_reference(
+                torch.cat([q, q[:, -1:]], 1), k, v, True)[0][:, :s_tok]
+            extra = kfa.flash_attention_fwd_reference(
+                q[:, :s_tok - 1], k, v, True)[0]
+            # rows s/2 .. s-2 only: each sees over a thousand keys
+            sl = slice(s_tok // 2, s_tok - 1)
+            for name, bad in (("dropped", dropped), ("extra", extra)):
+                try:
+                    check_close(f"flash fwd f32 vs one key {name}",
+                                out[:, sl], bad[:, sl], tol[:, sl])
+                except AssertionError as e:
+                    log(f"[kernels] flash fwd f32 limit refuses one key "
+                        f"{name} per row: {e}")
+                else:
+                    raise AssertionError(f"the f32 attention limit does "
+                                         f"not refuse one key {name}")
+            del dropped, extra, tol
+        lse_err, _ = check_close(f"flash lse {dtype}", lse, ref_lse,
+                                 1e-6 * ref_lse.abs() + 1e-5)
+        delta = kfa._delta(ref, go)
+        dk, dv = kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta, True)
+        dq = kfa.flash_attention_dq(q, k, v, go, ref_lse, delta, True)
+        rk, rv = kfa.flash_attention_dkv_reference(q, k, v, go, ref_lse,
+                                                   delta, True)
+        rq = kfa.flash_attention_dq_reference(q, k, v, go, ref_lse, delta,
+                                              True)
+        torch.cuda.synchronize()
+        sq_, sk_, sv_ = attention_scales(q, k, v, go, ref_lse, delta, True)
+        errs = {}
+        for name, got, want, sc in (("dq", dq, rq, sq_), ("dk", dk, rk, sk_),
+                                    ("dv", dv, rv, sv_)):
+            if dtype == torch.bfloat16:
+                # the kernel rounds p and ds to bf16 before their
+                # products (2^-8 of the scale), each side rounds its
+                # output (half an ulp each), f32 noise
+                tol = (2 ** -8 + 1e-5) * sc + BF16_ULP * want.float().abs() \
+                    + 1e-6
+            else:
+                tol = 1e-5 * sc + 1e-6      # summation order and exp only
+            errs[name] = check_close(f"flash {name} {dtype}", got, want, tol)
+        del sq_, sk_, sv_, rq, rk, rv, a
+        log(f"[kernels] flash attention B={batch} S={s_tok} H={nh} "
+            f"KVH={kvh} D={d} causal {dtype}: fwd max abs err {err:.3g} "
+            f"(worst err/limit {worst:.3g}"
+            + (f"; vs f32 plain {worst1:.3g}" if dtype == torch.bfloat16
+               else "") + f"), lse {lse_err:.3g}; "
+            + ", ".join(f"{k_} {e[0]:.3g} (worst {e[1]:.3g})"
+                        for k_, e in errs.items()))
+        if dtype == torch.float32:
+            res["flash_attention_fwd"]["max_abs_err_f32"] = err
+            res["flash_attention_dkv"]["max_abs_err_f32"] = max(
+                errs["dk"][0], errs["dv"][0])
+            res["flash_attention_dq"]["max_abs_err_f32"] = errs["dq"][0]
+            del q, k, v, go, out, lse, ref, ref_lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+            continue
+        # bf16: times at the training shape
+        elt = 2
+        qb = batch * s_tok * nh * d * elt        # q, out, dO, dq bytes
+        kb = batch * s_tok * kvh * d * elt       # k, v, dk, dv bytes
+        sb = bh * s_tok * 4                      # lse or delta bytes
+        fwd_args = (q, k, v, True)
+        ms = time_ms(kfa.flash_attention_fwd, fwd_args, iters=5)
+        plain = time_ms(kfa.flash_attention_fwd_reference, fwd_args,
+                        iters=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(qt, kt, vt):
+            return tF.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True)
+        lib = time_ms(sdpa, (qt, kt, vt), iters=5)
+        b_ms, b_by = bound(2 * qb + 2 * kb + sb, 4 * d * pairs * bh,
+                           PEAK_BF16)
+        res["flash_attention_fwd"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"q[{batch},{s_tok},{nh},{d}] kv[{batch},{s_tok},{kvh},"
+                  f"{d}] bf16 causal")
+        bwd_args = (q, k, v, go, ref_lse, delta, True)
+        ms_kv = time_ms(kfa.flash_attention_dkv, bwd_args, iters=5)
+        ms_q = time_ms(kfa.flash_attention_dq, bwd_args, iters=5)
+        plain_kv = time_ms(kfa.flash_attention_dkv_reference, bwd_args,
+                           iters=2)
+        plain_q = time_ms(kfa.flash_attention_dq_reference, bwd_args,
+                          iters=2)
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (qt, kt, vt))
+        gt = go.transpose(1, 2)
+
+        def sdpa_fwd_bwd(qg, kg, vg, gt):
+            out = sdpa(qg, kg, vg)
+            return torch.autograd.grad(out, (qg, kg, vg), gt)
+        lib_fb = eager_ms(sdpa_fwd_bwd, (qg, kg, vg, gt), iters=5)
+        lib_f = eager_ms(sdpa, (qg.detach(), kg.detach(), vg.detach()),
+                         iters=5)
+        # SDPA's backward computes dq, dk and dv in one: K8 + K9 together
+        lib_bwd = float(lib_fb) - float(lib_f)
+        kv_ms, kv_by = bound(2 * qb + 2 * kb + 2 * sb + 2 * kb,
+                             8 * d * pairs * bh, PEAK_BF16)
+        q_ms, q_by = bound(2 * qb + 2 * kb + 2 * sb + qb,
+                           6 * d * pairs * bh, PEAK_BF16)
+        res["flash_attention_dkv"] = dict(
+            max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=ms_kv,
+            plain_ms=plain_kv, library_ms=lib_bwd, bound_ms=kv_ms,
+            bound_by=kv_by, shape=res["flash_attention_fwd"]["shape"])
+        res["flash_attention_dq"] = dict(
+            max_abs_err=errs["dq"][0], ms=ms_q, plain_ms=plain_q,
+            library_ms=lib_bwd, bound_ms=q_ms, bound_by=q_by,
+            shape=res["flash_attention_fwd"]["shape"])
+        log(f"[kernels] flash_attention_fwd: kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms SDPA {lib:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by})")
+        log(f"[kernels] flash_attention_dkv: kernel {ms_kv:.4f} ms plain "
+            f"{plain_kv:.4f} ms bound {kv_ms:.4f} ms ({kv_by}); "
+            f"flash_attention_dq: kernel {ms_q:.4f} ms plain {plain_q:.4f} "
+            f"ms bound {q_ms:.4f} ms ({q_by}); SDPA backward (dq, dk, dv "
+            f"together; eager fwd+bwd {lib_fb:.4f} - fwd {lib_f:.4f}) "
+            f"{lib_bwd:.4f} ms")
+        del q, k, v, go, out, lse, ref, ref_lse, delta, dq, dk, dv
+        del qt, kt, vt, qg, kg, vg, gt
+        torch.cuda.empty_cache()
+    return res
+
+
 def ragged_checks(krpa, args, ref, out):
     """The ragged kernel held per element, three ways, against limits
     derived from where the two sides round. ``a = sum_i p_i |v_i|`` (the
@@ -432,9 +764,10 @@ def _top2_gap(model, tokens):
              for _ in range(2 * cfg.num_hidden_layers)]
     ids = torch.tensor([tokens], device=dev)
     tables = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
-    logits, _ = model(ids, pools, torch.zeros(1, dtype=torch.int32,
-                                              device=dev),
-                      (tables, torch.tensor([len(tokens)], device=dev)))
+    logits, _ = model(ids, caches=pools,
+                      pos=torch.zeros(1, dtype=torch.int32, device=dev),
+                      tables=(tables,
+                              torch.tensor([len(tokens)], device=dev)))
     top = torch.topk(logits[0, -1].float(), 2).values
     return float(top[0] - top[1])
 
@@ -485,6 +818,254 @@ def phase_parity(cfg, dev="cuda"):
     torch.cuda.empty_cache()
 
 
+TRAIN_KERNELS = ("rms_norm", "rms_norm_dx", "swiglu", "swiglu_bwd",
+                 "flash_attention_fwd", "flash_attention_dkv",
+                 "flash_attention_dq")
+
+
+def _wrappers(names):
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
+    from paddle_tpu_torch.ops.kernels import rms_norm as krms
+    from paddle_tpu_torch.ops.kernels import swiglu as ksw
+    every = {"rms_norm": krms.rms_norm, "rms_norm_dx": krms.rms_norm_dx,
+             "swiglu": ksw.swiglu, "swiglu_bwd": ksw.swiglu_bwd,
+             "flash_attention_fwd": kfa.flash_attention_fwd,
+             "flash_attention_dkv": kfa.flash_attention_dkv,
+             "flash_attention_dq": kfa.flash_attention_dq,
+             "ragged_paged_attention": krpa.ragged_paged_attention}
+    return {n: every[n] for n in names}
+
+
+def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
+                dev="cuda"):
+    """Training at Llama-3-8B width: ``layers`` layers in bf16 with seeded
+    random weights, the port's AdamW (f32 master weights and moments),
+    ``model(ids, labels=ids); loss.backward(); opt.step();
+    opt.clear_grad()`` on [batch, seq + 1] token ids, as bench.py's
+    training step shapes them."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] Llama-3-8B width, {layers} layers, {n_params / 1e9:.3f} B "
+        f"params bf16, built in {time.perf_counter() - t0:.1f} s")
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    # distinct inputs per step (bench.py rolls the batch the same way)
+    step_ids = [torch.from_numpy(np.roll(ids, i, axis=1)).to(dev)
+                for i in range(warmup + steps)]
+
+    def step(t):
+        _, loss = model(t, labels=t)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses = [step(step_ids[i]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    wrappers = _wrappers(TRAIN_KERNELS)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup, warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(step_ids[i]))   # .item() synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    # The seeded init predicts the first loss: the final hidden states
+    # are RMS-normalised (mean square 1) and the lm_head weights are
+    # N(0, initializer_range), so each logit is about N(0, s2) with
+    # s2 = hidden * range^2, and the cross entropy is about
+    # ln(vocab) + s2 / 2 (12.58 here; the JAX bench's logged 10.875 at
+    # 2.37B, vocab 32000, hidden 2560, is the same formula)
+    ln_v = float(np.log(cfg.vocab_size))
+    expect = ln_v + cfg.hidden_size * cfg.initializer_range ** 2 / 2
+    if abs(losses[0] - expect) > 0.5:
+        raise AssertionError(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
+                             f"of ln(vocab) + s2/2 = {expect:.4f}")
+    L = layers
+    want = {"rms_norm": 2 * L + 1, "rms_norm_dx": 2 * L + 1, "swiglu": L,
+            "swiglu_bwd": L, "flash_attention_fwd": L,
+            "flash_attention_dkv": L, "flash_attention_dq": L}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step} != {want}")
+    t = Timing(times)
+    tokens = batch * seq
+    flops = 6.0 * n_params * tokens + 12.0 * L * batch * seq * seq \
+        * cfg.hidden_size
+    log(f"[train] {steps} steps of [{batch}, {seq + 1}] tokens: step "
+        f"{t:.1f} ms (median [least-greatest]), {tokens / (t / 1e3):.0f} "
+        f"tokens/s, model FLOPs {flops / 1e12:.1f} TFLOP a step = "
+        f"{100 * flops / (t / 1e3) / PEAK_BF16:.1f}% of {PEAK_BF16 / 1e12:.0f} "
+        f"TFLOP/s, peak memory {peak:.2f} GB")
+    log(f"[train] losses {[round(x, 4) for x in losses]} (ln vocab "
+        f"{ln_v:.4f}, + s2/2 from the init: {expect:.4f})")
+    log(f"[train] launches per step {per_step}")
+    breakdown = _step_breakdown(model, opt, step_ids[-1])
+    # five more steps on one fixed batch must lower its loss
+    fixed = step_ids[0]
+    with torch.no_grad():
+        before = model(fixed, labels=fixed)[1].item()
+    for _ in range(5):
+        step(fixed)
+    with torch.no_grad():
+        after = model(fixed, labels=fixed)[1].item()
+    if not after < before:
+        raise AssertionError(f"5 steps on one batch did not lower its loss: "
+                             f"{before:.4f} -> {after:.4f}")
+    log(f"[train] one fixed batch: loss {before:.4f} -> {after:.4f} after 5 "
+        f"steps on it")
+    del model, opt, step_ids
+    torch.cuda.empty_cache()
+    return dict(step_ms=t, tokens_per_s=tokens / (t / 1e3),
+                mfu=flops / (t / 1e3) / PEAK_BF16, peak_gb=peak,
+                losses=losses, launches=launches, breakdown=breakdown)
+
+
+# kernel-name fragments -> the layer they belong to (cuBLAS's H100
+# matmuls are the nvjet/sm90 gemm kernels)
+_CATEGORIES = (("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
+               ("rms_norm K1/K2", ("rms_norm",)),
+               ("swiglu K5/K6", ("swiglu",)),
+               ("matmul (cuBLAS)", ("gemm", "nvjet", "sm90_xmma", "cutlass")))
+
+
+def _step_breakdown(model, opt, ids):
+    """One more training step, timed in three parts with CUDA events on
+    the stream (forward, backward, optimizer: device time including any
+    idle gap the host leaves), then once more under torch.profiler:
+    device time by kernel and by layer, and the device's idle share of
+    the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    _, loss = model(ids, labels=ids)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    opt.clear_grad()
+    ev[3].record()
+    torch.cuda.synchronize()
+    parts = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+             enumerate(("forward", "backward", "optimizer"))}
+    log("[train] one step by part (CUDA events): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in parts.items()))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    if not busy:
+        log("[train] the profiler saw no device time (not measured)")
+        return dict(parts=parts)
+    by_cat = {}
+    for name, ms in kernels.items():
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+    log(f"[train] profiled step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+    log("[train] device time by layer: " + ", ".join(
+        f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)" for c, ms in
+        sorted(by_cat.items(), key=lambda x: -x[1])))
+    for name, ms in sorted(kernels.items(), key=lambda x: -x[1])[:12]:
+        log(f"[train]   {ms:8.2f} ms  {name[:110]}")
+    return dict(parts=parts, wall_ms=wall, busy_ms=busy, by_layer=by_cat)
+
+
+def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
+    """One forward + backward + AdamW step at Llama-1B width (depth
+    ``layers``, f32, batch 1, ``seq`` tokens, not a tile multiple) from
+    the same weights on the card (kernels) and on the CPU (plain
+    versions): the loss, every gradient and every updated weight."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, seq)))
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=7).state_dict()
+    out = {}
+    for name in ("cpu", dev):
+        t0 = time.perf_counter()
+        model = LlamaForCausalLM(cfg, device=name)
+        model.load_state_dict(weights)
+        opt = AdamW(learning_rate=lr, parameters=model.parameters())
+        t = ids.to(name)
+        _, loss = model(t, labels=t)
+        loss.backward()
+        grads = convert.grads_to_numpy(model)
+        opt.step()
+        out[name] = (loss.item(), grads, convert.to_numpy_state_dict(model))
+        log(f"[train_parity] {name}: loss {out[name][0]:.6f} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del model, opt
+    (l0, g0, w0), (l1, g1, w1) = out["cpu"], out[dev]
+    # f32 on both sides: the kernels, cuBLAS and the CPU sum in other
+    # orders, some 1e-7 relative a sum; through two layers and a 32000-way
+    # log-softmax the loss keeps 1e-5 of itself
+    if abs(l1 - l0) > 1e-5 * abs(l0):
+        raise AssertionError(f"loss {l1} on the card vs {l0} on the CPU")
+    worst_g = 0.0
+    for key in g0:
+        # whole-tensor relative error: f32 noise is some 1e-6 here; one
+        # key dropped in attention or a kernel's wrong tile moves a
+        # gradient by 1e-3 or more
+        err = float(np.linalg.norm(g1[key] - g0[key])
+                    / max(np.linalg.norm(g0[key]), 1e-30))
+        worst_g = max(worst_g, err)
+        if err > 1e-4:
+            raise AssertionError(f"grad {key}: relative error {err:.3g}")
+    worst_w = 0.0
+    for key in w0:
+        # per element: the first step's sensitivity to the two grads'
+        # difference (adam_first_step_limit)
+        lim = adam_first_step_limit(g0[key], g1[key], w0[key], lr)
+        ratio = float((np.abs(w1[key] - w0[key]) / lim).max())
+        worst_w = max(worst_w, ratio)
+        if ratio > 1:
+            raise AssertionError(f"weight {key} after the step: worst "
+                                 f"err/limit {ratio:.3g}")
+    log(f"[train_parity] Llama-1B width, {layers} layers, f32, [1, {seq}]: "
+        f"loss card {l1:.6f} vs CPU {l0:.6f}; {len(g0)} grads, worst "
+        f"relative error {worst_g:.3g} (limit 1e-4); {len(w0)} updated "
+        f"weights, worst err/limit {worst_w:.3g}")
+    return worst_g, worst_w
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -496,27 +1077,45 @@ def main():
     t_start = time.perf_counter()
     phase_setup()
     res = phase_kernels(cfg)
-    launches = phase_serve(cfg)
+    res.update(phase_train_kernels(cfg))
+    serve_launches = phase_serve(cfg)
     phase_parity(cfg)
+    train = phase_train(cfg)
+    phase_train_parity(LlamaConfig.llama_1b())
+    pallas = "paddle_tpu/ops/pallas/"
+    fa_cu = "paddle_tpu_torch/csrc/flash_attention.cu"
     sources = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                     "paddle_tpu/ops/pallas/rms_norm.py:38"),
+                     pallas + "rms_norm.py:38"),
+        "rms_norm_dx": ("paddle_tpu_torch/csrc/rms_norm.cu",
+                        pallas + "rms_norm.py:45"),
         "swiglu": ("paddle_tpu_torch/csrc/swiglu.cu",
-                   "paddle_tpu/ops/pallas/swiglu.py:39"),
+                   pallas + "swiglu.py:39"),
+        "swiglu_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",
+                       pallas + "swiglu.py:45"),
+        "flash_attention_fwd": (fa_cu, pallas + "flash_attention.py:104"),
+        "flash_attention_dkv": (fa_cu, pallas + "flash_attention.py:226"),
+        "flash_attention_dq": (fa_cu, pallas + "flash_attention.py:286"),
         "ragged_paged_attention": (
             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-            "paddle_tpu/ops/pallas/ragged_paged_attention.py:120"),
+            pallas + "ragged_paged_attention.py:120"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         r = res[name]
+        # each path ran with the counts at 0 just before it: serving
+        # (phase 3) and training (phase 5); launches is their sum
+        served = serve_launches.get(name, 0)
+        trained = train["launches"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": served + trained,
+                        "launches_serve": served, "launches_train": trained,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        "eager_ms": r["eager_ms"], "shape": r["shape"]})
+                        "eager_ms": r.get("eager_ms"), "shape": r["shape"],
+                        "max_abs_err_f32": r.get("max_abs_err_f32")})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The weight bridge from the JAX package's state dict.
+"""The weight bridge to and from the JAX package's state dict.
 
 ``from_numpy_state_dict(model, arrays)`` loads a ``paddle_tpu`` model's
 ``state_dict()``, given as numpy arrays under the same keys, into the
@@ -6,6 +6,10 @@ port's model. Paddle's Linear holds its weight as [in, out] and
 ``torch.nn.Linear`` as [out, in], so every Linear weight (``lm_head``
 included) is transposed; embeddings ([V, H]) and norm weights are taken
 as they are. A missing or unexpected key raises.
+
+``to_numpy_state_dict(model)`` and ``grads_to_numpy(model)`` go the other
+way: the port's weights, or their gradients, as f32 numpy arrays in the
+JAX package's layout (Linear weights transposed back).
 """
 
 from __future__ import annotations
@@ -14,7 +18,12 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_numpy_state_dict"]
+__all__ = ["from_numpy_state_dict", "to_numpy_state_dict", "grads_to_numpy"]
+
+
+def _linear_keys(model: nn.Module) -> set[str]:
+    return {f"{name}.weight" for name, mod in model.named_modules()
+            if isinstance(mod, nn.Linear)}
 
 
 @torch.no_grad()
@@ -26,8 +35,7 @@ def from_numpy_state_dict(model: nn.Module,
     if missing or unexpected:
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
-    linear = {f"{name}.weight" for name, mod in model.named_modules()
-              if isinstance(mod, nn.Linear)}
+    linear = _linear_keys(model)
     for key, dst in target.items():
         src = np.asarray(arrays[key])
         if src.dtype.name == "bfloat16":   # ml_dtypes: no torch.from_numpy
@@ -39,3 +47,27 @@ def from_numpy_state_dict(model: nn.Module,
                              f"fit {tuple(dst.shape)}")
         dst.copy_(torch.tensor(src))
     return model
+
+
+def _to_numpy(tensors: dict[str, torch.Tensor],
+              linear: set[str]) -> dict[str, np.ndarray]:
+    out = {}
+    for key, t in tensors.items():
+        a = t.detach().float().cpu().numpy()
+        out[key] = np.ascontiguousarray(a.T) if key in linear else a
+    return out
+
+
+def to_numpy_state_dict(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's state dict as f32 numpy arrays in the JAX package's
+    layout: the inverse of :func:`from_numpy_state_dict`."""
+    return _to_numpy(model.state_dict(), _linear_keys(model))
+
+
+def grads_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
+    """Each parameter's gradient (parameters without one are left out),
+    as f32 numpy arrays under the state-dict keys, in the JAX package's
+    layout."""
+    grads = {name: p.grad for name, p in model.named_parameters()
+             if p.grad is not None}
+    return _to_numpy(grads, _linear_keys(model))

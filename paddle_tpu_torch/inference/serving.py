@@ -52,8 +52,8 @@ class ContinuousBatchingEngine:
     step. Greedy, or temperature sampling from a ``torch.Generator``
     seeded by ``seed``.
 
-    ``model`` implements ``forward(ids, caches, pos, tables) -> (logits,
-    caches)`` and writes the pools in place (``models.llama``). The
+    ``model`` implements ``forward(ids, caches=, pos=, tables=) ->
+    (logits, caches)`` and writes the pools in place (``models.llama``). The
     engine runs on ``device`` (``cuda`` unless given; it raises with no
     GPU and no device), where the model's weights must already be.
     Page 0 of the pool is the reserved trash page."""
@@ -211,7 +211,8 @@ class ContinuousBatchingEngine:
         # decode slots carry their device-resident pending token in
         # stream column 0
         ids[:, 0] = torch.where(is_pre, ids[:, 0], tok)
-        logits, _ = model(ids, self.pools, ctx, (tbl, lengths))
+        logits, _ = model(ids, caches=self.pools, pos=ctx,
+                          tables=(tbl, lengths))
         idx = (lengths - 1).clamp(0, C - 1).long()
         last_lg = logits[torch.arange(B, device=ids.device), idx].float()
         sampled = self._sample(last_lg)
@@ -227,7 +228,8 @@ class ContinuousBatchingEngine:
         emitted = [fire]
         tok_c, ctx_c = nxt, ctx1
         for _ in range(self._n_decode):
-            lg, _ = model(tok_c[:, None], self.pools, ctx_c, (tbl, act_c))
+            lg, _ = model(tok_c[:, None], caches=self.pools, pos=ctx_c,
+                          tables=(tbl, act_c))
             nx = torch.where(act_c, self._sample(lg[:, -1].float()), tok_c)
             ctx_n = ctx_c + act_c.to(torch.int32)
             still = act_c & (ctx_n < lim) & ((eos < 0) | (nx != eos))

@@ -1,5 +1,7 @@
 """Models of the port."""
 
-from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,
+                    LlamaPretrainingCriterion)
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "LlamaPretrainingCriterion"]

@@ -1,11 +1,20 @@
-"""Llama for serving over paged KV pools.
+"""Llama for training and for serving over paged KV pools.
 
 Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` (the ``tiny``,
-``llama_1b`` and ``llama3_8b`` presets), ``rope_with_offset``,
-``_paged_attention_step`` (bf16/f32 pools) and the cache path of
-``LlamaAttention``/``LlamaMLP``/``LlamaDecoderLayer``/``LlamaModel``/
-``LlamaForCausalLM``. The dense (no-cache) training path comes with the
-training slice.
+``llama_1b`` and ``llama3_8b`` presets), the dense training path and the
+cache path of ``LlamaAttention``/``LlamaMLP``/``LlamaDecoderLayer``/
+``LlamaModel``/``LlamaForCausalLM``, ``LlamaPretrainingCriterion``,
+``rope_with_offset`` and ``_paged_attention_step`` (bf16/f32 pools).
+
+Training (no caches): ``model(ids, labels=ids)`` returns ``(logits,
+loss)``, the shifted next-token cross entropy, and ``loss.backward()``
+runs torch autograd through the kernels' ``autograd.Function``s
+(RMSNorm, SwiGLU, flash attention). The configuration ported is the JAX
+package's unfused one: each residual add in the input dtype followed by
+its own RMSNorm (``FLAGS_fused_rmsnorm_residual`` off), the loss over
+full logits (``FLAGS_fused_linear_cross_entropy`` off) and no recompute.
+The fused residual carry, fused linear+CE and recompute are not ported
+yet, and the config has no switch for them.
 
 Attribute names match the JAX package, so the state-dict keys do
 (``llama.layers.0.self_attn.q_proj.weight``, ...); ``torch.nn.Linear``
@@ -27,7 +36,7 @@ from ..ops import paged_attention as PA
 from ..ops.rope import build_sin_cos, rotate
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
-           "rope_with_offset"]
+           "LlamaPretrainingCriterion", "rope_with_offset"]
 
 
 @dataclass
@@ -110,13 +119,22 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, self.num_kv_heads * d, **kw)
         self.o_proj = nn.Linear(self.num_heads * d, h, **kw)
 
-    def forward(self, x, cache, ctx, tables, rope):
+    def forward(self, x, rope, cache=None, ctx=None, tables=None):
+        """Without a cache: causal attention over the sequence (the
+        training path: RoPE at positions 0..S-1, flash attention).
+        With one: a paged serving step."""
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        return _paged_attention_step(self, q, k, v, cache, ctx, tables,
-                                     rope)
+        if cache is not None:
+            return _paged_attention_step(self, q, k, v, cache, ctx, tables,
+                                         rope)
+        sin, cos = rope
+        out = F.scaled_dot_product_attention(rotate(q, sin, cos),
+                                             rotate(k, sin, cos), v,
+                                             is_causal=True)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -142,9 +160,11 @@ class LlamaDecoderLayer(nn.Module):
             cfg.hidden_size, cfg.rms_norm_eps, device=device, dtype=dtype)
         self.mlp = LlamaMLP(cfg, device, dtype)
 
-    def forward(self, x, cache, ctx, tables, rope):
-        x = x + self.self_attn(self.input_layernorm(x), cache, ctx, tables,
-                               rope)
+    def forward(self, x, rope, cache=None, ctx=None, tables=None):
+        """The unfused stack: each residual add in the input dtype, then
+        its own RMSNorm."""
+        x = x + self.self_attn(self.input_layernorm(x), rope, cache, ctx,
+                               tables)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -175,27 +195,34 @@ class LlamaModel(nn.Module):
         self.rope_sin.copy_(sin)
         self.rope_cos.copy_(cos)
 
-    def forward(self, input_ids, caches, pos, tables):
-        """input_ids [B, S]; caches: flat [k0, v0, k1, v1, ...] pools,
-        written in place; pos [B] or [B, 1] cache lengths before the
-        chunk; tables ``(block_tables [B, pages], valid)`` where valid is
-        an int count per slot or a bool active mask."""
+    def forward(self, input_ids, caches=None, pos=None, tables=None):
+        """input_ids [B, S]. Without caches: the final hidden states [B, S,
+        H] of the training path. With them, a serving step returning
+        ``(hidden, caches)``: caches are the flat [k0, v0, k1, v1, ...]
+        pools, written in place; pos [B] or [B, 1] cache lengths before
+        the chunk; tables ``(block_tables [B, pages], valid)`` where valid
+        is an int count per slot or a bool active mask."""
         b, s = input_ids.shape
+        x = self.embed_tokens(input_ids)
+        if caches is None:
+            rope = (self.rope_sin[None, :s], self.rope_cos[None, :s])
+            for layer in self.layers:
+                x = layer(x, rope)
+            return self.norm(x)
         ctx = pos.reshape(b).to(torch.int32)
         tbl, gate = tables
         tables = (tbl.to(torch.int32), gate.to(torch.int32))
         rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
-        x = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
-            x = layer(x, caches[2 * i:2 * i + 2], ctx, tables, rope)
+            x = layer(x, rope, caches[2 * i:2 * i + 2], ctx, tables)
         return self.norm(x), caches
 
 
 class LlamaForCausalLM(nn.Module):
-    """Causal LM over paged pools. Built on ``device`` (``cuda`` unless
-    given; raises with no GPU and no device) in ``dtype``, with weights
-    drawn from ``torch.Generator`` seeded by ``seed``: N(0,
-    initializer_range) for projections and embeddings, ones for norms."""
+    """Causal LM. Built on ``device`` (``cuda`` unless given; raises with
+    no GPU and no device) in ``dtype``, with weights drawn from
+    ``torch.Generator`` seeded by ``seed``: N(0, initializer_range) for
+    projections and embeddings, ones for norms."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.float32, seed=0):
@@ -223,13 +250,42 @@ class LlamaForCausalLM(nn.Module):
                 mod.weight.fill_(1.0)
         self.llama.reset_rope()
 
-    @torch.no_grad()
-    def forward(self, input_ids, caches, pos, tables):
-        """Returns ``(logits [B, S, V], caches)``; the pools in ``caches``
-        are updated in place and returned for the JAX-shaped signature.
-        Serving only (no autograd: the in-place pool writes must not
-        join a graph); the training path comes with its own slice."""
-        hidden, caches = self.llama(input_ids, caches, pos, tables)
+    def _logits(self, hidden):
         weight = self.llama.embed_tokens.weight if self.lm_head is None \
             else self.lm_head.weight
-        return torch.nn.functional.linear(hidden, weight), caches
+        return torch.nn.functional.linear(hidden, weight)
+
+    def forward(self, input_ids, labels=None, caches=None, pos=None,
+                tables=None):
+        """The JAX package's signature. With ``caches``: a serving step,
+        ``(logits [B, S, V], caches)`` with the pools updated in place
+        (no autograd: the in-place pool writes must not join a graph).
+        Without: the training forward, ``logits`` or, given ``labels``,
+        ``(logits, loss)`` with the loss over ``logits[:, :-1]`` against
+        ``labels[:, 1:]``."""
+        if caches is not None:
+            with torch.no_grad():
+                hidden, caches = self.llama(input_ids, caches, pos, tables)
+                return self._logits(hidden), caches
+        logits = self._logits(self.llama(input_ids))
+        if labels is None:
+            return logits
+        return logits, _shifted_cross_entropy(logits, labels)
+
+
+def _shifted_cross_entropy(logits, labels):
+    vocab = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                           labels[:, 1:].reshape(-1))
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted next-token cross entropy: ``criterion(model(ids), ids)``
+    equals the loss of ``model(ids, labels=ids)``."""
+
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.vocab_size = config.vocab_size
+
+    def forward(self, logits, labels):
+        return _shifted_cross_entropy(logits, labels)

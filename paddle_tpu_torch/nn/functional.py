@@ -1,28 +1,92 @@
-"""Functional forms on the serving path.
+"""Functional forms on the serving and training paths.
 
-Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm`` and
-``paddle_tpu/nn/functional/activation.py::swiglu``. Where the JAX package
-chose the Pallas kernel by backend and flags, the port's kernel wrappers
-choose by the device of the tensor: CUDA launches the kernel, the CPU
-takes the plain version.
+Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm``,
+``activation.py::swiglu``, ``attention.py::scaled_dot_product_attention``
+(with ``sdpa_reference``, the JAX package's non-kernel path) and
+``loss.py::cross_entropy`` (hard labels and the mean, what the model
+uses). Where the JAX package chose the Pallas kernel by backend and
+flags, the port's kernel wrappers choose by the device of the tensor:
+CUDA launches the kernel, the CPU takes the plain version. Gradients are
+torch autograd, through the kernels' ``autograd.Function``s.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import swiglu as _sw
 
-__all__ = ["rms_norm", "swiglu"]
+__all__ = ["rms_norm", "swiglu", "scaled_dot_product_attention",
+           "sdpa_reference", "cross_entropy"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              epsilon: float = 1e-6) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps)).to(x.dtype) * weight``."""
-    return _rms.rms_norm(x, weight, epsilon)
+    return _rms.RMSNormFunction.apply(x, weight, epsilon)
 
 
 def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``silu(x) * y``."""
-    return _sw.swiglu(x, y)
+    return _sw.SwiGLUFunction.apply(x, y)
+
+
+def sdpa_reference(q, k, v, attn_mask=None, dropout_p=0.0,
+                   is_causal=False):
+    """Plain attention on [B, S, H, D]: kv heads repeated, logits in the
+    input dtype, softmax in f32, probabilities cast to v's dtype. A bool
+    mask keeps where True; any other mask is added to the logits."""
+    s = 1.0 / math.sqrt(q.shape[-1])
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    logits = (qh @ kh.transpose(-1, -2)) * s
+    neg = torch.tensor(-1e30, dtype=logits.dtype, device=logits.device)
+    if is_causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = torch.where(mask, logits, neg)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = torch.where(attn_mask, logits, neg)
+        else:
+            logits = logits + attn_mask.to(logits.dtype)
+    probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
+        probs = probs * keep / (1 - dropout_p)
+    return (probs @ vh).transpose(1, 2)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
+    """Inputs and output [batch, seq, heads, head_dim]. With no mask, no
+    dropout and equal query and key lengths this is flash attention (the
+    kernels); otherwise the plain :func:`sdpa_reference`."""
+    if (attn_mask is None and dropout_p == 0.0
+            and query.shape[1] == key.shape[1]):
+        return _fa.flash_attention(query, key, value, causal=is_causal)
+    return sdpa_reference(query, key, value, attn_mask,
+                          dropout_p if training else 0.0, is_causal)
+
+
+def cross_entropy(input: torch.Tensor, label: torch.Tensor,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """Hard-label cross entropy over the last dim of ``input``, log-softmax
+    in f32, the mean over the rows not labelled ``ignore_index`` (0 when
+    there are none)."""
+    lf = torch.log_softmax(input.float(), dim=-1)
+    idx = label.long()
+    mask = idx != ignore_index
+    safe = torch.where(mask, idx, 0)
+    loss = -lf.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    loss = torch.where(mask, loss, 0.0)
+    return loss.sum() / mask.sum().clamp(min=1).float()

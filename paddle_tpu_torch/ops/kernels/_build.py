@@ -42,7 +42,12 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # and the stream, so ctypes never truncates a 64-bit address)
 _SIGNATURES = {
     "rms_norm_fwd": [_vp, _vp, _vp, _ll, _i, _f, _i, _i, _vp],
+    "rms_norm_bwd_dx": [_vp, _vp, _vp, _vp, _ll, _i, _f, _i, _i, _vp],
     "swiglu_fwd": [_vp, _vp, _vp, _ll, _i, _i, _vp],
+    "swiglu_bwd": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
+    "flash_attention_fwd": [_vp] * 5 + [_i] * 6 + [_f, _i, _i, _vp],
+    "flash_attention_dkv": [_vp] * 8 + [_i] * 6 + [_f, _i, _i, _vp],
+    "flash_attention_dq": [_vp] * 7 + [_i] * 6 + [_f, _i, _i, _vp],
     "ragged_paged_attention_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                    _i, _i, _i, _i, _i, _i, _i, _i, _f,
                                    _i, _vp],

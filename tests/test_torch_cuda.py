@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version on the same inputs, and the engine on the card against the CPU.
+version on the same inputs, and the engine and a training step on the
+card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips elsewhere (the kernels
 have no CPU mode). The file imports neither JAX nor the JAX package, so
@@ -9,16 +10,24 @@ it runs on a GPU host with PyTorch alone:
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import convert
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops.kernels import flash_attention as kfa
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
 from paddle_tpu_torch.ops.kernels import rms_norm as krms
 from paddle_tpu_torch.ops.kernels import swiglu as ksw
+from paddle_tpu_torch.optimizer import AdamW
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import adam_first_step_limit, attention_scales  # noqa
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +91,141 @@ def test_swiglu_kernel(cuda, dtype, shape):
     _assert_close(out, once, _tol(once, dtype, 1))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(37, 4096), (5, 100)])
+def test_rms_norm_dx_kernel(cuda, dtype, n, d):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, d, device=cuda, generator=g).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(dtype)
+    gy = torch.randn(n, d, device=cuda, generator=g).to(dtype)
+    before = krms.rms_norm_dx.launches
+    dx = krms.rms_norm_dx(x, w, gy, 1e-5)
+    ref = krms.rms_norm_dx_reference(x, w, gy, 1e-5)
+    torch.cuda.synchronize()
+    assert krms.rms_norm_dx.launches == before + 1
+    # both f32 and rounded once; the two row sums and the difference
+    # inv*g*w - x*c are taken in another order: scale the limit by the
+    # magnitudes summed, |inv*g*w| + |x| * inv^3 * mean|g*w*x|
+    xf, gw = x.float(), gy.float() * w.float()
+    inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-5)
+    c = inv ** 3 * (gw * xf).abs().mean(-1, keepdim=True)
+    mag = (inv * gw).abs() + xf.abs() * c
+    ulp = 1e-5 if dtype == torch.float32 else BF16_ULP
+    _assert_close(dx, ref, ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 14336), (3, 7, 13)])
+def test_swiglu_bwd_kernel(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    gate = (2 * torch.randn(*shape, device=cuda, generator=g)).to(dtype)
+    up = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    go = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    dg, du = ksw.swiglu_bwd(gate, up, go)
+    rg, ru = ksw.swiglu_bwd_reference(gate, up, go)
+    torch.cuda.synchronize()
+    # the same f32 formula rounded once on both sides; exp differs in
+    # the last f32 bits: one ulp in bf16
+    _assert_close(dg, rg, _tol(rg, dtype, 1))
+    _assert_close(du, ru, _tol(ru, dtype, 1))
+
+
+def _attention_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, Sk, KVH, D, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, Sk, KVH, D, device=cuda, generator=g).to(dtype)
+    go = torch.randn(B, Sq, H, D, device=cuda, generator=g).to(dtype)
+    return q, k, v, go
+
+
+ATTENTION_CASES = [  # B, Sq, Sk, H, KVH, D, causal
+    (2, 128, 128, 4, 4, 128, True), (1, 100, 100, 8, 2, 64, True),
+    (2, 77, 77, 4, 1, 16, True), (1, 65, 130, 4, 2, 32, True),
+    (1, 130, 65, 2, 2, 64, True), (2, 96, 80, 4, 2, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+def test_flash_attention_kernels(cuda, dtype, case):
+    B, Sq, Sk, H, KVH, D, causal = case
+    q, k, v, go = _attention_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D)
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = kfa.flash_attention_fwd_reference(q, k, v, causal)
+    f32 = [t.float() for t in (q, k, v)]
+    a = kfa.flash_attention_fwd_reference(f32[0], f32[1], f32[2].abs(),
+                                          causal)[0]
+    if dtype == torch.float32:
+        # summation order and exp only
+        _assert_close(out, ref, 1e-5 * a + 1e-6)
+    else:
+        # both sides round each probability to bf16 (2^-8 * a each, the
+        # unit roundoff) and their outputs (half an ulp each)
+        _assert_close(out, ref, 1.01 * (2 ** -7 * a + BF16_ULP
+                                        * ref.float().abs()) + 1e-6)
+    _assert_close(lse, ref_lse, 1e-6 * ref_lse.abs() + 1e-5)
+    if causal and Sq > Sk:     # rows that see no key: 0
+        assert not out[:, :Sq - Sk].any()
+    # backward from the same saved lse and delta
+    delta = kfa._delta(ref, go)
+    dk, dv = kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta, causal)
+    dq = kfa.flash_attention_dq(q, k, v, go, ref_lse, delta, causal)
+    rq, rk, rv = kfa.flash_attention_bwd_reference(q, k, v, ref, ref_lse,
+                                                   go, causal)
+    torch.cuda.synchronize()
+    scales = attention_scales(q, k, v, go, ref_lse, delta, causal)
+    for name, got, want, sc in zip("qkv", (dq, dk, dv), (rq, rk, rv),
+                                   scales):
+        if dtype == torch.float32:
+            tol = 1e-5 * sc + 1e-6
+        else:
+            # the kernel rounds p and ds to bf16 before their products
+            # (2^-8 of the scale), each side rounds its output
+            tol = (2 ** -8 + 1e-5) * sc + BF16_ULP * want.float().abs() \
+                + 1e-6
+        _assert_close(got, want, tol)
+
+
+def test_flash_attention_fully_masked_rows_have_zero_grads(cuda):
+    q, k, v, go = _attention_inputs(cuda, torch.float32, 1, 256, 128, 2,
+                                    2, 32, seed=5)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = kfa.flash_attention(q, k, v, causal=True)
+    out[:, :128].sum().backward()     # reads only rows that see no key
+    torch.cuda.synchronize()
+    assert not out[:, :128].any()
+    for t in (q, k, v):
+        assert not t.grad.any()
+
+
+def test_tiny_training_step_on_the_card_matches_the_cpu(cuda):
+    cfg = LlamaConfig.tiny()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 77)))
+    lr, results = 1e-3, []
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=4).state_dict()
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(weights)
+        opt = AdamW(learning_rate=lr, parameters=model.parameters())
+        _, loss = model(ids.to(dev), labels=ids.to(dev))
+        loss.backward()
+        grads = convert.grads_to_numpy(model)
+        opt.step()
+        results.append((loss.item(), grads,
+                        convert.to_numpy_state_dict(model)))
+    (l0, g0, w0), (l1, g1, w1) = results
+    # f32 on both sides; kernels and cuBLAS sum in another order
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for key in g0:
+        err = np.linalg.norm(g1[key] - g0[key]) / np.linalg.norm(g0[key])
+        assert err <= 1e-4, (key, err)
+        # the step's sensitivity to the gradients' difference
+        lim = adam_first_step_limit(g0[key], g1[key], w0[key], lr)
+        assert (np.abs(w1[key] - w0[key]) <= lim).all(), key
+
+
 def _ragged(cuda, dtype, H, KVH, D, page, C=24, seed=0):
     rng = np.random.RandomState(seed)
     lengths = np.array([0, 1, 5, C, 1, 17][:6], np.int32)
@@ -142,6 +286,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     args, _ = _ragged(cuda, torch.float32, 6, 2, 64, 16)   # rep 3
     with pytest.raises(ValueError, match="must divide"):
         krpa.ragged_paged_attention(*args)
+    q, k, v, _ = _attention_inputs(cuda, torch.float32, 1, 8, 8, 2, 2, 48)
+    with pytest.raises(ValueError, match="D in"):
+        kfa.flash_attention_fwd(q, k, v, True)
+    q, k, v, _ = _attention_inputs(cuda, torch.float32, 1, 8, 8, 2, 2, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention_fwd(q.transpose(1, 2), k, v, True)
 
 
 def test_engine_on_the_card_matches_the_cpu(cuda):

@@ -100,9 +100,10 @@ def test_paged_forward_steps_match_jax(tie):
     for ctx, lengths in steps:
         ids = rng.randint(0, cfg.vocab_size, (B, C)).astype(np.int32)
         jl, pools = _jax_step(jm, ids, pools, ctx, tables, lengths)
-        tl, _ = tm(torch.from_numpy(ids), tpools,
-                   torch.from_numpy(ctx[:, None]),
-                   (torch.from_numpy(tables), torch.from_numpy(lengths)))
+        tl, _ = tm(torch.from_numpy(ids), caches=tpools,
+                   pos=torch.from_numpy(ctx[:, None]),
+                   tables=(torch.from_numpy(tables),
+                           torch.from_numpy(lengths)))
         # f32 on both sides through two layers; matmul and softmax sum
         # in another order
         np.testing.assert_allclose(tl.detach().numpy(), jl, rtol=1e-4,
@@ -125,7 +126,8 @@ def test_rope_positions_past_the_table_are_clamped():
     tables = torch.arange(1, pages + 1, dtype=torch.int32)[None]
     ids = torch.randint(0, cfg.vocab_size, (1, 8))
     ctx = torch.tensor([cfg.max_position_embeddings - 2], dtype=torch.int32)
-    logits, _ = tm(ids, pools, ctx, (tables, torch.tensor([2])))
+    logits, _ = tm(ids, caches=pools, pos=ctx,
+                   tables=(tables, torch.tensor([2])))
     assert torch.isfinite(logits).all()
 
 
@@ -136,6 +138,8 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.inference, paddle_tpu_torch.models\n"
             "import paddle_tpu_torch.ops.paged_attention\n"
             "import paddle_tpu_torch.ops.kernels._build\n"
+            "import paddle_tpu_torch.ops.kernels.flash_attention\n"
+            "import paddle_tpu_torch.optimizer, paddle_tpu_torch.nn\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
