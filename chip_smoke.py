@@ -12,16 +12,19 @@ non-zero without printing a result:
    per-element limits, at the shapes of its path: the serving kernels at
    Llama-3-8B's (bf16, seeded inputs, trash page 0 filled with NaN), the
    training kernels (RMSNorm dx, SwiGLU backward, flash attention
-   forward, dk/dv and dq) at the training phase's, in bf16 and f32; with
-   its time, the plain version's, the bound and a library call's;
+   forward, dk/dv and dq) at the training phase's, the residual-fused
+   RMSNorm pair at the full training step's and the fused CE's chunk
+   kernels at the fit phase's, in bf16 and f32; with its time, the plain
+   version's, the bound and a library call's;
 3. serve: the serving path at full width: a 32-layer Llama-3-8B with
    seeded random weights served by the continuous-batching engine (12
    requests through 8 slots), with the kernels' launch counters read
    around it;
 4. parity: the same width at depth 2 in f32, greedy streams on the GPU
    against the CPU (plain versions), token for token;
-5. train: Llama-3-8B width at 8 layers in bf16, the port's AdamW, 2
-   warm-up and 5 timed steps on [2, 2049] token ids (step time, tokens/s,
+5. train: Llama-3-8B width at 8 layers in bf16, the unfused stack
+   (``FLAGS_fused_rmsnorm_residual`` off), the port's AdamW, 2 warm-up
+   and 5 timed steps on [2, 2049] token ids (step time, tokens/s,
    model-FLOP share, peak memory, losses, launches per step), one step
    timed by part (forward, backward, optimizer) and one profiled (device
    time by layer, idle share), then 5 steps on one batch that must lower
@@ -29,7 +32,21 @@ non-zero without printing a result:
 6. train_parity: Llama-1B width at depth 2 in f32, one forward, backward
    and AdamW step on the card and on the CPU: loss, every gradient and
    every updated weight;
-7. the ``kernels`` JSON line, then the result line.
+7. train_full: bench.py's headline training step on the port: the
+   32-layer Llama-3-8B in bf16, [4, 2049] token ids, ``core_attn``
+   recompute under ``dots_saveable``, the fused residual carry, the loss
+   over full logits, forward and backward with the grads cleared and no
+   optimizer; 2 warm-up and 5 timed steps, launches per step, one step
+   profiled;
+8. fit: bench.py's fit bench on the port: Llama-1B at full depth in bf16
+   through ``hapi.Model(net).prepare(SGD(1e-4), criterion).fit`` over 12
+   batches of [8, 1025] for 2 epochs (the fused linear+CE on), epoch 1
+   measured; launches per step, the fused CE tail against the unfused
+   one, one fit of two steps profiled;
+9. fused_parity: Llama-1B width at depth 2 in f32 on the card against
+   the CPU: a labelled forward and backward with the fused carry and
+   ``core_attn`` recompute, and ``fit(compiled=True)`` with SGD;
+10. the ``kernels`` JSON line, then the result line.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -479,6 +496,155 @@ def phase_train_kernels(cfg, batch=2, seq=2049, dev="cuda"):
     return res
 
 
+def phase_fused_kernels(cfg, n_res=4 * 2049, n_ce=8 * 1024, vc=1024,
+                        dev="cuda"):
+    """K3/K4 at the full training step's shape (x/res [n_res, H]) and
+    K10/K11 at the fit phase's logits block ([n_ce, vc]), each in bf16
+    (timed) and f32 against its plain version, per element."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import ce_chunk as kce
+    from paddle_tpu_torch.ops.kernels import rms_norm as krms
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    H, eps, n = cfg.hidden_size, cfg.rms_norm_eps, n_res
+    res = {}
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=gen)).to(
+            dtype)
+
+    def record(name, err, dtype, ms_fn, args, plain_fn, n_bytes, ops, shape):
+        if dtype == torch.float32:
+            res[name]["max_abs_err_f32"] = max(
+                res[name].get("max_abs_err_f32", 0.0), err)
+            return
+        r = res.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if "ms" in r:
+            return
+        ms = time_ms(ms_fn, args)
+        eager = eager_ms(ms_fn, args)
+        plain = time_ms(plain_fn, args)
+        b_ms, b_by = bound(n_bytes, ops, PEAK_F32_CORES)
+        r.update(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by, shape=shape)
+        log(f"[kernels] {name}: kernel {ms:.4f} ms (eager {eager:.4f}) "
+            f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by}); no single "
+            f"PyTorch call computes it")
+
+    # K3 and K4: RMSNorm + residual
+    for dtype in (torch.bfloat16, torch.float32):
+        x, rs = rand(n, H, dtype=dtype), rand(n, H, dtype=dtype)
+        w = 1 + 0.1 * rand(H, dtype=dtype)
+        y, r = krms.rms_norm_residual(x, rs, w, eps)
+        ry, rr = krms.rms_norm_residual_reference(x, rs, w, eps)
+        torch.cuda.synchronize()
+        # r: the add rounds once in the input dtype on both sides: exact
+        if not torch.equal(r, rr):
+            raise AssertionError(f"rms_norm_residual {dtype}: r is not "
+                                 f"x + res")
+        # y as K1: the statistics' order may move r*inv by one ulp, which
+        # the product with w carries to three ulps of |y| (f32: 1e-5)
+        ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5 / 3
+        err, worst = check_close(f"rms_norm_residual {dtype}", y, ry,
+                                 3 * ulp * ry.float().abs() + 1e-6)
+        log(f"[kernels] rms_norm_residual N={n} D={H} {dtype}: r exact, y "
+            f"max abs err {err:.3g} (limit {3 * ulp:.3g} of each |ref|, "
+            f"worst err/limit {worst:.3g})")
+        elt = x.element_size()
+        record("rms_norm_residual", err, dtype,
+               krms.rms_norm_residual, (x, rs, w, eps),
+               krms.rms_norm_residual_reference, (4 * n * H + H) * elt,
+               6 * n * H, f"x,res[{n},{H}] bf16")
+        del y, ry, rr, x, rs
+        gy, gr = rand(n, H, dtype=dtype), rand(n, H, dtype=dtype)
+        dh = krms.rms_norm_residual_dh(r, w, gy, gr, eps)
+        ref = krms.rms_norm_residual_dh_reference(r, w, gy, gr, eps)
+        torch.cuda.synchronize()
+        # both f32 inside and rounded once; the row sums and the terms
+        # inv*gy*w - r*c + gr come in another order, which moves dh by f32
+        # noise of the magnitudes summed; in bf16 that may flip the
+        # output's rounding: one ulp of |ref|
+        rf, gw = r.float(), gy.float() * w.float()
+        inv = torch.rsqrt(rf.square().mean(-1, keepdim=True) + eps)
+        c = inv ** 3 * (gw * rf).abs().mean(-1, keepdim=True)
+        mag = (inv * gw).abs() + rf.abs() * c + gr.float().abs()
+        del rf, gw, inv, c
+        ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5
+        err, worst = check_close(f"rms_norm_residual_dh {dtype}", dh, ref,
+                                 ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
+        del mag
+        log(f"[kernels] rms_norm_residual_dh N={n} D={H} {dtype}: max abs "
+            f"err {err:.3g} (limit {ulp:.3g} of each |ref| + 1e-5 of |inv*"
+            f"gy*w| + |r*c| + |gr|, worst err/limit {worst:.3g})")
+        record("rms_norm_residual_dh", err, dtype,
+               krms.rms_norm_residual_dh, (r, w, gy, gr, eps),
+               krms.rms_norm_residual_dh_reference, (4 * n * H + H) * elt,
+               10 * n * H, f"r,gy,gr[{n},{H}] bf16")
+        del r, w, gy, gr, dh, ref
+        torch.cuda.empty_cache()
+
+    # K10 and K11 on one fit-phase logits block; lo = 768 is the clamped
+    # tail chunk's overlap at vc = 1024 for V = 32000 and V = 128256
+    n = n_ce
+    for dtype in (torch.bfloat16, torch.float32):
+        for lo in (0, 768):
+            logits = rand(n, vc, dtype=dtype, scale=3.0)
+            local = torch.randint(lo, vc, (n,), device=dev, generator=gen,
+                                  dtype=torch.int32)
+            # labels in another chunk (below 0, at or past vc), in the
+            # overlap prefix and at both ends of the chunk's own columns
+            local[:6] = torch.tensor([-7, vc, 5 * vc, max(lo - 1, 0), lo,
+                                      vc - 1], dtype=torch.int32)
+            m, s_, t = kce.chunk_stats(logits, local, lo)
+            rm, rs_, rt = kce.chunk_stats_reference(logits, local, lo)
+            torch.cuda.synchronize()
+            # the max and the target are exact; s is an online f32 sum of
+            # exps (a lane's sum rescaled when its max grows) against the
+            # plain one: 2e-5 of s, while one column left out or added
+            # moves s by some 1/vc of itself
+            if not (torch.equal(m, rm) and torch.equal(t, rt)):
+                raise AssertionError(f"chunk_stats {dtype} lo={lo}: max or "
+                                     f"target differs")
+            err, worst = check_close(f"chunk_stats {dtype} lo={lo}", s_, rs_,
+                                     2e-5 * rs_)
+            log(f"[kernels] chunk_stats N={n} vc={vc} lo={lo} {dtype}: m and "
+                f"t exact, s max abs err {err:.3g} (limit 2e-5 of s, worst "
+                f"err/limit {worst:.3g})")
+            elt = logits.element_size()
+            record("chunk_stats", err, dtype, kce.chunk_stats,
+                   (logits, local, lo), kce.chunk_stats_reference,
+                   n * vc * elt + 16 * n, 5 * n * vc,
+                   f"logits[{n},{vc}] bf16, lo 0/768")
+            lse = rm + torch.log(rs_) + 0.25
+            scale = torch.rand(n, device=dev, generator=gen) / n
+            scale[9] = 0.0                              # an ignored row
+            out = kce.chunk_dlogits(logits, lse, local, scale, lo)
+            ref = kce.chunk_dlogits_reference(logits, lse, local, scale, lo)
+            torch.cuda.synchronize()
+            if out[:, :lo].any() or out[9].any():
+                raise AssertionError(f"chunk_dlogits {dtype} lo={lo}: masked "
+                                     f"columns or the ignored row not 0")
+            # the same f32 formula rounded once; the exps differ in their
+            # last f32 bits (1e-6 of p, times the row's scale), which may
+            # flip a bf16 rounding: one ulp
+            ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-6
+            err, worst = check_close(
+                f"chunk_dlogits {dtype} lo={lo}", out, ref,
+                ulp * ref.float().abs() + 1e-6 * scale[:, None] + 1e-12)
+            log(f"[kernels] chunk_dlogits N={n} vc={vc} lo={lo} {dtype}: max "
+                f"abs err {err:.3g} (limit {ulp:.3g} of each |ref| + 1e-6 of "
+                f"the row's scale, worst err/limit {worst:.3g})")
+            record("chunk_dlogits", err, dtype, kce.chunk_dlogits,
+                   (logits, lse, local, scale, lo),
+                   kce.chunk_dlogits_reference,
+                   2 * n * vc * elt + 12 * n, 5 * n * vc,
+                   f"logits[{n},{vc}] bf16, lo 0/768")
+            del logits, local, m, s_, t, rm, rs_, rt, lse, scale, out, ref
+    torch.cuda.empty_cache()
+    return res
+
+
 def flash_checks(batch, seq, nh, kvh, d, rand):
     """K7, K8 and K9 at the training shapes, causal, against the plain
     versions, with per-element limits. ``a = sum_i p_i |v_i|`` scales a
@@ -818,17 +984,24 @@ def phase_parity(cfg, dev="cuda"):
     torch.cuda.empty_cache()
 
 
-TRAIN_KERNELS = ("rms_norm", "rms_norm_dx", "swiglu", "swiglu_bwd",
+# the kernels a training step may launch (each phase checks every count)
+TRAIN_KERNELS = ("rms_norm", "rms_norm_dx", "rms_norm_residual",
+                 "rms_norm_residual_dh", "swiglu", "swiglu_bwd",
                  "flash_attention_fwd", "flash_attention_dkv",
-                 "flash_attention_dq")
+                 "flash_attention_dq", "chunk_stats", "chunk_dlogits")
 
 
 def _wrappers(names):
+    from paddle_tpu_torch.ops.kernels import ce_chunk as kce
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.ops.kernels import rms_norm as krms
     from paddle_tpu_torch.ops.kernels import swiglu as ksw
     every = {"rms_norm": krms.rms_norm, "rms_norm_dx": krms.rms_norm_dx,
+             "rms_norm_residual": krms.rms_norm_residual,
+             "rms_norm_residual_dh": krms.rms_norm_residual_dh,
+             "chunk_stats": kce.chunk_stats,
+             "chunk_dlogits": kce.chunk_dlogits,
              "swiglu": ksw.swiglu, "swiglu_bwd": ksw.swiglu_bwd,
              "flash_attention_fwd": kfa.flash_attention_fwd,
              "flash_attention_dkv": kfa.flash_attention_dkv,
@@ -850,6 +1023,12 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    from paddle_tpu_torch.framework import flags
+    if flags.flag("FLAGS_fused_rmsnorm_residual"):
+        raise AssertionError("the train phase measures the unfused stack: "
+                             "turn FLAGS_fused_rmsnorm_residual off first")
+    log("[train] the unfused stack (FLAGS_fused_rmsnorm_residual off), as "
+        "this phase has measured it since it was added")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
@@ -873,9 +1052,7 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
 
     losses = [step(step_ids[i]) for i in range(warmup)]
     torch.cuda.synchronize()
-    wrappers = _wrappers(TRAIN_KERNELS)
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = _counted(TRAIN_KERNELS)
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(warmup, warmup + steps):
@@ -886,21 +1063,20 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    # The seeded init predicts the first loss: the final hidden states
-    # are RMS-normalised (mean square 1) and the lm_head weights are
-    # N(0, initializer_range), so each logit is about N(0, s2) with
-    # s2 = hidden * range^2, and the cross entropy is about
-    # ln(vocab) + s2 / 2 (12.58 here; the JAX bench's logged 10.875 at
-    # 2.37B, vocab 32000, hidden 2560, is the same formula)
+    # the seeded init predicts the first loss (_init_loss: 12.58 here;
+    # the JAX bench's logged 10.875 at 2.37B, vocab 32000, hidden 2560,
+    # is the same formula)
     ln_v = float(np.log(cfg.vocab_size))
-    expect = ln_v + cfg.hidden_size * cfg.initializer_range ** 2 / 2
+    expect = _init_loss(cfg)
     if abs(losses[0] - expect) > 0.5:
         raise AssertionError(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
                              f"of ln(vocab) + s2/2 = {expect:.4f}")
     L = layers
     want = {"rms_norm": 2 * L + 1, "rms_norm_dx": 2 * L + 1, "swiglu": L,
             "swiglu_bwd": L, "flash_attention_fwd": L,
-            "flash_attention_dkv": L, "flash_attention_dq": L}
+            "flash_attention_dkv": L, "flash_attention_dq": L,
+            "rms_norm_residual": 0, "rms_norm_residual_dh": 0,
+            "chunk_stats": 0, "chunk_dlogits": 0}
     per_step = {k: v / steps for k, v in launches.items()}
     if per_step != want:
         raise AssertionError(f"launches per step {per_step} != {want}")
@@ -940,19 +1116,17 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
 # kernel-name fragments -> the layer they belong to (cuBLAS's H100
 # matmuls are the nvjet/sm90 gemm kernels)
 _CATEGORIES = (("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
-               ("rms_norm K1/K2", ("rms_norm",)),
+               ("rms_norm K1-K4", ("rms_norm",)),
                ("swiglu K5/K6", ("swiglu",)),
+               ("ce_chunk K10/K11", ("ce_stats", "ce_dlogits")),
                ("matmul (cuBLAS)", ("gemm", "nvjet", "sm90_xmma", "cutlass")))
 
 
 def _step_breakdown(model, opt, ids):
     """One more training step, timed in three parts with CUDA events on
     the stream (forward, backward, optimizer: device time including any
-    idle gap the host leaves), then once more under torch.profiler:
-    device time by kernel and by layer, and the device's idle share of
-    the step's wall time."""
+    idle gap the host leaves), then once more under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     _, loss = model(ids, labels=ids)
@@ -967,39 +1141,52 @@ def _step_breakdown(model, opt, ids):
              enumerate(("forward", "backward", "optimizer"))}
     log("[train] one step by part (CUDA events): " + ", ".join(
         f"{k} {v:.1f} ms" for k, v in parts.items()))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def step():
         _, loss = model(ids, labels=ids)
         loss.backward()
         opt.step()
         opt.clear_grad()
+    return dict(parts=parts, **_profile("train", step))
+
+
+def _profile(tag, fn, per=1):
+    """``fn()`` once under torch.profiler: device time by kernel and by
+    layer, and the device's idle share of the wall time (``per``: the
+    steps ``fn`` runs, to report per step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3 / per
     kernels = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             us = getattr(e, "device_time_total", None)
             if us is None:
                 us = e.cuda_time_total
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / per
     busy = sum(kernels.values())
     if not busy:
-        log("[train] the profiler saw no device time (not measured)")
-        return dict(parts=parts)
+        log(f"[{tag}] the profiler saw no device time (not measured)")
+        return {}
     by_cat = {}
     for name, ms in kernels.items():
         cat = next((c for c, keys in _CATEGORIES
                     if any(k in name for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
-    log(f"[train] profiled step: wall {wall:.1f} ms, device busy "
+    log(f"[{tag}] profiled step: wall {wall:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
-    log("[train] device time by layer: " + ", ".join(
+    log(f"[{tag}] device time by layer: " + ", ".join(
         f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)" for c, ms in
         sorted(by_cat.items(), key=lambda x: -x[1])))
     for name, ms in sorted(kernels.items(), key=lambda x: -x[1])[:12]:
-        log(f"[train]   {ms:8.2f} ms  {name[:110]}")
-    return dict(parts=parts, wall_ms=wall, busy_ms=busy, by_layer=by_cat)
+        log(f"[{tag}]   {ms:8.2f} ms  {name[:110]}")
+    return dict(wall_ms=wall, busy_ms=busy, by_layer=by_cat)
 
 
 def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
@@ -1066,29 +1253,353 @@ def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
     return worst_g, worst_w
 
 
+def _init_loss(cfg):
+    """The step-0 loss the seeded init predicts: the final hidden states
+    are RMS-normalised (mean square 1) and the lm_head weights are
+    N(0, initializer_range), so each logit is about N(0, s2) with s2 =
+    hidden * range^2, and the cross entropy is about ln(vocab) + s2 / 2."""
+    return (float(np.log(cfg.vocab_size))
+            + cfg.hidden_size * cfg.initializer_range ** 2 / 2)
+
+
+def _counted(names):
+    wrappers = _wrappers(names)
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def phase_train_full(cfg, batch=4, seq=2048, warmup=2, steps=5, dev="cuda"):
+    """bench.py's headline training step (_train_bench) on the port: the
+    full-depth Llama-3-8B in bf16 with seeded random weights, token ids
+    [batch, seq + 1] from RandomState(0) rolled per step, core_attn
+    recompute under dots_saveable, the fused residual carry, the loss over
+    full logits; forward and backward with the grads cleared and no
+    optimizer."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    want_flags = {"FLAGS_fused_rmsnorm_residual": True,
+                  "FLAGS_fused_linear_cross_entropy": False,
+                  "FLAGS_recompute_policy": "dots_saveable"}
+    got = flags.get_flags(list(want_flags))
+    if got != want_flags:
+        raise AssertionError(f"train_full needs {want_flags}, not {got}")
+    cfg = dataclasses.replace(cfg, use_recompute=True,
+                              recompute_granularity="core_attn")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = cfg.num_hidden_layers
+    log(f"[train_full] Llama-3-8B, {L} layers, {n_params / 1e9:.3f} B params "
+        f"bf16, core_attn recompute (dots_saveable), fused residual carry, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    step_ids = [torch.from_numpy(np.roll(ids, i, axis=1)).to(dev)
+                for i in range(warmup + steps)]
+
+    def step(t):
+        _, loss = model(t, labels=t)
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+        return loss.item()
+
+    losses = [step(step_ids[i]) for i in range(warmup)]
+    wrappers = _counted(TRAIN_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup, warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(step_ids[i]))   # .item() synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    expect = _init_loss(cfg)
+    if abs(losses[0] - expect) > 0.5:
+        raise AssertionError(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
+                             f"of ln(vocab) + s2/2 = {expect:.4f}")
+    # one step: layer 0's input norm is plain (K1), then every add+norm
+    # pair is K3: 2 a layer less the first, and the final norm (2L);
+    # core_attn recomputes both regions of every layer in the backward,
+    # re-running K1 once, K3 2L - 1 times and K5 L times; flash attention
+    # stays outside the regions
+    want = {"rms_norm": 2, "rms_norm_dx": 1, "rms_norm_residual": 4 * L - 1,
+            "rms_norm_residual_dh": 2 * L, "swiglu": 2 * L, "swiglu_bwd": L,
+            "flash_attention_fwd": L, "flash_attention_dkv": L,
+            "flash_attention_dq": L, "chunk_stats": 0, "chunk_dlogits": 0}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step} != {want}")
+    t = Timing(times)
+    tokens = batch * seq
+    # bench.py's count: model FLOPs only, recompute not counted
+    flops = 6.0 * n_params * tokens + 12.0 * L * batch * seq * seq \
+        * cfg.hidden_size
+    log(f"[train_full] {steps} steps of [{batch}, {seq + 1}] tokens: step "
+        f"{t:.1f} ms (median [least-greatest]), {tokens / (t / 1e3):.0f} "
+        f"tokens/s, model FLOPs {flops / 1e12:.1f} TFLOP a step = "
+        f"{100 * flops / (t / 1e3) / PEAK_BF16:.1f}% of "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s, peak memory {peak:.2f} GB")
+    log(f"[train_full] losses {[round(x, 4) for x in losses]} (predicted "
+        f"from the init: {expect:.4f})")
+    log(f"[train_full] launches per step {per_step}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t_ = step_ids[-1]
+    ev[0].record()
+    _, loss = model(t_, labels=t_)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    torch.cuda.synchronize()
+    parts = {"forward": ev[0].elapsed_time(ev[1]),
+             "backward with recompute": ev[1].elapsed_time(ev[2])}
+    log("[train_full] one step by part (CUDA events): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in parts.items()))
+    del loss
+    for p in model.parameters():
+        p.grad = None
+    prof = _profile("train_full", lambda: step(t_))
+    del model, step_ids
+    torch.cuda.empty_cache()
+    return dict(step_ms=t, tokens_per_s=tokens / (t / 1e3),
+                mfu=flops / (t / 1e3) / PEAK_BF16, peak_gb=peak,
+                losses=losses, launches=launches, parts=parts, profile=prof)
+
+
+def phase_fit(cfg1b, batch=8, seq=1024, n_batches=12, dev="cuda"):
+    """bench.py's _fit_e2e_bench on the port: Llama-1B at full depth in
+    bf16, ``Model(net).prepare(SGD(1e-4), LlamaPretrainingCriterion)``,
+    ``fit`` over ``n_batches`` batches of [batch, seq + 1] for 2 epochs
+    (epoch 0 warms up, epoch 1 is measured), the fused linear+CE on by
+    fit's default."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import functional as pF
+    from paddle_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+    from paddle_tpu_torch.optimizer import SGD
+    cfg = cfg1b
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    m = Model(model)
+    m.prepare(SGD(1e-4, parameters=model.parameters()),
+              LlamaPretrainingCriterion(cfg))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch * n_batches, seq + 1))).to(dev)
+    ds = TensorDataset([ids, ids])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = cfg.num_hidden_layers
+    log(f"[fit] Llama-1B, {L} layers, {n_params / 1e9:.3f} B params bf16, "
+        f"SGD(1e-4), {n_batches} batches of [{batch}, {seq + 1}], built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    wrappers = _counted(TRAIN_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    m.fit(ds, batch_size=batch, epochs=2, shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if flags.flag("FLAGS_fused_linear_cross_entropy") is not False:
+        raise AssertionError("fit left FLAGS_fused_linear_cross_entropy on")
+    e0, e1 = m._epoch_summaries
+    expect = _init_loss(cfg)
+    if not (np.isfinite(e0["mean_loss"]) and np.isfinite(e1["mean_loss"])
+            and abs(e0["mean_loss"] - expect) < 0.5):
+        raise AssertionError(f"epoch mean losses {e0['mean_loss']}, "
+                             f"{e1['mean_loss']}; predicted from the init "
+                             f"{expect:.4f}")
+    # a step: the fused carry (K1 once, K3 2L, K4 2L, K2 once), one
+    # SwiGLU and one attention a layer, and the vocab in chunks of 1024:
+    # 32 for V = 32000, the last clamped with lo = 768 (K10 forward, K11
+    # backward)
+    chunks = -(-cfg.vocab_size // 1024)
+    want = {"rms_norm": 1, "rms_norm_dx": 1, "rms_norm_residual": 2 * L,
+            "rms_norm_residual_dh": 2 * L, "swiglu": L, "swiglu_bwd": L,
+            "flash_attention_fwd": L, "flash_attention_dkv": L,
+            "flash_attention_dq": L, "chunk_stats": chunks,
+            "chunk_dlogits": chunks}
+    n_steps = e0["steps"] + e1["steps"]
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step} != {want}")
+    avg = e1["avg_step_ms"]
+    tokens = batch * seq
+    log(f"[fit] epoch 1: {e1['steps']} steps in {e1['seconds']:.3f} s, "
+        f"avg_step_ms {avg:.2f}, {tokens / (avg / 1e3):.0f} tokens/s, peak "
+        f"memory {peak:.2f} GB; mean loss epoch 0 {e0['mean_loss']:.6f}, "
+        f"epoch 1 {e1['mean_loss']:.6f} (predicted from the init "
+        f"{expect:.4f}); epoch 0 (warm-up) avg_step_ms "
+        f"{e0['avg_step_ms']:.2f}")
+    log(f"[fit] launches per step {per_step}; "
+        f"FLAGS_fused_linear_cross_entropy back to False")
+    # the loss tail alone at the fit shape, fused (32 chunks: K10 and
+    # K11 with their matmuls) against materialised logits and the CE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h = torch.randn(tokens, cfg.hidden_size, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_()
+    w = model.lm_head.weight.detach().clone().requires_grad_()
+    lab = ids[:batch, 1:].reshape(-1)
+
+    def fused_tail(h, w, lab):
+        loss = fused_linear_cross_entropy(h, w.t(), lab)
+        return torch.autograd.grad(loss, (h, w))
+
+    def plain_tail(h, w, lab):
+        # the unfused model's tail: logits, then the port's f32 CE
+        loss = pF.cross_entropy(tF.linear(h, w), lab)
+        return torch.autograd.grad(loss, (h, w))
+    tails = {"fused": eager_ms(fused_tail, (h, w, lab), iters=5),
+             "logits": eager_ms(plain_tail, (h, w, lab), iters=5)}
+    log(f"[fit] loss tail forward+backward, h [{tokens}, {cfg.hidden_size}] "
+        f"x V {cfg.vocab_size} bf16 (eager, host included): fused "
+        f"{tails['fused']:.3f} ms, over materialised logits "
+        f"{tails['logits']:.3f} ms")
+    del h, w
+    few = TensorDataset([ids[:2 * batch], ids[:2 * batch]])
+    prof = _profile("fit", lambda: m.fit(few, batch_size=batch, epochs=1,
+                                         shuffle=False, verbose=0), per=2)
+    del m, model, ids, ds, few
+    torch.cuda.empty_cache()
+    return dict(avg_step_ms=avg, tokens_per_s=tokens / (avg / 1e3),
+                peak_gb=peak, mean_loss=(e0["mean_loss"], e1["mean_loss"]),
+                launches=launches, tails=tails, profile=prof)
+
+
+def phase_fused_parity(cfg1b, layers=2, seq=300, dev="cuda"):
+    """Llama-1B width at depth ``layers`` in f32, the card (kernels)
+    against the CPU (plain versions) from the same weights: (a) a
+    labelled forward and backward with the fused residual carry and
+    core_attn recompute on [1, seq] ids: the loss and every gradient;
+    (b) ``fit(compiled=True)`` with SGD over 2 batches of [2, 129]: the
+    mean loss and every updated weight."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import SGD
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers,
+                              use_recompute=True,
+                              recompute_granularity="core_attn")
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=9).state_dict()
+    ids = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (1, seq)))
+    out = {}
+    for name in ("cpu", dev):
+        model = LlamaForCausalLM(cfg, device=name)
+        model.load_state_dict(weights)
+        t = ids.to(name)
+        _, loss = model(t, labels=t)
+        loss.backward()
+        out[name] = (loss.item(), convert.grads_to_numpy(model))
+        del model
+    (l0, g0), (l1, g1) = out["cpu"], out[dev]
+    # f32 on both sides: as train_parity, the loss within 1e-5 of itself
+    # and every gradient within 1e-4 (whole-tensor relative)
+    if abs(l1 - l0) > 1e-5 * abs(l0):
+        raise AssertionError(f"fused_parity (a): loss {l1} on the card vs "
+                             f"{l0} on the CPU")
+    worst_g = max(float(np.linalg.norm(g1[k] - g0[k])
+                        / max(np.linalg.norm(g0[k]), 1e-30)) for k in g0)
+    if worst_g > 1e-4:
+        raise AssertionError(f"fused_parity (a): a gradient's relative "
+                             f"error is {worst_g:.3g}")
+    log(f"[fused_parity] (a) Llama-1B width, {layers} layers, f32, fused "
+        f"carry + core_attn recompute, [1, {seq}]: loss card {l1:.6f} vs CPU "
+        f"{l0:.6f}; {len(g0)} grads, worst relative error {worst_g:.3g} "
+        f"(limit 1e-4)")
+    cfg = dataclasses.replace(cfg, use_recompute=False)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.load_state_dict(weights)
+    w_init = convert.to_numpy_state_dict(model)
+    rows = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (4, 129)))
+    lr, out = 1e-2, {}
+    for name in ("cpu", dev):
+        model = LlamaForCausalLM(cfg, device=name)
+        model.load_state_dict(weights)
+        m = Model(model)
+        m.prepare(SGD(lr, parameters=model.parameters()),
+                  LlamaPretrainingCriterion(cfg))
+        t = rows.to(name)
+        m.fit(TensorDataset([t, t]), batch_size=2, epochs=1, shuffle=False,
+              verbose=0)
+        out[name] = (m._last_epoch_summary["mean_loss"],
+                     convert.to_numpy_state_dict(model))
+        del m, model
+    (l0, w0), (l1, w1) = out["cpu"], out[dev]
+    if abs(l1 - l0) > 1e-5 * abs(l0):
+        raise AssertionError(f"fused_parity (b): mean loss {l1} on the card "
+                             f"vs {l0} on the CPU")
+    worst_w = 0.0
+    for key in w0:
+        # per element: the f32 rounding of the weight (a few ulps, 1e-6
+        # of |w|) plus the gradients' f32 noise times lr, at most 1e-4 of
+        # the tensor's largest update over the epoch
+        moved = np.abs(w0[key] - w_init[key]).max()
+        lim = 1e-6 * np.abs(w0[key]) + 1e-4 * moved + 1e-9
+        ratio = float((np.abs(w1[key] - w0[key]) / lim).max())
+        worst_w = max(worst_w, ratio)
+        if ratio > 1:
+            raise AssertionError(f"fused_parity (b): weight {key} after fit: "
+                                 f"worst err/limit {ratio:.3g}")
+    log(f"[fused_parity] (b) fit(compiled=True), SGD lr {lr}, 2 batches of "
+        f"[2, 129]: mean loss card {l1:.6f} vs CPU {l0:.6f}; {len(w0)} "
+        f"updated weights, worst err/limit {worst_w:.3g}")
+    torch.cuda.empty_cache()
+    return worst_g, worst_w
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.models import LlamaConfig
     cfg = LlamaConfig.llama3_8b()
+    cfg1b = LlamaConfig.llama_1b()
     t_start = time.perf_counter()
     phase_setup()
     res = phase_kernels(cfg)
     res.update(phase_train_kernels(cfg))
+    res.update(phase_fused_kernels(cfg))
     serve_launches = phase_serve(cfg)
     phase_parity(cfg)
-    train = phase_train(cfg)
-    phase_train_parity(LlamaConfig.llama_1b())
+    flags.set_flags({"FLAGS_fused_rmsnorm_residual": False})
+    try:
+        train = phase_train(cfg)
+    finally:
+        flags.set_flags({"FLAGS_fused_rmsnorm_residual": True})
+    phase_train_parity(cfg1b)
+    full = phase_train_full(cfg)
+    fit = phase_fit(cfg1b)
+    phase_fused_parity(cfg1b)
     pallas = "paddle_tpu/ops/pallas/"
+    rms_cu = "paddle_tpu_torch/csrc/rms_norm.cu"
+    ce_cu = "paddle_tpu_torch/csrc/ce_chunk.cu"
     fa_cu = "paddle_tpu_torch/csrc/flash_attention.cu"
     sources = {
-        "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                     pallas + "rms_norm.py:38"),
-        "rms_norm_dx": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                        pallas + "rms_norm.py:45"),
+        "rms_norm": (rms_cu, pallas + "rms_norm.py:38"),
+        "rms_norm_dx": (rms_cu, pallas + "rms_norm.py:45"),
+        "rms_norm_residual": (rms_cu, pallas + "rms_norm.py:206"),
+        "rms_norm_residual_dh": (rms_cu, pallas + "rms_norm.py:218"),
         "swiglu": ("paddle_tpu_torch/csrc/swiglu.cu",
                    pallas + "swiglu.py:39"),
         "swiglu_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",
@@ -1096,6 +1607,8 @@ def main():
         "flash_attention_fwd": (fa_cu, pallas + "flash_attention.py:104"),
         "flash_attention_dkv": (fa_cu, pallas + "flash_attention.py:226"),
         "flash_attention_dq": (fa_cu, pallas + "flash_attention.py:286"),
+        "chunk_stats": (ce_cu, pallas + "ce_chunk.py:42"),
+        "chunk_dlogits": (ce_cu, pallas + "ce_chunk.py:67"),
         "ragged_paged_attention": (
             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             pallas + "ragged_paged_attention.py:120"),
@@ -1104,18 +1617,24 @@ def main():
     for name, (src, replaces) in sources.items():
         r = res[name]
         # each path ran with the counts at 0 just before it: serving
-        # (phase 3) and training (phase 5); launches is their sum
-        served = serve_launches.get(name, 0)
-        trained = train["launches"].get(name, 0)
+        # (phase 3), unfused training (5), the full training step (7) and
+        # fit (8); launches is their sum
+        counts = {"serve": serve_launches.get(name, 0),
+                  "train": train["launches"].get(name, 0),
+                  "train_full": full["launches"].get(name, 0),
+                  "fit": fit["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": served + trained,
-                        "launches_serve": served, "launches_train": trained,
+                        "replaces": replaces,
+                        "launches": sum(counts.values()),
+                        **{f"launches_{k}": v for k, v in counts.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "eager_ms": r.get("eager_ms"), "shape": r["shape"],
                         "max_abs_err_f32": r.get("max_abs_err_f32")})
+        if not kernels[-1]["launches"]:
+            raise AssertionError(f"{name} was launched on no path")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,36 @@
 """Llama for training and for serving over paged KV pools.
 
 Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` (the ``tiny``,
-``llama_1b`` and ``llama3_8b`` presets), the dense training path and the
-cache path of ``LlamaAttention``/``LlamaMLP``/``LlamaDecoderLayer``/
-``LlamaModel``/``LlamaForCausalLM``, ``LlamaPretrainingCriterion``,
-``rope_with_offset`` and ``_paged_attention_step`` (bf16/f32 pools).
+``llama_1b`` and ``llama3_8b`` presets, the recompute fields), the dense
+training path and the cache path of ``LlamaAttention``/``LlamaMLP``/
+``LlamaDecoderLayer``/``LlamaModel``/``LlamaForCausalLM``,
+``LlamaPretrainingCriterion``, ``rope_with_offset`` and
+``_paged_attention_step`` (bf16/f32 pools).
 
 Training (no caches): ``model(ids, labels=ids)`` returns ``(logits,
 loss)``, the shifted next-token cross entropy, and ``loss.backward()``
-runs torch autograd through the kernels' ``autograd.Function``s
-(RMSNorm, SwiGLU, flash attention). The configuration ported is the JAX
-package's unfused one: each residual add in the input dtype followed by
-its own RMSNorm (``FLAGS_fused_rmsnorm_residual`` off), the loss over
-full logits (``FLAGS_fused_linear_cross_entropy`` off) and no recompute.
-The fused residual carry, fused linear+CE and recompute are not ported
-yet, and the config has no switch for them.
+runs torch autograd through the kernels' ``autograd.Function``s. The
+stack is always the unrolled one (the port has no ``scan_layers``):
+
+- ``FLAGS_fused_rmsnorm_residual`` (on by default) carries the un-added
+  ``(hidden, residual)`` pair between layers, so each residual add and
+  the RMSNorm after it, the final norm included, are one
+  ``fused_rms_norm_residual`` (K3/K4); off, each add is its own op in
+  the input dtype followed by its own RMSNorm. Both give the same
+  numbers: addition commutes, and the fused add rounds where the
+  unfused one does.
+- ``use_recompute`` recomputes layers in the backward
+  (``incubate.recompute``): whole layers (``full``), or the norms,
+  projections and MLP with flash attention outside the recomputed
+  regions (``core_attn``/``full_attn``, every ``core_attn_interval``-th
+  layer); every ``full_save_interval``-th layer is not recomputed.
+- ``FLAGS_fused_linear_cross_entropy`` (off by default; ``hapi.Model.
+  fit`` turns it on) takes the labelled loss through
+  ``ops.fused_ce.fused_linear_cross_entropy`` (K10/K11) and returns
+  ``(None, loss)``, without logits; it needs an untied ``lm_head``.
+
+The serving path (caches) keeps the unfused stack, as the JAX package's
+does.
 
 Attribute names match the JAX package, so the state-dict keys do
 (``llama.layers.0.self_attn.q_proj.weight``, ...); ``torch.nn.Linear``
@@ -30,9 +46,12 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..framework import flags
+from ..incubate.recompute import recompute
 from ..nn import RMSNorm
 from ..nn import functional as F
 from ..ops import paged_attention as PA
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rope import build_sin_cos, rotate
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
@@ -52,6 +71,22 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    use_recompute: bool = False
+    # "full" recomputes whole decoder layers; "core_attn" (and
+    # PaddleNLP's "full_attn", the same structure here) keeps flash
+    # attention outside the recomputed regions
+    recompute_granularity: str = "full"
+    # core_attn on every Nth layer only (1 = all)
+    core_attn_interval: int = 1
+    # every k-th layer is not recomputed at all; 0 = off
+    full_save_interval: int = 0
+
+    def __post_init__(self):
+        if self.recompute_granularity not in ("full", "core_attn",
+                                              "full_attn"):
+            raise ValueError(
+                f"recompute_granularity={self.recompute_granularity!r} "
+                "is not one of 'full' | 'core_attn' | 'full_attn'")
 
     @classmethod
     def llama3_8b(cls):
@@ -119,22 +154,23 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, self.num_kv_heads * d, **kw)
         self.o_proj = nn.Linear(self.num_heads * d, h, **kw)
 
-    def forward(self, x, rope, cache=None, ctx=None, tables=None):
-        """Without a cache: causal attention over the sequence (the
-        training path: RoPE at positions 0..S-1, flash attention).
-        With one: a paged serving step."""
+    def _proj(self, x):
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        if cache is not None:
-            return _paged_attention_step(self, q, k, v, cache, ctx, tables,
-                                         rope)
-        sin, cos = rope
-        out = F.scaled_dot_product_attention(rotate(q, sin, cos),
-                                             rotate(k, sin, cos), v,
-                                             is_causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return (self.q_proj(x).view(b, s, self.num_heads, self.head_dim),
+                self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim),
+                self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim))
+
+    def forward(self, x, rope, cache, ctx, tables):
+        """A paged serving step. The training path goes through the
+        decoder layer's stages (``_qkv_from``, ``_attend``, ``o_proj``)."""
+        return _paged_attention_step(self, *self._proj(x), cache, ctx,
+                                     tables, rope)
+
+
+def _attend(q, k, v):
+    """Causal attention of the training path (flash attention): the part
+    ``core_attn`` recompute keeps outside its regions."""
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
 class LlamaMLP(nn.Module):
@@ -162,10 +198,80 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, rope, cache=None, ctx=None, tables=None):
         """The unfused stack: each residual add in the input dtype, then
-        its own RMSNorm."""
-        x = x + self.self_attn(self.input_layernorm(x), rope, cache, ctx,
-                               tables)
+        its own RMSNorm. Without a cache it is composed of the stages
+        that core_attn recompute uses."""
+        if cache is not None:
+            x = x + self.self_attn(self.input_layernorm(x), rope, cache, ctx,
+                                   tables)
+            return x + self.mlp(self.post_attention_layernorm(x))
+        return self._post_stage(x, _attend(*self._qkv_stage(x, rope)))
+
+    # ---- the unfused stages and core_attn recompute over them ----------
+    def _qkv_from(self, h, rope):
+        """q [B, S, H, D] and k, v [B, S, KVH, D] from a normed input: the
+        projections, and RoPE at positions 0..S-1 on q and k."""
+        q, k, v = self.self_attn._proj(h)
+        sin, cos = rope
+        return rotate(q, sin, cos), rotate(k, sin, cos), v
+
+    def _qkv_stage(self, x, rope):
+        return self._qkv_from(self.input_layernorm(x), rope)
+
+    def _post_stage(self, x, ctx):
+        b, s, _ = x.shape
+        x = x + self.self_attn.o_proj(ctx.reshape(b, s, -1))
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward_core_attn_remat(self, x, rope):
+        """Recompute the norms, projections and MLP in the backward, but
+        keep flash attention outside the recomputed regions: its output
+        is kept, so the backward never re-runs the attention forward."""
+        q, k, v = recompute(self._qkv_stage, x, rope, n_outputs=3)
+        return recompute(self._post_stage, x, _attend(q, k, v))
+
+    # ---- the fused residual carry (FLAGS_fused_rmsnorm_residual) -------
+    # The unfused stack computes x1 = x + attn(norm1(x)); x2 = x1 +
+    # mlp(norm2(x1)): each residual add is followed at once by an RMSNorm
+    # (the next layer's norm1 for the mlp add). The fused path carries
+    # the un-added pair (hidden, residual) between layers, so every
+    # add+norm pair is one fused_rms_norm_residual: layer i's mlp output
+    # and residual stream fuse into layer i+1's input_layernorm, the
+    # attention output and stream into post_attention_layernorm, and
+    # LlamaModel fuses the last add into the final norm.
+
+    def _norm_pair(self, norm, hidden, residual):
+        """(normed, summed) of the add+norm pair; a None residual (the
+        stack's entry) gives the plain norm, with hidden as the stream."""
+        if residual is None:
+            return norm(hidden), hidden
+        return F.fused_rms_norm_residual(hidden, residual, norm.weight,
+                                         norm.epsilon)
+
+    def forward_fused(self, hidden, residual, rope):
+        """One layer over the (hidden, residual) carry; returns the next
+        un-added pair (mlp output, residual stream)."""
+        q, k, v, r = self._qkv_stage_fused(hidden, residual, rope)
+        return self._post_stage_fused(_attend(q, k, v), r)
+
+    def _qkv_stage_fused(self, hidden, residual, rope):
+        y1, r = self._norm_pair(self.input_layernorm, hidden, residual)
+        return (*self._qkv_from(y1, rope), r)
+
+    def _post_stage_fused(self, ctx, r):
+        b, s, _ = r.shape
+        y2, r2 = self._norm_pair(self.post_attention_layernorm,
+                                 self.self_attn.o_proj(ctx.reshape(b, s, -1)),
+                                 r)
+        return self.mlp(y2), r2
+
+    def forward_fused_core_attn_remat(self, hidden, residual, rope):
+        """core_attn recompute over the fused carry: the regions of
+        :meth:`forward_core_attn_remat`, with the fused kernels inside
+        them, so the backward's recompute re-runs K3."""
+        q, k, v, r = recompute(self._qkv_stage_fused, hidden, residual,
+                               rope, n_outputs=4)
+        return recompute(self._post_stage_fused, _attend(q, k, v), r,
+                         n_outputs=2)
 
 
 class LlamaModel(nn.Module):
@@ -205,10 +311,8 @@ class LlamaModel(nn.Module):
         b, s = input_ids.shape
         x = self.embed_tokens(input_ids)
         if caches is None:
-            rope = (self.rope_sin[None, :s], self.rope_cos[None, :s])
-            for layer in self.layers:
-                x = layer(x, rope)
-            return self.norm(x)
+            return self._train_stack(x, (self.rope_sin[None, :s],
+                                         self.rope_cos[None, :s]))
         ctx = pos.reshape(b).to(torch.int32)
         tbl, gate = tables
         tables = (tbl.to(torch.int32), gate.to(torch.int32))
@@ -216,6 +320,49 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, rope, caches[2 * i:2 * i + 2], ctx, tables)
         return self.norm(x), caches
+
+    def _train_stack(self, x, rope):
+        """The decoder stack and the final norm without caches: fused
+        carry or not, recomputed or not (module docstring)."""
+        cfg = self.config
+        remat = cfg.use_recompute and self.training
+        selective = cfg.recompute_granularity in ("core_attn", "full_attn")
+        interval = max(int(cfg.core_attn_interval), 1)
+        fs = max(int(cfg.full_save_interval), 0)
+
+        def how(i):
+            if not remat or (fs and i % fs == fs - 1):
+                return "plain"
+            return "core_attn" if selective and i % interval == 0 \
+                else "full"
+
+        if flags.flag("FLAGS_fused_rmsnorm_residual"):
+            hidden, residual = x, None
+            for i, layer in enumerate(self.layers):
+                mode = how(i)
+                if mode == "plain":
+                    hidden, residual = layer.forward_fused(hidden, residual,
+                                                           rope)
+                elif mode == "core_attn":
+                    hidden, residual = layer.forward_fused_core_attn_remat(
+                        hidden, residual, rope)
+                else:
+                    hidden, residual = recompute(layer.forward_fused, hidden,
+                                                 residual, rope, n_outputs=2)
+            if residual is None:
+                return self.norm(hidden)
+            return F.fused_rms_norm_residual(hidden, residual,
+                                             self.norm.weight,
+                                             self.norm.epsilon)[0]
+        for i, layer in enumerate(self.layers):
+            mode = how(i)
+            if mode == "plain":
+                x = layer(x, rope)
+            elif mode == "core_attn":
+                x = layer.forward_core_attn_remat(x, rope)
+            else:
+                x = recompute(layer, x, rope)
+        return self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -262,12 +409,21 @@ class LlamaForCausalLM(nn.Module):
         (no autograd: the in-place pool writes must not join a graph).
         Without: the training forward, ``logits`` or, given ``labels``,
         ``(logits, loss)`` with the loss over ``logits[:, :-1]`` against
-        ``labels[:, 1:]``."""
+        ``labels[:, 1:]``; ``(None, loss)`` through the fused linear+CE
+        when ``FLAGS_fused_linear_cross_entropy`` is on and the
+        ``lm_head`` is untied."""
         if caches is not None:
             with torch.no_grad():
                 hidden, caches = self.llama(input_ids, caches, pos, tables)
                 return self._logits(hidden), caches
-        logits = self._logits(self.llama(input_ids))
+        hidden = self.llama(input_ids)
+        if (labels is not None and self.lm_head is not None
+                and flags.flag("FLAGS_fused_linear_cross_entropy")):
+            h2 = hidden[:, :-1].reshape(-1, self.config.hidden_size)
+            loss = fused_linear_cross_entropy(h2, self.lm_head.weight.t(),
+                                              labels[:, 1:].reshape(-1))
+            return None, loss
+        logits = self._logits(hidden)
         if labels is None:
             return logits
         return logits, _shifted_cross_entropy(logits, labels)
@@ -281,7 +437,14 @@ def _shifted_cross_entropy(logits, labels):
 
 class LlamaPretrainingCriterion(nn.Module):
     """Shifted next-token cross entropy: ``criterion(model(ids), ids)``
-    equals the loss of ``model(ids, labels=ids)``."""
+    equals the loss of ``model(ids, labels=ids)``.
+
+    ``fuses_with_network_loss`` certifies that contract to
+    ``hapi.Model``, whose compiled fit then passes the labels into the
+    network and takes its fused linear+CE loss instead of materialising
+    the logits."""
+
+    fuses_with_network_loss = True
 
     def __init__(self, config: LlamaConfig):
         super().__init__()

@@ -1,8 +1,9 @@
 """Functional forms on the serving and training paths.
 
-Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm``,
-``activation.py::swiglu``, ``attention.py::scaled_dot_product_attention``
-(with ``sdpa_reference``, the JAX package's non-kernel path) and
+Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm`` and
+``::fused_rms_norm_residual``, ``activation.py::swiglu``,
+``attention.py::scaled_dot_product_attention`` (with
+``sdpa_reference``, the JAX package's non-kernel path) and
 ``loss.py::cross_entropy`` (hard labels and the mean, what the model
 uses). Where the JAX package chose the Pallas kernel by backend and
 flags, the port's kernel wrappers choose by the device of the tensor:
@@ -20,14 +21,22 @@ from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import swiglu as _sw
 
-__all__ = ["rms_norm", "swiglu", "scaled_dot_product_attention",
-           "sdpa_reference", "cross_entropy"]
+__all__ = ["rms_norm", "fused_rms_norm_residual", "swiglu",
+           "scaled_dot_product_attention", "sdpa_reference", "cross_entropy"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              epsilon: float = 1e-6) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps)).to(x.dtype) * weight``."""
     return _rms.RMSNormFunction.apply(x, weight, epsilon)
+
+
+def fused_rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
+                            weight: torch.Tensor, epsilon: float = 1e-6):
+    """``(rms_norm(x + residual) * weight, x + residual)`` as one op, the
+    add in the input dtype: the decoder layer's residual add and the
+    RMSNorm after it (K3 forward, K4 backward)."""
+    return _rms.RMSNormResidualFunction.apply(x, residual, weight, epsilon)
 
 
 def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

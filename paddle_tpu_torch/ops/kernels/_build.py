@@ -43,6 +43,10 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "rms_norm_fwd": [_vp, _vp, _vp, _ll, _i, _f, _i, _i, _vp],
     "rms_norm_bwd_dx": [_vp, _vp, _vp, _vp, _ll, _i, _f, _i, _i, _vp],
+    "rms_norm_residual_fwd": [_vp] * 5 + [_ll, _i, _f, _i, _i, _vp],
+    "rms_norm_residual_dh": [_vp] * 5 + [_ll, _i, _f, _i, _i, _vp],
+    "ce_chunk_stats": [_vp] * 5 + [_i, _i, _i, _i, _i, _vp],
+    "ce_chunk_dlogits": [_vp] * 5 + [_i, _i, _i, _i, _i, _vp],
     "swiglu_fwd": [_vp, _vp, _vp, _ll, _i, _i, _vp],
     "swiglu_bwd": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "flash_attention_fwd": [_vp] * 5 + [_i] * 6 + [_f, _i, _i, _vp],

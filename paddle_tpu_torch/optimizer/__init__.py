@@ -1,5 +1,5 @@
 """Optimizers of the port (Paddle's semantics, not ``torch.optim``'s)."""
 
-from .optimizer import AdamW, Optimizer
+from .optimizer import SGD, AdamW, Optimizer
 
-__all__ = ["AdamW", "Optimizer"]
+__all__ = ["SGD", "AdamW", "Optimizer"]

@@ -1,9 +1,9 @@
-"""Paddle's AdamW in plain PyTorch.
+"""Paddle's SGD and AdamW in plain PyTorch.
 
 Port of ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer.step``,
-``clear_grad`` and ``_master``, ``_AdamBase._adam_update`` and
-``AdamW``. These are Paddle's semantics (``multi_precision=True``), not
-``torch.optim.AdamW``'s:
+``clear_grad`` and ``_master``, ``SGD``, ``_AdamBase._adam_update`` and
+``AdamW``. These are
+Paddle's semantics (``multi_precision=True``), not ``torch.optim``'s:
 
 - every low-precision float parameter keeps an f32 master copy, which
   the update reads and writes, and the parameter receives it rounded to
@@ -17,8 +17,8 @@ Port of ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer.step``,
 State lives on each parameter's device. The update runs parameter by
 parameter, in place, so its temporaries stay the size of one parameter.
 Not ported yet: ``Adam`` and the other optimizers, ``multi_precision=
-False``, ``apply_decay_param_fun``, ``lr_ratio``, grad clip, LR
-schedulers and the state dict.
+False``, SGD's weight decay, ``apply_decay_param_fun``, ``lr_ratio``,
+grad clip, LR schedulers and the state dict.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "AdamW"]
+__all__ = ["Optimizer", "SGD", "AdamW"]
 
 
 class Optimizer:
@@ -81,6 +81,22 @@ class Optimizer:
                 p.grad.zero_()
             else:
                 p.grad = None
+
+
+class SGD(Optimizer):
+    """``p - lr * g``: Paddle's SGD. A low-precision parameter is updated
+    through its f32 master copy and receives it rounded."""
+
+    def _update_param(self, p, g, lr):
+        # lr * g in f32 and the subtraction as two roundings, as the JAX
+        # package computes them (one fused multiply-add would round once)
+        step = g.to(torch.float32, copy=True).mul_(lr)
+        master = self._master(p)
+        if master is None:
+            p.sub_(step.to(p.dtype))
+        else:
+            master.sub_(step)
+            p.copy_(master)
 
 
 class AdamW(Optimizer):

@@ -20,11 +20,16 @@ import torch
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.hapi import Model
+from paddle_tpu_torch.io import TensorDataset
+from paddle_tpu_torch.models import LlamaPretrainingCriterion
+from paddle_tpu_torch.ops import fused_ce
+from paddle_tpu_torch.ops.kernels import ce_chunk as kce
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
 from paddle_tpu_torch.ops.kernels import rms_norm as krms
 from paddle_tpu_torch.ops.kernels import swiglu as ksw
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import SGD, AdamW
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import adam_first_step_limit, attention_scales  # noqa
@@ -112,6 +117,114 @@ def test_rms_norm_dx_kernel(cuda, dtype, n, d):
     mag = (inv * gw).abs() + xf.abs() * c
     ulp = 1e-5 if dtype == torch.float32 else BF16_ULP
     _assert_close(dx, ref, ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(37, 4096), (5, 100)])
+def test_rms_norm_residual_kernels(cuda, dtype, n, d):
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    x, res, gy, gr = (torch.randn(n, d, device=cuda, generator=g).to(dtype)
+                      for _ in range(4))
+    w = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(dtype)
+    before = (krms.rms_norm_residual.launches,
+              krms.rms_norm_residual_dh.launches)
+    y, r = krms.rms_norm_residual(x, res, w, 1e-5)
+    ry, rr = krms.rms_norm_residual_reference(x, res, w, 1e-5)
+    dh = krms.rms_norm_residual_dh(r, w, gy, gr, 1e-5)
+    ref = krms.rms_norm_residual_dh_reference(r, w, gy, gr, 1e-5)
+    torch.cuda.synchronize()
+    assert (krms.rms_norm_residual.launches,
+            krms.rms_norm_residual_dh.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    # K3: the add rounds once in the input dtype on both sides: exact;
+    # y as K1 (the statistics' order may move r*inv by an ulp, which the
+    # product carries to three)
+    assert torch.equal(r, rr)
+    _assert_close(y, ry, _tol(ry, dtype, 3))
+    # K4: both f32 and rounded once; the terms may cancel, so 1e-5 of
+    # their magnitudes |inv*gy*w| + |r|*c + |gr| besides one ulp
+    rf, gw = r.float(), gy.float() * w.float()
+    inv = torch.rsqrt(rf.square().mean(-1, keepdim=True) + 1e-5)
+    c = inv ** 3 * (gw * rf).abs().mean(-1, keepdim=True)
+    mag = (inv * gw).abs() + rf.abs() * c + gr.float().abs()
+    ulp = 1e-5 if dtype == torch.float32 else BF16_ULP
+    _assert_close(dh, ref, ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
+
+
+def _chunk_inputs(cuda, dtype, n, vc, lo, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    logits = (3 * torch.randn(n, vc, device=cuda, generator=g)).to(dtype)
+    local = torch.randint(lo, vc, (n,), device=cuda, generator=g,
+                          dtype=torch.int32)
+    # labels in another chunk (below 0, at or past vc), in the overlap
+    # prefix (below lo) and at both ends of the chunk's own columns
+    local[:6] = torch.tensor([-3, vc, vc + 5, max(lo - 1, 0), lo, vc - 1],
+                             dtype=torch.int32)
+    return logits, local
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,vc,lo", [(37, 1024, 0), (37, 1024, 768),
+                                     (9, 40, 13)])
+def test_chunk_stats_kernel(cuda, dtype, n, vc, lo):
+    logits, local = _chunk_inputs(cuda, dtype, n, vc, lo)
+    before = kce.chunk_stats.launches
+    m, s, t = kce.chunk_stats(logits, local, lo)
+    rm, rs, rt = kce.chunk_stats_reference(logits, local, lo)
+    torch.cuda.synchronize()
+    assert kce.chunk_stats.launches == before + 1
+    # the max and the gathered target are exact
+    assert torch.equal(m, rm) and torch.equal(t, rt)
+    # an online f32 sum of exps (a lane's sum rescaled when its max
+    # grows) against the plain one; leaving out or adding one column
+    # moves s by some 1/vc of itself, 50 times this limit
+    _assert_close(s, rs, 2e-5 * rs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,vc,lo", [(37, 1024, 0), (37, 1024, 768),
+                                     (9, 40, 13)])
+def test_chunk_dlogits_kernel(cuda, dtype, n, vc, lo):
+    logits, local = _chunk_inputs(cuda, dtype, n, vc, lo, seed=1)
+    lse = torch.logsumexp(logits.float(), -1) + 0.5
+    scale = torch.rand(n, device=cuda) / n
+    scale[7] = 0.0                                      # an ignored row
+    before = kce.chunk_dlogits.launches
+    out = kce.chunk_dlogits(logits, lse, local, scale, lo)
+    ref = kce.chunk_dlogits_reference(logits, lse, local, scale, lo)
+    torch.cuda.synchronize()
+    assert kce.chunk_dlogits.launches == before + 1
+    assert out.dtype == dtype and not out[:, :lo].any() and not out[7].any()
+    # the same f32 formula rounded once; the exps differ in their last
+    # f32 bits (1e-6 of p, times the row's scale), which may flip a bf16
+    # rounding
+    ulp = 1e-6 if dtype == torch.float32 else BF16_ULP
+    _assert_close(out, ref, ulp * ref.float().abs() + 1e-6 * scale[:, None])
+
+
+def test_fused_linear_ce_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.RandomState(2)
+    h = rng.randn(37, 64).astype(np.float32)
+    w = (0.1 * rng.randn(64, 3000)).astype(np.float32)
+    labels = rng.randint(0, 3000, 37)
+    labels[[0, 1, 2]] = [-100, 2999, 2000]    # ignored; in the tail chunk
+    out = []
+    for dev in ("cpu", cuda):
+        th = torch.from_numpy(h).to(dev).requires_grad_()
+        tw = torch.from_numpy(w).to(dev).requires_grad_()
+        launches = kce.chunk_stats.launches
+        loss = fused_ce.fused_linear_cross_entropy(
+            th, tw, torch.from_numpy(labels).to(dev))
+        loss.backward()
+        out.append((loss.item(), th.grad.cpu().numpy(),
+                    tw.grad.cpu().numpy(),
+                    kce.chunk_stats.launches - launches))
+    (l0, dh0, dw0, n0), (l1, dh1, dw1, n1) = out
+    assert (n0, n1) == (0, 3)                 # 3 chunks of 1024 columns
+    # f32: cuBLAS, the kernels and the CPU sum in another order
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    np.testing.assert_allclose(dh1, dh0, rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(dw1, dw0, rtol=1e-4, atol=1e-7)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -224,6 +337,59 @@ def test_tiny_training_step_on_the_card_matches_the_cpu(cuda):
         # the step's sensitivity to the gradients' difference
         lim = adam_first_step_limit(g0[key], g1[key], w0[key], lr)
         assert (np.abs(w1[key] - w0[key]) <= lim).all(), key
+
+
+@pytest.mark.parametrize("gran", ["full", "core_attn"])
+def test_fused_recompute_step_on_the_card_matches_the_cpu(cuda, gran):
+    """The fused residual carry (the default) with recompute: loss and
+    every gradient, card against CPU."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), use_recompute=True,
+                              recompute_granularity=gran)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 77)))
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=6).state_dict()
+    results = []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(weights)
+        _, loss = model(ids.to(dev), labels=ids.to(dev))
+        loss.backward()
+        results.append((loss.item(), convert.grads_to_numpy(model)))
+    (l0, g0), (l1, g1) = results
+    # f32 on both sides; kernels and cuBLAS sum in another order
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for key in g0:
+        err = np.linalg.norm(g1[key] - g0[key]) / np.linalg.norm(g0[key])
+        assert err <= 1e-4, (key, err)
+
+
+def test_compiled_fit_on_the_card_matches_the_cpu(cuda):
+    """hapi fit(compiled=True): the fused linear+CE (K10/K11) and SGD."""
+    cfg = LlamaConfig.tiny()
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (8, 65)))
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=8).state_dict()
+    results = []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(weights)
+        m = Model(model)
+        m.prepare(SGD(1e-2, parameters=model.parameters()),
+                  LlamaPretrainingCriterion(cfg))
+        t = ids.to(dev)
+        launches = kce.chunk_dlogits.launches
+        m.fit(TensorDataset([t, t]), batch_size=4, epochs=1, shuffle=False,
+              verbose=0)
+        results.append((m._last_epoch_summary["mean_loss"],
+                        convert.to_numpy_state_dict(model),
+                        kce.chunk_dlogits.launches - launches))
+    (l0, w0, n0), (l1, w1, n1) = results
+    assert (n0, n1) == (0, 2)                 # one chunk a step, 2 steps
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for key in w0:
+        # lr 1e-2 times gradients within 1e-4 of each other
+        np.testing.assert_allclose(w1[key], w0[key], rtol=1e-5, atol=1e-7,
+                                   err_msg=key)
 
 
 def _ragged(cuda, dtype, H, KVH, D, page, C=24, seed=0):

@@ -140,6 +140,11 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.ops.kernels._build\n"
             "import paddle_tpu_torch.ops.kernels.flash_attention\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.nn\n"
+            "import paddle_tpu_torch.framework.flags\n"
+            "import paddle_tpu_torch.incubate.recompute\n"
+            "import paddle_tpu_torch.io, paddle_tpu_torch.hapi\n"
+            "import paddle_tpu_torch.ops.fused_ce\n"
+            "import paddle_tpu_torch.ops.kernels.ce_chunk\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

@@ -4,10 +4,11 @@ every parameter's gradient, the weights after one and three AdamW steps,
 bf16 parameters with f32 master copies, the pretraining criterion, the
 cross entropy and the attention routing.
 
-The JAX side runs the unfused configuration the port implements:
-``tensor_parallel=False``, ``scan_layers=False``, ``train()`` mode and
-``FLAGS_fused_rmsnorm_residual`` off (set with the JAX package's own
-``set_flags`` for each test and restored after). Weights are bridged
+Both sides run the unfused configuration: ``tensor_parallel=False``,
+``scan_layers=False``, ``train()`` mode and ``FLAGS_fused_rmsnorm_residual``
+off, set with each package's own ``set_flags`` for each test that
+compares them and restored after (the fused carry, on by default, has
+its own tests in tests/test_torch_fused_training.py). Weights are bridged
 with ``convert.from_numpy_state_dict``; inputs are numpy from a seed.
 """
 
@@ -27,6 +28,7 @@ from paddle_tpu.nn import functional as JF
 
 from chip_smoke import adam_first_step_limit
 from paddle_tpu_torch import convert
+from paddle_tpu_torch.framework import flags as tflags
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      LlamaPretrainingCriterion)
 from paddle_tpu_torch.nn import functional as TF
@@ -40,10 +42,12 @@ LR, WD = 1e-3, 0.01
 @pytest.fixture
 def unfused():
     name = "FLAGS_fused_rmsnorm_residual"
-    saved = dict(flags._registry[name])
-    flags.set_flags({name: False})
+    saved = [(reg, dict(reg._registry[name])) for reg in (flags, tflags)]
+    for reg, _ in saved:
+        reg.set_flags({name: False})
     yield
-    flags._registry[name] = saved
+    for reg, ent in saved:
+        reg._registry[name] = ent
 
 
 def _models(tie):
