@@ -46,7 +46,25 @@ non-zero without printing a result:
 9. fused_parity: Llama-1B width at depth 2 in f32 on the card against
    the CPU: a labelled forward and backward with the fused carry and
    ``core_attn`` recompute, and ``fit(compiled=True)`` with SGD;
-10. the ``kernels`` JSON line, then the result line.
+10. moe_kernels (run after phase 2's kernels): the grouped matmul (K14,
+    K14 transposed) and its weight gradient (K15) against their plain
+    versions, per element, at the wide training shape of qwen2_moe_a14b
+    (bf16, timed, with torch._grouped_mm as the yardstick where it takes
+    the shapes) and at the MoE bench width (f32 and bf16);
+11. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
+    experts, top-4, dropless) with seeded random weights through the
+    engine, the serve phase's traffic, launch counters read around it;
+12. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
+    whole-layer recompute under ``dots_saveable``, the fused carry, aux
+    0; forward and backward with the grads cleared (the JAX bench's MoE
+    step): step time, tokens/s, activated-FLOP share, peak memory, the
+    step-0 loss, launches per step, one step profiled;
+13. moe_bench: bench.py's MoE step uncut (H 1024, 12 layers, 16 experts,
+    top-2, every second layer saved whole), the same readings;
+14. moe_parity: the MoE bench width at depth 2 in f32 on the card
+    against the CPU: greedy serving streams, a labelled forward and
+    backward (dropless, recompute), and the capacity path's loss;
+15. the ``kernels`` JSON line, then the result line.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -922,7 +940,7 @@ def _top2_gap(model, tokens):
     fresh pools), on the model's own device."""
     import torch
     cfg = model.config
-    dev = model.llama.embed_tokens.weight.device
+    dev = next(model.parameters()).device
     page = 16
     pages = -(-len(tokens) // page)
     shape = (cfg.num_key_value_heads, pages + 1, page, cfg.head_dim)
@@ -994,6 +1012,7 @@ TRAIN_KERNELS = ("rms_norm", "rms_norm_dx", "rms_norm_residual",
 def _wrappers(names):
     from paddle_tpu_torch.ops.kernels import ce_chunk as kce
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.ops.kernels import rms_norm as krms
     from paddle_tpu_torch.ops.kernels import swiglu as ksw
@@ -1006,7 +1025,10 @@ def _wrappers(names):
              "flash_attention_fwd": kfa.flash_attention_fwd,
              "flash_attention_dkv": kfa.flash_attention_dkv,
              "flash_attention_dq": kfa.flash_attention_dq,
-             "ragged_paged_attention": krpa.ragged_paged_attention}
+             "ragged_paged_attention": krpa.ragged_paged_attention,
+             "grouped_matmul": kgmm.grouped_matmul,
+             "grouped_matmul_t": kgmm.grouped_matmul_t,
+             "grouped_dw": kgmm.grouped_dw}
     return {n: every[n] for n in names}
 
 
@@ -1115,11 +1137,15 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
 
 # kernel-name fragments -> the layer they belong to (cuBLAS's H100
 # matmuls are the nvjet/sm90 gemm kernels)
-_CATEGORIES = (("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
+_CATEGORIES = (("grouped matmul K14/K15", ("gmm_bf16", "gdw_bf16")),
+               ("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
                ("rms_norm K1-K4", ("rms_norm",)),
                ("swiglu K5/K6", ("swiglu",)),
                ("ce_chunk K10/K11", ("ce_stats", "ce_dlogits")),
-               ("matmul (cuBLAS)", ("gemm", "nvjet", "sm90_xmma", "cutlass")))
+               ("matmul (cuBLAS)", ("gemm", "nvjet", "sm90_xmma", "cutlass")),
+               ("routing and gathers", ("index", "scatter", "gather", "sort",
+                                        "topk", "searchsorted", "cumsum",
+                                        "unique", "Radix", "radix")))
 
 
 def _step_breakdown(model, opt, ids):
@@ -1565,14 +1591,512 @@ def phase_fused_parity(cfg1b, layers=2, seq=300, dev="cuda"):
     return worst_g, worst_w
 
 
+# ---- the Qwen2-MoE slice -----------------------------------------------------
+
+# the grouped-matmul kernels and the kernels a MoE path may launch
+MOE_KERNELS = ("grouped_matmul", "grouped_matmul_t", "grouped_dw")
+
+
+def _routed_layout(n_tokens, top_k, n_experts, dev, seed):
+    """The group-padded layout of a seeded top-k routing of ``n_tokens``
+    tokens (router logits with a per-expert skew, so the groups are
+    uneven): (perm, tile_gid, P, the real-row mask [P] bool)."""
+    import torch
+    from paddle_tpu_torch.ops import moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(n_tokens, n_experts, device=dev, generator=gen)
+    logits += torch.linspace(1.0, -1.0, n_experts, device=dev)
+    gate_idx = torch.topk(logits, top_k, dim=-1).indices
+    perm, gid, P = moe.sort_rows_by_expert(gate_idx, n_experts)
+    real = torch.zeros(P, dtype=torch.bool, device=dev)
+    real[perm.long()] = True
+    return perm, gid, P, real
+
+
+def _group_ends(gid, n_experts, bm=128):
+    """Each expert's last padded row + 1 (int32): the offsets of
+    torch._grouped_mm."""
+    import torch
+    e = torch.arange(n_experts, device=gid.device, dtype=torch.int32)
+    return (torch.searchsorted(gid, e, right=True) * bm).to(torch.int32)
+
+
+# (tag, experts, top-k, d, h, dtypes): the wide training shape of
+# qwen2_moe_a14b and the MoE bench width
+MOE_KERNEL_SHAPES = (("wide", 60, 4, 3584, 1408, ("bf16",)),
+                     ("bench", 16, 2, 1024, 1408, ("f32", "bf16")))
+
+
+def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
+                      shapes=MOE_KERNEL_SHAPES):
+    """K14 (both modes) and K15 against their plain versions, per element:
+    at the wide training shape (qwen2_moe_a14b: P 40576 from a top-4
+    routing of 8196 tokens over 60 experts, d 3584, h 1408) in bf16,
+    timed; and at the bench width (d 1024, h 1408, 16 experts, top-2 of
+    8196 tokens) in f32 and bf16. With ``head_cfg``, K12 and K7-K9 at its
+    head layout too (:func:`_qwen2_head_checks`)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
+    res = {}
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for tag, E, k, d, h, dtypes in shapes:
+        dtypes = [types[t] for t in dtypes]
+        perm, gid, P, real = _routed_layout(n_tokens, k, E, dev, seed=E)
+        counts = torch.bincount(gid.long(), minlength=E).tolist()
+        log(f"[moe_kernels] {tag}: P {P}, {len(counts)} experts, row tiles "
+            f"per expert {min(counts)}..{max(counts)}")
+        gen = torch.Generator(device=dev).manual_seed(7 + E)
+        for dtype in dtypes:
+            # padding rows are zero in x and in dy, as on the path
+            x = torch.randn(P, d, device=dev, generator=gen) * real[:, None]
+            dy = torch.randn(P, h, device=dev, generator=gen) * real[:, None]
+            w = 0.02 * torch.randn(E, d, h, device=dev, generator=gen)
+            x, dy, w = x.to(dtype), dy.to(dtype), w.to(dtype)
+            calls = {
+                "grouped_matmul": (kgmm.grouped_matmul, (x, w, gid),
+                                   lambda a, b, g: kgmm.grouped_matmul_reference(
+                                       a, b, g)),
+                "grouped_matmul_t": (kgmm.grouped_matmul_t, (dy, w, gid),
+                                     lambda a, b, g: kgmm.grouped_matmul_reference(
+                                         a, b, g, True)),
+                "grouped_dw": (kgmm.grouped_dw, (x, dy, gid, E),
+                               kgmm.grouped_dw_reference),
+            }
+            for name, (fn, args, plain) in calls.items():
+                out = fn(*args)
+                ref = plain(*args)
+                mag = plain(*(a.float().abs() if torch.is_tensor(a)
+                              and a.is_floating_point() else a
+                              for a in args))
+                torch.cuda.synchronize()
+                # per element: both sides take f32 products and round once;
+                # the sums come in another order, 1e-5 of the sum of
+                # |terms|, which in bf16 may flip the rounding: one ulp
+                ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+                err, worst = check_close(
+                    f"{name} {tag} {dtype}", out, ref,
+                    ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
+                del out, ref, mag
+                log(f"[moe_kernels] {name} {tag} {dtype}: max abs err "
+                    f"{err:.3g} (limit {'1 ulp of |ref| + ' if ulp else ''}"
+                    f"1e-5 of the sum of |terms|, worst err/limit "
+                    f"{worst:.3g})")
+                r = res.setdefault(name, {"max_abs_err": 0.0})
+                key = "max_abs_err" if dtype == torch.bfloat16 \
+                    else "max_abs_err_f32"
+                r[key] = max(r.get(key, 0.0), err)
+                if dtype != torch.bfloat16:
+                    continue
+                ms = time_ms(fn, args, iters=5)
+                # the plain version reads its run boundaries on the host:
+                # eager, host included
+                plain_ms = eager_ms(plain, args, iters=2)
+                # each mode reads two of x [P, d], dy [P, h] and the bank
+                # [E, d, h] and writes the third
+                n_bytes = (P * d + P * h + E * d * h) * 2
+                b_ms, b_by = bound(n_bytes, 2.0 * P * d * h, PEAK_BF16)
+                lib = _grouped_mm_ms(name, args, E)
+                log(f"[moe_kernels] {name} {tag}: kernel {ms:.4f} ms "
+                    f"({2.0 * P * d * h / (ms / 1e3) / 1e12:.1f} TFLOP/s) "
+                    f"plain {plain_ms:.4f} ms (eager) library "
+                    f"{'none' if lib is None else f'{lib:.4f} ms'} bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+                entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                             bound_ms=b_ms, bound_by=b_by,
+                             shape=f"P {P} d {d} h {h} E {E} bf16")
+                if tag == "wide":
+                    r.update(entry)
+                else:
+                    r["bench"] = entry
+            del x, dy, w
+            torch.cuda.empty_cache()
+    if head_cfg is not None:
+        _qwen2_head_checks(head_cfg, dev)
+    return res
+
+
+def _qwen2_head_checks(cfg, dev):
+    """K12 and K7-K9 at Qwen2's head layout, 28 query heads over 4 kv
+    heads (rep 7, which does not divide K12's 64-row CTA: its last row is
+    unused), against their plain versions per element, in bf16 and f32:
+    K12 on the serve phase's mixed batch, K7-K9 at [1, 2049] tokens."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
+    gen = torch.Generator(device=dev).manual_seed(99)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    nh, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    B, C, page, mp = 8, 256, 16, 2048 // 16
+    P = B * mp + 1
+    lengths = np.array([0, 1, 1, 17, 256, 256, 1, 100], np.int32)
+    ctx = np.array([0, 1800, 700, 300, 0, 1000, 1200, 33], np.int32)
+    tables = (np.random.RandomState(8).permutation(P - 1) + 1).reshape(
+        B, mp).astype(np.int32)
+    for b in range(B):
+        tables[b, -(-(ctx[b] + lengths[b]) // page):] = 0
+    kp, vp = rand(kvh, P, page, d), rand(kvh, P, page, d)
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    args = (rand(B, C, nh, d), kp, vp,
+            *(torch.from_numpy(a).to(dev) for a in (tables, ctx, lengths)))
+    out = krpa.ragged_paged_attention(*args)
+    ref = krpa.ragged_paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or any(
+            out[b, lengths[b]:].any() for b in range(B)):
+        raise AssertionError("ragged attention at rep 7: non-finite output "
+                             "or rows past a slot's length not zero")
+    err, worst, worst1, err32, worst32 = ragged_checks(krpa, args, ref, out)
+    log(f"[moe_kernels] ragged_paged_attention H={nh} KVH={kvh} (rep "
+        f"{nh // kvh}) D={d}: bf16 max abs err {err:.3g} (worst err/limit "
+        f"{worst:.3g}; vs f32 plain {worst1:.3g}); f32 {err32:.3g} (worst "
+        f"{worst32:.3g})")
+    del args, out, ref, kp, vp
+    flash_checks(1, 2049, nh, kvh, d, rand)
+    torch.cuda.empty_cache()
+
+
+def _grouped_mm_ms(name, args, n_experts):
+    """torch._grouped_mm on the same function, offsets at the padded group
+    ends, or None where this PyTorch does not take the shapes (the
+    yardstick only: the port never calls it)."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    ends = _group_ends(args[2], n_experts)
+    try:
+        if name == "grouped_matmul":
+            x, w, _ = args
+            call, cargs = (lambda a, b, o: fn(a, b, offs=o)), (x, w, ends)
+        elif name == "grouped_matmul_t":
+            dy, w, _ = args
+            call, cargs = ((lambda a, b, o: fn(a, b.transpose(-2, -1),
+                                                offs=o)), (dy, w, ends))
+        else:
+            x, dy, _, _ = args
+            call, cargs = ((lambda a, b, o: fn(a.t(), b, offs=o)),
+                           (x, dy, ends))
+        call(*cargs)
+        torch.cuda.synchronize()
+        return time_ms(call, cargs, iters=5)
+    except Exception as e:      # noqa: BLE001 - a yardstick, not the path
+        log(f"[moe_kernels] torch._grouped_mm does not take {name}'s "
+            f"shapes here: {str(e).splitlines()[0][:160]}")
+        return None
+
+
+def _moe_launch_counts(cfg, forwards):
+    """Launches of a serving run of ``forwards`` forwards (the unfused
+    stack: two norms a layer and the final one; the shared expert's
+    SwiGLU; three grouped matmuls a MoE layer)."""
+    L = cfg.num_hidden_layers
+    return {"rms_norm": (2 * L + 1) * forwards, "swiglu": L * forwards,
+            "ragged_paged_attention": L * forwards,
+            "grouped_matmul": 3 * L * forwards, "grouped_matmul_t": 0,
+            "grouped_dw": 0}
+
+
+def phase_serve_moe(cfg, dev="cuda"):
+    """qwen2_moe_a14b at full width and depth, dropless, bf16, through the
+    engine: the Llama serve phase's engine and traffic."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM
+    cfg = dataclasses.replace(cfg, moe_dropless=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Qwen2MoeForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=0)
+    model.eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = cfg.num_hidden_layers
+    log(f"[serve_moe] qwen2_moe_a14b {L} layers, {n_params / 1e9:.2f} B "
+        f"params bf16 ({cfg.num_experts} experts, top-"
+        f"{cfg.num_experts_per_tok}, dropless), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = ContinuousBatchingEngine(model, num_slots=8, page_size=16,
+                                   max_len=2048, prefill_chunk=256,
+                                   decode_chunk=8, device=dev)
+    rng = np.random.RandomState(42)
+    eng.add_request(rng.randint(0, cfg.vocab_size, 16), 4)
+    eng.run()
+    prompt_lens = rng.permutation(np.linspace(64, 1500, 12).astype(int))
+    n_new = 32
+    for n in prompt_lens:
+        eng.add_request(rng.randint(0, cfg.vocab_size, int(n)), n_new)
+    names = ("rms_norm", "swiglu", "ragged_paged_attention") + MOE_KERNELS
+    fw0, st0 = eng.stats["forwards"], eng.stats["steps"]
+    wrappers = _counted(names)
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    forwards = eng.stats["forwards"] - fw0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(done) != 12 or any(len(r.tokens) != n_new for r in done):
+        raise AssertionError(f"{len(done)} of 12 requests completed with "
+                             f"{[len(r.tokens) for r in done]} tokens")
+    if len(eng._free_pages) != eng.num_pages - 1:
+        raise AssertionError("pages were not all returned after the run")
+    want = _moe_launch_counts(cfg, forwards)
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want} for "
+                             f"{forwards} forwards")
+    log(f"[serve_moe] 12 requests (prompts {sorted(prompt_lens.tolist())}, "
+        f"{n_new} new each) in {wall:.2f} s: {12 * n_new / wall:.1f} "
+        f"generated tok/s, {eng.stats['steps'] - st0} steps, {forwards} "
+        f"forwards, peak memory {peak:.2f} GB")
+    log(f"[serve_moe] launches {launches} (per forward: {2 * L + 1} "
+        f"rms_norm, {L} swiglu, {L} attention, {3 * L} grouped_matmul; a "
+        f"decode forward routes {8 * cfg.num_experts_per_tok} rows into "
+        f"P = {(1 + cfg.num_experts) * 128}, a tile for every expert)")
+
+    def two_requests():
+        for n in (700, 300):
+            eng.add_request(rng.randint(0, cfg.vocab_size, n), 16)
+        eng.run()
+    prof = _profile("serve_moe", two_requests)
+    del eng, model
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, tok_s=12 * n_new / wall, peak_gb=peak,
+                launches=launches, profile=prof)
+
+
+def moe_bench_config():
+    """bench.py's _moe_bench_config(on_tpu=True) (bench.py:2042-2062), the
+    JAX bench's MoE MFU step, uncut."""
+    from paddle_tpu_torch.models import Qwen2MoeConfig
+    return Qwen2MoeConfig(
+        vocab_size=32000, hidden_size=1024, num_hidden_layers=12,
+        num_attention_heads=8, num_key_value_heads=4,
+        intermediate_size=2816, max_position_embeddings=4096,
+        rope_theta=10000.0, num_experts=16, num_experts_per_tok=2,
+        moe_intermediate_size=1408, shared_expert_intermediate_size=2816,
+        capacity_factor=2.0, moe_dropless=True, use_recompute=True,
+        full_save_interval=2, router_aux_loss_coef=0.0)
+
+
+def _moe_train_want(cfg):
+    """Launches per step of the MoE training step, as derived from the
+    code: every layer's input norm is plain (K1, K2 in the backward) and
+    its post-attention pair fused (K3, K4), plus the final norm; one
+    SwiGLU (the shared expert), one attention and three grouped matmuls a
+    layer; a recomputed layer re-runs its whole forward in the backward
+    (K1, K3, K5, K7 and three K14); each grouped matmul's backward is one
+    K14 transposed and one K15."""
+    L = cfg.num_hidden_layers
+    fs = max(int(cfg.full_save_interval), 0)
+    lr = sum(1 for i in range(L) if not (fs and i % fs == fs - 1)) \
+        if cfg.use_recompute else 0
+    return {"rms_norm": L + 1 + lr, "rms_norm_dx": L + 1,
+            "rms_norm_residual": L + lr, "rms_norm_residual_dh": L,
+            "swiglu": L + lr, "swiglu_bwd": L, "flash_attention_fwd": L + lr,
+            "flash_attention_dkv": L, "flash_attention_dq": L,
+            "chunk_stats": 0, "chunk_dlogits": 0,
+            "grouped_matmul": 3 * (L + lr), "grouped_matmul_t": 3 * L,
+            "grouped_dw": 3 * L}
+
+
+def phase_moe_train(tag, cfg, batch=4, seq=2048, warmup=2, steps=5,
+                    dev="cuda"):
+    """The JAX bench's MoE step (bench.py:_moe_train_bench) on the port:
+    forward and backward of the labelled loss with the grads cleared and
+    no optimizer, bf16, seeded random weights, token ids [batch, seq + 1]
+    from RandomState(0) rolled per step; the fused carry and the
+    dots_saveable policy (the defaults). The model-FLOP share counts
+    activated FLOPs as bench.py does."""
+    import torch
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM
+    want_flags = {"FLAGS_fused_rmsnorm_residual": True,
+                  "FLAGS_recompute_policy": "dots_saveable"}
+    got = flags.get_flags(list(want_flags))
+    if got != want_flags:
+        raise AssertionError(f"{tag} needs {want_flags}, not {got}")
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=0)
+    torch.cuda.synchronize()
+    n_total = sum(p.numel() for p in model.parameters())
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    per_expert = 3 * d * cfg.moe_intermediate_size
+    n_active = n_total - L * (cfg.num_experts
+                              - cfg.num_experts_per_tok) * per_expert
+    log(f"[{tag}] Qwen2-MoE H {d}, {L} layers, {cfg.num_experts} experts "
+        f"top-{cfg.num_experts_per_tok}: {n_total / 1e9:.3f} B params "
+        f"({n_active / 1e9:.3f} B active) bf16, dropless, recompute "
+        f"(full_save_interval {cfg.full_save_interval}), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    step_ids = [torch.from_numpy(np.roll(ids, i, axis=1)).to(dev)
+                for i in range(warmup + steps)]
+
+    def step(t):
+        _, loss = model(t, labels=t)
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+        return loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(step_ids[i]) for i in range(warmup)]
+    # the MoE block (routing, gathers, K14, K14 transposed, K15) forward
+    # and backward with no host synchronisation: any would raise here
+    xin = torch.randn(1, batch * seq, d, device=dev, dtype=torch.bfloat16,
+                      requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.layers[0].mlp(xin).float().square().mean().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del xin
+    for p in model.parameters():
+        p.grad = None
+    log(f"[{tag}] the MoE block's forward and backward ran with no host "
+        f"synchronisation (sync debug mode 'error')")
+    wrappers = _counted(TRAIN_KERNELS + MOE_KERNELS)
+    times = []
+    for i in range(warmup, warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(step_ids[i]))   # .item() synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    expect = _init_loss(cfg)
+    if abs(losses[0] - expect) > 0.5:
+        raise AssertionError(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
+                             f"of ln(vocab) + s2/2 = {expect:.4f}")
+    want = _moe_train_want(cfg)
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step} != {want}")
+    t = Timing(times)
+    tokens = batch * seq
+    flops = 6.0 * n_active * tokens + 12.0 * L * batch * seq * seq * d
+    log(f"[{tag}] {steps} steps of [{batch}, {seq + 1}] tokens: step "
+        f"{t:.1f} ms (median [least-greatest]), {tokens / (t / 1e3):.0f} "
+        f"tokens/s, activated FLOPs {flops / 1e12:.1f} TFLOP a step = "
+        f"{100 * flops / (t / 1e3) / PEAK_BF16:.1f}% of "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s, peak memory {peak:.2f} GB")
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]} (predicted from "
+        f"the init: {expect:.4f})")
+    log(f"[{tag}] launches per step {per_step}")
+    prof = _profile(tag, lambda: step(step_ids[-1]))
+    del model, step_ids
+    torch.cuda.empty_cache()
+    return dict(step_ms=t, tokens_per_s=tokens / (t / 1e3),
+                mfu=flops / (t / 1e3) / PEAK_BF16, peak_gb=peak,
+                losses=losses, launches=launches, profile=prof)
+
+
+def phase_moe_parity(bench_cfg, layers=2, dev="cuda"):
+    """The bench width at depth ``layers`` in f32, the card (kernels)
+    against the CPU (plain versions) from the same weights: (a) greedy
+    serving streams; (b) a labelled forward and backward, dropless with
+    recompute: the loss and every gradient; (c) the capacity path's
+    loss."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = dataclasses.replace(bench_cfg, num_hidden_layers=layers)
+    weights = Qwen2MoeForCausalLM(cfg, device="cpu", seed=8).state_dict()
+
+    def build(name, **kw):
+        model = Qwen2MoeForCausalLM(dataclasses.replace(cfg, **kw),
+                                    device=name)
+        model.load_state_dict(weights)
+        return model
+
+    # (a) greedy streams
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (100, 37, 64, 9)]
+    streams, models = {}, {}
+    for name in ("cpu", dev):
+        models[name] = build(name).eval()
+        eng = ContinuousBatchingEngine(models[name], num_slots=4,
+                                       page_size=16, max_len=256,
+                                       prefill_chunk=128, decode_chunk=4,
+                                       device=name)
+        for p in prompts:
+            eng.add_request(p, 12)
+        streams[name] = [r.tokens for r in sorted(
+            eng.run(), key=lambda r: r.request_id)]
+    for i, (g, c) in enumerate(zip(streams[dev], streams["cpu"])):
+        if g == c:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(g, c)) if a != b)
+        gap = _top2_gap(models["cpu"], list(prompts[i]) + c[:j])
+        if gap >= 1e-3:
+            raise AssertionError(
+                f"moe_parity (a): request {i} diverges at token {j} with a "
+                f"CPU top-2 gap of {gap:.3g}: {g} vs {c}")
+        log(f"[moe_parity] request {i} diverges at token {j} on a near tie "
+            f"(CPU top-2 gap {gap:.3g} < 1e-3)")
+    same = sum(g == c for g, c in zip(streams[dev], streams["cpu"]))
+    log(f"[moe_parity] (a) H {cfg.hidden_size}, {layers} layers, f32, 4 "
+        f"greedy streams of 12 tokens: {same}/4 identical on card and CPU")
+    del models
+    # (b) dropless with recompute, (c) the capacity path's loss
+    ids = torch.from_numpy(np.random.RandomState(13).randint(
+        0, cfg.vocab_size, (1, 300)))
+    out = {}
+    for name in ("cpu", dev):
+        model = build(name)
+        t = ids.to(name)
+        _, loss = model(t, labels=t)
+        loss.backward()
+        grads = convert.grads_to_numpy(model)
+        cap = build(name, moe_dropless=False, use_recompute=False)
+        with torch.no_grad():
+            cap_loss = cap(t, labels=t)[1].item()
+        out[name] = (loss.item(), grads, cap_loss)
+        del model, cap
+    (l0, g0, c0), (l1, g1, c1) = out["cpu"], out[dev]
+    # f32 on both sides: as train_parity, the loss within 1e-5 of itself
+    # and every gradient within 1e-4 (whole-tensor relative)
+    if abs(l1 - l0) > 1e-5 * abs(l0) or abs(c1 - c0) > 1e-5 * abs(c0):
+        raise AssertionError(f"moe_parity: losses {l1}, {c1} on the card vs "
+                             f"{l0}, {c0} on the CPU")
+    worst_g = max(float(np.linalg.norm(g1[k] - g0[k])
+                        / max(np.linalg.norm(g0[k]), 1e-30)) for k in g0)
+    if worst_g > 1e-4:
+        raise AssertionError(f"moe_parity (b): a gradient's relative error "
+                             f"is {worst_g:.3g}")
+    log(f"[moe_parity] (b) dropless + recompute, [1, 300]: loss card "
+        f"{l1:.6f} vs CPU {l0:.6f}; {len(g0)} grads, worst relative error "
+        f"{worst_g:.3g} (limit 1e-4); (c) capacity path loss card "
+        f"{c1:.6f} vs CPU {c0:.6f}")
+    torch.cuda.empty_cache()
+    return worst_g
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    import dataclasses
+
     from paddle_tpu_torch.framework import flags
-    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models import LlamaConfig, Qwen2MoeConfig
     cfg = LlamaConfig.llama3_8b()
     cfg1b = LlamaConfig.llama_1b()
     t_start = time.perf_counter()
@@ -1580,6 +2104,7 @@ def main():
     res = phase_kernels(cfg)
     res.update(phase_train_kernels(cfg))
     res.update(phase_fused_kernels(cfg))
+    res.update(phase_moe_kernels(Qwen2MoeConfig.qwen2_moe_a14b()))
     serve_launches = phase_serve(cfg)
     phase_parity(cfg)
     flags.set_flags({"FLAGS_fused_rmsnorm_residual": False})
@@ -1591,7 +2116,15 @@ def main():
     full = phase_train_full(cfg)
     fit = phase_fit(cfg1b)
     phase_fused_parity(cfg1b)
+    a14b = Qwen2MoeConfig.qwen2_moe_a14b()
+    serve_moe = phase_serve_moe(a14b)
+    wide = phase_moe_train("moe_train_wide", dataclasses.replace(
+        a14b, num_hidden_layers=8, moe_dropless=True, use_recompute=True,
+        router_aux_loss_coef=0.0))
+    moe_bench = phase_moe_train("moe_bench", moe_bench_config())
+    phase_moe_parity(moe_bench_config())
     pallas = "paddle_tpu/ops/pallas/"
+    gm_cu = "paddle_tpu_torch/csrc/grouped_matmul.cu"
     rms_cu = "paddle_tpu_torch/csrc/rms_norm.cu"
     ce_cu = "paddle_tpu_torch/csrc/ce_chunk.cu"
     fa_cu = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -1612,17 +2145,24 @@ def main():
         "ragged_paged_attention": (
             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             pallas + "ragged_paged_attention.py:120"),
+        "grouped_matmul": (gm_cu, pallas + "grouped_matmul.py:65"),
+        "grouped_matmul_t": (gm_cu, pallas + "grouped_matmul.py:65"),
+        "grouped_dw": (gm_cu, pallas + "grouped_matmul.py:113"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         r = res[name]
         # each path ran with the counts at 0 just before it: serving
-        # (phase 3), unfused training (5), the full training step (7) and
-        # fit (8); launches is their sum
+        # (phase 3), unfused training (5), the full training step (7), fit
+        # (8), MoE serving (11) and the two MoE training steps (12, 13);
+        # launches is their sum
         counts = {"serve": serve_launches.get(name, 0),
                   "train": train["launches"].get(name, 0),
                   "train_full": full["launches"].get(name, 0),
-                  "fit": fit["launches"].get(name, 0)}
+                  "fit": fit["launches"].get(name, 0),
+                  "serve_moe": serve_moe["launches"].get(name, 0),
+                  "moe_train_wide": wide["launches"].get(name, 0),
+                  "moe_bench": moe_bench["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),
@@ -1632,7 +2172,9 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "eager_ms": r.get("eager_ms"), "shape": r["shape"],
-                        "max_abs_err_f32": r.get("max_abs_err_f32")})
+                        "max_abs_err_f32": r.get("max_abs_err_f32"),
+                        **({"bench_width": r["bench"]} if "bench" in r
+                           else {})})
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was launched on no path")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,9 @@
 // axis becomes a loop inside the CTA, and the scalar-prefetched ctx,
 // length and table row become plain loads by the CTA itself. A CTA holds
 // kRows = 64 query rows: q_tokens = 64 / rep tokens times the rep query
-// heads of its kv head, so K and V are read once for all rep heads. It
+// heads of its kv head, so K and V are read once for all rep heads (where
+// rep does not divide 64, as Qwen2's 28 / 4 = 7, the last 64 % rep rows
+// are unused: never loaded, computed or written). It
 // walks the slot's keys up to ctx + min(q_start + q_tokens, length) in
 // tiles of kKeys, looking each key's page up in the table, with an online
 // softmax in f32 (scores, running max and sum per row). K and V come in
@@ -84,11 +86,13 @@ __global__ void __launch_bounds__(kThreads)
     return ((size_t)(b * (size_t)C + t) * H + h * rep + r % rep) * D + dd;
   };
 
+  const int rows_used = q_tokens * rep;  // rows past it belong to no token
   if (q_start >= length) {  // idle slot or a block of padding rows
     for (int i = tid; i < kRows * D; i += kThreads) {
       const int r = i / D, dd = i % D;
       const int t = q_start + r / rep;
-      if (t < C) out[out_index(r, t, dd)] = ptt::from_f<T>(0.f);
+      if (r < rows_used && t < C)
+        out[out_index(r, t, dd)] = ptt::from_f<T>(0.f);
     }
     return;
   }
@@ -96,7 +100,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, dd = i % D;
     const int t = q_start + r / rep;
-    qs[i] = t < length ? ptt::to_f(q[out_index(r, t, dd)]) * scale : 0.f;
+    qs[i] = r < rows_used && t < length
+                ? ptt::to_f(q[out_index(r, t, dd)]) * scale
+                : 0.f;
   }
 
   const int n_kv = ctx + min(q_start + q_tokens, length);
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kAccRows; ++i) {
     const int r = rgroup + i * kGroups;
     const int t = q_start + r / rep;
-    if (t < C) {
+    if (r < rows_used && t < C) {
       const float val = t < length ? acc[i] / fmaxf(l_s[r], 1e-30f) : 0.f;
       out[out_index(r, t, dcol)] = ptt::from_f<T>(val);
     }
@@ -278,7 +284,7 @@ cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// All tensors contiguous; D in {32, 64, 128, 256}; (H / KVH) divides 64.
+// All tensors contiguous; D in {32, 64, 128, 256}; H / KVH at most 64.
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a shape the
 // kernel does not take).
 extern "C" int ragged_paged_attention_fwd(
@@ -287,7 +293,7 @@ extern "C" int ragged_paged_attention_fwd(
     int B, int C, int H, int KVH, int D, int num_pages, int page,
     int pages_per_seq, float scale, int dtype, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || kRows % (H / KVH) != 0)
+  if (KVH <= 0 || H % KVH != 0 || H / KVH > kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)

@@ -53,7 +53,9 @@ class ContinuousBatchingEngine:
     seeded by ``seed``.
 
     ``model`` implements ``forward(ids, caches=, pos=, tables=) ->
-    (logits, caches)`` and writes the pools in place (``models.llama``). The
+    (logits, caches)`` and writes the pools in place (``models.llama``,
+    ``models.qwen2``; a MoE model routes every row of the step's input,
+    padding included, as the JAX engine's does). The
     engine runs on ``device`` (``cuda`` unless given; it raises with no
     GPU and no device), where the model's weights must already be.
     Page 0 of the pool is the reserved trash page."""

@@ -141,18 +141,22 @@ def _paged_attention_step(attn, q, k, v, cache, ctx, tables, rope):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+    """GQA attention; ``qkv_bias`` gives the q/k/v projections a bias (the
+    Qwen2 signature)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 qkv_bias=False):
         super().__init__()
         self.cfg = cfg
         self.num_heads = cfg.num_attention_heads
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = cfg.head_dim
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         h, d = cfg.hidden_size, self.head_dim
-        self.q_proj = nn.Linear(h, self.num_heads * d, **kw)
-        self.k_proj = nn.Linear(h, self.num_kv_heads * d, **kw)
-        self.v_proj = nn.Linear(h, self.num_kv_heads * d, **kw)
-        self.o_proj = nn.Linear(self.num_heads * d, h, **kw)
+        self.q_proj = nn.Linear(h, self.num_heads * d, bias=qkv_bias, **kw)
+        self.k_proj = nn.Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
+        self.v_proj = nn.Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
+        self.o_proj = nn.Linear(self.num_heads * d, h, bias=False, **kw)
 
     def _proj(self, x):
         b, s, _ = x.shape
@@ -174,10 +178,13 @@ def _attend(q, k, v):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+    """The SwiGLU MLP, ``intermediate`` wide (default the config's)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 intermediate=None):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
-        h, i = cfg.hidden_size, cfg.intermediate_size
+        h, i = cfg.hidden_size, intermediate or cfg.intermediate_size
         self.gate_proj = nn.Linear(h, i, **kw)
         self.up_proj = nn.Linear(h, i, **kw)
         self.down_proj = nn.Linear(i, h, **kw)

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "ragged_paged_attention_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                    _i, _i, _i, _i, _i, _i, _i, _i, _f,
                                    _i, _vp],
+    "grouped_matmul_fwd": [_vp] * 4 + [_i] * 6 + [_vp],
+    "grouped_matmul_dw": [_vp] * 4 + [_i] * 6 + [_vp],
 }
 
 

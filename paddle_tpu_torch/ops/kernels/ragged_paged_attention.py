@@ -90,10 +90,10 @@ def ragged_paged_attention(q, key_pages, value_pages, block_tables,
                          f"{tuple(key_pages.shape)} / "
                          f"{tuple(value_pages.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if h % kvh or _CTA_ROWS % (h // kvh) or d not in _HEAD_DIMS:
+    if h % kvh or h // kvh > _CTA_ROWS or d not in _HEAD_DIMS:
         raise ValueError(f"ragged_paged_attention: H={h}, KVH={kvh}, D={d} "
-                         f"not taken (H/KVH must divide {_CTA_ROWS}, D in "
-                         f"{_HEAD_DIMS})")
+                         f"not taken (H/KVH must be at most {_CTA_ROWS}, D "
+                         f"in {_HEAD_DIMS})")
     if key_pages.dtype != q.dtype or value_pages.dtype != q.dtype:
         raise TypeError("ragged_paged_attention: q and the pools must share "
                         "a dtype")

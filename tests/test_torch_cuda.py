@@ -22,10 +22,13 @@ from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.hapi import Model
 from paddle_tpu_torch.io import TensorDataset
-from paddle_tpu_torch.models import LlamaPretrainingCriterion
+from paddle_tpu_torch.models import (LlamaPretrainingCriterion,
+                                     Qwen2MoeConfig, Qwen2MoeForCausalLM)
 from paddle_tpu_torch.ops import fused_ce
+from paddle_tpu_torch.ops import moe
 from paddle_tpu_torch.ops.kernels import ce_chunk as kce
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
 from paddle_tpu_torch.ops.kernels import rms_norm as krms
 from paddle_tpu_torch.ops.kernels import swiglu as ksw
@@ -416,7 +419,8 @@ def _ragged(cuda, dtype, H, KVH, D, page, C=24, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KVH,D,page", [(32, 8, 128, 16), (8, 8, 64, 8),
-                                          (16, 2, 32, 16), (4, 1, 256, 4)])
+                                          (16, 2, 32, 16), (4, 1, 256, 4),
+                                          (28, 4, 128, 16), (6, 2, 64, 16)])
 def test_ragged_paged_attention_kernel(cuda, dtype, H, KVH, D, page):
     args, lengths = _ragged(cuda, dtype, H, KVH, D, page)
     out = krpa.ragged_paged_attention(*args)
@@ -449,8 +453,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         krms.rms_norm(x.t(), torch.ones(8, device=cuda))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ksw.swiglu(x.half(), x.half())
-    args, _ = _ragged(cuda, torch.float32, 6, 2, 64, 16)   # rep 3
-    with pytest.raises(ValueError, match="must divide"):
+    args, _ = _ragged(cuda, torch.float32, 65, 1, 32, 16)  # rep 65 > 64
+    with pytest.raises(ValueError, match="at most"):
         krpa.ragged_paged_attention(*args)
     q, k, v, _ = _attention_inputs(cuda, torch.float32, 1, 8, 8, 2, 2, 48)
     with pytest.raises(ValueError, match="D in"):
@@ -480,3 +484,139 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
             eng.run(), key=lambda r: r.request_id)])
         assert len(eng._free_pages) == eng.num_pages - 1
     assert streams[0] == streams[1]
+
+
+# ---- the grouped matmul (K14, K14 transposed, K15) ---------------------------
+
+def _grouped_inputs(dev, dtype, E, d, h, bm, T=300, k=2, seed=0):
+    """A skewed routing of T tokens where expert 1 gets no rows, laid out
+    by sort_rows_by_expert; x random on every row but the empty expert's
+    tile (so the trailing tiles, which belong to expert E - 1, carry
+    data), w and dy random."""
+    rng = np.random.RandomState(seed)
+    experts = [e for e in range(E) if e != 1]
+    p = np.linspace(3.0, 1.0, len(experts))
+    gate_idx = torch.from_numpy(rng.choice(
+        experts, (T, k), p=p / p.sum()).astype(np.int32)).to(dev)
+    _, gid, P = moe.sort_rows_by_expert(gate_idx, E, bm=bm)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(P, d, device=dev, generator=g)
+    x[(gid == 1).repeat_interleave(bm)] = 0
+    w = 0.1 * torch.randn(E, d, h, device=dev, generator=g)
+    dy = torch.randn(P, h, device=dev, generator=g)
+    return x.to(dtype), w.to(dtype), dy.to(dtype), gid
+
+
+def _grouped_tol(ref, mag, dtype):
+    """Per element: both sides take f32 products and round once; the
+    sums come in another order (1e-5 of the sum of |terms|), which in
+    bf16 may flip the output's rounding (one ulp of |ref|)."""
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    return ulp * ref.float().abs() + 1e-5 * mag + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,d,h,bm", [(6, 96, 200, 128),
+                                      (16, 1024, 1408, 128),
+                                      (4, 64, 32, 256)])
+def test_grouped_matmul_kernels(cuda, dtype, E, d, h, bm):
+    x, w, dy, gid = _grouped_inputs(cuda, dtype, E, d, h, bm)
+    wrappers = (kgmm.grouped_matmul, kgmm.grouped_matmul_t, kgmm.grouped_dw)
+    before = [f.launches for f in wrappers]
+    y = kgmm.grouped_matmul(x, w, gid)
+    dx = kgmm.grouped_matmul_t(dy, w, gid)
+    dw = kgmm.grouped_dw(x, dy, gid, E)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [b + 1 for b in before]
+    ax, aw, ady = x.float().abs(), w.float().abs(), dy.float().abs()
+    for name, out, ref, mag in (
+            ("y", y, kgmm.grouped_matmul_reference(x, w, gid),
+             kgmm.grouped_matmul_reference(ax, aw, gid)),
+            ("dx", dx, kgmm.grouped_matmul_reference(dy, w, gid, True),
+             kgmm.grouped_matmul_reference(ady, aw, gid, True)),
+            ("dw", dw, kgmm.grouped_dw_reference(x, dy, gid, E),
+             kgmm.grouped_dw_reference(ax, ady, gid, E))):
+        assert out.dtype == dtype and out.shape == ref.shape, name
+        _assert_close(out, ref, _grouped_tol(ref, mag, dtype))
+    # the empty expert's block is written, and zero
+    assert not dw[1].any()
+    # the trailing tiles belong to expert E - 1 and count in its dw
+    assert int(gid[-1]) == E - 1 and x[-bm:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_function_grads_on_the_card(cuda, dtype):
+    E, d, h, bm = 6, 96, 200, 128
+    x, w, dy, gid = _grouped_inputs(cuda, dtype, E, d, h, bm, seed=3)
+    grads = []
+    for dev in ("cpu", cuda):
+        xg = x.detach().to(dev).requires_grad_()
+        wg = w.detach().to(dev).requires_grad_()
+        y = kgmm.GroupedMatmulFunction.apply(xg, wg, gid.to(dev))
+        (y.float() * dy.to(dev).float()).sum().backward()
+        grads.append((xg.grad.cpu(), wg.grad.cpu()))
+    (gx0, gw0), (gx1, gw1) = grads
+    assert gw1.dtype == w.dtype
+    ax, aw, ady = (t.float().abs().cpu() for t in (x, w, dy))
+    g = gid.cpu()
+    _assert_close(gx1, gx0, _grouped_tol(
+        gx0, kgmm.grouped_matmul_reference(ady, aw, g, True), dtype))
+    _assert_close(gw1, gw0, _grouped_tol(
+        gw0, kgmm.grouped_dw_reference(ax, ady, g, E), dtype))
+
+
+def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(256, 64, device=cuda)
+    w = torch.randn(2, 64, 32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kgmm.grouped_matmul(x, w, torch.zeros(4, dtype=torch.int32,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        kgmm.grouped_matmul(x, w, torch.zeros(2, dtype=torch.int64,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kgmm.grouped_matmul(x[:, :60].contiguous(), w[:, :60].contiguous(),
+                            torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_tiny_qwen2_moe_step_on_the_card_matches_the_cpu(cuda, recompute):
+    """Dropless Qwen2-MoE tiny, f32: a labelled forward and backward on
+    the card (K1-K9, K14, K15) against the CPU (plain versions)."""
+    cfg = dataclasses.replace(
+        Qwen2MoeConfig.tiny(), moe_dropless=True, use_recompute=recompute,
+        router_aux_loss_coef=0.0 if recompute else 0.001)
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (2, 77)))
+    weights = Qwen2MoeForCausalLM(cfg, device="cpu", seed=5).state_dict()
+    results = []
+    for dev in ("cpu", cuda):
+        model = Qwen2MoeForCausalLM(cfg, device=dev)
+        model.load_state_dict(weights)
+        _, loss = model(ids.to(dev), labels=ids.to(dev))
+        loss.backward()
+        results.append((loss.item(), convert.grads_to_numpy(model)))
+    (l0, g0), (l1, g1) = results
+    # f32 on both sides; kernels and cuBLAS sum in another order
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for key in g0:
+        err = np.linalg.norm(g1[key] - g0[key]) / np.linalg.norm(g0[key])
+        assert err <= 1e-4, (key, err)
+
+
+def test_moe_block_runs_without_host_synchronisation(cuda):
+    """The dropless MoE block (routing, gathers, the grouped matmuls and
+    their backward) copies nothing to the host: under sync debug mode
+    'error' any synchronising call raises."""
+    cfg = dataclasses.replace(Qwen2MoeConfig.tiny(), moe_dropless=True)
+    model = Qwen2MoeForCausalLM(cfg, device=cuda, seed=1)
+    x = torch.randn(2, 77, cfg.hidden_size, device=cuda, requires_grad=True)
+    model.layers[0].mlp(x).sum().backward()     # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.layers[0].mlp(x).square().mean().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all()

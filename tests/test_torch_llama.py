@@ -145,6 +145,10 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.io, paddle_tpu_torch.hapi\n"
             "import paddle_tpu_torch.ops.fused_ce\n"
             "import paddle_tpu_torch.ops.kernels.ce_chunk\n"
+            "import paddle_tpu_torch.ops.moe\n"
+            "import paddle_tpu_torch.ops.kernels.grouped_matmul\n"
+            "import paddle_tpu_torch.incubate.distributed.models.moe\n"
+            "import paddle_tpu_torch.models.qwen2\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
