@@ -1,11 +1,13 @@
 // Helpers shared by the kernels of paddle_tpu_torch: dtype codes, float
-// conversion with round-to-nearest-even, 16-byte vectors and warp/block
+// conversion with round-to-nearest-even (and from the int8 / fp8 e4m3
+// codes of quantized KV pools), 16-byte vectors and warp/block
 // reductions. Every kernel file exposes a plain C entry point that
 // returns cudaGetLastError() after its launch, so the Python wrapper
 // (loaded with ctypes) can raise on a refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,10 +16,19 @@ namespace ptt {
 // dtype codes passed from Python (ops/kernels/_build.py: dtype_code)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+// quantized KV pool codes (ops/kernels/_build.py: pool_code)
+constexpr int kInt8 = 2;
+constexpr int kFloat8E4M3 = 3;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

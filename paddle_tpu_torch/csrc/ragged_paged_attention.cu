@@ -2,8 +2,14 @@
 // a paged KV pool, one launch for the whole batching step.
 //
 // Replaces: paddle_tpu/ops/pallas/ragged_paged_attention.py::_ragged_kernel
-// (bf16/f32 pools; the int8/fp8 variant _ragged_quant_kernel is not ported
-// yet).
+// (K12, bf16/f32 pools) and ::_ragged_quant_kernel (K13, int8 or fp8 e4m3
+// pools with page-parallel f32 scales pools [KVH, P, page]). Both are one
+// template over the pool's element type TP: for K13, TP is int8_t or
+// __nv_fp8_e4m3, a 16-byte vector carries 16 codes, and each code is
+// converted to f32 and multiplied by its token's scale ks[h, pid, off] (the
+// same block-table indirection as the data) as the tile is loaded, so the
+// softmax body is K12's f32 arithmetic unchanged. Keys past n_kv load no
+// code and no scale.
 //
 // Semantics (the plain version is ragged_paged_attention_reference):
 //   q [B, C, H, D], pools [KVH, P, page, D], tables [B, pages_per_seq],
@@ -12,7 +18,8 @@
 //   i reads kv head i / (H / KVH). Rows j >= lengths[b] (and every row of
 //   an idle slot) are written as zeros: the output comes from torch.empty.
 //
-// Bound on the H100: bytes at decode (every cached key and value of the
+// Bound on the H100 (K13 reads half K12's pool bytes plus 4 bytes of scale
+// a token and kv head): bytes at decode (every cached key and value of the
 // batch is read once, about 2 flops a byte per query head), operations
 // only for long prefill chunks. This first version does its arithmetic on
 // the CUDA cores in f32 (no wgmma, no TMA): right and simple first.
@@ -35,6 +42,8 @@
 // a non-finite trash page 0 or table padding never reaches an output.
 // Shared memory: Q [64][D], K [kKeys][D+1] (padded against bank
 // conflicts), V [kKeys][D], P [64][kKeys]; 74 KB at D = 128.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -51,16 +60,21 @@ constexpr size_t smem_bytes() {
          (kRows * D + kKeys * (D + 1) + kKeys * D + kRows * kKeys + 2 * kRows);
 }
 
-template <typename T, int D>
+// T: q and out; TP: the pools (T itself for K12; int8_t or __nv_fp8_e4m3
+// for K13, with ksc/vsc the scales pools, unused otherwise)
+template <typename T, typename TP, int D>
 __global__ void __launch_bounds__(kThreads)
-    ragged_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                  const T* __restrict__ vpool,
+    ragged_kernel(const T* __restrict__ q, const TP* __restrict__ kpool,
+                  const TP* __restrict__ vpool,
+                  const float* __restrict__ ksc,
+                  const float* __restrict__ vsc,
                   const int* __restrict__ tables,
                   const int* __restrict__ ctx_lens,
                   const int* __restrict__ lengths, T* __restrict__ out, int C,
                   int H, int num_pages, int page, int pages_per_seq, int rep,
                   float scale) {
   static_assert(kThreads % D == 0, "D must divide the block size");
+  constexpr bool kQuant = !std::is_same<T, TP>::value;
   constexpr int kGroups = kThreads / D;         // row groups in the PV phase
   constexpr int kAccRows = kRows / kGroups;     // accumulator rows a thread
   constexpr int kRowsPerWarp = kRows / kWarps;  // score rows a warp
@@ -113,9 +127,11 @@ __global__ void __launch_bounds__(kThreads)
   const int dcol = tid % D, rgroup = tid / D;
   const int* tbl = tables + (size_t)b * pages_per_seq;
   const size_t head_stride = (size_t)num_pages * page * D;
-  const T* kh = kpool + (size_t)h * head_stride;
-  const T* vh = vpool + (size_t)h * head_stride;
-  constexpr int V = ptt::Vec<T>::N;  // elements per 16-byte load
+  const TP* kh = kpool + (size_t)h * head_stride;
+  const TP* vh = vpool + (size_t)h * head_stride;
+  // scales of kv head h: [P][page]
+  const size_t scale_base = (size_t)h * num_pages * page;
+  constexpr int V = ptt::Vec<TP>::N;  // pool elements per 16-byte load
 
   float m_r[kRowsPerWarp], l_r[kRowsPerWarp];
 #pragma unroll
@@ -137,14 +153,25 @@ __global__ void __launch_bounds__(kThreads)
       float kf[V], vf[V];
       if (kp < n_kv) {
         const int pidx = min(kp / page, pages_per_seq - 1);
-        const size_t off =
-            ((size_t)tbl[pidx] * page + kp % page) * D + dd;
-        const ptt::Vec<T> kv = *reinterpret_cast<const ptt::Vec<T>*>(kh + off);
-        const ptt::Vec<T> vv = *reinterpret_cast<const ptt::Vec<T>*>(vh + off);
+        const size_t slot = (size_t)tbl[pidx] * page + kp % page;
+        const size_t off = slot * D + dd;
+        const ptt::Vec<TP> kv =
+            *reinterpret_cast<const ptt::Vec<TP>*>(kh + off);
+        const ptt::Vec<TP> vv =
+            *reinterpret_cast<const ptt::Vec<TP>*>(vh + off);
+        float k_scale = 1.f, v_scale = 1.f;
+        if constexpr (kQuant) {
+          k_scale = ksc[scale_base + slot];
+          v_scale = vsc[scale_base + slot];
+        }
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           kf[e] = ptt::to_f(kv.v[e]);
           vf[e] = ptt::to_f(vv.v[e]);
+          if constexpr (kQuant) {
+            kf[e] *= k_scale;
+            vf[e] *= v_scale;
+          }
         }
       } else {
 #pragma unroll
@@ -236,50 +263,60 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* tables, const void* ctx, const void* lengths,
-                   void* out, int B, int C, int H, int KVH, int num_pages,
-                   int page, int pages_per_seq, float scale,
-                   cudaStream_t stream) {
-  const int rep = H / KVH;
+// The pointers and sizes of one call
+struct Args {
+  const void *q, *kp, *vp, *ks, *vs, *tables, *ctx, *lengths;
+  void* out;
+  int B, C, H, KVH, num_pages, page, pages_per_seq;
+  float scale;
+};
+
+template <typename T, typename TP, int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int rep = a.H / a.KVH;
   const size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      ragged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_kernel<T, TP, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int q_tokens = kRows / rep;
-  dim3 grid((C + q_tokens - 1) / q_tokens, B, KVH);
-  ragged_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(ctx), static_cast<const int*>(lengths),
-      static_cast<T*>(out), C, H, num_pages, page, pages_per_seq, rep, scale);
+  dim3 grid((a.C + q_tokens - 1) / q_tokens, a.B, a.KVH);
+  ragged_kernel<T, TP, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const TP*>(a.kp),
+      static_cast<const TP*>(a.vp), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.ctx), static_cast<const int*>(a.lengths),
+      static_cast<T*>(a.out), a.C, a.H, a.num_pages, a.page,
+      a.pages_per_seq, rep, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* kp, const void* vp,
-                     const void* tables, const void* ctx,
-                     const void* lengths, void* out, int B, int C, int H,
-                     int KVH, int num_pages, int page, int pages_per_seq,
-                     float scale, cudaStream_t s) {
+template <typename T, typename TP>
+cudaError_t launch_d(int D, const Args& a, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kp, vp, tables, ctx, lengths, out, B, C, H,
-                           KVH, num_pages, page, pages_per_seq, scale, s);
+      return launch<T, TP, 32>(a, s);
     case 64:
-      return launch<T, 64>(q, kp, vp, tables, ctx, lengths, out, B, C, H,
-                           KVH, num_pages, page, pages_per_seq, scale, s);
+      return launch<T, TP, 64>(a, s);
     case 128:
-      return launch<T, 128>(q, kp, vp, tables, ctx, lengths, out, B, C, H,
-                            KVH, num_pages, page, pages_per_seq, scale, s);
+      return launch<T, TP, 128>(a, s);
     case 256:
-      return launch<T, 256>(q, kp, vp, tables, ctx, lengths, out, B, C, H,
-                            KVH, num_pages, page, pages_per_seq, scale, s);
+      return launch<T, TP, 256>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// q/out dtype x pool code -> the instantiation
+template <typename T>
+cudaError_t launch_pool(int pool, int D, const Args& a, cudaStream_t s) {
+  if (pool == ptt::kInt8) return launch_d<T, int8_t>(D, a, s);
+  if (pool == ptt::kFloat8E4M3) return launch_d<T, __nv_fp8_e4m3>(D, a, s);
+  return cudaErrorInvalidValue;
+}
+
+bool shape_ok(int B, int C, int H, int KVH) {
+  return B > 0 && C > 0 && KVH > 0 && H % KVH == 0 && H / KVH <= kRows;
 }
 
 }  // namespace
@@ -293,16 +330,36 @@ extern "C" int ragged_paged_attention_fwd(
     int B, int C, int H, int KVH, int D, int num_pages, int page,
     int pages_per_seq, float scale, int dtype, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || H / KVH > kRows)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, C, H, KVH)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,   key_pages, value_pages, nullptr,   nullptr,
+               tables, ctx,    lengths,     out,       B,
+               C,   H,         KVH,         num_pages, page,
+               pages_per_seq, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kFloat32)
-    return launch_d<float>(D, q, key_pages, value_pages, tables, ctx,
-                           lengths, out, B, C, H, KVH, num_pages, page,
-                           pages_per_seq, scale, s);
+  if (dtype == ptt::kFloat32) return launch_d<float, float>(D, a, s);
   if (dtype == ptt::kBFloat16)
-    return launch_d<__nv_bfloat16>(D, q, key_pages, value_pages, tables, ctx,
-                                   lengths, out, B, C, H, KVH, num_pages,
-                                   page, pages_per_seq, scale, s);
+    return launch_d<__nv_bfloat16, __nv_bfloat16>(D, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K13: the pools are int8 (pool == kInt8) or fp8 e4m3 (kFloat8E4M3) codes,
+// k_scales / v_scales f32 [KVH, num_pages, page]; q and out f32 or bf16
+// (dtype). Otherwise as ragged_paged_attention_fwd.
+extern "C" int ragged_paged_attention_quant_fwd(
+    const void* q, const void* key_pages, const void* value_pages,
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* ctx, const void* lengths, void* out, int B, int C, int H,
+    int KVH, int D, int num_pages, int page, int pages_per_seq, float scale,
+    int dtype, int pool, void* stream) {
+  if (B <= 0 || C <= 0) return 0;
+  if (!shape_ok(B, C, H, KVH)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,   key_pages, value_pages, k_scales,  v_scales,
+               tables, ctx,    lengths,     out,       B,
+               C,   H,         KVH,         num_pages, page,
+               pages_per_seq, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kFloat32) return launch_pool<float>(pool, D, a, s);
+  if (dtype == ptt::kBFloat16)
+    return launch_pool<__nv_bfloat16>(pool, D, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@ import math
 import torch
 from torch import nn
 
+from .....device import resolve_device
 from .....ops import moe as moe_ops
 
 __all__ = ["MoELayer", "GShardGate", "SwitchGate"]
@@ -59,7 +60,8 @@ class MoELayer(nn.Module):
     """d_model/d_hidden: token and expert widths; num_experts: E. gate: a
     gate spec (``GShardGate()``, ``SwitchGate()``) or a dict with
     ``top_k``, ``capacity_factor``, ``norm_topk_prob`` and ``dropless``.
-    Input [B, S, d] or [T, d]; the same shape out."""
+    Input [B, S, d] or [T, d]; the same shape out. Built on ``device``
+    (``cuda`` unless given; raises with no GPU and no device)."""
 
     def __init__(self, d_model, d_hidden, num_experts, gate=None,
                  ep_degree=1, device=None, dtype=None):
@@ -79,7 +81,7 @@ class MoELayer(nn.Module):
                              gate.get("norm_topk_prob", True),
                              gate.get("dropless", False))
         self.gate = gate
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         E, d, h = num_experts, d_model, d_hidden
         self.router_weight = nn.Parameter(torch.empty(d, E, **kw))
         self.w_gate = nn.Parameter(torch.empty(E, d, h, **kw))

@@ -5,7 +5,8 @@ Port of the unified core of ``paddle_tpu/inference/serving.py``:
 (pools and slot state, ``add_request``/``_check_fits``, ``step``/``run``,
 the batching step of ``_unified_static``, ``_dispatch_step``/
 ``_harvest_step``, ``_admit``, ``_stage_slot``, ``_alloc_pages``/
-``_release_pages`` and ``_drain``).
+``_release_pages`` and ``_drain``), with ``num_pages`` and quantized KV
+pools (``kv_quant="int8"|"fp8"``) and the ``kv_quant_*`` gauges.
 
 One batching step is a ragged mixed pass (prefilling slots stream their
 next ``prefill_chunk`` prompt tokens, decoding slots ride their pending
@@ -17,10 +18,17 @@ no host transfer inside it: the step's inputs go up as one int32 tensor
 and its results come back as one packed int32 tensor (one ``.cpu()``).
 The host loop is serial: dispatch, then harvest.
 
+Quantized KV (the JAX engine's ``kv_quant``): each layer holds four pools,
+``[k, v, k_scales, v_scales]``: int8 or ``float8_e4m3fn`` codes
+``[KVH, num_pages, page, D]`` and f32 scales ``[KVH, num_pages, page]``,
+one scale per (token, kv head), written with the token; attention goes
+through K13.
+
 Not ported yet: the prefix cache and copy-on-write, priorities,
 preemption and deadlines, containment and the page audit, speculative
-decoding, disaggregation, quantized KV and weights, the legacy engine,
-tuner surfaces, metrics and tracing.
+decoding, disaggregation, weight-only quantization, the legacy engine,
+tuner surfaces, the metrics registry (and with it every gauge but the
+``kv_quant_*`` ones) and tracing.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["ContinuousBatchingEngine", "ServedRequest"]
+
+# kv_quant mode -> pool dtype (None: the model's float dtype)
+_KV_QUANT = {"none": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 @dataclass(eq=False)
@@ -60,9 +71,14 @@ class ContinuousBatchingEngine:
     GPU and no device), where the model's weights must already be.
     Page 0 of the pool is the reserved trash page."""
 
-    def __init__(self, model, num_slots=4, page_size=16, max_len=512,
-                 decode_chunk=16, prefill_chunk=128, greedy=True,
-                 temperature=1.0, seed=0, device=None):
+    def __init__(self, model, num_slots=4, page_size=16, num_pages=None,
+                 max_len=512, decode_chunk=16, prefill_chunk=128,
+                 greedy=True, temperature=1.0, seed=0, kv_quant="none",
+                 device=None):
+        if kv_quant not in _KV_QUANT:
+            raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                             "(expected 'none', 'int8' or 'fp8')")
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
         params = list(model.parameters())
         wrong = {str(p.device) for p in params
@@ -77,8 +93,10 @@ class ContinuousBatchingEngine:
         self.page_size = int(page_size)
         self.max_len = int(max_len)
         self.pages_per_slot = -(-self.max_len // self.page_size)
-        # every slot can hold max_len; +1: page 0 is the trash page
-        self.num_pages = self.num_slots * self.pages_per_slot + 1
+        # default: every slot can hold max_len; +1: page 0 is the trash
+        # page. Fewer pages make admission wait for free ones.
+        self.num_pages = int(num_pages) if num_pages is not None else \
+            self.num_slots * self.pages_per_slot + 1
         self.decode_chunk = int(decode_chunk)
         self._n_decode = max(0, self.decode_chunk - 1)
         self.prefill_chunk = max(1, min(int(prefill_chunk), self.max_len))
@@ -88,12 +106,18 @@ class ContinuousBatchingEngine:
             int(seed))
 
         dtype = next(p.dtype for p in params if p.is_floating_point())
-        self._pool_shape = (cfg.num_key_value_heads, self.num_pages,
-                            self.page_size, cfg.head_dim)
-        # per layer (key_pages, value_pages), flat; written in place
-        self.pools = [torch.zeros(self._pool_shape, dtype=dtype,
-                                  device=self.device)
-                      for _ in range(2 * cfg.num_hidden_layers)]
+        kvh = cfg.num_key_value_heads
+        self._pool_shape = (kvh, self.num_pages, self.page_size,
+                            cfg.head_dim)
+        # per layer (key_pages, value_pages) and, quantized, their scales
+        # pools (key_scales, value_scales), flat; written in place
+        layer = [(self._pool_shape, _KV_QUANT[kv_quant] or dtype)] * 2
+        if kv_quant != "none":
+            layer += [((kvh, self.num_pages, self.page_size),
+                       torch.float32)] * 2
+        self.pools = [torch.zeros(shape, dtype=dt, device=self.device)
+                      for _ in range(cfg.num_hidden_layers)
+                      for shape, dt in layer]
         self._free_pages = deque(range(1, self.num_pages))
 
         # host-side slot bookkeeping (admission decisions, drain)
@@ -146,6 +170,25 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prompt ({prompt_len}) + max_new_tokens "
                 f"({max_new}) exceeds engine max_len {self.max_len}")
+        # what the pool can never hold would wait for pages forever
+        need = -(-(prompt_len + max_new) // self.page_size)
+        if need > self.num_pages - 1:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.num_pages - 1} allocatable")
+
+    def gauges(self):
+        """The JAX engine's ``kv_quant_*`` gauges: bits of a pool element,
+        bytes of the data pools and of the scales pools (0 unquantized)."""
+        data = [p for p in self.pools if p.dim() == 4]
+        return {
+            "kv_quant_bits": 8 * data[0].element_size(),
+            "kv_quant_pool_bytes": sum(p.numel() * p.element_size()
+                                       for p in data),
+            "kv_quant_scale_pool_bytes": sum(
+                p.numel() * p.element_size() for p in self.pools
+                if p.dim() == 3),
+        }
 
     def step(self):
         """Admit what fits, run one batching step if it advances anything,

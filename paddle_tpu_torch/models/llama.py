@@ -5,7 +5,8 @@ Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` (the ``tiny``,
 training path and the cache path of ``LlamaAttention``/``LlamaMLP``/
 ``LlamaDecoderLayer``/``LlamaModel``/``LlamaForCausalLM``,
 ``LlamaPretrainingCriterion``, ``rope_with_offset`` and
-``_paged_attention_step`` (bf16/f32 pools).
+``_paged_attention_step`` (bf16/f32 pools, and int8/fp8 pools with their
+scales).
 
 Training (no caches): ``model(ids, labels=ids)`` returns ``(logits,
 loss)``, the shifted next-token cross entropy, and ``loss.backward()``
@@ -128,15 +129,23 @@ def _paged_attention_step(attn, q, k, v, cache, ctx, tables, rope):
     write the chunk's k/v into the slot pages at ``ctx .. ctx + valid - 1``
     (padding and idle slots to trash page 0; in place), then attend
     through :func:`ops.paged_attention.ragged_paged_attention` (prefill
-    chunk, decode step or idle slot alike). ``tables`` is
-    ``(block_tables, valid)``, both int32."""
+    chunk, decode step or idle slot alike). ``cache`` is ``(k_pages,
+    v_pages)``, or ``(k_pages, v_pages, k_scales, v_scales)`` for int8/fp8
+    pools, written quantized (``paged_prefill_write_quant``). ``tables``
+    is ``(block_tables, valid)``, both int32."""
     b, s = q.shape[0], q.shape[1]
     tbl, valid = tables
     sin, cos = rope
     q = rotate(q, sin, cos)
     k = rotate(k, sin, cos)
-    PA.paged_prefill_write(cache[0], cache[1], k, v, tbl, ctx, valid)
-    out = PA.ragged_paged_attention(q, cache[0], cache[1], tbl, ctx, valid)
+    scales = {}
+    if len(cache) == 4:
+        PA.paged_prefill_write_quant(*cache, k, v, tbl, ctx, valid)
+        scales = dict(k_scales=cache[2], v_scales=cache[3])
+    else:
+        PA.paged_prefill_write(*cache, k, v, tbl, ctx, valid)
+    out = PA.ragged_paged_attention(q, cache[0], cache[1], tbl, ctx, valid,
+                                    **scales)
     return attn.o_proj(out.reshape(b, s, attn.num_heads * attn.head_dim))
 
 
@@ -312,7 +321,9 @@ class LlamaModel(nn.Module):
         """input_ids [B, S]. Without caches: the final hidden states [B, S,
         H] of the training path. With them, a serving step returning
         ``(hidden, caches)``: caches are the flat [k0, v0, k1, v1, ...]
-        pools, written in place; pos [B] or [B, 1] cache lengths before
+        pools, or [k0, v0, ks0, vs0, k1, ...] for quantized pools (the
+        per-layer stride is ``len(caches) // num_layers``), written in
+        place; pos [B] or [B, 1] cache lengths before
         the chunk; tables ``(block_tables [B, pages], valid)`` where valid
         is an int count per slot or a bool active mask."""
         b, s = input_ids.shape
@@ -324,8 +335,10 @@ class LlamaModel(nn.Module):
         tbl, gate = tables
         tables = (tbl.to(torch.int32), gate.to(torch.int32))
         rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
+        stride = len(caches) // len(self.layers)
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope, caches[2 * i:2 * i + 2], ctx, tables)
+            x = layer(x, rope, caches[stride * i:stride * (i + 1)], ctx,
+                      tables)
         return self.norm(x), caches
 
     def _train_stack(self, x, rope):

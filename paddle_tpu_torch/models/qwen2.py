@@ -22,9 +22,10 @@ unrolled (the JAX dense stack's ``scan_layers`` gives the same numbers);
 one excepted. The loss is over the full shifted logits, plus
 ``router_aux_loss_coef`` times each MoE layer's aux loss.
 
-Serving (caches, ``tables``): the paged step of ``models.llama`` (K12),
-the unfused stack. The state-dict keys are the JAX package's
-(``layers.0.self_attn.q_proj.bias``, ``layers.0.mlp.moe.w_gate``, ...).
+Serving (caches, ``tables``): the paged step of ``models.llama`` (K12,
+or K13 over quantized pools), the unfused stack. The state-dict keys are
+the JAX package's (``layers.0.self_attn.q_proj.bias``,
+``layers.0.mlp.moe.w_gate``, ...).
 """
 
 from __future__ import annotations
@@ -268,7 +269,8 @@ class _Qwen2Base(nn.Module):
                 tables=None):
         """The JAX package's signature. With ``caches`` and ``tables``: a
         paged serving step, ``(logits [B, S, V], caches)`` with the flat
-        [k0, v0, k1, v1, ...] pools written in place (no autograd). Without
+        [k0, v0, k1, v1, ...] pools (or [k0, v0, ks0, vs0, ...] for
+        quantized ones) written in place (no autograd). Without
         caches: the training forward, ``logits`` or, given ``labels``,
         ``(logits, loss)``."""
         cfg = self.config
@@ -291,8 +293,11 @@ class _Qwen2Base(nn.Module):
                 tables = (tbl.to(torch.int32), gate.to(torch.int32))
                 rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
                 x = self.embed_tokens(input_ids)
+                # 2 pools a layer, or 4 with the scales of quantized ones
+                stride = len(caches) // len(self.layers)
                 for i, layer in enumerate(self.layers):
-                    x = layer(x, rope, caches[2 * i:2 * i + 2], ctx, tables)
+                    x = layer(x, rope, caches[stride * i:stride * (i + 1)],
+                              ctx, tables)
                 return self._logits(self.norm(x)), caches
         x = self.embed_tokens(input_ids)
         rope = (self.rope_sin[None, :s], self.rope_cos[None, :s])

@@ -5,13 +5,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import functional as F
 
 __all__ = ["RMSNorm"]
 
 
 class RMSNorm(nn.Module):
-    """Root-mean-square norm with a learned scale (initialised to ones)."""
+    """Root-mean-square norm with a learned scale (initialised to ones).
+    Built on ``device`` (``cuda`` unless given; raises with no GPU and no
+    device)."""
 
     def __init__(self, normalized_shape, epsilon=1e-6, device=None,
                  dtype=None):
@@ -20,8 +23,9 @@ class RMSNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device, dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(
+            self.normalized_shape, device=resolve_device(device),
+            dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.rms_norm(x, self.weight, self.epsilon)

@@ -27,8 +27,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "build_seconds", "build_log", "dtype_code", "check",
-           "stream_ptr", "CSRC_DIR"]
+__all__ = ["build", "build_seconds", "build_log", "dtype_code",
+           "pool_code", "check", "stream_ptr", "CSRC_DIR"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -55,6 +55,9 @@ _SIGNATURES = {
     "ragged_paged_attention_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                    _i, _i, _i, _i, _i, _i, _i, _i, _f,
                                    _i, _vp],
+    "ragged_paged_attention_quant_fwd": [_vp] * 9 + [_i] * 8
+                                        + [_f, _i, _i, _vp],
+    "paged_attention_fwd": [_vp] * 6 + [_i] * 7 + [_f, _i, _vp],
     "grouped_matmul_fwd": [_vp] * 4 + [_i] * 6 + [_vp],
     "grouped_matmul_dw": [_vp] * 4 + [_i] * 6 + [_vp],
 }
@@ -173,6 +176,17 @@ def dtype_code(dtype) -> int:
         codes = _Built.dtype_codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, "
+                        f"not {dtype}")
+    return codes[dtype]
+
+
+def pool_code(dtype) -> int:
+    """The code of a quantized KV pool's dtype (csrc/common.cuh: kInt8,
+    kFloat8E4M3)."""
+    import torch
+    codes = {torch.int8: 2, torch.float8_e4m3fn: 3}
+    if dtype not in codes:
+        raise TypeError(f"quantized KV pools are int8 or float8_e4m3fn, "
                         f"not {dtype}")
     return codes[dtype]
 

@@ -26,9 +26,11 @@ from paddle_tpu_torch.models import (LlamaPretrainingCriterion,
                                      Qwen2MoeConfig, Qwen2MoeForCausalLM)
 from paddle_tpu_torch.ops import fused_ce
 from paddle_tpu_torch.ops import moe
+from paddle_tpu_torch.ops import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import ce_chunk as kce
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
 from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
+from paddle_tpu_torch.ops.kernels import paged_attention as kpa
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
 from paddle_tpu_torch.ops.kernels import rms_norm as krms
 from paddle_tpu_torch.ops.kernels import swiglu as ksw
@@ -447,6 +449,126 @@ def test_ragged_paged_attention_kernel(cuda, dtype, H, KVH, D, page):
         _assert_close(out, ref32, BF16_ULP * ref32.abs() + 1e-5 * a + 1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("H,KVH,D,page", [(32, 8, 128, 16), (28, 4, 128, 16),
+                                          (16, 2, 32, 16), (8, 8, 64, 8)])
+def test_ragged_paged_attention_quant_kernel(cuda, dtype, pool, H, KVH, D,
+                                             page):
+    """K13 against the plain version over the same codes and scales; the
+    trash page holds non-finite scales (and fp8 NaN codes)."""
+    args, lengths = _ragged(cuda, torch.float32, H, KVH, D, page)
+    q, kp, vp, *ints = args
+    kp[:, 0] = vp[:, 0] = 0.0
+    kc, ks = PA.quantize_kv(kp, pool)
+    vc, vs = PA.quantize_kv(vp, pool)
+    ks[:, 0] = vs[:, 0] = float("nan")
+    if pool == torch.float8_e4m3fn:
+        kc.view(torch.uint8)[:, 0] = vc.view(torch.uint8)[:, 0] = 0x7F
+    q = q.to(dtype)
+    before = krpa.ragged_paged_attention_quant.launches
+    out = krpa.ragged_paged_attention(q, kc, vc, *ints, k_scales=ks,
+                                      v_scales=vs)
+    torch.cuda.synchronize()
+    assert krpa.ragged_paged_attention_quant.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    for b, n in enumerate(lengths):
+        assert not out[b, n:].any()
+    ref = krpa.ragged_paged_attention_reference(q, kc, vc, *ints,
+                                                k_scales=ks, v_scales=vs)
+    # both dequantize to the same f32 values and keep f32 probabilities:
+    # summation order and exp (1e-5 of a = sum p|v|), and for bf16 q one
+    # rounding of each output (one ulp of |ref|)
+    a = krpa.ragged_paged_attention_reference(
+        q.float(), PA.dequantize_pages(kc, ks),
+        PA.dequantize_pages(vc, vs).abs(), *ints).float()
+    ulps = 0 if dtype == torch.float32 else BF16_ULP
+    _assert_close(out, ref, 1e-5 * a + ulps * ref.float().abs() + 1e-6)
+
+
+def _decode(cuda, dtype, H, KVH, D, page, seed=0):
+    rng = np.random.RandomState(seed)
+    ctx = np.array([0, 1, 15, 16, 17, 100, 257, 40], np.int32)
+    B = len(ctx)
+    pages = -(-int(ctx.max()) // page) + 1
+    P = B * pages + 1
+    tables = (rng.permutation(P - 1) + 1)[:B * pages].reshape(
+        B, pages).astype(np.int32)
+    for b in range(B):
+        tables[b, -(-int(ctx[b]) // page):] = 0
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    kp = torch.randn(KVH, P, page, D, device=cuda, generator=g).to(dtype)
+    vp = torch.randn(KVH, P, page, D, device=cuda, generator=g).to(dtype)
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    q = torch.randn(B, H, D, device=cuda, generator=g).to(dtype)
+    ints = [torch.from_numpy(a).to(cuda) for a in (tables, ctx)]
+    return (q, kp, vp, *ints), ctx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D,page", [(32, 8, 128, 16), (28, 4, 128, 16),
+                                          (8, 8, 64, 8), (16, 2, 64, 4),
+                                          (12, 4, 128, 32)])
+def test_paged_attention_kernel(cuda, dtype, H, KVH, D, page):
+    """K16 against its plain version; the trash page holds NaN, and a
+    sequence with an empty cache gets zeros."""
+    args, ctx = _decode(cuda, dtype, H, KVH, D, page)
+    out = kpa.paged_attention(*args)
+    ref = kpa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert not out[torch.from_numpy(ctx == 0).to(cuda)].any()
+    q, kp, vp, *ints = args
+    f32 = [t.float() for t in (q, kp, vp)]
+    a = kpa.paged_attention_reference(f32[0], f32[1], f32[2].abs(),
+                                      *ints).float()
+    ref32 = kpa.paged_attention_reference(*f32, *ints)
+    if dtype == torch.float32:
+        _assert_close(out, ref, 1e-5 * a + 1e-6)
+    else:
+        # the plain version rounds each probability to bf16 before P.V
+        _assert_close(out, ref, 1.01 * (2 ** -8 * a + BF16_ULP
+                                        * ref.float().abs()) + 1e-6)
+        _assert_close(out, ref32, BF16_ULP * ref32.abs() + 1e-5 * a + 1e-6)
+
+
+def test_paged_attention_equals_ragged_at_one_token(cuda):
+    """K16 computes K12's function at lengths == 1 (ctx - 1 cached)."""
+    args, ctx = _decode(cuda, torch.float32, 32, 8, 128, 16)
+    q, kp, vp, tables, ctx_t = args
+    live = ctx > 0
+    out = kpa.paged_attention(*args)
+    rag = krpa.ragged_paged_attention(
+        q[:, None].contiguous(), kp, vp, tables, (ctx_t - 1).clamp(min=0),
+        torch.from_numpy(live.astype(np.int32)).to(cuda))[:, 0]
+    a = kpa.paged_attention_reference(q, kp, vp.abs(), tables, ctx_t)
+    _assert_close(out, rag, 2e-5 * a + 1e-6)
+
+
+def test_quantized_engine_on_the_card_matches_the_cpu(cuda):
+    cfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128,
+                              intermediate_size=256)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu_model = LlamaForCausalLM(cfg, device=cuda, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.RandomState(1)
+    specs = [(rng.randint(0, cfg.vocab_size, p), n)
+             for p, n in [(5, 7), (13, 4), (9, 11), (21, 6), (3, 8)]]
+    for mode in ("int8", "fp8"):
+        streams = []
+        for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+            eng = ContinuousBatchingEngine(model, num_slots=2, page_size=8,
+                                           max_len=64, decode_chunk=4,
+                                           prefill_chunk=16, kv_quant=mode,
+                                           device=dev)
+            for prompt, n in specs:
+                eng.add_request(prompt, n)
+            streams.append([r.tokens for r in sorted(
+                eng.run(), key=lambda r: r.request_id)])
+        assert streams[0] == streams[1], mode
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(8, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -456,6 +578,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     args, _ = _ragged(cuda, torch.float32, 65, 1, 32, 16)  # rep 65 > 64
     with pytest.raises(ValueError, match="at most"):
         krpa.ragged_paged_attention(*args)
+    q, kp, vp, *ints = _ragged(cuda, torch.float32, 8, 2, 64, 16)[0]
+    with pytest.raises(TypeError, match="int8 or float8_e4m3fn"):
+        krpa.ragged_paged_attention(q, kp, vp, *ints, k_scales=kp[..., 0],
+                                    v_scales=vp[..., 0])
+    kc = kp.to(torch.int8)
+    with pytest.raises(TypeError, match="scales must be f32"):
+        krpa.ragged_paged_attention(q, kc, kc, *ints,
+                                    k_scales=kp[..., 0].half(),
+                                    v_scales=kp[..., 0].half())
+    args, _ = _decode(cuda, torch.float32, 36, 4, 128, 16)  # rep 9 > 8
+    with pytest.raises(ValueError, match="at most"):
+        kpa.paged_attention(*args)
+    args, _ = _decode(cuda, torch.float32, 8, 2, 32, 16)    # D 32
+    with pytest.raises(ValueError, match="D in"):
+        kpa.paged_attention(*args)
     q, k, v, _ = _attention_inputs(cuda, torch.float32, 1, 8, 8, 2, 2, 48)
     with pytest.raises(ValueError, match="D in"):
         kfa.flash_attention_fwd(q, k, v, True)

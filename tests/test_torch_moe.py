@@ -31,6 +31,7 @@ from paddle_tpu_torch import convert
 from paddle_tpu_torch.framework import flags as tflags
 from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
+from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.models import (Qwen2Config, Qwen2ForCausalLM,
                                      Qwen2MoeConfig, Qwen2MoeForCausalLM)
 from paddle_tpu_torch.ops import moe as tmoe
@@ -150,7 +151,7 @@ def test_moe_layer_matches(dropless):
             "dropless": dropless}
     paddle.seed(3)
     jl = JMoELayer(d, h, E, gate=gate)
-    tl = MoELayer(d, h, E, gate=gate)
+    tl = MoELayer(d, h, E, gate=gate, device="cpu")
     arrays = {k: _np(v.numpy()) for k, v in jl.state_dict().items()}
     assert set(arrays) == set(tl.state_dict())
     convert.from_numpy_state_dict(tl, arrays)
@@ -181,6 +182,16 @@ def test_moe_layer_matches(dropless):
 def test_moe_layer_refuses_expert_parallelism():
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         MoELayer(16, 24, 4, ep_degree=2)
+
+
+@pytest.mark.parametrize("build", [lambda: MoELayer(16, 24, 4),
+                                   lambda: RMSNorm(16)],
+                         ids=["MoELayer", "RMSNorm"])
+def test_layer_without_device_raises_where_there_is_no_gpu(build,
+                                                           monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
 
 
 # ---- Qwen2 and Qwen2-MoE in training -------------------------------------------
