@@ -102,6 +102,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 PEAK_BF16 = 989e12               # dense tensor-core bf16
 PEAK_F32_CORES = 67e12           # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
+# K8/K9's design at D 64 and 128 (csrc/flash_attention.cu, hopper.cuh)
+WGMMA_DESIGN = ("wgmma + TMA/mbarrier ring, warp-specialised: a producer "
+                "warp, two consumer warpgroups (setmaxnreg 40/232)")
 WINDOWS = 5                      # timed windows per measurement
 
 
@@ -523,7 +526,7 @@ def phase_train_kernels(cfg, batch=2, seq=2049, dev="cuda"):
             res["swiglu_bwd"]["max_abs_err_f32"] = max(err, err2)
         del gate, up, go
     torch.cuda.empty_cache()
-    res.update(flash_checks(batch, seq, nh, kvh, d, rand))
+    res.update(flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=4))
     return res
 
 
@@ -676,13 +679,18 @@ def phase_fused_kernels(cfg, n_res=4 * 2049, n_ce=8 * 1024, vc=1024,
     return res
 
 
-def flash_checks(batch, seq, nh, kvh, d, rand):
+def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
     """K7, K8 and K9 at the training shapes, causal, against the plain
     versions, with per-element limits. ``a = sum_i p_i |v_i|`` scales a
     forward output's rounding error and ``attention_scales`` the
     gradients'. A key dropped from or added to a row of n keys moves its
     output by about a / n (4e-4 at n = 2048 for unit values); the f32
-    limit, 1e-5 * a, is checked to refuse both."""
+    limit, 1e-5 * a, is checked to refuse both. In bf16 the backward
+    kernels are launched twice on the same inputs and must give the same
+    bits (each CTA writes its rows once, no atomics); the times come with
+    the rate achieved (the bound's operations over the time) and the
+    bound's share of the time, and with ``wide_batch`` K8 and K9 are also
+    timed at that batch (train_full's [4, 2049])."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
@@ -748,6 +756,20 @@ def flash_checks(batch, seq, nh, kvh, d, rand):
         rq = kfa.flash_attention_dq_reference(q, k, v, go, ref_lse, delta,
                                               True)
         torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            again = (*kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta,
+                                              True),
+                     kfa.flash_attention_dq(q, k, v, go, ref_lse, delta,
+                                            True))
+            for name, a1, a2 in zip(("dk", "dv", "dq"), (dk, dv, dq), again):
+                if not torch.equal(a1, a2):
+                    raise AssertionError(f"flash {name} bf16: a second "
+                                         f"launch on the same inputs gave "
+                                         f"other bits")
+            del again
+            log(f"[kernels] flash dkv/dq bf16 B={batch} S={s_tok} H={nh} "
+                f"KVH={kvh}: a second launch repeats dk, dv and dq bit for "
+                f"bit")
         sq_, sk_, sv_ = attention_scales(q, k, v, go, ref_lse, delta, True)
         errs = {}
         for name, got, want, sc in (("dq", dq, rq, sq_), ("dk", dk, rk, sk_),
@@ -831,19 +853,69 @@ def flash_checks(batch, seq, nh, kvh, d, rand):
             max_abs_err=errs["dq"][0], ms=ms_q, plain_ms=plain_q,
             library_ms=lib_bwd, bound_ms=q_ms, bound_by=q_by,
             shape=res["flash_attention_fwd"]["shape"])
+        res["flash_attention_dkv"]["design"] = WGMMA_DESIGN
+        res["flash_attention_dq"]["design"] = WGMMA_DESIGN
         log(f"[kernels] flash_attention_fwd: kernel {ms:.4f} ms plain "
             f"{plain:.4f} ms SDPA {lib:.4f} ms bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"({b_by}); {_rate(4 * d * pairs * bh, ms, b_ms)}")
         log(f"[kernels] flash_attention_dkv: kernel {ms_kv:.4f} ms plain "
             f"{plain_kv:.4f} ms bound {kv_ms:.4f} ms ({kv_by}); "
+            f"{_rate(8 * d * pairs * bh, ms_kv, kv_ms)}; "
             f"flash_attention_dq: kernel {ms_q:.4f} ms plain {plain_q:.4f} "
-            f"ms bound {q_ms:.4f} ms ({q_by}); SDPA backward (dq, dk, dv "
-            f"together; eager fwd+bwd {lib_fb:.4f} - fwd {lib_f:.4f}) "
-            f"{lib_bwd:.4f} ms")
+            f"ms bound {q_ms:.4f} ms ({q_by}); "
+            f"{_rate(6 * d * pairs * bh, ms_q, q_ms)}; SDPA backward (dq, "
+            f"dk, dv together; eager fwd+bwd {lib_fb:.4f} - fwd "
+            f"{lib_f:.4f}) {lib_bwd:.4f} ms; K8 + K9 "
+            f"{float(ms_kv) + float(ms_q):.4f} ms")
         del q, k, v, go, out, lse, ref, ref_lse, delta, dq, dk, dv
         del qt, kt, vt, qg, kg, vg, gt
         torch.cuda.empty_cache()
+        if wide_batch:
+            res["flash_attention_dkv"]["wide"], \
+                res["flash_attention_dq"]["wide"] = _flash_bwd_wide(
+                    wide_batch, s_tok, nh, kvh, d, rand)
     return res
+
+
+def _rate(ops, ms, b_ms):
+    """The rate a kernel achieved and the share of its time the bound
+    is, as a log fragment."""
+    return (f"{ops / (float(ms) * 1e-3) / 1e12:.1f} TFLOP/s, bound "
+            f"{b_ms / float(ms):.1%} of the time")
+
+
+def _flash_bwd_wide(batch, s_tok, nh, kvh, d, rand):
+    """K8 and K9 timed at a wider batch (causal, bf16), each beside its
+    bound; the inputs' lse and delta come from the forward kernel."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    q = rand(batch, s_tok, nh, d)
+    k, v = rand(batch, s_tok, kvh, d), rand(batch, s_tok, kvh, d)
+    go = rand(batch, s_tok, nh, d)
+    out, lse = kfa.flash_attention_fwd(q, k, v, True)
+    delta = kfa._delta(out, go)
+    args = (q, k, v, go, lse, delta, True)
+    pairs = s_tok * (s_tok + 1) // 2 * batch * nh
+    qb, kb = q.numel() * 2, k.numel() * 2
+    sb = batch * nh * s_tok * 4
+    shape = (f"q[{batch},{s_tok},{nh},{d}] kv[{batch},{s_tok},{kvh},{d}] "
+             f"bf16 causal")
+    out_ = []
+    for name, fn, ops, n_bytes in (
+            ("dkv", kfa.flash_attention_dkv, 8 * d * pairs,
+             2 * qb + 2 * kb + 2 * sb + 2 * kb),
+            ("dq", kfa.flash_attention_dq, 6 * d * pairs,
+             2 * qb + 2 * kb + 2 * sb + qb)):
+        ms = time_ms(fn, args, iters=5)
+        b_ms, b_by = bound(n_bytes, ops, PEAK_BF16)
+        log(f"[kernels] flash_attention_{name} at {shape}: kernel "
+            f"{ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
+            f"{_rate(ops, ms, b_ms)}")
+        out_.append(dict(ms=ms, bound_ms=b_ms, bound_by=b_by, shape=shape,
+                         tflops=ops / (float(ms) * 1e-3) / 1e12))
+    del q, k, v, go, out, lse, delta, args
+    torch.cuda.empty_cache()
+    return out_
 
 
 def ragged_checks(krpa, args, ref, out):
@@ -2660,8 +2732,8 @@ def main():
                         "max_abs_err_f32": r.get("max_abs_err_f32"),
                         **({"bench_width": r["bench"]} if "bench" in r
                            else {}),
-                        **{k: r[k] for k in ("fp8", "b64", "k12_at_decode_ms")
-                           if k in r}})
+                        **{k: r[k] for k in ("fp8", "b64", "k12_at_decode_ms",
+                                             "design", "wide") if k in r}})
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was launched on no path")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -22,8 +22,13 @@
 //
 // Bound on the H100: operations. At the training shapes (S = 2048,
 // D = 128) the forward does 4*S^2*D/2 flops per head causal against
-// 4*S*D*2 bytes: some 500 flops a byte, above the card's line; the
-// backward does 2 to 2.5 times the forward's products.
+// 4*S*D*2 bytes: some 500 flops a byte, above the card's line. The
+// backward's dkv kernel does 8*D flops a visible (query, key) pair and
+// its dq kernel 6*D: 14*D, against 10*D for one fused kernel that
+// recomputes nothing. The split stays: the fused kernel must add dq
+// across key tiles with atomics, whose order changes from run to run;
+// here every CTA writes its rows of dk, dv or dq once, and the gradients
+// repeat bit for bit.
 //
 // Grids, the same for both types:
 //   forward: one CTA per (q block, batch, q head), looping over the kv
@@ -32,27 +37,45 @@
 //   dkv: one CTA per (kv block, batch, kv head), looping over the rep
 //     query heads of that kv head and, for each, the q blocks from the
 //     first one that can see the kv block; dk and dv accumulate across
-//     all of them, so no atomics and no sum over repeated heads.
+//     all of them, so no atomics and no sum over repeated heads (kv
+//     block 0, which every q block sees, is launched first).
 //   dq: one CTA per (q block, batch, q head), looping over kv tiles.
 //
-// bf16, the training path: FlashAttention-2's register-resident design
-// on mma.sync m16n8k16 (bf16 in, f32 accumulate). Four warps a CTA, each
-// owning 16 rows (queries, or keys in dkv); K/V (or Q/dO) tiles sit in
-// shared memory, padded so that every fragment load is free of bank
-// conflicts; scores, probabilities and accumulators never leave
-// registers: a score fragment becomes the next product's A operand as it
-// is. 64-row CTAs over 64-key tiles (dkv: 32-query tiles). dkv, the
-// longest, double-buffers its Q/dO stages with cp.async, so the next
-// stage loads while the current one is multiplied; the forward and dq
-// load each K/V tile before using it (double buffering raised their
-// register pressure and ran slower there). Shared memory at D = 128:
-// forward 52 KB, dkv 70 KB, dq 70 KB. No wgmma or TMA yet (later work).
+// bf16 dkv and dq at D = 64 and 128, the training path (every model of
+// the repo trains at D = 128): Hopper kernels, warp-specialised (see the
+// section "warp-specialised wgmma kernels" below and hopper.cuh). A
+// producer warp TMA-loads 128-byte-swizzled tiles into a ring of stages
+// behind mbarriers; two consumer warpgroups multiply them with wgmma,
+// taking the probabilities and dS as A operands straight from the
+// accumulator registers (dkv computes S^T and dP^T, keys as rows, so P^T
+// and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q).
+// dkv: 64 keys a CTA, the two warpgroups taking (Q, dO) stages of 64
+// queries in turn and adding their dK and dV once at the end; dq: 128
+// queries a CTA (64 a warpgroup) over (K, V) stages of 64 keys. What
+// bounds them: registers. dK and dV at D = 128 are 128 f32 registers a
+// consumer thread, so dkv's score tiles are m64n32 (S^T and dP^T 16 each)
+// and its consumers need ~200 registers, which setmaxnreg provides (232,
+// the producer 40). Within a warpgroup dP is multiplied while P is
+// computed and dV while dS is (dkv also waits for a tile's dK under the
+// next tile's scores); the two warpgroups overlap each other's softmax.
+//
+// bf16 at D = 16 and 32 (no model of the repo trains at those widths; the
+// card tests cover them), and the forward at every D: FlashAttention-2's
+// register-resident design on mma.sync m16n8k16 (bf16 in, f32
+// accumulate). Four warps a CTA, each owning 16 rows (queries, or keys in
+// dkv); K/V (or Q/dO) tiles sit in shared memory, padded so that every
+// fragment load is free of bank conflicts; scores, probabilities and
+// accumulators never leave registers: a score fragment becomes the next
+// product's A operand as it is. 64-row CTAs over 64-key tiles (dkv:
+// 32-query tiles); dkv double-buffers its Q/dO stages with cp.async.
+// Shared memory at D = 128: forward 52 KB.
 //
 // f32, for parity checks: the same grids on the CUDA cores in f32 (TF32
 // would not meet their limits), 32 x 32 tiles staged through shared
 // memory; every tile product goes through one routine (TileMM), the
 // backward's dK, dV and dQ stay in registers (Acc).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -1000,6 +1023,485 @@ __global__ void __launch_bounds__(kMmaThreads)
   store_frags<DB>(dv + kv_head, kv_stride, r, Sk, dv_acc, one, t);
 }
 
+// ---- bf16 at D 64 and 128: warp-specialised wgmma kernels -------------------
+//
+// Three warpgroups a CTA. Warpgroups 0 and 1 are the consumers: they
+// raise their registers to 232 (setmaxnreg) and run the products as
+// wgmma, the score-like products from shared memory (SS) and the gradient
+// products with the probabilities or dS as A from registers (RS).
+// Warpgroup 2 is the producer: it lowers its registers to 40, and its
+// first warp fills a ring of stages guarded by a full and an empty
+// mbarrier each, one thread issuing the TMA loads of the tiles and the
+// warp's lanes copying the per-row lse and delta (rows of [B, H, Sq] f32
+// start on any 4 bytes; TMA wants 16). Shared-memory tiles follow the
+// layout conventions of hopper.cuh.
+
+namespace hw = ptt::hopper;
+
+constexpr int kWsThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kProducer = 256;   // the producer warpgroup's first thread
+constexpr int kBox = 64;         // columns of one TMA box: 128 bytes of bf16
+constexpr uint32_t kRowBytes = 128;
+constexpr int kStages = 2;  // dq's ring
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+constexpr int kHalf = 32;  // queries of one dkv score tile
+
+__host__ __device__ constexpr uint32_t align1024(uint32_t n) {
+  return (n + 1023) / 1024 * 1024;
+}
+
+// K-major (a k16 step is 32 bytes along the row) and MN-major (a k16
+// step is 16 rows) descriptors of the 128-byte swizzled boxes; box_bytes
+// is the distance to the next 64 columns
+__device__ __forceinline__ uint64_t kmajor(uint32_t box0, uint32_t box_bytes,
+                                           int kk) {
+  return hw::sw128_desc(box0 + (kk / 4) * box_bytes + (kk % 4) * 32, 16,
+                        1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t box0,
+                                            uint32_t box_bytes, int kc) {
+  return hw::sw128_desc(box0 + kc * 16 * kRowBytes, box_bytes, 1024);
+}
+
+// the A fragment of k16 step kc of an m64nN accumulator d (hopper.cuh):
+// its 8-column blocks 2kc and 2kc + 1 are two mma.sync C fragments
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float* d) {
+  c_to_a(a, d, d + 4);
+}
+
+// rows r and r + 8 of an m64nD accumulator (this thread's part) to one
+// head of a [B, S, heads, D] tensor: its layout is store_frags's
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, size_t stride, int r,
+                                          int n_valid, const float* acc,
+                                          int t) {
+  const float one[2] = {1.f, 1.f};
+  store_frags<D / 8>(dst, stride, r, n_valid,
+                     reinterpret_cast<const float(*)[4]>(acc), one, t);
+}
+
+// dkv: a CTA holds 64 keys (K and V loaded once) and streams (Q, dO, lse,
+// delta) stages of 64 queries, for every query head of its kv head. The
+// two consumer warpgroups take the stages in turn, each summing its own
+// dK and dV for the 64 keys in registers (2 x 64 x D f32); at the end the
+// second hands its sums to the first through shared memory, which adds
+// them in a fixed order and stores: no atomics, the same bits every run.
+template <int D>
+struct DkvWs {
+  static constexpr int BK = 64, BQ = 64, NB = D / kBox;
+  static constexpr int kRing = 4;  // stages: two a consumer warpgroup
+  static constexpr uint32_t kv_box = BK * kRowBytes, q_box = BQ * kRowBytes;
+  static constexpr uint32_t k = 0, v = NB * kv_box, stage0 = 2 * NB * kv_box;
+  // one stage: Q boxes, dO boxes, lse (in log2 units), delta
+  static constexpr uint32_t s_g = NB * q_box, s_lse = 2 * NB * q_box,
+                            s_delta = s_lse + BQ * 4;
+  static constexpr uint32_t stage = align1024(s_delta + BQ * 4);
+  static constexpr uint32_t bars = stage0 + kRing * stage;
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kRing) + 1024;
+  static constexpr uint32_t tx_kv = 2 * BK * D * 2;
+  static constexpr uint32_t tx_stage = 2 * BQ * D * 2;  // Q and dO
+  static_assert(kRing * stage >= 2 * 64 * D * sizeof(float),
+                "the stages hold the second warpgroup's sums at the end");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                    int Sk, int H, int KVH, float scale, bool causal) {
+  using L = DkvWs<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // barriers: K/V landed, full[kRing], empty[kRing]
+  const uint32_t bar_kv = base + L::bars;
+  const uint32_t full0 = bar_kv + 8, empty0 = full0 + 8 * L::kRing;
+
+  // key tile 0 sees every query under causal masking: launched first
+  const int b = blockIdx.y, hk = blockIdx.z, rep = H / KVH;
+  const int k0 = blockIdx.x * L::BK, offset = Sk - Sq;
+  const int n_qb = (Sq + L::BQ - 1) / L::BQ;
+  // first q block whose last row can see key k0
+  int first = 0;
+  if (causal) first = k0 - offset <= 0 ? 0 : min((k0 - offset) / L::BQ, n_qb);
+  // the (query head, q block) pairs in order, one stage each
+  const int per_head = n_qb - first, n_iter = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_kv, 1);
+    for (int s = 0; s < L::kRing; ++s) {
+      hw::mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes
+      hw::mbar_init(empty0 + 8 * s, 4);  // the consuming warpgroup's warps
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hw::warpgroup_idx() == 2) {  // the producer warpgroup: one warp loads
+    hw::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x - kProducer;
+    if (lane == 0) {
+      hw::mbar_arrive_expect_tx(bar_kv, L::tx_kv);
+      for (int c = 0; c < L::NB; ++c) {
+        hw::tma_load_4d(base + L::k + c * L::kv_box, &tm_k, bar_kv, c * kBox,
+                        hk, k0, b);
+        hw::tma_load_4d(base + L::v + c * L::kv_box, &tm_v, bar_kv, c * kBox,
+                        hk, k0, b);
+      }
+    }
+    for (int it = 0; lane < 32 && it < n_iter; ++it) {
+      const int s = it % L::kRing;
+      const int hq = hk * rep + it / per_head;
+      const int q0 = (first + it % per_head) * L::BQ;
+      const uint32_t st = base + L::stage0 + s * L::stage;
+      const uint32_t full = full0 + 8 * s;
+      hw::mbar_wait(empty0 + 8 * s, ((it / L::kRing) & 1) ^ 1);
+      if (lane == 0) {  // Q and dO by TMA
+        hw::mbar_expect_tx(full, L::tx_stage);
+        for (int c = 0; c < L::NB; ++c) {
+          hw::tma_load_4d(st + c * L::q_box, &tm_q, full, c * kBox, hq, q0,
+                          b);
+          hw::tma_load_4d(st + L::s_g + c * L::q_box, &tm_g, full, c * kBox,
+                          hq, q0, b);
+        }
+      }
+      // lse and delta by the lanes (their rows need not start on the 16
+      // bytes TMA wants); rows past Sq are 0
+      float* stats = reinterpret_cast<float*>(smem + L::stage0 +
+                                              s * L::stage + L::s_lse);
+      const size_t at = ((size_t)b * H + hq) * Sq;
+      for (int i = lane; i < L::BQ; i += 32) {
+        const bool ok = q0 + i < Sq;
+        stats[i] = ok ? lse[at + q0 + i] * kLog2e : 0.f;
+        stats[L::BQ + i] = ok ? delta[at + q0 + i] : 0.f;
+      }
+      hw::mbar_arrive(full);
+    }
+  } else {  // consumer warpgroup wg: keys k0 .. k0 + 63, stages wg, wg + 2..
+    hw::setmaxnreg_inc<232>();
+    const int wg = hw::warpgroup_idx(), ct = threadIdx.x & 127;
+    const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+    const int r = k0 + warp * 16 + g;  // this thread's keys: r and r + 8
+    const float scale_log2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    hw::mbar_wait(bar_kv, 0);
+
+    // a stage is released once the products that read it are done: the
+    // last dV and dK of a stage are waited for under the next tile's
+    // scores, so `held` is the stage they may still be reading
+    int held = -1;
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(empty0 + 8 * stage);
+    };
+    for (int it = wg; it < n_iter; it += 2) {
+      const int s = it % L::kRing;
+      const uint32_t st = base + L::stage0 + s * L::stage;
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + L::stage0 + s * L::stage + L::s_lse);
+      const float* delta_s = lse_s + L::BQ;
+      hw::mbar_wait(full0 + 8 * s, (it / L::kRing) & 1);
+      // the stage's queries in score tiles of kHalf (m64 x kHalf), which
+      // keep the consumers inside their registers next to dK and dV
+      bool used = false;
+#pragma unroll 1
+      for (int hf = 0; hf < L::BQ / kHalf; ++hf) {
+        const int q0 = (first + it % per_head) * L::BQ + hf * kHalf;
+        // skip a tile none of whose queries sees these keys
+        if (causal && k0 > q0 + kHalf - 1 + offset) continue;
+        used = true;
+        const uint32_t q_s = st + hf * kHalf * kRowBytes;
+        const uint32_t g_s = q_s + L::s_g;
+        // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+        float s_t[kHalf / 2], dp_t[kHalf / 2];
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::Wgmma<kHalf>::ss<0>(s_t, kmajor(base + L::k, L::kv_box, kk),
+                                  kmajor(q_s, L::q_box, kk), kk);
+        hw::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::Wgmma<kHalf>::ss<0>(dp_t, kmajor(base + L::v, L::kv_box, kk),
+                                  kmajor(g_s, L::q_box, kk), kk);
+        hw::wgmma_commit();
+        // P^T = exp(scale S^T - lse) while dP^T is multiplied; masked
+        // entries 0 (explicitly: a query that sees no key has lse -1e30).
+        // The wait also completes the previous tile's dV and dK.
+        hw::wgmma_wait<1>();
+        hw::fence_regs(s_t);
+        if (held >= 0) {
+          release(held);
+          held = -1;
+        }
+        const bool edge = k0 + L::BK > Sk || q0 + kHalf > Sq ||
+                          (causal && k0 + L::BK - 1 > q0 + offset);
+#pragma unroll
+        for (int j = 0; j < kHalf / 8; ++j) {
+          const int col = hf * kHalf + 8 * j + 2 * t;
+          const float2 ls = *reinterpret_cast<const float2*>(lse_s + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = !edge || visible(q0 + 8 * j + 2 * t + (e & 1),
+                                             r + 8 * (e >> 1), Sq, Sk,
+                                             offset, causal);
+            const float p = exp2f(fmaf(s_t[4 * j + e], scale_log2,
+                                       -((e & 1) ? ls.y : ls.x)));
+            s_t[4 * j + e] = ok ? p : 0.f;
+          }
+        }
+        uint32_t pa[kHalf / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc)
+          acc_to_a(pa[kc], s_t + 8 * kc);
+        // dV += P^T dO (B: the stage's dO, MN-major) while dS^T is computed
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc)
+          hw::Wgmma<D>::template rs<1>(dv_acc, pa[kc],
+                                       mnmajor(g_s, L::q_box, kc), 1);
+        hw::wgmma_commit();
+        // dS^T = P^T (dP^T - delta) scale: 0 where P^T is
+        hw::wgmma_wait<1>();
+        hw::fence_regs(dp_t);
+#pragma unroll
+        for (int j = 0; j < kHalf / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(
+              delta_s + hf * kHalf + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp_t[4 * j + e] = s_t[4 * j + e] *
+                              (dp_t[4 * j + e] - ((e & 1) ? dl.y : dl.x)) *
+                              scale;
+        }
+        uint32_t da[kHalf / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc)
+          acc_to_a(da[kc], dp_t + 8 * kc);
+        // dK += dS^T Q (B: the stage's Q, MN-major)
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc)
+          hw::Wgmma<D>::template rs<1>(dk_acc, da[kc],
+                                       mnmajor(q_s, L::q_box, kc), 1);
+        hw::wgmma_commit();  // waited for under the next tile's scores
+      }
+      if (used)
+        held = s;
+      else
+        release(s);
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dv_acc);
+    hw::fence_regs(dk_acc);
+    if (held >= 0) release(held);
+    // the second warpgroup's sums to the first through the stages (all
+    // consumed once both warpgroups are here), added in a fixed order
+    float* red = reinterpret_cast<float*>(smem + L::stage0);
+    hw::named_barrier_sync(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        red[i * 128 + ct] = dk_acc[i];
+        red[(D / 2 + i) * 128 + ct] = dv_acc[i];
+      }
+    }
+    hw::named_barrier_sync(1, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dk_acc[i] += red[i * 128 + ct];
+        dv_acc[i] += red[(D / 2 + i) * 128 + ct];
+      }
+      const size_t kv_stride = (size_t)KVH * D;
+      const size_t kv_head = (size_t)b * Sk * kv_stride + (size_t)hk * D;
+      store_acc<D>(dk + kv_head, kv_stride, r, Sk, dk_acc, t);
+      store_acc<D>(dv + kv_head, kv_stride, r, Sk, dv_acc, t);
+    }
+  }
+}
+
+// dq: a CTA holds 128 queries (Q, dO, lse and delta loaded once), streams
+// (K, V) stages of 64 keys up to the tile's last visible key
+template <int D>
+struct DqWs {
+  static constexpr int BQ = 128, BK = 64, NB = D / kBox;
+  static constexpr uint32_t q_box = BQ * kRowBytes, kv_box = BK * kRowBytes;
+  static constexpr uint32_t q = 0, g = NB * q_box, lse = 2 * NB * q_box,
+                            delta = lse + BQ * 4;
+  static constexpr uint32_t stage0 = align1024(delta + BQ * 4);
+  // one stage: K boxes, V boxes
+  static constexpr uint32_t s_v = NB * kv_box, stage = 2 * NB * kv_box;
+  static constexpr uint32_t bars = stage0 + kStages * stage;
+  static constexpr uint32_t bytes = bars + 64 + 1024;  // + alignment slack
+  static constexpr uint32_t tx_q = 2 * BQ * D * 2;  // Q and dO
+  static constexpr uint32_t tx_stage = 2 * BK * D * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_g,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int Sq, int Sk, int H, int KVH,
+                   float scale, bool causal) {
+  using L = DqWs<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // barriers: Q/dO/lse/delta landed, full[kStages], empty[kStages]
+  const uint32_t bar_q = base + L::bars;
+  const uint32_t full0 = bar_q + 8, empty0 = full0 + 8 * kStages;
+
+  // heaviest (last) q blocks first under causal masking
+  const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.y, h = blockIdx.z, hk = h / (H / KVH);
+  const int q0 = qb * L::BQ, offset = Sk - Sq;
+  const int n_tiles = kv_tiles(q0, L::BQ, L::BK, Sk, offset, causal);
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_q, 32);  // the producer warp's lanes
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(full0 + 8 * s, 1);
+      hw::mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hw::warpgroup_idx() == 2) {  // the producer warpgroup: one warp loads
+    hw::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x - kProducer;
+    if (lane == 0) {  // Q and dO by TMA
+      hw::mbar_expect_tx(bar_q, L::tx_q);
+      for (int c = 0; c < L::NB; ++c) {
+        hw::tma_load_4d(base + L::q + c * L::q_box, &tm_q, bar_q, c * kBox, h,
+                        q0, b);
+        hw::tma_load_4d(base + L::g + c * L::q_box, &tm_g, bar_q, c * kBox, h,
+                        q0, b);
+      }
+    }
+    if (lane < 32) {  // lse and delta by the lanes; rows past Sq are 0
+      float* stats = reinterpret_cast<float*>(smem + L::lse);
+      const size_t at = ((size_t)b * H + h) * Sq;
+      for (int i = lane; i < L::BQ; i += 32) {
+        const bool ok = q0 + i < Sq;
+        stats[i] = ok ? lse[at + q0 + i] : 0.f;
+        stats[L::BQ + i] = ok ? delta[at + q0 + i] : 0.f;
+      }
+      hw::mbar_arrive(bar_q);
+    }
+    for (int it = 0; lane == 0 && it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const uint32_t st = base + L::stage0 + s * L::stage;
+      const uint32_t full = full0 + 8 * s;
+      hw::mbar_wait(empty0 + 8 * s, ((it / kStages) & 1) ^ 1);
+      hw::mbar_arrive_expect_tx(full, L::tx_stage);
+      for (int c = 0; c < L::NB; ++c) {
+        hw::tma_load_4d(st + c * L::kv_box, &tm_k, full, c * kBox, hk,
+                        it * L::BK, b);
+        hw::tma_load_4d(st + L::s_v + c * L::kv_box, &tm_v, full, c * kBox,
+                        hk, it * L::BK, b);
+      }
+    }
+  } else {  // consumer warpgroup wg: queries qw .. qw + 63
+    hw::setmaxnreg_inc<232>();
+    const int wg = hw::warpgroup_idx(), ct = threadIdx.x & 127;
+    const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+    const int qw = q0 + wg * 64;
+    const int r = qw + warp * 16 + g;  // this thread's queries: r and r + 8
+    const uint32_t q_a = base + L::q + wg * 64 * kRowBytes;
+    const uint32_t g_a = base + L::g + wg * 64 * kRowBytes;
+    const float scale_log2 = scale * kLog2e;
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    hw::mbar_wait(bar_q, 0);
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::lse);
+    const float* delta_s = reinterpret_cast<const float*>(smem + L::delta);
+    const float lse_r[2] = {lse_s[r - q0] * kLog2e,
+                            lse_s[r - q0 + 8] * kLog2e};
+    const float delta_r[2] = {delta_s[r - q0], delta_s[r - q0 + 8]};
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int k0 = it * L::BK;
+      const uint32_t st = base + L::stage0 + s * L::stage;
+      hw::mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+      // skip a tile none of whose keys this warpgroup's queries see
+      if (qw < Sq && (!causal || k0 <= qw + 63 + offset)) {
+        // S = Q K^T and dP = dO V^T
+        float s_a[32], dp_a[32];
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::Wgmma<64>::ss<0>(s_a, kmajor(q_a, L::q_box, kk),
+                               kmajor(st, L::kv_box, kk), kk);
+        hw::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::Wgmma<64>::ss<0>(dp_a, kmajor(g_a, L::q_box, kk),
+                               kmajor(st + L::s_v, L::kv_box, kk), kk);
+        hw::wgmma_commit();
+        // P = exp(scale S - lse) while dP is multiplied; masked entries 0
+        hw::wgmma_wait<1>();
+        hw::fence_regs(s_a);
+        const bool edge = qw + 63 >= Sq || k0 + L::BK > Sk ||
+                          (causal && k0 + L::BK - 1 > qw + offset);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const bool ok = !edge || visible(r + 8 * i,
+                                             k0 + 8 * j + 2 * t + (e & 1),
+                                             Sq, Sk, offset, causal);
+            const float p =
+                exp2f(fmaf(s_a[4 * j + e], scale_log2, -lse_r[i]));
+            s_a[4 * j + e] = ok ? p : 0.f;
+          }
+        // dS = P (dP - delta) scale into s_a: 0 where P is
+        hw::wgmma_wait<0>();
+        hw::fence_regs(dp_a);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s_a[4 * j + e] *= (dp_a[4 * j + e] - delta_r[e >> 1]) * scale;
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(da[kc], s_a + 8 * kc);
+        // dQ += dS K: B is the stage's K, MN-major
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          hw::Wgmma<D>::template rs<1>(dq_acc, da[kc],
+                                       mnmajor(st, L::kv_box, kc), 1);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(dq_acc);
+      }
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(empty0 + 8 * s);  // this warp is done
+    }
+    const size_t q_stride = (size_t)H * D;
+    store_acc<D>(dq + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, r,
+                 Sq, dq_acc, t);
+  }
+}
+
 // ---- launchers ---------------------------------------------------------------
 
 struct Shape {
@@ -1080,41 +1582,86 @@ cudaError_t fwd_bf16(const Shape& s, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// the TMA maps of a backward kernel: q and dO in boxes of bq rows, k and
+// v in boxes of bk rows
+struct BwdMaps {
+  CUtensorMap q, g, k, v;
+  bool make(const Shape& s, const void* qp, const void* kp, const void* vp,
+            const void* gp, int bq, int bk) {
+    return hw::rows_map(&q, qp, s.B, s.Sq, s.H, s.D, bq) &&
+           hw::rows_map(&g, gp, s.B, s.Sq, s.H, s.D, bq) &&
+           hw::rows_map(&k, kp, s.B, s.Sk, s.KVH, s.D, bk) &&
+           hw::rows_map(&v, vp, s.B, s.Sk, s.KVH, s.D, bk);
+  }
+};
+
+// D 64 and 128 take the warp-specialised wgmma kernels; D 16 and 32 (no
+// model of the repo trains at those widths) keep the mma.sync kernels
 template <int D>
 cudaError_t dkv_bf16(const Shape& s, const void* q, const void* k,
                      const void* v, const void* g, const float* lse,
                      const float* delta, void* dk, void* dv,
                      cudaStream_t stream) {
-  constexpr size_t bytes =
-      sizeof(bf16) * (2 * kMmaRows + 4 * kMmaQ) * (D + 8) +
-      sizeof(float) * 4 * kMmaQ;
-  auto kernel = flash_dkv_bf16<D>;
-  cudaError_t e = set_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.Sk + kMmaRows - 1) / kMmaRows, s.B, s.KVH);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.Sq, s.Sk, s.H, s.KVH,
-      s.scale, s.causal);
-  return cudaGetLastError();
+  if constexpr (D >= kBox) {
+    using L = DkvWs<D>;
+    BwdMaps m;
+    if (!m.make(s, q, k, v, g, L::BQ, L::BK))
+      return cudaErrorInvalidValue;
+    auto kernel = flash_dkv_wgmma<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((s.Sk + L::BK - 1) / L::BK, s.B, s.KVH);
+    kernel<<<grid, kWsThreads, L::bytes, stream>>>(
+        m.q, m.g, m.k, m.v, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), s.Sq, s.Sk, s.H, s.KVH, s.scale, s.causal);
+    return cudaGetLastError();
+  } else {
+    constexpr size_t bytes =
+        sizeof(bf16) * (2 * kMmaRows + 4 * kMmaQ) * (D + 8) +
+        sizeof(float) * 4 * kMmaQ;
+    auto kernel = flash_dkv_bf16<D>;
+    cudaError_t e = set_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((s.Sk + kMmaRows - 1) / kMmaRows, s.B, s.KVH);
+    kernel<<<grid, kMmaThreads, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.Sq, s.Sk, s.H,
+        s.KVH, s.scale, s.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <int D>
 cudaError_t dq_bf16(const Shape& s, const void* q, const void* k,
                     const void* v, const void* g, const float* lse,
                     const float* delta, void* dqp, cudaStream_t stream) {
-  constexpr size_t bytes =
-      sizeof(bf16) * (2 * kMmaRows + 2 * kMmaKeys) * (D + 8);
-  auto kernel = flash_dq_bf16<D>;
-  cudaError_t e = set_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.Sq + kMmaRows - 1) / kMmaRows, s.B, s.H);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
-      static_cast<bf16*>(dqp), s.Sq, s.Sk, s.H, s.KVH, s.scale, s.causal);
-  return cudaGetLastError();
+  if constexpr (D >= kBox) {
+    using L = DqWs<D>;
+    BwdMaps m;
+    if (!m.make(s, q, k, v, g, L::BQ, L::BK))
+      return cudaErrorInvalidValue;
+    auto kernel = flash_dq_wgmma<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((s.Sq + L::BQ - 1) / L::BQ, s.B, s.H);
+    kernel<<<grid, kWsThreads, L::bytes, stream>>>(
+        m.q, m.g, m.k, m.v, lse, delta, static_cast<bf16*>(dqp), s.Sq,
+        s.Sk, s.H, s.KVH, s.scale, s.causal);
+    return cudaGetLastError();
+  } else {
+    constexpr size_t bytes =
+        sizeof(bf16) * (2 * kMmaRows + 2 * kMmaKeys) * (D + 8);
+    auto kernel = flash_dq_bf16<D>;
+    cudaError_t e = set_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((s.Sq + kMmaRows - 1) / kMmaRows, s.B, s.H);
+    kernel<<<grid, kMmaThreads, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+        static_cast<bf16*>(dqp), s.Sq, s.Sk, s.H, s.KVH, s.scale, s.causal);
+    return cudaGetLastError();
+  }
 }
 
 // dispatch on (dtype, D) to name##_bf16<D> or name##_f32<D>

@@ -261,6 +261,12 @@ ATTENTION_CASES = [  # B, Sq, Sk, H, KVH, D, causal
     (2, 128, 128, 4, 4, 128, True), (1, 100, 100, 8, 2, 64, True),
     (2, 77, 77, 4, 1, 16, True), (1, 65, 130, 4, 2, 32, True),
     (1, 130, 65, 2, 2, 64, True), (2, 96, 80, 4, 2, 128, False),
+    # the edges of the wgmma backward's tiles (128 keys or queries a CTA,
+    # 64 a warpgroup and a stage): rep 7, S straddling 64 and 128, D 64,
+    # Sq < Sk and Sq > Sk (rows that see no key), non-causal D 64
+    (1, 300, 300, 28, 4, 128, True), (2, 129, 129, 8, 2, 128, True),
+    (1, 200, 200, 4, 4, 64, True), (1, 100, 260, 8, 2, 128, True),
+    (1, 260, 100, 4, 2, 128, True), (2, 190, 70, 4, 1, 64, False),
 ]
 
 
@@ -303,6 +309,22 @@ def test_flash_attention_kernels(cuda, dtype, case):
             tol = (2 ** -8 + 1e-5) * sc + BF16_ULP * want.float().abs() \
                 + 1e-6
         _assert_close(got, want, tol)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_is_deterministic(cuda, d):
+    """dk/dv and dq are written once by one CTA each, with no atomics:
+    two launches on the same inputs give the same bits."""
+    q, k, v, go = _attention_inputs(cuda, torch.bfloat16, 2, 300, 300, 8,
+                                    2, d, seed=7)
+    lse = kfa.flash_attention_fwd(q, k, v, True)[1]
+    delta = kfa._delta(kfa.flash_attention_fwd(q, k, v, True)[0], go)
+    runs = [(*kfa.flash_attention_dkv(q, k, v, go, lse, delta, True),
+             kfa.flash_attention_dq(q, k, v, go, lse, delta, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_fully_masked_rows_have_zero_grads(cuda):

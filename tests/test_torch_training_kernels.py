@@ -126,6 +126,11 @@ FLASH_CASES = [
     (1, 33, 33, 4, 1, 16, False),      # rep 4 (MQA), non-causal
     (1, 24, 40, 4, 2, 16, True),       # Sq < Sk, bottom-right causal
     (1, 40, 24, 2, 1, 16, False),      # Sq > Sk, non-causal
+    # the shapes the card's wgmma backward tiles care about (64-row
+    # warpgroups, 64-query stages, 128-query dq tiles)
+    (1, 70, 70, 7, 1, 64, True),       # rep 7
+    (1, 130, 130, 2, 1, 128, True),    # D 128, S straddling 64 and 128
+    (1, 60, 140, 4, 2, 64, True),      # Sq < Sk at D 64
 ]
 
 
