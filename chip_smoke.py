@@ -15,7 +15,9 @@ non-zero without printing a result:
    forward, dk/dv and dq) at the training phase's, the residual-fused
    RMSNorm pair at the full training step's and the fused CE's chunk
    kernels at the fit phase's, in bf16 and f32; with its time, the plain
-   version's, the bound and a library call's;
+   version's, the bound and a library call's; flash attention's bf16
+   forward and backward launched twice must repeat their bits, and are
+   timed at [2, 2049] and [4, 2049] with their rates;
    quant_kernels (run after moe_kernels, phase 14): K13 over int8 and
    fp8 pools (scales with NaN on the trash page) at K12's mixed batch,
    at 32/8 and 28/4 heads, and K16 at decode shapes (8 and 64
@@ -66,7 +68,9 @@ non-zero without printing a result:
     K14 transposed) and its weight gradient (K15) against their plain
     versions, per element, at the wide training shape of qwen2_moe_a14b
     (bf16, timed, with torch._grouped_mm as the yardstick where it takes
-    the shapes) and at the MoE bench width (f32 and bf16);
+    the shapes) and at the MoE bench width (f32 and bf16), a second
+    launch repeating their bits; K14 in both modes at serve_moe's decode
+    layout (32 real rows in 7808); K12 and K7-K9 at Qwen2's 28/4 heads;
 15. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
     experts, top-4, dropless) with seeded random weights through the
     engine, the serve phase's traffic, launch counters read around it;
@@ -102,7 +106,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 PEAK_BF16 = 989e12               # dense tensor-core bf16
 PEAK_F32_CORES = 67e12           # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
-# K8/K9's design at D 64 and 128 (csrc/flash_attention.cu, hopper.cuh)
+# the design of K7-K9 at D 64 and 128 and of K14 in bf16
+# (csrc/flash_attention.cu, csrc/grouped_matmul.cu, hopper.cuh)
 WGMMA_DESIGN = ("wgmma + TMA/mbarrier ring, warp-specialised: a producer "
                 "warp, two consumer warpgroups (setmaxnreg 40/232)")
 WINDOWS = 5                      # timed windows per measurement
@@ -277,6 +282,41 @@ def bound(n_bytes, ops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_summary(build_log):
+    """nvcc's ``-Xptxas -v`` output, one line per kernel: its name
+    (demangled where ``c++filt`` is at hand), registers and spill bytes;
+    the source file headers and any warning (C7512: wgmma serialised)."""
+    import re
+    import shutil
+    lines, name, spill = [], None, ""
+    for raw in build_log.splitlines():
+        line = raw.strip()
+        if line.startswith("==") or "warning" in line.lower():
+            lines.append(line)
+        elif "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line:
+            spill = line
+        elif re.search(r"Used \d+ registers", line) and name:
+            regs = re.search(r"Used \d+ registers", line).group(0)
+            lines.append((name, f"{regs}, {spill}"))
+            name, spill = None, ""
+    names = [x[0] for x in lines if isinstance(x, tuple)]
+    if names and shutil.which("c++filt"):
+        demangled = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   timeout=60).stdout.splitlines()
+        table = dict(zip(names, demangled))
+    else:
+        table = {}
+
+    def short(n):       # "void (anonymous namespace)::k<128>(args)": k<128>
+        n = table.get(n, n).replace("(anonymous namespace)::", "")
+        return n.split("(")[0].replace("void ", "", 1)
+    return [x if isinstance(x, str) else f"{short(x[0])}: {x[1]}"
+            for x in lines]
+
+
 def phase_setup():
     import torch
     from paddle_tpu_torch.ops.kernels import _build
@@ -287,9 +327,8 @@ def phase_setup():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     _build.build()
     log(f"[setup] kernels built in {_build.build_seconds():.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"[setup] {line.strip()}")
+    for line in _ptxas_summary(_build.build_log()):
+        log(f"[setup] {line}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -687,10 +726,11 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
     output by about a / n (4e-4 at n = 2048 for unit values); the f32
     limit, 1e-5 * a, is checked to refuse both. In bf16 the backward
     kernels are launched twice on the same inputs and must give the same
-    bits (each CTA writes its rows once, no atomics); the times come with
-    the rate achieved (the bound's operations over the time) and the
-    bound's share of the time, and with ``wide_batch`` K8 and K9 are also
-    timed at that batch (train_full's [4, 2049])."""
+    bits (each CTA writes its rows once, no atomics), and so must the
+    forward's out and lse; the times come with the rate achieved (the
+    bound's operations over the time) and the bound's share of the time,
+    and with ``wide_batch`` K7, K8 and K9 are also timed at that batch
+    (train_full's [4, 2049])."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
@@ -757,19 +797,21 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
                                               True)
         torch.cuda.synchronize()
         if dtype == torch.bfloat16:
-            again = (*kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta,
+            again = (*kfa.flash_attention_fwd(q, k, v, True),
+                     *kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta,
                                               True),
                      kfa.flash_attention_dq(q, k, v, go, ref_lse, delta,
                                             True))
-            for name, a1, a2 in zip(("dk", "dv", "dq"), (dk, dv, dq), again):
+            for name, a1, a2 in zip(("out", "lse", "dk", "dv", "dq"),
+                                    (out, lse, dk, dv, dq), again):
                 if not torch.equal(a1, a2):
                     raise AssertionError(f"flash {name} bf16: a second "
                                          f"launch on the same inputs gave "
                                          f"other bits")
             del again
-            log(f"[kernels] flash dkv/dq bf16 B={batch} S={s_tok} H={nh} "
-                f"KVH={kvh}: a second launch repeats dk, dv and dq bit for "
-                f"bit")
+            log(f"[kernels] flash fwd/dkv/dq bf16 B={batch} S={s_tok} "
+                f"H={nh} KVH={kvh}: a second launch repeats out, lse, dk, "
+                f"dv and dq bit for bit")
         sq_, sk_, sv_ = attention_scales(q, k, v, go, ref_lse, delta, True)
         errs = {}
         for name, got, want, sc in (("dq", dq, rq, sq_), ("dk", dk, rk, sk_),
@@ -817,11 +859,11 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
         lib = time_ms(sdpa, (qt, kt, vt), iters=5)
         b_ms, b_by = bound(2 * qb + 2 * kb + sb, 4 * d * pairs * bh,
                            PEAK_BF16)
+        shape = (f"q[{batch},{s_tok},{nh},{d}] kv[{batch},{s_tok},{kvh},"
+                 f"{d}] bf16 causal")
         res["flash_attention_fwd"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=b_ms, bound_by=b_by,
-            shape=f"q[{batch},{s_tok},{nh},{d}] kv[{batch},{s_tok},{kvh},"
-                  f"{d}] bf16 causal")
+            bound_ms=b_ms, bound_by=b_by, shape=shape)
         bwd_args = (q, k, v, go, ref_lse, delta, True)
         ms_kv = time_ms(kfa.flash_attention_dkv, bwd_args, iters=5)
         ms_q = time_ms(kfa.flash_attention_dq, bwd_args, iters=5)
@@ -853,10 +895,11 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
             max_abs_err=errs["dq"][0], ms=ms_q, plain_ms=plain_q,
             library_ms=lib_bwd, bound_ms=q_ms, bound_by=q_by,
             shape=res["flash_attention_fwd"]["shape"])
-        res["flash_attention_dkv"]["design"] = WGMMA_DESIGN
-        res["flash_attention_dq"]["design"] = WGMMA_DESIGN
-        log(f"[kernels] flash_attention_fwd: kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms SDPA {lib:.4f} ms bound {b_ms:.4f} ms "
+        for name in ("flash_attention_fwd", "flash_attention_dkv",
+                     "flash_attention_dq"):
+            res[name]["design"] = WGMMA_DESIGN
+        log(f"[kernels] flash_attention_fwd at {shape}: kernel {ms:.4f} ms "
+            f"plain {plain:.4f} ms SDPA {lib:.4f} ms bound {b_ms:.4f} ms "
             f"({b_by}); {_rate(4 * d * pairs * bh, ms, b_ms)}")
         log(f"[kernels] flash_attention_dkv: kernel {ms_kv:.4f} ms plain "
             f"{plain_kv:.4f} ms bound {kv_ms:.4f} ms ({kv_by}); "
@@ -871,9 +914,12 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
         del qt, kt, vt, qg, kg, vg, gt
         torch.cuda.empty_cache()
         if wide_batch:
-            res["flash_attention_dkv"]["wide"], \
-                res["flash_attention_dq"]["wide"] = _flash_bwd_wide(
-                    wide_batch, s_tok, nh, kvh, d, rand)
+            for name, wide in zip(("flash_attention_fwd",
+                                   "flash_attention_dkv",
+                                   "flash_attention_dq"),
+                                  _flash_wide(wide_batch, s_tok, nh, kvh, d,
+                                              rand)):
+                res[name]["wide"] = wide
     return res
 
 
@@ -884,10 +930,12 @@ def _rate(ops, ms, b_ms):
             f"{b_ms / float(ms):.1%} of the time")
 
 
-def _flash_bwd_wide(batch, s_tok, nh, kvh, d, rand):
-    """K8 and K9 timed at a wider batch (causal, bf16), each beside its
-    bound; the inputs' lse and delta come from the forward kernel."""
+def _flash_wide(batch, s_tok, nh, kvh, d, rand):
+    """K7, K8 and K9 timed at a wider batch (causal, bf16), each beside its
+    bound, K7 also beside SDPA; the backward's lse and delta come from the
+    forward kernel."""
     import torch
+    import torch.nn.functional as tF
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     q = rand(batch, s_tok, nh, d)
     k, v = rand(batch, s_tok, kvh, d), rand(batch, s_tok, kvh, d)
@@ -900,20 +948,29 @@ def _flash_bwd_wide(batch, s_tok, nh, kvh, d, rand):
     sb = batch * nh * s_tok * 4
     shape = (f"q[{batch},{s_tok},{nh},{d}] kv[{batch},{s_tok},{kvh},{d}] "
              f"bf16 causal")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = time_ms(lambda a, b, c: tF.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True), (qt, kt, vt), iters=5)
     out_ = []
-    for name, fn, ops, n_bytes in (
-            ("dkv", kfa.flash_attention_dkv, 8 * d * pairs,
+    for name, fn, fargs, ops, n_bytes in (
+            ("fwd", kfa.flash_attention_fwd, (q, k, v, True), 4 * d * pairs,
+             2 * qb + 2 * kb + sb),
+            ("dkv", kfa.flash_attention_dkv, args, 8 * d * pairs,
              2 * qb + 2 * kb + 2 * sb + 2 * kb),
-            ("dq", kfa.flash_attention_dq, 6 * d * pairs,
+            ("dq", kfa.flash_attention_dq, args, 6 * d * pairs,
              2 * qb + 2 * kb + 2 * sb + qb)):
-        ms = time_ms(fn, args, iters=5)
+        ms = time_ms(fn, fargs, iters=5)
         b_ms, b_by = bound(n_bytes, ops, PEAK_BF16)
+        lib = sdpa if name == "fwd" else None
         log(f"[kernels] flash_attention_{name} at {shape}: kernel "
             f"{ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
-            f"{_rate(ops, ms, b_ms)}")
+            f"{_rate(ops, ms, b_ms)}"
+            + (f"; SDPA {lib:.4f} ms" if lib is not None else ""))
         out_.append(dict(ms=ms, bound_ms=b_ms, bound_by=b_by, shape=shape,
-                         tflops=ops / (float(ms) * 1e-3) / 1e12))
-    del q, k, v, go, out, lse, delta, args
+                         tflops=ops / (float(ms) * 1e-3) / 1e12,
+                         **({"library_ms": lib} if lib is not None
+                            else {})))
+    del q, k, v, go, out, lse, delta, args, qt, kt, vt
     torch.cuda.empty_cache()
     return out_
 
@@ -1671,7 +1728,7 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
 
 # kernel-name fragments -> the layer they belong to (cuBLAS's H100
 # matmuls are the nvjet/sm90 gemm kernels)
-_CATEGORIES = (("grouped matmul K14/K15", ("gmm_bf16", "gdw_bf16")),
+_CATEGORIES = (("grouped matmul K14/K15", ("gmm_", "gdw_")),
                ("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
                ("rms_norm K1-K4", ("rms_norm",)),
                ("swiglu K5/K6", ("swiglu",)),
@@ -1746,7 +1803,28 @@ def _profile(tag, fn, per=1):
         sorted(by_cat.items(), key=lambda x: -x[1])))
     for name, ms in sorted(kernels.items(), key=lambda x: -x[1])[:12]:
         log(f"[{tag}]   {ms:8.2f} ms  {name[:110]}")
-    return dict(wall_ms=wall, busy_ms=busy, by_layer=by_cat)
+    # the device symbols of the hand-written attention and grouped-matmul
+    # kernels this step ran: which kernel each path took
+    symbols = {}
+    for cat in ("attention K7-K9", "grouped matmul K14/K15"):
+        keys = dict(_CATEGORIES)[cat]
+        ran = {_symbol(n): ms for n, ms in kernels.items()
+               if any(k in n for k in keys)}
+        if ran:
+            symbols[cat] = ran
+            log(f"[{tag}] {cat} kernels: " + ", ".join(
+                f"{n} {ms:.2f} ms" for n, ms in sorted(
+                    ran.items(), key=lambda x: -x[1])))
+    return dict(wall_ms=wall, busy_ms=busy, by_layer=by_cat,
+                symbols=symbols)
+
+
+def _symbol(name):
+    """A kernel's device symbol without its return type, namespace and
+    arguments: 'flash_fwd_wgmma<128>'."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0]
+    return name[5:] if name.startswith("void ") else name
 
 
 def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
@@ -2203,6 +2281,11 @@ def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
                               and a.is_floating_point() else a
                               for a in args))
                 torch.cuda.synchronize()
+                # every output element is written once, in one order
+                if not torch.equal(fn(*args), out):
+                    raise AssertionError(f"{name} {tag} {dtype}: a second "
+                                         f"launch on the same inputs gave "
+                                         f"other bits")
                 # per element: both sides take f32 products and round once;
                 # the sums come in another order, 1e-5 of the sum of
                 # |terms|, which in bf16 may flip the rounding: one ulp
@@ -2214,7 +2297,7 @@ def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
                 log(f"[moe_kernels] {name} {tag} {dtype}: max abs err "
                     f"{err:.3g} (limit {'1 ulp of |ref| + ' if ulp else ''}"
                     f"1e-5 of the sum of |terms|, worst err/limit "
-                    f"{worst:.3g})")
+                    f"{worst:.3g}); a second launch repeats it bit for bit")
                 r = res.setdefault(name, {"max_abs_err": 0.0})
                 key = "max_abs_err" if dtype == torch.bfloat16 \
                     else "max_abs_err_f32"
@@ -2231,21 +2314,75 @@ def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
                 b_ms, b_by = bound(n_bytes, 2.0 * P * d * h, PEAK_BF16)
                 lib = _grouped_mm_ms(name, args, E)
                 log(f"[moe_kernels] {name} {tag}: kernel {ms:.4f} ms "
-                    f"({2.0 * P * d * h / (ms / 1e3) / 1e12:.1f} TFLOP/s) "
-                    f"plain {plain_ms:.4f} ms (eager) library "
+                    f"({_rate(2.0 * P * d * h, ms, b_ms)}) plain "
+                    f"{plain_ms:.4f} ms (eager) library "
                     f"{'none' if lib is None else f'{lib:.4f} ms'} bound "
                     f"{b_ms:.4f} ms ({b_by})")
                 entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                              bound_ms=b_ms, bound_by=b_by,
                              shape=f"P {P} d {d} h {h} E {E} bf16")
+                if name != "grouped_dw":
+                    entry["design"] = WGMMA_DESIGN
                 if tag == "wide":
                     r.update(entry)
                 else:
                     r["bench"] = entry
             del x, dy, w
             torch.cuda.empty_cache()
+    for name, entry in _grouped_decode().items():
+        res[name]["decode"] = entry
     if head_cfg is not None:
         _qwen2_head_checks(head_cfg, dev)
+    return res
+
+
+def _grouped_decode(slots=8, top_k=4, n_experts=60, d=3584, h=1408,
+                    dev="cuda"):
+    """K14 and K14 transposed at the layout of a serve_moe decode forward:
+    ``slots`` tokens routed top-``top_k`` over ``n_experts`` experts give
+    32 real rows in P = (1 + 60) * 128 = 7808 (every expert owns a padding
+    tile), at qwen2_moe_a14b's widths; bf16, held against the plain
+    versions, timed beside torch._grouped_mm. The bound counts what the
+    call must move and compute: all of x, dy and the bank, and the
+    products of every row (the kernels do not skip padding tiles)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
+    perm, gid, P, real = _routed_layout(slots, top_k, n_experts, dev,
+                                        seed=3)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn(P, d, device=dev, generator=gen)
+         * real[:, None]).bfloat16()
+    dy = (torch.randn(P, h, device=dev, generator=gen)
+          * real[:, None]).bfloat16()
+    w = (0.02 * torch.randn(n_experts, d, h, device=dev,
+                            generator=gen)).bfloat16()
+    res = {}
+    for name, fn, args, t in (("grouped_matmul", kgmm.grouped_matmul,
+                               (x, w, gid), False),
+                              ("grouped_matmul_t", kgmm.grouped_matmul_t,
+                               (dy, w, gid), True)):
+        out = fn(*args)
+        ref = kgmm.grouped_matmul_reference(*args, t)
+        mag = kgmm.grouped_matmul_reference(args[0].float().abs(),
+                                            w.float().abs(), gid, t)
+        err, worst = check_close(f"{name} decode", out, ref,
+                                 BF16_ULP * ref.float().abs() + 1e-5 * mag
+                                 + 1e-6)
+        ms = time_ms(fn, args, iters=5)
+        lib = _grouped_mm_ms(name, args, n_experts)
+        b_ms, b_by = bound((P * d + P * h + n_experts * d * h) * 2,
+                           2.0 * P * d * h, PEAK_BF16)
+        shape = (f"P {P} ({int(real.sum())} real rows) d {d} h {h} "
+                 f"E {n_experts} bf16")
+        log(f"[moe_kernels] {name} decode {shape}: kernel {ms:.4f} ms "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'} bound "
+            f"{b_ms:.4f} ms ({b_by}); max abs err {err:.3g} (worst "
+            f"err/limit {worst:.3g})")
+        res[name] = dict(ms=ms, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, shape=shape, max_abs_err=err)
+        del out, ref, mag
+    del x, dy, w
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2733,7 +2870,8 @@ def main():
                         **({"bench_width": r["bench"]} if "bench" in r
                            else {}),
                         **{k: r[k] for k in ("fp8", "b64", "k12_at_decode_ms",
-                                             "design", "wide") if k in r}})
+                                             "design", "wide", "decode")
+                           if k in r}})
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was launched on no path")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -33,7 +33,8 @@
 // Grids, the same for both types:
 //   forward: one CTA per (q block, batch, q head), looping over the kv
 //     tiles up to the block's last visible key (heaviest q blocks are
-//     launched first); online softmax in f32.
+//     launched first; bf16 at D 64/128: one persistent CTA per SM walks
+//     these items in that order); online softmax in f32.
 //   dkv: one CTA per (kv block, batch, kv head), looping over the rep
 //     query heads of that kv head and, for each, the q blocks from the
 //     first one that can see the kv block; dk and dv accumulate across
@@ -41,34 +42,46 @@
 //     block 0, which every q block sees, is launched first).
 //   dq: one CTA per (q block, batch, q head), looping over kv tiles.
 //
-// bf16 dkv and dq at D = 64 and 128, the training path (every model of
-// the repo trains at D = 128): Hopper kernels, warp-specialised (see the
-// section "warp-specialised wgmma kernels" below and hopper.cuh). A
+// bf16 at D = 64 and 128, the training path (every model of the repo
+// trains at D = 128): Hopper kernels for all three, warp-specialised (see
+// the section "warp-specialised wgmma kernels" below and hopper.cuh). A
 // producer warp TMA-loads 128-byte-swizzled tiles into a ring of stages
 // behind mbarriers; two consumer warpgroups multiply them with wgmma,
 // taking the probabilities and dS as A operands straight from the
 // accumulator registers (dkv computes S^T and dP^T, keys as rows, so P^T
 // and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q).
-// dkv: 64 keys a CTA, the two warpgroups taking (Q, dO) stages of 64
+// forward: persistent, a CTA per SM walking blocks of 128 queries (64 a
+// warpgroup), heaviest first, with two Q buffers (the next block's Q
+// lands during this one) and a ring of two (K, V) stages of 128 keys that
+// runs on across blocks; S = Q K^T (SS, m64n128), the online softmax in
+// f32 in registers (a row's 128 scores on the 4 lanes of a quad: two
+// shuffles for its max; exp2 by the SFU alone), O += P V (RS, V read
+// MN-major); O / l is rounded once and leaves through its Q buffer in
+// 16-byte rows. dkv: 64 keys a CTA, the two warpgroups taking (Q, dO) stages of 64
 // queries in turn and adding their dK and dV once at the end; dq: 128
 // queries a CTA (64 a warpgroup) over (K, V) stages of 64 keys. What
-// bounds them: registers. dK and dV at D = 128 are 128 f32 registers a
-// consumer thread, so dkv's score tiles are m64n32 (S^T and dP^T 16 each)
-// and its consumers need ~200 registers, which setmaxnreg provides (232,
-// the producer 40). Within a warpgroup dP is multiplied while P is
-// computed and dV while dS is (dkv also waits for a tile's dK under the
-// next tile's scores); the two warpgroups overlap each other's softmax.
+// bounds them: registers, and each warpgroup's chain of products and
+// exps. dK and dV at D = 128 are 128 f32 registers a consumer thread, so
+// dkv's score tiles are m64n32 (S^T and dP^T 16 each) and its consumers
+// need ~200 registers, which setmaxnreg provides (232, the producer 40).
+// Within a warpgroup dP is multiplied while P is computed and dV while dS
+// is (dkv also waits for a tile's dK under the next tile's scores); the
+// two warpgroups overlap each other's softmax. The forward's chain stays
+// S, softmax, P V: deferring P V under the next tile's softmax, and
+// alternating the two warpgroups' products with named barriers, each ran
+// slower on the card, as did 64-key stages; a third stage changed
+// nothing. Making it persistent and taking exp2 from the SFU alone (no
+// range handling) each helped.
 //
 // bf16 at D = 16 and 32 (no model of the repo trains at those widths; the
-// card tests cover them), and the forward at every D: FlashAttention-2's
-// register-resident design on mma.sync m16n8k16 (bf16 in, f32
-// accumulate). Four warps a CTA, each owning 16 rows (queries, or keys in
-// dkv); K/V (or Q/dO) tiles sit in shared memory, padded so that every
-// fragment load is free of bank conflicts; scores, probabilities and
-// accumulators never leave registers: a score fragment becomes the next
-// product's A operand as it is. 64-row CTAs over 64-key tiles (dkv:
-// 32-query tiles); dkv double-buffers its Q/dO stages with cp.async.
-// Shared memory at D = 128: forward 52 KB.
+// card tests cover them): FlashAttention-2's register-resident design on
+// mma.sync m16n8k16 (bf16 in, f32 accumulate). Four warps a CTA, each
+// owning 16 rows (queries, or keys in dkv); K/V (or Q/dO) tiles sit in
+// shared memory, padded so that every fragment load is free of bank
+// conflicts; scores, probabilities and accumulators never leave
+// registers: a score fragment becomes the next product's A operand as it
+// is. 64-row CTAs over 64-key tiles (dkv: 32-query tiles); dkv
+// double-buffers its Q/dO stages with cp.async.
 //
 // f32, for parity checks: the same grids on the CUDA cores in f32 (TF32
 // would not meet their limits), 32 x 32 tiles staged through shared
@@ -1027,14 +1040,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 //
 // Three warpgroups a CTA. Warpgroups 0 and 1 are the consumers: they
 // raise their registers to 232 (setmaxnreg) and run the products as
-// wgmma, the score-like products from shared memory (SS) and the gradient
-// products with the probabilities or dS as A from registers (RS).
-// Warpgroup 2 is the producer: it lowers its registers to 40, and its
-// first warp fills a ring of stages guarded by a full and an empty
-// mbarrier each, one thread issuing the TMA loads of the tiles and the
-// warp's lanes copying the per-row lse and delta (rows of [B, H, Sq] f32
-// start on any 4 bytes; TMA wants 16). Shared-memory tiles follow the
-// layout conventions of hopper.cuh.
+// wgmma, the score-like products from shared memory (SS) and the products
+// with the probabilities or dS as A from registers (RS). Warpgroup 2 is
+// the producer: it lowers its registers to 40, and its first warp fills a
+// ring of stages guarded by a full and an empty mbarrier each, one thread
+// issuing the TMA loads of the tiles and, in the backward, the warp's
+// lanes copying the per-row lse and delta (rows of [B, H, Sq] f32 start
+// on any 4 bytes; TMA wants 16). Shared-memory tiles follow the layout
+// conventions of hopper.cuh.
 
 namespace hw = ptt::hopper;
 
@@ -1044,6 +1057,7 @@ constexpr int kBox = 64;         // columns of one TMA box: 128 bytes of bf16
 constexpr uint32_t kRowBytes = 128;
 constexpr int kStages = 2;  // dq's ring
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kHalf = 32;  // queries of one dkv score tile
 
 __host__ __device__ constexpr uint32_t align1024(uint32_t n) {
@@ -1502,6 +1516,263 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
+// forward: persistent, one CTA per SM walking the (q block of 128
+// queries, batch, head) items, heaviest q blocks first; the producer
+// loads an item's Q into one of two buffers (the next item's Q lands
+// while this one is multiplied) and streams its (K, V) stages of 128
+// keys up to the block's last visible key through one ring that runs on
+// across items; each consumer warpgroup keeps the online softmax of its
+// 64 queries in registers
+template <int D>
+struct FwdWs {
+  static constexpr int BQ = 128, BK = 128, NB = D / kBox;
+  static constexpr int kRing = 2;
+  static constexpr uint32_t q_box = BQ * kRowBytes, kv_box = BK * kRowBytes;
+  static constexpr uint32_t q_buf = NB * q_box;  // Q buffer 0, then 1
+  static constexpr uint32_t stage0 = 2 * q_buf;
+  // one stage: K boxes, V boxes
+  static constexpr uint32_t s_v = NB * kv_box, stage = 2 * NB * kv_box;
+  static constexpr uint32_t bars = stage0 + kRing * stage;
+  static constexpr uint32_t bytes =
+      bars + 8 * (4 + 2 * kRing) + 1024;  // + alignment slack
+  static constexpr uint32_t tx_q = BQ * D * 2;
+  static constexpr uint32_t tx_stage = 2 * BK * D * 2;
+};
+
+// 2^x by the SFU alone (ex2.approx.ftz: about 2 ulp, results below 2^-126
+// flushed to 0), for the forward's softmax: a probability that small is 0
+// in bf16 and in the row sum alike
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// item i of the forward's walk: q block qb (the heaviest first under
+// causal masking), batch b, head h
+struct FwdItem {
+  int qb, b, h;
+  __device__ FwdItem(int i, int n_qb, int B, int H, bool causal) {
+    const int rank = i / (B * H), bh = i % (B * H);
+    qb = causal ? n_qb - 1 - rank : rank;
+    b = bh / H;
+    h = bh % H;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    bf16* __restrict__ out, float* __restrict__ lse, int B,
+                    int Sq, int Sk, int H, int KVH, float scale,
+                    bool causal) {
+  using L = FwdWs<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // barriers: Q landed [2], Q free [2], full[kRing], empty[kRing]
+  const uint32_t q_full0 = base + L::bars, q_empty0 = q_full0 + 16;
+  const uint32_t full0 = q_empty0 + 16, empty0 = full0 + 8 * L::kRing;
+  const int n_qb = (Sq + L::BQ - 1) / L::BQ, n_items = n_qb * B * H;
+  const int offset = Sk - Sq;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hw::mbar_init(q_full0 + 8 * i, 1);
+      hw::mbar_init(q_empty0 + 8 * i, 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < L::kRing; ++s) {
+      hw::mbar_init(full0 + 8 * s, 1);
+      hw::mbar_init(empty0 + 8 * s, 8);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hw::warpgroup_idx() == 2) {  // the producer warpgroup: one thread loads
+    hw::setmaxnreg_dec<40>();
+    if (threadIdx.x == kProducer) {
+      int it = 0, n = 0;  // stages filled and items begun, so far
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
+        const FwdItem w(i, n_qb, B, H, causal);
+        const int q0 = w.qb * L::BQ, hk = w.h / (H / KVH);
+        const uint32_t qb_ = base + (n & 1) * L::q_buf;
+        hw::mbar_wait(q_empty0 + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+        hw::mbar_arrive_expect_tx(q_full0 + 8 * (n & 1), L::tx_q);
+        for (int c = 0; c < L::NB; ++c)
+          hw::tma_load_4d(qb_ + c * L::q_box, &tm_q, q_full0 + 8 * (n & 1),
+                          c * kBox, w.h, q0, w.b);
+        const int n_tiles = kv_tiles(q0, L::BQ, L::BK, Sk, offset, causal);
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % L::kRing;
+          const uint32_t st = base + L::stage0 + s * L::stage;
+          const uint32_t full = full0 + 8 * s;
+          hw::mbar_wait(empty0 + 8 * s, ((it / L::kRing) & 1) ^ 1);
+          hw::mbar_arrive_expect_tx(full, L::tx_stage);
+          for (int c = 0; c < L::NB; ++c) {
+            hw::tma_load_4d(st + c * L::kv_box, &tm_k, full, c * kBox, hk,
+                            t * L::BK, w.b);
+            hw::tma_load_4d(st + L::s_v + c * L::kv_box, &tm_v, full,
+                            c * kBox, hk, t * L::BK, w.b);
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: queries 64 wg .. 64 wg + 63 of a block
+    hw::setmaxnreg_inc<232>();
+    const int wg = hw::warpgroup_idx(), ct = threadIdx.x & 127;
+    const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+    const float scale_log2 = scale * kLog2e;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(bar);  // this warp is done
+    };
+    int it = 0, n = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
+      const FwdItem w(i, n_qb, B, H, causal);
+      const int q0 = w.qb * L::BQ, qw = q0 + wg * 64;
+      const int r = qw + warp * 16 + g;  // this thread's queries: r, r + 8
+      const uint32_t q_s = (n & 1) * L::q_buf;  // this item's Q buffer
+      const uint32_t q_a = base + q_s + wg * 64 * kRowBytes;
+      const int n_tiles = kv_tiles(q0, L::BQ, L::BK, Sk, offset, causal);
+      // the key tiles this warpgroup's queries see
+      const int n_mine =
+          qw < Sq ? kv_tiles(qw, 64, L::BK, Sk, offset, causal) : 0;
+      float o[D / 2];
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+      // running max in log2 units (finite, so exp2 of a difference is
+      // never NaN) and this thread's part of the row sum
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+      hw::mbar_wait(q_full0 + 8 * (n & 1), (n >> 1) & 1);
+
+      for (int tl = 0; tl < n_tiles; ++tl, ++it) {
+        const int s = it % L::kRing;
+        const int k0 = tl * L::BK;
+        const uint32_t st = base + L::stage0 + s * L::stage;
+        hw::mbar_wait(full0 + 8 * s, (it / L::kRing) & 1);
+        if (tl >= n_mine) {  // no query of this warpgroup sees these keys
+          release(empty0 + 8 * s);
+          continue;
+        }
+        // S = Q K^T
+        float sc[L::BK / 2];
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::Wgmma<L::BK>::template ss<0>(sc, kmajor(q_a, L::q_box, kk),
+                                           kmajor(st, L::kv_box, kk), kk);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(sc);
+        // masked scores are -inf (exp2 gives 0 against the finite max);
+        // only tiles at the sequence's end or the diagonal need the mask
+        const bool edge =
+            k0 + L::BK > Sk || (causal && k0 + L::BK - 1 > qw + offset);
+        float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < L::BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r + 8 * (e >> 1);
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (edge && !visible(row, key, Sq, Sk, offset, causal))
+              sc[4 * j + e] = __int_as_float(0xff800000);  // -inf
+            mt[e >> 1] = fmaxf(mt[e >> 1], sc[4 * j + e]);
+          }
+        float alpha[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {  // the quad holds the row's columns
+          mt[k] = fmaxf(mt[k], __shfl_xor_sync(0xffffffffu, mt[k], 1));
+          mt[k] = fmaxf(mt[k], __shfl_xor_sync(0xffffffffu, mt[k], 2));
+          const float m_new = fmaxf(m[k], mt[k] * scale_log2);
+          alpha[k] = fast_exp2(m[k] - m_new);
+          m[k] = m_new;
+          l[k] *= alpha[k];
+        }
+#pragma unroll
+        for (int j = 0; j < L::BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p =
+                fast_exp2(fmaf(sc[4 * j + e], scale_log2, -m[e >> 1]));
+            sc[4 * j + e] = p;
+            l[e >> 1] += p;
+          }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+        // O += P V: P rounded to bf16 as the A operand straight from the
+        // score registers, B the stage's V read MN-major
+        uint32_t pa[L::BK / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < L::BK / 16; ++kc)
+          acc_to_a(pa[kc], sc + 8 * kc);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < L::BK / 16; ++kc)
+          hw::Wgmma<D>::template rs<1>(
+              o, pa[kc], mnmajor(st + L::s_v, L::kv_box, kc), 1);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(o);
+        release(empty0 + 8 * s);
+      }
+
+      // 1 / l per row and lse; a row that saw no key has l = 0: out 0
+      float inv[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        l[k] += __shfl_xor_sync(0xffffffffu, l[k], 1);
+        l[k] += __shfl_xor_sync(0xffffffffu, l[k], 2);
+        inv[k] = l[k] > 0.f ? 1.f / l[k] : 0.f;
+        const int row = r + 8 * k;
+        if (t == 0 && row < Sq)
+          lse[((size_t)w.b * H + w.h) * Sq + row] =
+              l[k] > 0.f ? (m[k] + log2f(l[k])) * kLn2 : kNegInf;
+      }
+      // O / l rounded once to bf16 into this warpgroup's rows of the Q
+      // buffer (its products are done with them), in the boxes' swizzled
+      // layout, then out in 16-byte rows; rows past Sq are clipped
+      const int lr = wg * 64 + warp * 16 + g;  // the row in Q's boxes
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int row = lr + 8 * k;
+          const uint32_t at = q_s + (j / 8) * L::q_box + row * kRowBytes +
+                              (((j % 8) ^ (row & 7)) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(smem + at) =
+              pack2(o[4 * j + 2 * k] * inv[k], o[4 * j + 2 * k + 1] * inv[k]);
+        }
+      hw::named_barrier_sync(1 + wg, 128);
+      constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+      const size_t q_stride = (size_t)H * D;
+      bf16* oh = out + (size_t)w.b * Sq * q_stride + (size_t)w.h * D;
+      for (int idx = ct; idx < 64 * kChunks; idx += 128) {
+        const int row = wg * 64 + idx / kChunks, cc = idx % kChunks;
+        if (q0 + row >= Sq) continue;
+        const uint4 val = *reinterpret_cast<const uint4*>(
+            smem + q_s + (cc / 8) * L::q_box + row * kRowBytes +
+            (((cc % 8) ^ (row & 7)) << 4));
+        *reinterpret_cast<uint4*>(oh + (size_t)(q0 + row) * q_stride +
+                                  cc * 8) = val;
+      }
+      // the buffer may take a later item's Q (a TMA write after these
+      // generic accesses)
+      hw::fence_async_smem();
+      release(q_empty0 + 8 * (n & 1));
+    }
+  }
+}
+
 // ---- launchers ---------------------------------------------------------------
 
 struct Shape {
@@ -1566,20 +1837,44 @@ cudaError_t dq_f32(const Shape& s, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// D 64 and 128 take the warp-specialised wgmma kernel; D 16 and 32 (no
+// model of the repo trains at those widths) keep the mma.sync kernel
 template <int D>
 cudaError_t fwd_bf16(const Shape& s, const void* q, const void* k,
                      const void* v, void* out, float* lse,
                      cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(bf16) * (kMmaRows + 2 * kMmaKeys) * (D + 8);
-  auto kernel = flash_fwd_bf16<D>;
-  cudaError_t e = set_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.Sq + kMmaRows - 1) / kMmaRows, s.B, s.H);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, s.Sq, s.Sk,
-      s.H, s.KVH, s.scale, s.causal);
-  return cudaGetLastError();
+  if constexpr (D >= kBox) {
+    using L = FwdWs<D>;
+    CUtensorMap tq, tk, tv;
+    if (!hw::rows_map(&tq, q, s.B, s.Sq, s.H, D, L::BQ) ||
+        !hw::rows_map(&tk, k, s.B, s.Sk, s.KVH, D, L::BK) ||
+        !hw::rows_map(&tv, v, s.B, s.Sk, s.KVH, D, L::BK))
+      return cudaErrorInvalidValue;
+    auto kernel = flash_fwd_wgmma<D>;
+    cudaError_t e = set_smem(kernel, L::bytes);
+    if (e != cudaSuccess) return e;
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const int items = (s.Sq + L::BQ - 1) / L::BQ * s.B * s.H;
+    kernel<<<items < sms ? items : sms, kWsThreads, L::bytes, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(out), lse, s.B, s.Sq, s.Sk, s.H,
+        s.KVH, s.scale, s.causal);
+    return cudaGetLastError();
+  } else {
+    constexpr size_t bytes =
+        sizeof(bf16) * (kMmaRows + 2 * kMmaKeys) * (D + 8);
+    auto kernel = flash_fwd_bf16<D>;
+    cudaError_t e = set_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((s.Sq + kMmaRows - 1) / kMmaRows, s.B, s.H);
+    kernel<<<grid, kMmaThreads, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, s.Sq,
+        s.Sk, s.H, s.KVH, s.scale, s.causal);
+    return cudaGetLastError();
+  }
 }
 
 // the TMA maps of a backward kernel: q and dO in boxes of bq rows, k and

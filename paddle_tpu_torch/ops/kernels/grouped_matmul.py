@@ -116,7 +116,7 @@ def _gmm(name, x, w, tile_gid, transpose_rhs):
     y = torch.empty(x.shape[0], out_dim, dtype=x.dtype, device=x.device)
     rc = lib.grouped_matmul_fwd(x.data_ptr(), w.data_ptr(),
                                 tile_gid.data_ptr(), y.data_ptr(),
-                                x.shape[0], k_dim, out_dim, bm,
+                                w.shape[0], x.shape[0], k_dim, out_dim, bm,
                                 int(transpose_rhs), code,
                                 _build.stream_ptr(x.device))
     _build.check(rc, name)

@@ -267,6 +267,12 @@ ATTENTION_CASES = [  # B, Sq, Sk, H, KVH, D, causal
     (1, 300, 300, 28, 4, 128, True), (2, 129, 129, 8, 2, 128, True),
     (1, 200, 200, 4, 4, 64, True), (1, 100, 260, 8, 2, 128, True),
     (1, 260, 100, 4, 2, 128, True), (2, 190, 70, 4, 1, 64, False),
+    # the edges of the wgmma forward's tiles (128 queries a CTA, 64 a
+    # warpgroup, 128-key stages): S around 128 and 256 at D 128, rep 7,
+    # D 64 non-causal, Sq < Sk and Sq > Sk (rows that see no key)
+    (1, 127, 127, 4, 2, 128, True), (1, 255, 255, 4, 2, 128, True),
+    (1, 257, 257, 28, 4, 128, True), (1, 200, 200, 4, 2, 64, False),
+    (1, 127, 300, 4, 2, 128, True), (1, 300, 127, 4, 2, 128, True),
 ]
 
 
@@ -322,6 +328,18 @@ def test_flash_backward_is_deterministic(cuda, d):
     runs = [(*kfa.flash_attention_dkv(q, k, v, go, lse, delta, True),
              kfa.flash_attention_dq(q, k, v, go, lse, delta, True))
             for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_is_deterministic(cuda, d):
+    """out and lse are written once by one CTA each: two launches on the
+    same inputs give the same bits."""
+    q, k, v, _ = _attention_inputs(cuda, torch.bfloat16, 2, 300, 300, 8, 2,
+                                   d, seed=8)
+    runs = [kfa.flash_attention_fwd(q, k, v, True) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -677,7 +695,12 @@ def _grouped_tol(ref, mag, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,d,h,bm", [(6, 96, 200, 128),
                                       (16, 1024, 1408, 128),
-                                      (4, 64, 32, 256)])
+                                      (4, 64, 32, 256),
+                                      # widths that straddle the wgmma
+                                      # kernel's 256-column tile and its
+                                      # 64-wide contraction step
+                                      (5, 200, 264, 128),
+                                      (3, 72, 1408, 256)])
 def test_grouped_matmul_kernels(cuda, dtype, E, d, h, bm):
     x, w, dy, gid = _grouped_inputs(cuda, dtype, E, d, h, bm)
     wrappers = (kgmm.grouped_matmul, kgmm.grouped_matmul_t, kgmm.grouped_dw)
@@ -722,6 +745,48 @@ def test_grouped_matmul_function_grads_on_the_card(cuda, dtype):
         gx0, kgmm.grouped_matmul_reference(ady, aw, g, True), dtype))
     _assert_close(gw1, gw0, _grouped_tol(
         gw0, kgmm.grouped_dw_reference(ax, ady, g, E), dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_at_the_decode_layout(cuda, dtype):
+    """A decode forward's layout: fewer routed rows than experts (2 tokens,
+    top-2, 8 experts), so every expert owns one tile and most tiles are
+    all padding; padding rows of x and dy are zero, and so must their
+    outputs be."""
+    E, d, h = 8, 200, 264
+    gate_idx = torch.tensor([[0, 5], [5, 7]], dtype=torch.int32,
+                            device=cuda)
+    perm, gid, P = moe.sort_rows_by_expert(gate_idx, E)
+    assert P == (1 + E) * 128 and gid.shape[0] == 1 + E
+    real = torch.zeros(P, dtype=torch.bool, device=cuda)
+    real[perm.long()] = True
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = (torch.randn(P, d, device=cuda, generator=g) * real[:, None])
+    dy = (torch.randn(P, h, device=cuda, generator=g) * real[:, None])
+    w = 0.1 * torch.randn(E, d, h, device=cuda, generator=g)
+    x, dy, w = x.to(dtype), dy.to(dtype), w.to(dtype)
+    y = kgmm.grouped_matmul(x, w, gid)
+    dx = kgmm.grouped_matmul_t(dy, w, gid)
+    torch.cuda.synchronize()
+    ax, aw, ady = x.float().abs(), w.float().abs(), dy.float().abs()
+    for out, ref, mag in (
+            (y, kgmm.grouped_matmul_reference(x, w, gid),
+             kgmm.grouped_matmul_reference(ax, aw, gid)),
+            (dx, kgmm.grouped_matmul_reference(dy, w, gid, True),
+             kgmm.grouped_matmul_reference(ady, aw, gid, True))):
+        _assert_close(out, ref, _grouped_tol(ref, mag, dtype))
+        assert not out[~real].any()
+
+
+def test_grouped_matmul_is_deterministic(cuda):
+    """K14 in both modes writes every output element once, in one order:
+    two launches on the same inputs give the same bits."""
+    x, w, dy, gid = _grouped_inputs(cuda, torch.bfloat16, 6, 1024, 1408,
+                                    128, T=700, seed=5)
+    for fn, a in ((kgmm.grouped_matmul, x), (kgmm.grouped_matmul_t, dy)):
+        first, second = fn(a, w, gid), fn(a, w, gid)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -42,13 +42,13 @@ def _layout(bm, seed):
     return gate_idx, np.array(tile_gid), P, np.asarray(perm)
 
 
-def _inputs(P, real, dtype, seed):
+def _inputs(P, real, dtype, seed, d=D, h=H):
     """x with zero padding rows (the layout's contract), w and dy."""
     rng = np.random.RandomState(seed)
-    x = np.zeros((P, D), np.float32)
-    x[real] = rng.randn(len(real), D)
-    w = rng.randn(E, D, H).astype(np.float32)
-    dy = rng.randn(P, H).astype(np.float32)
+    x = np.zeros((P, d), np.float32)
+    x[real] = rng.randn(len(real), d)
+    w = rng.randn(E, d, h).astype(np.float32)
+    dy = rng.randn(P, h).astype(np.float32)
     jt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jx, jw, jdy = (jnp.asarray(a, jt) for a in (x, w, dy))
     tx, tw, tdy = (torch.from_numpy(a).to(dtype) for a in (x, w, dy))
@@ -65,8 +65,8 @@ def _exact(tx, tw, tdy, tile_gid, bm):
     ya = np.einsum("pd,pdh->ph", np.abs(x), np.abs(wr))
     dx = np.einsum("ph,pdh->pd", dy, wr)
     dxa = np.einsum("ph,pdh->pd", np.abs(dy), np.abs(wr))
-    dw = np.zeros((E, D, H))
-    dwa = np.zeros((E, D, H))
+    dw = np.zeros((E, x.shape[1], dy.shape[1]))
+    dwa = np.zeros_like(dw)
     for p in range(x.shape[0]):
         dw[row_e[p]] += np.outer(x[p], dy[p])
         dwa[row_e[p]] += np.outer(np.abs(x[p]), np.abs(dy[p]))
@@ -91,24 +91,31 @@ def _check(name, out, exact, mag, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bm", [8, 128])
-def test_grouped_kernels_match_pallas(dtype, bm):
+@pytest.mark.parametrize(
+    "bm,d,h", [(8, D, H), (128, D, H),
+               # contractions that are not multiples of the card kernel's
+               # 64-wide step (72 = 64 + 8, 136 = 128 + 8), outputs past
+               # its 128-wide tiles
+               (128, 72, 136)],
+    ids=["8", "128", "128-d72-h136"])
+def test_grouped_kernels_match_pallas(dtype, bm, d, h):
     gate_idx, tile_gid, P, real = _layout(bm, seed=bm)
     assert EMPTY not in gate_idx and EMPTY in tile_gid
-    (jx, jw, jdy), (tx, tw, tdy) = _inputs(P, real, dtype, seed=3)
+    (jx, jw, jdy), (tx, tw, tdy) = _inputs(P, real, dtype, seed=3, d=d,
+                                           h=h)
     jgid, tgid = jnp.asarray(tile_gid), torch.from_numpy(tile_gid)
     (y, ya), (dx, dxa), (dw, dwa) = _exact(tx, tw, tdy, tile_gid, bm)
 
     wrappers = (kgmm.grouped_matmul, kgmm.grouped_matmul_t, kgmm.grouped_dw)
     before = [f.launches for f in wrappers]
     ty = kgmm.grouped_matmul(tx, tw, tgid)
-    jy = jgmm._gmm_call(jx, jw, jgid, transpose_rhs=False, bn=H)
+    jy = jgmm._gmm_call(jx, jw, jgid, transpose_rhs=False, bn=h)
     tdx = kgmm.grouped_matmul_t(tdy, tw, tgid)
-    jdx = jgmm.grouped_matmul_t(jdy, jw, jgid, bn=D)
+    jdx = jgmm.grouped_matmul_t(jdy, jw, jgid, bn=d)
     tdw = kgmm.grouped_dw(tx, tdy, tgid, E)
-    jdw = jgmm.grouped_dw(jx, jdy, jgid, E, bd=D, bh=H)
+    jdw = jgmm.grouped_dw(jx, jdy, jgid, E, bd=d, bh=h)
     assert ty.dtype == tdx.dtype == tdw.dtype == dtype
-    assert tdw.shape == (E, D, H)
+    assert tdw.shape == (E, d, h)
     for name, t, j, (ex, mag) in (("y", ty, jy, (y, ya)),
                                   ("dx", tdx, jdx, (dx, dxa)),
                                   ("dw", tdw, jdw, (dw, dwa))):

@@ -131,6 +131,10 @@ FLASH_CASES = [
     (1, 70, 70, 7, 1, 64, True),       # rep 7
     (1, 130, 130, 2, 1, 128, True),    # D 128, S straddling 64 and 128
     (1, 60, 140, 4, 2, 64, True),      # Sq < Sk at D 64
+    # the card's wgmma forward tiles (128 queries a CTA, 128-key stages)
+    (1, 127, 127, 2, 2, 128, True),    # D 128, S one short of a tile
+    (1, 129, 129, 14, 2, 128, True),   # rep 7 at D 128, S one past a tile
+    (1, 50, 150, 4, 2, 64, False),     # Sq < Sk at D 64, non-causal
 ]
 
 
