@@ -17,19 +17,25 @@ non-zero without printing a result:
    kernels at the fit phase's, in bf16 and f32; with its time, the plain
    version's, the bound and a library call's; flash attention's bf16
    forward and backward launched twice must repeat their bits, and are
-   timed at [2, 2049] and [4, 2049] with their rates;
+   timed at [2, 2049] and [4, 2049] with their rates; K12 and K13 too
+   must repeat their bits;
    quant_kernels (run after moe_kernels, phase 14): K13 over int8 and
    fp8 pools (scales with NaN on the trash page) at K12's mixed batch,
-   at 32/8 and 28/4 heads, and K16 at decode shapes (8 and 64
-   sequences, contexts of 64-2048) beside K12 at one token a slot;
+   at 32/8 and 28/4 heads and at serve_quant's decode step (one token
+   in each of 8 slots, its split plan, bits repeated), and K16 at decode
+   shapes (8 and 64
+   sequences, contexts of 64-2048) beside K12 at one token a slot (its
+   keys split over CTAs), K12 there held against its plain version too;
 3. serve: the serving path at full width: a 32-layer Llama-3-8B with
    seeded random weights served by the continuous-batching engine (12
    requests through 8 slots), with the kernels' launch counters read
-   around it;
+   around it; then two more requests under torch.profiler (device time
+   by layer, K12's share of it, the attention kernels' device symbols);
 4. serve_quant: the same model and traffic with ``kv_quant="int8"`` and
    ``"fp8"`` (K13): launches, streams against the bf16 pools' (greedy
    top-1 agreement), and a 1500-token prefill whose logits with
    quantized pools must stay within a stated bound of the bf16 pools';
+   two requests profiled as in serve (K13's share);
 5. capacity: the JAX bench's equal-byte A/B at that width: a bf16
    engine of 16 slots with 256 usable pages against an int8 engine with
    the same bytes of pools, 24 requests of 1024-1500 prompt tokens; the
@@ -70,7 +76,9 @@ non-zero without printing a result:
     (bf16, timed, with torch._grouped_mm as the yardstick where it takes
     the shapes) and at the MoE bench width (f32 and bf16), a second
     launch repeating their bits; K14 in both modes at serve_moe's decode
-    layout (32 real rows in 7808); K12 and K7-K9 at Qwen2's 28/4 heads;
+    layout (32 real rows in 7808); K12 and K7-K9 at Qwen2's 28/4 heads,
+    K12 also at serve_moe's decode step (one token in each of 8 slots,
+    its split plan, bits repeated);
 15. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
     experts, top-4, dropless) with seeded random weights through the
     engine, the serve phase's traffic, launch counters read around it;
@@ -106,10 +114,18 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 PEAK_BF16 = 989e12               # dense tensor-core bf16
 PEAK_F32_CORES = 67e12           # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
-# the design of K7-K9 at D 64 and 128 and of K14 in bf16
+# the design of K7-K9 at D 64 and 128 and of K14 and K15 in bf16
 # (csrc/flash_attention.cu, csrc/grouped_matmul.cu, hopper.cuh)
 WGMMA_DESIGN = ("wgmma + TMA/mbarrier ring, warp-specialised: a producer "
                 "warp, two consumer warpgroups (setmaxnreg 40/232)")
+# the design of K12 and K13 with bf16 q at D 64 and 128
+# (csrc/ragged_paged_attention.cu, tc::ragged_mma)
+RAGGED_DESIGN = ("keys split over CTAs by a plan from the shapes, f32 "
+                 "partials merged in split order by a second launch; "
+                 "mma.sync m16n8k16 with P as bf16 hi + lo, a decode "
+                 "block's tile keys split over the four warps; a "
+                 "three-stage cp.async ring (K13: codes converted to a "
+                 "bf16 work tile)")
 WINDOWS = 5                      # timed windows per measurement
 
 
@@ -443,6 +459,9 @@ def phase_kernels(cfg, dev="cuda"):
             raise AssertionError(f"ragged attention: slot {b} rows past "
                                  f"its length are not zero")
     err, worst, worst1, err32, worst32 = ragged_checks(krpa, args, ref, out)
+    if not torch.equal(krpa.ragged_paged_attention(*args), out):
+        raise AssertionError("ragged attention: a second launch on the same "
+                             "inputs gave other bits")
     ms = time_ms(krpa.ragged_paged_attention, args)
     eager = eager_ms(krpa.ragged_paged_attention, args)
     plain = time_ms(krpa.ragged_paged_attention_reference, args, iters=2)
@@ -459,13 +478,15 @@ def phase_kernels(cfg, dev="cuda"):
         f"err {err:.3g} (limit 2^-8*sum p|v| + 1 ulp of each |ref|, worst "
         f"err/limit {worst:.3g}; against the f32 plain version, limit 1 "
         f"ulp, worst {worst1:.3g}); f32 kernel max abs err {err32:.3g} "
-        f"(limit 1e-5*sum p|v| + 1e-6, worst {worst32:.3g}) "
+        f"(limit 1e-5*sum p|v| + 1e-6, worst {worst32:.3g}); a second "
+        f"launch repeats it bit for bit; split plan "
+        f"{krpa.split_plan(B, C, kvh, nh // kvh, d, mp * page)} "
         f"kernel {ms:.4f} ms (eager {eager:.4f}) plain {plain:.4f} ms "
         f"bound {b_ms:.4f} ms ({b_by})")
     res["ragged_paged_attention"] = dict(
         max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
         library_ms=None,
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, design=RAGGED_DESIGN,
         shape=f"q[{B},{C},{nh},{d}] pools[{kvh},{P},{page},{d}] bf16")
     return res
 
@@ -1091,11 +1112,31 @@ def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
     log(f"[{tag}] launches {launches} (per forward: {2 * L + 1} rms_norm, "
         f"{L} swiglu, {L} attention)")
     by = {r.request_id: r.tokens for r in done}
+    prof = _profile_two_requests(tag, eng, model.config.vocab_size)
     del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, streams=[by[i] for i in ids],
                 wall_s=wall, tok_s=12 * n_new / wall, peak_gb=peak,
-                pool_gb=pool_gb, forwards=forwards)
+                pool_gb=pool_gb, forwards=forwards, profile=prof)
+
+
+def _profile_two_requests(tag, eng, vocab, seed=43):
+    """Two more requests (700 and 300 prompt tokens, 16 new) through the
+    engine under torch.profiler: the device time by layer, K12/K13's
+    share of it and the attention kernels' device symbols."""
+    rng = np.random.RandomState(seed)
+
+    def two_requests():
+        for n in (700, 300):
+            eng.add_request(rng.randint(0, vocab, n), 16)
+        eng.run()
+    prof = _profile(tag, two_requests)
+    if prof:
+        cat = "paged attention K12/K13/K16"
+        ms = prof["by_layer"].get(cat, 0.0)
+        log(f"[{tag}] K12/K13 {ms:.2f} ms of {prof['busy_ms']:.1f} ms of "
+            f"device time ({100 * ms / prof['busy_ms']:.1f}%)")
+    return prof
 
 
 def _agreement(a, b):
@@ -1221,8 +1262,9 @@ def _mixed_tables(B, P, mp, page, ctx, lengths, seed):
 
 def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
     """K13 over int8 and fp8 pools at K12's mixed batch (Llama-3-8B's
-    32/8 heads, and Qwen2's 28/4, rep 7), and K16 at decode shapes, each
-    against its plain version per element, in bf16 and f32."""
+    32/8 heads, and Qwen2's 28/4, rep 7) and at serve_quant's decode step
+    (one token a slot), and K16 at decode shapes, each against its plain
+    version per element, in bf16 and f32."""
     import torch
     from paddle_tpu_torch.ops import paged_attention as PA
     from paddle_tpu_torch.ops.kernels import paged_attention as kpa
@@ -1300,6 +1342,10 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
             if heads != "llama":
                 continue
             args = (q16, kc, vc, ks, vs, tb, ct, ln)
+            if not torch.equal(krpa.ragged_paged_attention_quant(*args),
+                               krpa.ragged_paged_attention_quant(*args)):
+                raise AssertionError(f"K13 {mode}: two launches on the same "
+                                     f"inputs gave other bits")
             ms = time_ms(krpa.ragged_paged_attention_quant, args)
             eager = eager_ms(krpa.ragged_paged_attention_quant, args)
             plain = time_ms(_k13_plain, args, iters=2)
@@ -1313,6 +1359,7 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
                 f"({b_by})")
             entry = dict(ms=ms, eager_ms=eager, plain_ms=plain,
                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         design=RAGGED_DESIGN,
                          shape=f"q[{B},{C},{nh},{d}] bf16, {mode} pools"
                                f"[{kvh},{P},{page},{d}] + f32 scales")
             if mode == "int8":
@@ -1322,8 +1369,56 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
         del kf, vf, q16, kc, vc, ks, vs, a, out, ref
         torch.cuda.empty_cache()
 
-    # ---- K16: decode shapes (one query token a sequence)
+    # ---- K13 at serve_quant's decode forward (7 of every 8 it runs): one
+    # token in each of 8 slots, contexts 64-2048 (ctx - 1 cached), the
+    # split plan that step runs
     nh, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
+    P = B * mp + 1
+    ctx1 = np.linspace(64, max_len, B).astype(np.int32) - 1
+    ones = np.ones(B, np.int32)
+    tb, ct, ln = (torch.from_numpy(a).to(dev) for a in (
+        _mixed_tables(B, P, mp, page, ctx1, ones, 14), ctx1, ones))
+    kf, vf = rand(kvh, P, page, d, dtype=f32), rand(kvh, P, page, d,
+                                                      dtype=f32)
+    q16 = rand(B, 1, nh, d)
+    plan = krpa.split_plan(B, 1, kvh, nh // kvh, d, mp * page)
+    for mode in QUANT_MODES:
+        kc, ks = PA.quantize_kv(kf, _pool_dtype(mode))
+        vc, vs = PA.quantize_kv(vf, _pool_dtype(mode))
+        ks[:, 0] = vs[:, 0] = float("nan")
+        if mode == "fp8":
+            kc.view(torch.uint8)[:, 0] = 0x7F
+            vc.view(torch.uint8)[:, 0] = 0x7F
+        a = krpa.ragged_paged_attention_reference(
+            q16.float(), PA.dequantize_pages(kc, ks),
+            PA.dequantize_pages(vc, vs).abs(), tb, ct, ln).float()
+        args = (q16, kc, vc, ks, vs, tb, ct, ln)
+        out = krpa.ragged_paged_attention_quant(*args)
+        ref = _k13_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"K13 {mode} at lengths 1: non-finite "
+                                 f"output (the trash page reached a row)")
+        # the mixed batch's limit
+        err, worst = check_close(
+            f"K13 {mode} at lengths 1", out, ref,
+            1e-5 * a + BF16_ULP * ref.float().abs() + 1e-6)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if not torch.equal(krpa.ragged_paged_attention_quant(*args), out):
+            raise AssertionError(f"K13 {mode} at lengths 1: a second launch "
+                                 f"gave other bits")
+        ms = time_ms(krpa.ragged_paged_attention_quant, args)
+        (r if mode == "int8" else r["fp8"])["decode_ms"] = ms
+        log(f"[quant_kernels] ragged_paged_attention_quant {mode} at "
+            f"lengths 1, q [{B},1,{nh},{d}] bf16, ctx {ctx1.min() + 1}-"
+            f"{ctx1.max() + 1}: split plan {plan}; max abs err {err:.3g} "
+            f"(limit 1e-5*sum p|v| + 1 ulp of |ref| + 1e-6, worst err/limit "
+            f"{worst:.3g}); a second launch repeats it bit for bit; kernel "
+            f"{ms:.4f} ms")
+    del kf, vf, q16, kc, vc, ks, vs, a, out, ref, args
+    torch.cuda.empty_cache()
+
+    # ---- K16: decode shapes (one query token a sequence)
     r = res["paged_attention"] = {"max_abs_err": 0.0,
                                   "max_abs_err_f32": 0.0}
     for B in (8, 64):
@@ -1366,14 +1461,25 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
         ms = time_ms(kpa.paged_attention, args)
         eager = eager_ms(kpa.paged_attention, args)
         plain = time_ms(kpa.paged_attention_reference, args, iters=2)
-        # K12 on the same function: one token a slot, ctx - 1 cached
+        # K12 on the same function: one token a slot, ctx - 1 cached (the
+        # engine's decode forward; its keys split over CTAs)
         rag = (q[:, None].contiguous(), kp, vp, tb, ct - 1,
                torch.ones(B, dtype=torch.int32, device=dev))
+        rag_out = krpa.ragged_paged_attention(*rag)
         # both keep f32 probabilities and round their outputs once
-        check_close(f"K12 at lengths 1 vs K16, B={B}",
-                    krpa.ragged_paged_attention(*rag)[:, 0],
+        check_close(f"K12 at lengths 1 vs K16, B={B}", rag_out[:, 0],
                     kpa.paged_attention(*args),
                     2 * BF16_ULP * ref32.abs() + 1e-5 * a + 1e-6)
+        _, rw, rw1, _, rw32 = ragged_checks(
+            krpa, rag, krpa.ragged_paged_attention_reference(*rag), rag_out)
+        if not torch.equal(krpa.ragged_paged_attention(*rag), rag_out):
+            raise AssertionError(f"K12 at lengths 1, B={B}: a second launch "
+                                 f"gave other bits")
+        plan = krpa.split_plan(B, 1, kvh, nh // kvh, d, tb.shape[1] * page)
+        log(f"[quant_kernels] K12 at lengths 1, B={B}: split plan {plan}; "
+            f"worst err/limit against its plain version {rw:.3g} (bf16), "
+            f"{rw1:.3g} (f32 plain), {rw32:.3g} (f32 kernel); a second "
+            f"launch repeats it bit for bit")
         rag_ms = time_ms(krpa.ragged_paged_attention, rag)
         keys = int(ctx.sum())
         b_ms, b_by = bound(2 * B * nh * d * 2 + 2 * keys * kvh * d * 2
@@ -1730,6 +1836,7 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
 # matmuls are the nvjet/sm90 gemm kernels)
 _CATEGORIES = (("grouped matmul K14/K15", ("gmm_", "gdw_")),
                ("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
+               ("paged attention K12/K13/K16", ("ragged_", "paged_decode")),
                ("rms_norm K1-K4", ("rms_norm",)),
                ("swiglu K5/K6", ("swiglu",)),
                ("ce_chunk K10/K11", ("ce_stats", "ce_dlogits")),
@@ -1806,7 +1913,8 @@ def _profile(tag, fn, per=1):
     # the device symbols of the hand-written attention and grouped-matmul
     # kernels this step ran: which kernel each path took
     symbols = {}
-    for cat in ("attention K7-K9", "grouped matmul K14/K15"):
+    for cat in ("attention K7-K9", "paged attention K12/K13/K16",
+                "grouped matmul K14/K15"):
         keys = dict(_CATEGORIES)[cat]
         ran = {_symbol(n): ms for n, ms in kernels.items()
                if any(k in n for k in keys)}
@@ -2321,8 +2429,7 @@ def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
                 entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                              bound_ms=b_ms, bound_by=b_by,
                              shape=f"P {P} d {d} h {h} E {E} bf16")
-                if name != "grouped_dw":
-                    entry["design"] = WGMMA_DESIGN
+                entry["design"] = WGMMA_DESIGN
                 if tag == "wide":
                     r.update(entry)
                 else:
@@ -2390,7 +2497,9 @@ def _qwen2_head_checks(cfg, dev):
     """K12 and K7-K9 at Qwen2's head layout, 28 query heads over 4 kv
     heads (rep 7, which does not divide K12's 64-row CTA: its last row is
     unused), against their plain versions per element, in bf16 and f32:
-    K12 on the serve phase's mixed batch, K7-K9 at [1, 2049] tokens."""
+    K12 on the serve phase's mixed batch and at serve_moe's decode step
+    (one token a slot, its keys split 8 ways), K7-K9 at [1, 2049]
+    tokens."""
     import torch
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     gen = torch.Generator(device=dev).manual_seed(99)
@@ -2422,6 +2531,29 @@ def _qwen2_head_checks(cfg, dev):
         f"{nh // kvh}) D={d}: bf16 max abs err {err:.3g} (worst err/limit "
         f"{worst:.3g}; vs f32 plain {worst1:.3g}); f32 {err32:.3g} (worst "
         f"{worst32:.3g})")
+    # the decode forward serve_moe runs 7 of every 8 times: one token in
+    # each of 8 slots, contexts 64-2048 (ctx - 1 cached), and its plan
+    ctx1 = np.linspace(64, mp * page, B).astype(np.int32) - 1
+    ones = np.ones(B, np.int32)
+    args = (rand(B, 1, nh, d), kp, vp,
+            *(torch.from_numpy(a).to(dev) for a in (
+                _mixed_tables(B, P, mp, page, ctx1, ones, 9), ctx1, ones)))
+    out = krpa.ragged_paged_attention(*args)
+    ref = krpa.ragged_paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("ragged attention at rep 7, lengths 1: "
+                             "non-finite output")
+    err, worst, worst1, err32, worst32 = ragged_checks(krpa, args, ref, out)
+    if not torch.equal(krpa.ragged_paged_attention(*args), out):
+        raise AssertionError("ragged attention at rep 7, lengths 1: a "
+                             "second launch gave other bits")
+    log(f"[moe_kernels] ragged_paged_attention H={nh} KVH={kvh} at lengths "
+        f"1, B={B}, ctx {ctx1.min() + 1}-{ctx1.max() + 1}: split plan "
+        f"{krpa.split_plan(B, 1, kvh, nh // kvh, d, mp * page)}; bf16 max "
+        f"abs err {err:.3g} (worst err/limit {worst:.3g}; vs f32 plain "
+        f"{worst1:.3g}); f32 {err32:.3g} (worst {worst32:.3g}); a second "
+        f"launch repeats it bit for bit")
     del args, out, ref, kp, vp
     flash_checks(1, 2049, nh, kvh, d, rand)
     torch.cuda.empty_cache()
@@ -2527,11 +2659,7 @@ def phase_serve_moe(cfg, dev="cuda"):
         f"decode forward routes {8 * cfg.num_experts_per_tok} rows into "
         f"P = {(1 + cfg.num_experts) * 128}, a tile for every expert)")
 
-    def two_requests():
-        for n in (700, 300):
-            eng.add_request(rng.randint(0, cfg.vocab_size, n), 16)
-        eng.run()
-    prof = _profile("serve_moe", two_requests)
+    prof = _profile_two_requests("serve_moe", eng, cfg.vocab_size)
     del eng, model
     torch.cuda.empty_cache()
     return dict(wall_s=wall, tok_s=12 * n_new / wall, peak_gb=peak,

@@ -48,16 +48,26 @@
 // ran slower on the card: they load 37% more bytes a flop from L2.
 // Clusters of two CTAs on adjacent row tiles that multicast a shared
 // expert's w tile (half the bank's traffic from L2) ran no faster.
-// bf16 K15 (mma.sync m16n8k16, f32 accumulators): one CTA per (expert,
-//   128 x 128 tile of [d, h]). The CTA finds its expert's run of row tiles
-//   by a binary search of tile_gid on the device, loops over those rows
-//   (the contraction) in steps of 32 through a ring of four shared-memory
-//   stages that cp.async fills three ahead, and writes its tile once:
-//   zeros when the run is empty. Eight warps, 2 x 4, each own a 64 x 32
-//   block in registers. Both operands are stored [row][d or h] (x^T and
-//   dy as the product reads them) and loaded with ldmatrix .trans; rows
-//   are padded to 272 bytes so that every ldmatrix is free of bank
-//   conflicts; cp.async's zero fill predicates the edges. No atomics.
+// bf16 K15, the same design turned to the weight gradient dw[e] =
+//   x[run e]^T @ dy[run e]: the output tile is 128 d-rows x 256 h-columns
+//   of dw[e] and the contraction runs over the expert's rows, from
+//   run[0] * bm to run[1] * bm in steps of 64, so both operands are read
+//   MN-major: A = x^T in boxes of 64 d x 64 rows (wgmma's tnspA), B = dy
+//   in boxes of 64 h x 64 rows, as the forward reads w[e]. Persistent CTAs
+//   walk the tiles expert by expert, then d tile, then h tile: the CTAs
+//   running at once share one expert's x and dy rows in L2. A CTA finds an
+//   expert's run by a binary search of tile_gid on the device, once per
+//   expert it visits (no host sync). The output leaves by K14's staged TMA
+//   stores through a 3-D map over [E, d, h], which clip at d and h; an
+//   expert without rows gets a tile of zeros through the same stores.
+//   What bounds it: the per-tile epilogue against a short contraction (an
+//   expert's ~676 rows at the wide shape are about 11 steps of 64), and
+//   dw's 605 MB of stores. A three-stage ring with a second staging
+//   buffer (no wait between the halves' stores), and tiles walked h
+//   before d, ran no faster on the card. The mma.sync version it replaces
+//   (one CTA per expert and 128 x 128 tile, 18480 CTAs at the wide shape,
+//   a cp.async ring of 32-row steps, stores straight from registers) took
+//   1.69 ms there on an H100 (PERF.md).
 //
 // f32 (parity checks): on the CUDA cores in f32 (not TF32), one CTA per
 // 64 x 64 output tile (K15: per expert and tile), each thread a 4 x 4
@@ -67,167 +77,7 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kThreads = 256;     // 8 warps: 2 along M x 4 along N
-constexpr int kLd = kBN + 8;      // a tile stored [k][128 cols]: 272-byte rows
-constexpr int kStage = kBK * kLd;  // one operand's tile
-constexpr int kStages = 4;        // the cp.async ring
-constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * kStages * 2 * kStage;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: no bytes read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The operands of one CTA's product C[m][n] = sum_k A[m][k] B[k][n] over
-// k < klen, m < mlim, n < nlim (the CTA's tile origin already applied):
-// A[m][k] at a[k * lda + m] (x^T), B[k][n] at b[k * ldb + n] (dy).
-struct Operands {
-  const bf16* a;
-  const bf16* b;
-  size_t lda, ldb;
-  int mlim, nlim, klen;
-};
-
-// cp.async of k-tile kt into one stage; out-of-range chunks are zeros
-__device__ __forceinline__ void load_stage(bf16* as, bf16* bs,
-                                           const Operands& op, int kt) {
-  const int k0 = kt * kBK;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * kThreads;  // 512 16-byte chunks a tile
-    const int r = c >> 4, cc = (c & 15) * 8;
-    const bool oka = k0 + r < op.klen && cc < op.mlim;
-    cp_async16(as + r * kLd + cc,
-               oka ? op.a + (size_t)(k0 + r) * op.lda + cc : op.a, oka);
-    const bool okb = k0 + r < op.klen && cc < op.nlim;
-    cp_async16(bs + r * kLd + cc,
-               okb ? op.b + (size_t)(k0 + r) * op.ldb + cc : op.b, okb);
-  }
-}
-
-// acc[mi][ni] is the m16 x n8 block at rows wm*64 + mi*16, columns
-// wn*32 + ni*8 of the CTA's 128 x 128 output (mma C fragment layout).
-__device__ __forceinline__ void mainloop(float acc[4][4][4],
-                                         const Operands& op, bf16* smem) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int j = lane >> 3, i8 = lane & 7;
-  const int nk = (op.klen + kBK - 1) / kBK;
-  // prologue: k-tiles 0 .. kStages - 2 in flight (one commit group each,
-  // empty past the end, so the group count stays uniform)
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk)
-      load_stage(smem + st * 2 * kStage, smem + (st * 2 + 1) * kStage, op,
-                 st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // k-tile kt has landed (this thread's)
-    __syncthreads();  // ... everyone's; and k-tile kt - 1 is consumed
-    const int nxt = kt + kStages - 1;
-    if (nxt < nk) {
-      bf16* st = smem + (nxt % kStages) * 2 * kStage;
-      load_stage(st, st + kStage, op, nxt);
-    }
-    cp_async_commit();
-    const bf16* as = smem + (kt % kStages) * 2 * kStage;
-    const bf16* bs = as + kStage;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // A^T stored [k][m]: lane group j reads k half j/2, m half j%2
-        const int r0 = wm * 64 + mi * 16;
-        ldsm_x4_t(af[mi], as + (kk + (j >> 1) * 8 + i8) * kLd + r0 +
-                              (j & 1) * 8);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        // B stored [k][n]: lane group j reads k half j%2, n half j/2
-        const int c0 = wn * 32 + nj * 16;
-        uint32_t r[4];
-        ldsm_x4_t(r, bs + (kk + (j & 1) * 8 + i8) * kLd + c0 + (j >> 1) * 8);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], af[mi], bfr[ni]);
-    }
-  }
-  cp_async_wait<0>();  // no copy outlives the CTA
-}
-
-// the accumulators, rounded once, to out (the CTA's origin, row stride
-// ldo); rows past mlim and columns past nlim are skipped
-__device__ __forceinline__ void store_tile(bf16* out, size_t ldo, int mlim,
-                                           int nlim, float acc[4][4][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = wm * 64 + mi * 16 + g + 8 * half;
-      if (row >= mlim) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = wn * 32 + ni * 8 + 2 * t;
-        if (col >= nlim) continue;
-        const __nv_bfloat162 v = __floats2bfloat162_rn(
-            acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * ldo + col) = v;
-      }
-    }
-}
-
-__device__ __forceinline__ void zero(float acc[4][4][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-}
+constexpr int kThreads = 256;  // the f32 kernels' CTA
 
 // first index of tile_gid[0..n) (non-decreasing) that is >= v
 __device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
@@ -240,36 +90,6 @@ __device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
       hi = mid;
   }
   return lo;
-}
-
-// K15: x [P, D], dy [P, H] -> dw [E, D, H]
-__global__ void __launch_bounds__(kThreads)
-    gdw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-             const int* __restrict__ tile_gid, bf16* __restrict__ dw, int D,
-             int H, int nr, int bm) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  __shared__ int run[2];
-  const int h0 = blockIdx.x * kBN, d0 = blockIdx.y * kBM, e = blockIdx.z;
-  if (threadIdx.x == 0) {
-    run[0] = lower_bound(tile_gid, nr, e);
-    run[1] = lower_bound(tile_gid, nr, e + 1);
-  }
-  __syncthreads();
-  const size_t r0 = (size_t)run[0] * bm;
-  Operands op;
-  op.a = x + r0 * D + d0;
-  op.lda = D;
-  op.b = dy + r0 * H + h0;
-  op.ldb = H;
-  op.mlim = D - d0;
-  op.nlim = H - h0;
-  op.klen = (run[1] - run[0]) * bm;
-  float acc[4][4][4];
-  zero(acc);
-  if (op.klen > 0) mainloop(acc, op, smem);
-  store_tile(dw + (size_t)e * D * H + (size_t)d0 * H + h0, H, D - d0, H - h0,
-             acc);
 }
 
 // ---- K14, bf16: warp-specialised wgmma ----------------------------------------
@@ -457,6 +277,190 @@ cudaError_t gmm_bf16(const void* x, const void* w, const int* gid, void* y,
   return cudaGetLastError();
 }
 
+// ---- K15, bf16: warp-specialised wgmma ----------------------------------------
+
+// dw[e] [D, H] = x[run e]^T @ dy[run e]: GmmWs's tile, ring and staging
+// with the contraction over the expert's rows. A = x^T, two boxes of 64 d-columns x 64 rows of
+// x, one a warpgroup, read MN-major (kTransA); B = dy, four boxes of 64
+// h-columns x 64 rows, read MN-major (kTransB), as the forward reads the
+// bank. Tiles run expert, then d tile, then h tile.
+__global__ void __launch_bounds__(kWsThreads, 1)
+    gdw_wgmma(const __grid_constant__ CUtensorMap tm_x,
+              const __grid_constant__ CUtensorMap tm_dy,
+              const __grid_constant__ CUtensorMap tm_dw,
+              const int* __restrict__ tile_gid, int D, int H, int E, int nr,
+              int bm) {
+  using L = GmmWs;
+  constexpr int BN = L::BN;
+  constexpr uint32_t box = 64 * kRowBytes;  // 64 columns x 64 rows
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + L::bars, empty0 = full0 + 8 * L::kRing;
+  const int n_h = (H + BN - 1) / BN, n_d = (D + L::BM - 1) / L::BM;
+  const int n_tiles = E * n_d * n_h;
+  // a tile's expert, origin and contraction: the expert's run of row
+  // tiles, found once per expert by a binary search of tile_gid (runs are
+  // multiples of bm, a multiple of 128 rows: a 64-row step never leaves
+  // the expert)
+  struct Tile {
+    int e, d0, h0, r0, n_k;
+  };
+  int e_run = -1, r0_run = 0, nk_run = 0;
+  auto tile_at = [&](int tile) {
+    Tile T;
+    T.e = tile / (n_d * n_h);
+    const int rem = tile % (n_d * n_h);
+    T.d0 = rem / n_h * L::BM;
+    T.h0 = rem % n_h * BN;
+    if (T.e != e_run) {
+      const int lo = lower_bound(tile_gid, nr, T.e);
+      const int hi = lower_bound(tile_gid, nr, T.e + 1);
+      e_run = T.e;
+      r0_run = lo * bm;
+      nk_run = (hi - lo) * bm / L::BK;
+    }
+    T.r0 = r0_run;
+    T.n_k = nk_run;
+    return T;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kRing; ++s) {
+      hw::mbar_init(full0 + 8 * s, 1);
+      hw::mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hw::warpgroup_idx() == 2) {  // the producer warpgroup: one thread loads
+    hw::setmaxnreg_dec<40>();
+    if (threadIdx.x == kProducer) {
+      int it = 0;  // stages filled so far, across tiles
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const Tile T = tile_at(tile);
+        // dy's boxes that hold columns below H (the others would only
+        // feed columns the store clips)
+        const int n_box = min(BN / 64, (H - T.h0 + 63) / 64);
+        const uint32_t tx = 2 * box + n_box * box;
+        for (int kt = 0; kt < T.n_k; ++kt, ++it) {
+          const int s = it % L::kRing;
+          const uint32_t st = base + s * L::stage, full = full0 + 8 * s;
+          const int row = T.r0 + kt * L::BK;
+          hw::mbar_wait(empty0 + 8 * s, ((it / L::kRing) & 1) ^ 1);
+          hw::mbar_arrive_expect_tx(full, tx);
+          hw::tma_load_2d(st, &tm_x, full, T.d0, row);
+          hw::tma_load_2d(st + box, &tm_x, full, T.d0 + 64, row);
+          for (int i = 0; i < n_box; ++i)
+            hw::tma_load_2d(st + L::a_box + i * box, &tm_dy, full,
+                            T.h0 + 64 * i, row);
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: d rows 64 wg .. 64 wg + 63 of a tile
+    hw::setmaxnreg_inc<232>();
+    const int wg = hw::warpgroup_idx(), ct = threadIdx.x & 127;
+    const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(empty0 + 8 * stage);
+    };
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile T = tile_at(tile);
+      float acc[BN / 2];
+      if (T.n_k == 0) {  // an expert without rows: a tile of zeros
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      }
+      for (int kt = 0; kt < T.n_k; ++kt, ++it) {
+        const int s = it % L::kRing;
+        const uint32_t st = base + s * L::stage;
+        hw::mbar_wait(full0 + 8 * s, (it / L::kRing) & 1);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::BK / 16; ++kk) {
+          // both MN-major: a k16 step is 16 rows of the box further
+          const uint64_t a =
+              hw::sw128_desc(st + wg * box + kk * 16 * kRowBytes, box, 1024);
+          const uint64_t b = hw::sw128_desc(
+              st + L::a_box + kk * 16 * kRowBytes, box, 1024);
+          hw::Wgmma<BN>::ss<1, 1>(acc, a, b, kt > 0 || kk > 0);
+        }
+        hw::wgmma_commit();
+        // the step before this one is done: its stage may be refilled
+        hw::wgmma_wait<1>();
+        if (kt > 0) release((it - 1) % L::kRing);
+      }
+      if (T.n_k > 0) {
+        hw::wgmma_wait<0>();
+        hw::fence_regs(acc);
+        release((it - 1) % L::kRing);
+      }
+      // K14's epilogue: rounded once into the staging boxes, one TMA
+      // store a box into dw[e] (clipped at D and H); the last half's
+      // stores run on under the next tile's products
+      const uint32_t ep = L::out + wg * L::out_wg;
+      const int dr = T.d0 + wg * 64;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (ct == 0) hw::tma_store_wait_read<0>();
+        hw::named_barrier_sync(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < BN / 16; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int j = half * (BN / 16) + jj;
+            const int row = warp * 16 + g + 8 * i;
+            const uint32_t at = ep + (jj / 8) * L::out_box +
+                                row * kRowBytes +
+                                (((jj % 8) ^ (row & 7)) << 4) + 4 * t;
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(smem + at) = v;
+          }
+        hw::fence_async_smem();
+        hw::named_barrier_sync(1 + wg, 128);
+        if (ct == 0 && dr < D) {
+          const int c0 = T.h0 + half * (BN / 2);
+          const int n_box = min(2, (H - c0 + 63) / 64);
+          for (int c = 0; c < n_box; ++c)
+            hw::tma_store_3d(&tm_dw, base + ep + c * L::out_box, c0 + 64 * c,
+                             dr, T.e);
+          hw::tma_store_commit();
+        }
+      }
+    }
+    if (ct == 0) hw::tma_store_wait<0>();  // the last stores are done
+  }
+}
+
+// launch K15 in bf16: one CTA per SM, or per tile when there are fewer
+cudaError_t gdw_bf16(const void* x, const void* dy, const int* gid, void* dw,
+                     int D, int H, int E, int nr, int bm, cudaStream_t s) {
+  using L = GmmWs;
+  const int P = nr * bm;
+  CUtensorMap tx, tdy, tdw;
+  if (!hw::matrix_map(&tx, x, P, D, 64) ||
+      !hw::matrix_map(&tdy, dy, P, H, 64) ||
+      !hw::bank_map(&tdw, dw, E, D, H, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      gdw_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int n_tiles =
+      E * ((D + L::BM - 1) / L::BM) * ((H + L::BN - 1) / L::BN);
+  gdw_wgmma<<<n_tiles < sms ? n_tiles : sms, kWsThreads, L::bytes, s>>>(
+      tx, tdy, tdw, gid, D, H, E, nr, bm);
+  return cudaGetLastError();
+}
+
 // ---- f32: 64 x 64 tiles on the CUDA cores ------------------------------------
 
 constexpr int kFT = 64, kFK = 16;
@@ -562,14 +566,6 @@ __global__ void __launch_bounds__(kThreads)
              acc);
 }
 
-// K15's dynamic shared memory is above the default 48 KB
-template <typename F>
-cudaError_t allow_smem(F* kernel) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
-}
-
 }  // namespace
 
 // K14. x [P, K]; w [E, K, N], or [E, N, K] when transpose_rhs; tile_gid
@@ -614,15 +610,8 @@ extern "C" int grouped_matmul_dw(const void* x, const void* dy,
   if (E <= 0 || D <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gid = static_cast<const int*>(tile_gid);
-  if (dtype == ptt::kBFloat16) {
-    const dim3 grid((H + kBN - 1) / kBN, (D + kBM - 1) / kBM, E);
-    const cudaError_t e = allow_smem(gdw_bf16);
-    if (e != cudaSuccess) return e;
-    gdw_bf16<<<grid, kThreads, kSmemBytes, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), gid,
-        static_cast<bf16*>(dw), D, H, nr, bm);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (dtype == ptt::kBFloat16)
+    return static_cast<int>(gdw_bf16(x, dy, gid, dw, D, H, E, nr, bm, s));
   if (dtype == ptt::kFloat32) {
     const dim3 grid((H + kFT - 1) / kFT, (D + kFT - 1) / kFT, E);
     gdw_f32<<<grid, kThreads, 0, s>>>(

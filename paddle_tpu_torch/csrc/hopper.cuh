@@ -150,6 +150,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       : "memory");
 }
 
+// ... and of a 3-D one to coordinates (c0, c1, c2)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -211,7 +222,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // `accumulate` is not 0. ss: A and B from shared-memory descriptors, A
 // K-major; rs: A from registers (the A fragment above). B is K-major, or
 // MN-major when kTransB is 1. N 32, 64 and 128 have both forms, N 256
-// (the grouped matmul's warpgroup tile) SS only.
+// (the grouped matmul's warpgroup tile) SS only, where A is MN-major when
+// kTransA is 1 (the weight gradient's x^T).
 template <int N>
 struct Wgmma;
 
@@ -373,7 +385,7 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<256> {
-  template <int kTransB>
+  template <int kTransB, int kTransA = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a,
                                             uint64_t b, int accumulate) {
     asm volatile(
@@ -395,7 +407,7 @@ struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127 "
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -428,7 +440,7 @@ struct Wgmma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB), "n"(kTransA));
   }
 };
 

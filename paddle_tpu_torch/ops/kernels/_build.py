@@ -52,11 +52,11 @@ _SIGNATURES = {
     "flash_attention_fwd": [_vp] * 5 + [_i] * 6 + [_f, _i, _i, _vp],
     "flash_attention_dkv": [_vp] * 8 + [_i] * 6 + [_f, _i, _i, _vp],
     "flash_attention_dq": [_vp] * 7 + [_i] * 6 + [_f, _i, _i, _vp],
-    "ragged_paged_attention_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                                   _i, _i, _i, _i, _i, _i, _i, _i, _f,
-                                   _i, _vp],
+    "ragged_paged_attention_fwd": [_vp] * 7 + [_i] * 8
+                                  + [_f, _i, _i, _i, _vp, _vp, _vp],
     "ragged_paged_attention_quant_fwd": [_vp] * 9 + [_i] * 8
-                                        + [_f, _i, _i, _vp],
+                                        + [_f, _i, _i, _i, _i, _vp, _vp,
+                                           _vp],
     "paged_attention_fwd": [_vp] * 6 + [_i] * 7 + [_f, _i, _vp],
     "grouped_matmul_fwd": [_vp] * 4 + [_i] * 7 + [_vp],
     "grouped_matmul_dw": [_vp] * 4 + [_i] * 6 + [_vp],

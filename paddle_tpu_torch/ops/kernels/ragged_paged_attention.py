@@ -30,13 +30,23 @@ import torch
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_quant",
-           "ragged_paged_attention_reference"]
+           "ragged_paged_attention_reference", "split_plan"]
 
 _NEG_INF = -1e30
 # query rows a CTA holds (csrc/ragged_paged_attention.cu: kRows)
 _CTA_ROWS = 64
 _HEAD_DIMS = (32, 64, 128, 256)
 _QUANT_POOLS = (torch.int8, torch.float8_e4m3fn)
+# the tensor-core kernel (bf16 q at these D; tc::ragged_mma): keys a tile,
+# the most keys a split takes, the least it takes to fill the card, the
+# CTAs that fill it (about two an SM of an H100), and the most bytes of
+# f32 partials a call may hold
+_TC_HEAD_DIMS = (64, 128)
+_TILE_KEYS = 64
+_MAX_SPLIT_KEYS = 512
+_FILL_SPLIT_KEYS = 256
+_TARGET_CTAS = 256
+_PARTIAL_BYTES = 256 * 2 ** 20
 
 
 def _gather_pages(pool, tables):
@@ -93,14 +103,43 @@ def ragged_paged_attention_reference(q, key_pages, value_pages,
                        zero.to(out.dtype)).to(q.dtype)
 
 
+def split_plan(batch, chunk, kv_heads, rep, head_dim, max_keys):
+    """``(n_splits, split_len)``: how the bf16 kernel at D 64/128 splits
+    a slot's keys ``[0, max_keys)`` (``max_keys = pages_per_seq *
+    page_size``) over CTAs, from the shapes alone (ctx and lengths stay on
+    the device). Without a split the grid is one CTA per (q block, slot,
+    kv head). A split takes at most ``_MAX_SPLIT_KEYS`` keys (the longest
+    walk a CTA makes) while the f32 partials of all splits fit in
+    ``_PARTIAL_BYTES``, and where that leaves fewer than ``_TARGET_CTAS``
+    CTAs (a decode step), more splits of at least ``_FILL_SPLIT_KEYS``
+    keys; whole tiles. Split ``s`` takes keys ``[s * split_len, min((s +
+    1) * split_len, max_keys))``: every key once. (On an H100 this was the
+    fastest of the plans tried at the served shapes: 4 splits of 512 keys
+    at Llama-3-8B's decode step and mixed step, 8 of 256 at Qwen2's
+    decode step; PERF.md.)"""
+    q_blocks = -(-chunk // (_CTA_ROWS // rep))
+    base = q_blocks * batch * kv_heads
+    per_split = batch * chunk * kv_heads * rep * (head_dim + 2) * 4
+    walk = min(-(-max_keys // _MAX_SPLIT_KEYS),
+               max(1, _PARTIAL_BYTES // per_split))
+    fill = min(-(-_TARGET_CTAS // base), -(-max_keys // _FILL_SPLIT_KEYS))
+    n = max(1, walk, fill)
+    tiles = max(1, -(-max_keys // _TILE_KEYS))
+    split_len = -(-tiles // n) * _TILE_KEYS
+    return max(1, -(-max_keys // split_len)), split_len
+
+
 def ragged_paged_attention(q, key_pages, value_pages, block_tables,
                            ctx_lens, lengths, scale=None, k_scales=None,
                            v_scales=None):
     """Mixed prefill + decode paged attention. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (one CTA per q
-    block, slot and kv head) or raises: K12 for bf16/f32 pools, K13
-    (:func:`ragged_paged_attention_quant`) for int8/fp8 pools with their
-    scales. Returns [B, C, H, D] in q's dtype; every row is written."""
+    plain version; a CUDA tensor launches the kernel or raises: K12 for
+    bf16/f32 pools, K13 (:func:`ragged_paged_attention_quant`) for
+    int8/fp8 pools with their scales. bf16 q at D 64/128 runs the
+    tensor-core kernel, its keys split over CTAs by :func:`split_plan`
+    (then a second launch merges the f32 partials); other cases one CTA
+    per q block, slot and kv head. Returns [B, C, H, D] in q's dtype;
+    every row is written."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("ragged_paged_attention: k_scales and v_scales "
                          "come together")
@@ -191,13 +230,22 @@ def _launch(name, q, key_pages, value_pages, scales, block_tables,
             + ints + (out,)]
     dims = (b, c, h, kvh, d, num_pages, page, block_tables.shape[1],
             float(s), code)
+    # the tensor-core kernel's key split, and its partials' scratch
+    n_splits, split_len, part = 1, block_tables.shape[1] * page, (None, None)
+    if q.dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        n_splits, split_len = split_plan(b, c, kvh, h // kvh, d, split_len)
+    if n_splits > 1:
+        rows = n_splits * b * c * h
+        o_part = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+        ml_part = torch.empty(rows * 2, dtype=torch.float32,
+                              device=q.device)
+        part = (o_part.data_ptr(), ml_part.data_ptr())
+    plan = (n_splits, split_len, *part, _build.stream_ptr(q.device))
     if scales:
         rc = lib.ragged_paged_attention_quant_fwd(
-            *ptrs, *dims, _build.pool_code(key_pages.dtype),
-            _build.stream_ptr(q.device))
+            *ptrs, *dims, _build.pool_code(key_pages.dtype), *plan)
     else:
-        rc = lib.ragged_paged_attention_fwd(*ptrs, *dims,
-                                            _build.stream_ptr(q.device))
+        rc = lib.ragged_paged_attention_fwd(*ptrs, *dims, *plan)
     _build.check(rc, name)
     return out
 

@@ -526,6 +526,195 @@ def test_ragged_paged_attention_quant_kernel(cuda, dtype, pool, H, KVH, D,
     _assert_close(out, ref, 1e-5 * a + ulps * ref.float().abs() + 1e-6)
 
 
+def _split_batch(cuda, H, KVH, D, page, C=1, seed=0, keys=2100):
+    """bf16 K12 inputs where the key split engages: 8 slots of one token
+    (C 1), or a prefill chunk beside decode slots (C > 1, 3 slots), with
+    contexts up to about ``keys`` keys that end on and beside the plan's
+    split edges, tile (64-key) and page edges; NaN trash page 0. Returns
+    the arguments, lengths and the plan."""
+    rep = H // KVH
+    pages = -(-keys // page)
+    max_keys = pages * page
+    if C == 1:
+        B = 8
+        n, L = krpa.split_plan(B, C, KVH, rep, D, max_keys)
+        ctx = [L - 1, L, L - 2, 2 * L + 63, max_keys - 1, 64, 63, 0]
+        lengths = [1, 1, 1, 1, 1, 1, 1, 0]
+    else:
+        B = 3
+        n, L = krpa.split_plan(B, C, KVH, rep, D, max_keys)
+        ctx = [max_keys - C, L - 3, 0]
+        lengths = [C, 1, 0]
+    assert n > 1, "the split must engage"
+    ctx, lengths = (np.array(a, np.int32) for a in (ctx, lengths))
+    rng = np.random.RandomState(seed)
+    P = B * pages + 1
+    tables = (rng.permutation(P - 1) + 1).reshape(B, pages).astype(np.int32)
+    for b in range(B):
+        tables[b, -(-int(ctx[b] + lengths[b]) // page):] = 0
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    kp = torch.randn(KVH, P, page, D, device=cuda, generator=g)
+    vp = torch.randn(KVH, P, page, D, device=cuda, generator=g)
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    q = torch.randn(B, C, H, D, device=cuda, generator=g)
+    ints = [torch.from_numpy(a).to(cuda) for a in (tables, ctx, lengths)]
+    return (q, kp, vp, *ints), lengths, (n, L)
+
+
+SPLIT_CASES = [(32, 8, 128, 16, 1), (28, 4, 128, 8, 1), (8, 2, 64, 4, 1),
+               (14, 2, 64, 16, 1), (32, 8, 128, 16, 20), (28, 4, 128, 4, 9),
+               (8, 2, 64, 8, 33)]
+
+
+@pytest.mark.parametrize("H,KVH,D,page,C", SPLIT_CASES)
+def test_ragged_split_kernel(cuda, H, KVH, D, page, C):
+    """bf16 K12 with its keys split over CTAs (rep 4 and 7, pages of 4, 8
+    and 16, D 64 and 128): the limits of the unsplit kernel, the NaN
+    trash page never read, rows past the length zero."""
+    args, lengths, _ = _split_batch(cuda, H, KVH, D, page, C)
+    _check_split(args, lengths)
+
+
+def _check_split(args, lengths):
+    """bf16 K12 on f32 inputs cast to bf16, held to the unsplit kernel's
+    limits; returns its arguments and output."""
+    q, kp, vp, *ints = args
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    out = krpa.ragged_paged_attention(q, kp, vp, *ints)
+    ref = krpa.ragged_paged_attention_reference(q, kp, vp, *ints)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for b, n in enumerate(lengths):
+        assert not out[b, n:].any()
+    f32 = [t.float() for t in (q, kp, vp)]
+    a = krpa.ragged_paged_attention_reference(f32[0], f32[1], f32[2].abs(),
+                                              *ints).float()
+    ref32 = krpa.ragged_paged_attention_reference(*f32, *ints)
+    _assert_close(out, ref, 1.01 * (2 ** -8 * a + BF16_ULP
+                                    * ref.float().abs()) + 1e-6)
+    _assert_close(out, ref32, BF16_ULP * ref32.abs() + 1e-5 * a + 1e-6)
+    return (q, kp, vp, *ints), out
+
+
+@pytest.mark.parametrize("pool", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("H,KVH,D,page,C", [SPLIT_CASES[0], SPLIT_CASES[1],
+                                            SPLIT_CASES[2], SPLIT_CASES[5]])
+def test_ragged_split_quant_kernel(cuda, pool, H, KVH, D, page, C):
+    """bf16 K13 with its keys split: NaN trash scales (and fp8 NaN codes)
+    never read, the unsplit kernel's limit."""
+    args, lengths, _ = _split_batch(cuda, H, KVH, D, page, C, seed=1)
+    _check_split_quant(args, lengths, pool)
+
+
+def _check_split_quant(args, lengths, pool):
+    """bf16 K13 over the inputs' pools quantized to ``pool``, NaN trash
+    scales (and fp8 NaN codes), held to the unsplit kernel's limit;
+    returns its arguments and output."""
+    q, kp, vp, *ints = args
+    kp[:, 0] = vp[:, 0] = 0.0
+    kc, ks = PA.quantize_kv(kp, pool)
+    vc, vs = PA.quantize_kv(vp, pool)
+    ks[:, 0] = vs[:, 0] = float("nan")
+    if pool == torch.float8_e4m3fn:
+        kc.view(torch.uint8)[:, 0] = vc.view(torch.uint8)[:, 0] = 0x7F
+    q = q.to(torch.bfloat16)
+    out = krpa.ragged_paged_attention(q, kc, vc, *ints, k_scales=ks,
+                                      v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for b, n in enumerate(lengths):
+        assert not out[b, n:].any()
+    ref = krpa.ragged_paged_attention_reference(q, kc, vc, *ints,
+                                                k_scales=ks, v_scales=vs)
+    a = krpa.ragged_paged_attention_reference(
+        q.float(), PA.dequantize_pages(kc, ks),
+        PA.dequantize_pages(vc, vs).abs(), *ints).float()
+    _assert_close(out, ref, 1e-5 * a + BF16_ULP * ref.float().abs() + 1e-6)
+    return (q, kc, vc, ks, vs, *ints), out
+
+
+@pytest.mark.parametrize("pool", [None, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("H,KVH,plan", [(32, 8, (4, 512)),
+                                        (28, 4, (8, 256))])
+def test_ragged_split_at_the_served_decode_plan(cuda, pool, H, KVH, plan):
+    """The decode step of the served models (one token in each of 8
+    slots, tables of 2048 keys in pages of 16, D 128) runs the plan the
+    engine runs: Llama-3-8B's 4 splits of 512 keys and Qwen2's 8 of 256.
+    K12 (pool None) and K13 hold their limits there, and a second launch
+    repeats the bits."""
+    args, lengths, got = _split_batch(cuda, H, KVH, 128, 16, 1, seed=4,
+                                      keys=2048)
+    assert got == plan
+    if pool is None:
+        a, out = _check_split(args, lengths)
+        fn = krpa.ragged_paged_attention
+    else:
+        a, out = _check_split_quant(args, lengths, pool)
+        fn = krpa.ragged_paged_attention_quant
+    again = fn(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("pool", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("C", [1, 20])
+def test_quant_codes_reach_the_products_exactly(cuda, pool, C):
+    """bf16 K13 turns every code into bf16 exactly: int8 codes over the
+    whole range -128..127, and e4m3 values that are all subnormal (a
+    flush to zero would leave the outputs near 0), through the split and
+    the unsplit kernel."""
+    args, lengths, _ = _split_batch(cuda, 32, 8, 128, 16, C, seed=3)
+    q, kp, _, *ints = args
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bits = torch.randint(0, 256, kp.shape, generator=g, device=cuda,
+                         dtype=torch.int32).to(torch.uint8)
+    if pool == torch.int8:
+        kc, vc = bits.view(torch.int8), bits.flip(-1).view(torch.int8)
+    else:
+        # e4m3 codes below 2^-6: exponent bits 0, any sign and mantissa
+        kc = (bits & 0x87).view(torch.float8_e4m3fn)
+        vc = (bits.flip(-1) & 0x87).view(torch.float8_e4m3fn)
+    # unit value scales; key scales that keep the scores near 1 (int8
+    # codes up to 128 would otherwise give scores in the hundreds)
+    vs = torch.ones(kp.shape[:3], device=cuda)
+    ks = vs / (64.0 if pool == torch.int8 else 1.0)
+    ks[:, 0] = vs[:, 0] = float("nan")
+    q = q.to(torch.bfloat16)
+    out = krpa.ragged_paged_attention(q, kc, vc, *ints, k_scales=ks,
+                                      v_scales=vs)
+    ref = krpa.ragged_paged_attention_reference(
+        q, kc, vc, *ints, k_scales=ks, v_scales=vs)
+    a = krpa.ragged_paged_attention_reference(
+        q.float(), PA.dequantize_pages(kc, ks),
+        PA.dequantize_pages(vc, vs).abs(), *ints).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_close(out, ref, 1e-5 * a + BF16_ULP * ref.float().abs() + 1e-6)
+    if pool != torch.int8:
+        assert ref.float().abs().max() > 1e-3    # not all zeros
+
+
+@pytest.mark.parametrize("C", [1, 20])
+def test_ragged_kernels_are_deterministic(cuda, C):
+    """bf16 K12 and K13 with the split engaged, and K12 unsplit: two
+    launches on the same inputs give the same bits (partials merged in
+    split order, no atomics)."""
+    args, _, _ = _split_batch(cuda, 32, 8, 128, 16, C, seed=2)
+    q, kp, vp, *ints = args
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    kc, ks = PA.quantize_kv(torch.nan_to_num(kp), torch.int8)
+    vc, vs = PA.quantize_kv(torch.nan_to_num(vp), torch.int8)
+    unsplit, _ = _ragged(cuda, torch.bfloat16, 32, 8, 128, 16)
+    for fn, a in ((krpa.ragged_paged_attention, (q16, k16, v16, *ints)),
+                  (krpa.ragged_paged_attention_quant,
+                   (q16, kc, vc, ks, vs, *ints)),
+                  (krpa.ragged_paged_attention, unsplit)):
+        first, second = fn(*a), fn(*a)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
 def _decode(cuda, dtype, H, KVH, D, page, seed=0):
     rng = np.random.RandomState(seed)
     ctx = np.array([0, 1, 15, 16, 17, 100, 257, 40], np.int32)
@@ -789,6 +978,54 @@ def test_grouped_matmul_is_deterministic(cuda):
         assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("E,d,h,bm,T", [
+    (7, 136, 264, 128, 40),     # d past a 128-row tile, h past 256
+    (5, 64, 8, 128, 30),        # d of one warpgroup, h of one box
+    (4, 392, 1400, 256, 300),   # bm 256, h's last tile partial
+    (9, 200, 520, 128, 9)])     # one-tile runs
+def test_grouped_dw_at_the_tile_edges(cuda, E, d, h, bm, T):
+    """bf16 K15 at widths that straddle its 128 x 256 output tile and
+    its 64-row step, with one-tile expert runs; expert 1 has no rows."""
+    x, _, dy, gid = _grouped_inputs(cuda, torch.bfloat16, E, d, h, bm, T=T)
+    dw = kgmm.grouped_dw(x, dy, gid, E)
+    ref = kgmm.grouped_dw_reference(x, dy, gid, E)
+    mag = kgmm.grouped_dw_reference(x.float().abs(), dy.float().abs(), gid,
+                                    E)
+    torch.cuda.synchronize()
+    _assert_close(dw, ref, _grouped_tol(ref, mag, torch.bfloat16))
+    assert not dw[1].any()
+
+
+def test_grouped_dw_writes_zeros_for_experts_without_a_tile(cuda):
+    """Experts 1, 4 and the last one own no row tile at all (a layout
+    sort_rows_by_expert never makes, but the kernel's contract): their
+    blocks of dw are zeros, written through the same stores."""
+    E, d, h, bm = 7, 136, 264, 128
+    gid = torch.tensor([0, 0, 2, 3, 3, 3, 5], dtype=torch.int32,
+                       device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(gid.shape[0] * bm, d, device=cuda, generator=g)
+    dy = torch.randn(gid.shape[0] * bm, h, device=cuda, generator=g)
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    dw = kgmm.grouped_dw(x, dy, gid, E)
+    ref = kgmm.grouped_dw_reference(x, dy, gid, E)
+    mag = kgmm.grouped_dw_reference(x.float().abs(), dy.float().abs(), gid,
+                                    E)
+    torch.cuda.synchronize()
+    _assert_close(dw, ref, _grouped_tol(ref, mag, torch.bfloat16))
+    assert not dw[[1, 4, 6]].any()
+
+
+def test_grouped_dw_is_deterministic(cuda):
+    """K15 writes every element of dw once, in one order: two launches
+    give the same bits."""
+    x, _, dy, gid = _grouped_inputs(cuda, torch.bfloat16, 6, 1024, 1408,
+                                    128, T=700, seed=6)
+    first, second = (kgmm.grouped_dw(x, dy, gid, 6) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(256, 64, device=cuda)
     w = torch.randn(2, 64, 32, device=cuda)
@@ -844,3 +1081,36 @@ def test_moe_block_runs_without_host_synchronisation(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(x.grad).all()
+
+
+def test_engine_step_runs_without_host_synchronisation(cuda):
+    """One batching step of the engine on the card (a mixed forward, then
+    decode forwards through the split K12) copies nothing to the host:
+    under sync debug mode 'error' any synchronising call raises. bf16 at
+    head_dim 64, a table of 1024 keys a slot, so the split engages."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=256,
+                              intermediate_size=256,
+                              max_position_embeddings=1024)
+    model = LlamaForCausalLM(cfg, device=cuda, dtype=torch.bfloat16, seed=3)
+    eng = ContinuousBatchingEngine(model, num_slots=2, page_size=16,
+                                   max_len=1024, decode_chunk=4,
+                                   prefill_chunk=16, device=cuda)
+    assert krpa.split_plan(2, 1, cfg.num_key_value_heads,
+                           cfg.num_attention_heads // cfg.num_key_value_heads,
+                           cfg.head_dim, 1024)[0] > 1
+    rng = np.random.RandomState(3)
+    for n in (40, 9):
+        eng.add_request(rng.randint(0, cfg.vocab_size, n), 6)
+    eng.step()                                  # builds the kernels
+    inputs = torch.zeros(2, 16 + 3, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    before = krpa.ragged_paged_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = eng._device_step(inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    assert krpa.ragged_paged_attention.launches == before + 4 * L
+    assert packed.shape[0] == 2
