@@ -17,15 +17,16 @@ non-zero without printing a result:
    kernels at the fit phase's, in bf16 and f32; with its time, the plain
    version's, the bound and a library call's; flash attention's bf16
    forward and backward launched twice must repeat their bits, and are
-   timed at [2, 2049] and [4, 2049] with their rates; K12 and K13 too
-   must repeat their bits;
+   timed at [2, 2049] and [4, 2049] with their rates; K10, K12 and K13
+   too must repeat their bits;
    quant_kernels (run after moe_kernels, phase 14): K13 over int8 and
    fp8 pools (scales with NaN on the trash page) at K12's mixed batch,
    at 32/8 and 28/4 heads and at serve_quant's decode step (one token
    in each of 8 slots, its split plan, bits repeated), and K16 at decode
-   shapes (8 and 64
-   sequences, contexts of 64-2048) beside K12 at one token a slot (its
-   keys split over CTAs), K12 there held against its plain version too;
+   shapes (8 and 64 sequences, contexts of 64-2048: its split plan, its
+   registers and spills from ptxas, bits repeated) beside K12 at one
+   token a slot (its keys split over CTAs), K12 there held against its
+   plain version too;
 3. serve: the serving path at full width: a 32-layer Llama-3-8B with
    seeded random weights served by the continuous-batching engine (12
    requests through 8 slots), with the kernels' launch counters read
@@ -45,7 +46,8 @@ non-zero without printing a result:
 7. quant_parity: the same with int8 pools;
 8. decode: ``incubate.nn.functional.block_multihead_attention`` (K16)
    at Llama-3-8B's head layout over 32 layers' pools, 8 sequences, 8
-   decode steps;
+   decode steps, then one more step under torch.profiler (its device
+   time and K16's share of it);
 9. train: Llama-3-8B width at 8 layers in bf16, the unfused stack
    (``FLAGS_fused_rmsnorm_residual`` off), the port's AdamW, 2 warm-up
    and 5 timed steps on [2, 2049] token ids (step time, tokens/s,
@@ -126,6 +128,14 @@ RAGGED_DESIGN = ("keys split over CTAs by a plan from the shapes, f32 "
                  "block's tile keys split over the four warps; a "
                  "three-stage cp.async ring (K13: codes converted to a "
                  "bf16 work tile)")
+# the design of K16 in bf16 at D 64 and 128 (csrc/paged_attention.cu,
+# split::paged_split)
+DECODE_DESIGN = ("keys split over the CTAs of a thread-block cluster by a "
+                 "plan from the shapes, the partials merged in rank order "
+                 "by rank 0 through distributed shared memory (one "
+                 "launch); whole pages by 1-D bulk copies into a "
+                 "three-stage mbarrier ring; f32 products on the CUDA "
+                 "cores, each key's score folded over the lanes of its row")
 WINDOWS = 5                      # timed windows per measurement
 
 
@@ -623,8 +633,9 @@ def phase_fused_kernels(cfg, n_res=4 * 2049, n_ce=8 * 1024, vc=1024,
         r.update(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
                  bound_ms=b_ms, bound_by=b_by, shape=shape)
         log(f"[kernels] {name}: kernel {ms:.4f} ms (eager {eager:.4f}) "
-            f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by}); no single "
-            f"PyTorch call computes it")
+            f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / ms:.1f}% of the time); no single PyTorch call "
+            f"computes it")
 
     # K3 and K4: RMSNorm + residual
     for dtype in (torch.bfloat16, torch.float32):
@@ -693,8 +704,8 @@ def phase_fused_kernels(cfg, n_res=4 * 2049, n_ce=8 * 1024, vc=1024,
             m, s_, t = kce.chunk_stats(logits, local, lo)
             rm, rs_, rt = kce.chunk_stats_reference(logits, local, lo)
             torch.cuda.synchronize()
-            # the max and the target are exact; s is an online f32 sum of
-            # exps (a lane's sum rescaled when its max grows) against the
+            # the max and the target are exact; s is an f32 sum of exps in
+            # another order (ex2.approx, a slab at a time) against the
             # plain one: 2e-5 of s, while one column left out or added
             # moves s by some 1/vc of itself
             if not (torch.equal(m, rm) and torch.equal(t, rt)):
@@ -702,9 +713,14 @@ def phase_fused_kernels(cfg, n_res=4 * 2049, n_ce=8 * 1024, vc=1024,
                                      f"target differs")
             err, worst = check_close(f"chunk_stats {dtype} lo={lo}", s_, rs_,
                                      2e-5 * rs_)
+            again = kce.chunk_stats(logits, local, lo)
+            if not all(torch.equal(x, y) for x, y in zip((m, s_, t), again)):
+                raise AssertionError(f"chunk_stats {dtype} lo={lo}: a second "
+                                     f"launch gave other bits")
             log(f"[kernels] chunk_stats N={n} vc={vc} lo={lo} {dtype}: m and "
                 f"t exact, s max abs err {err:.3g} (limit 2e-5 of s, worst "
-                f"err/limit {worst:.3g})")
+                f"err/limit {worst:.3g}); a second launch repeats it bit for "
+                f"bit")
             elt = logits.element_size()
             record("chunk_stats", err, dtype, kce.chunk_stats,
                    (logits, local, lo), kce.chunk_stats_reference,
@@ -1267,6 +1283,7 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
     version per element, in bf16 and f32."""
     import torch
     from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import paged_attention as kpa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     dev = torch.device(dev)
@@ -1421,6 +1438,9 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
     # ---- K16: decode shapes (one query token a sequence)
     r = res["paged_attention"] = {"max_abs_err": 0.0,
                                   "max_abs_err_f32": 0.0}
+    for line in _ptxas_summary(_build.build_log()):
+        if "paged_split" in line or "paged_decode" in line:
+            log(f"[quant_kernels] K16 {line}")
     for B in (8, 64):
         ctx = np.linspace(64, max_len, B).astype(np.int32)
         P = B * mp + 1
@@ -1475,6 +1495,12 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
         if not torch.equal(krpa.ragged_paged_attention(*rag), rag_out):
             raise AssertionError(f"K12 at lengths 1, B={B}: a second launch "
                                  f"gave other bits")
+        if not torch.equal(kpa.paged_attention(*args), kpa.paged_attention(
+                *args)):
+            raise AssertionError(f"K16 B={B}: a second launch gave other "
+                                 f"bits")
+        k16_plan = kpa.decode_split_plan(B, kvh, nh // kvh, d,
+                                         tb.shape[1] * page)
         plan = krpa.split_plan(B, 1, kvh, nh // kvh, d, tb.shape[1] * page)
         log(f"[quant_kernels] K12 at lengths 1, B={B}: split plan {plan}; "
             f"worst err/limit against its plain version {rw:.3g} (bf16), "
@@ -1485,16 +1511,20 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
         b_ms, b_by = bound(2 * B * nh * d * 2 + 2 * keys * kvh * d * 2
                            + B * (mp + 1) * 4, 4 * d * nh * keys, PEAK_BF16)
         log(f"[quant_kernels] paged_attention B={B} H={nh} KVH={kvh} D={d} "
-            f"page {page} ctx {ctx.min()}-{ctx.max()} ({keys} keys): bf16 "
-            f"max abs err {err:.3g} (limit 2^-8*sum p|v| + 1 ulp of each "
-            f"|ref|, worst err/limit {worst:.3g}; against the f32 plain "
-            f"version, limit 1 ulp, worst {worst1:.3g}); f32 max abs err "
-            f"{err32:.3g} (limit 1e-5*sum p|v| + 1e-6, worst {worst32:.3g}) "
-            f"kernel {ms:.4f} ms (eager {eager:.4f}) plain {plain:.4f} ms "
-            f"K12 at lengths 1 {rag_ms:.4f} ms bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"page {page} ctx {ctx.min()}-{ctx.max()} ({keys} keys): split "
+            f"plan {k16_plan} ({k16_plan[0] * B * kvh} CTAs, clusters of "
+            f"{k16_plan[0]}); bf16 max abs err {err:.3g} (limit "
+            f"2^-8*sum p|v| + 1 ulp of each |ref|, worst err/limit "
+            f"{worst:.3g}; against the f32 plain version, limit 1 ulp, "
+            f"worst {worst1:.3g}); a second launch repeats it bit for bit; "
+            f"f32 max abs err {err32:.3g} (limit 1e-5*sum p|v| + 1e-6, "
+            f"worst {worst32:.3g}) kernel {ms:.4f} ms (eager {eager:.4f}) "
+            f"plain {plain:.4f} ms K12 at lengths 1 {rag_ms:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of the time; "
+            f"K12 {100 * b_ms / rag_ms:.1f}%)")
         entry = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
                      bound_ms=b_ms, bound_by=b_by, k12_at_decode_ms=rag_ms,
+                     split_plan=list(k16_plan), design=DECODE_DESIGN,
                      shape=f"q[{B},{nh},{d}] pools[{kvh},{P},{page},{d}] "
                            f"bf16, ctx {ctx.min()}-{ctx.max()}")
         if B == 8:
@@ -1572,9 +1602,26 @@ def phase_decode(cfg, batch=8, steps=8, dev="cuda"):
         f"{int(ctx0.min())}-{int(ctx0.max())}, {L} layers x {steps} steps "
         f"in {wall * 1e3:.1f} ms ({wall / steps * 1e3:.2f} ms a step, host "
         f"clock, pool writes included); launches {launches}")
+
+    # one more step under the profiler: its device time, and K16's share
+    # of it, away from the host clock
+    def one_step():
+        ctx = torch.from_numpy(ctx0 + steps).to(dev)
+        for i in range(L):
+            kp, vp = pools[2 * i], pools[2 * i + 1]
+            PA.paged_prefill_write(kp, vp, new_kv, new_kv, tb, ctx, one)
+            IF.block_multihead_attention(qs[i], kp, vp, tb, ctx + 1)
+    prof = _profile("decode", one_step)
+    k16_ms = sum(ms for n, ms in prof.get("symbols", {}).get(
+        "paged attention K12/K13/K16", {}).items())
+    if prof:
+        log(f"[decode] a step's device time {prof['busy_ms']:.3f} ms, K16 "
+            f"{k16_ms:.3f} ms of it ({100 * k16_ms / prof['busy_ms']:.1f}%, "
+            f"{L} launches); wall {prof['wall_ms']:.2f} ms")
     del pools, qs
     torch.cuda.empty_cache()
-    return dict(launches=launches, wall_s=wall)
+    return dict(launches=launches, wall_s=wall, step_device_ms=prof.get(
+        "busy_ms"), k16_step_ms=k16_ms)
 
 
 def phase_quant_accuracy(model, n_tokens=1500):
@@ -1836,7 +1883,8 @@ def phase_train(cfg, layers=8, batch=2, seq=2048, warmup=2, steps=5,
 # matmuls are the nvjet/sm90 gemm kernels)
 _CATEGORIES = (("grouped matmul K14/K15", ("gmm_", "gdw_")),
                ("attention K7-K9", ("flash_fwd", "flash_dkv", "flash_dq")),
-               ("paged attention K12/K13/K16", ("ragged_", "paged_decode")),
+               ("paged attention K12/K13/K16", ("ragged_", "paged_decode",
+                                                "paged_split")),
                ("rms_norm K1-K4", ("rms_norm",)),
                ("swiglu K5/K6", ("swiglu",)),
                ("ce_chunk K10/K11", ("ce_stats", "ce_dlogits")),
@@ -2998,7 +3046,8 @@ def main():
                         **({"bench_width": r["bench"]} if "bench" in r
                            else {}),
                         **{k: r[k] for k in ("fp8", "b64", "k12_at_decode_ms",
-                                             "design", "wide", "decode")
+                                             "split_plan", "design", "wide",
+                                             "decode")
                            if k in r}})
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was launched on no path")

@@ -1,6 +1,7 @@
 // Hopper building blocks for the port's kernels (sm_90a): mbarriers, TMA
-// tile loads, wgmma descriptors and products, register reallocation, and
-// the host-side TMA maps over the port's [B, S, heads, D] layout and over
+// tile loads and 1-D bulk copies, cluster barriers and distributed shared
+// memory, wgmma descriptors and products, register reallocation, and the
+// host-side TMA maps over the port's [B, S, heads, D] layout and over
 // row-major matrices and banks of them.
 //
 // Layout conventions, shared by every kernel that includes this header:
@@ -135,6 +136,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// copy `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory at src into shared memory at dst, with no
+// tensor map; completion is counted in bytes on barrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -443,6 +456,48 @@ struct Wgmma<256> {
         : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB), "n"(kTransA));
   }
 };
+
+// ---- thread block clusters --------------------------------------------------
+
+// every thread of every CTA of the cluster arrives (release: its earlier
+// writes, shared memory included, are visible to the cluster after the
+// wait) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits until all have arrived (acquire)
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address in CTA `rank`'s shared memory of the shared-memory address
+// `addr` of this CTA (distributed shared memory)
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// loads from another CTA's shared memory (an address from map_rank)
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 // ---- warp specialisation ----------------------------------------------------
 

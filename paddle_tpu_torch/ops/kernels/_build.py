@@ -57,7 +57,7 @@ _SIGNATURES = {
     "ragged_paged_attention_quant_fwd": [_vp] * 9 + [_i] * 8
                                         + [_f, _i, _i, _i, _i, _vp, _vp,
                                            _vp],
-    "paged_attention_fwd": [_vp] * 6 + [_i] * 7 + [_f, _i, _vp],
+    "paged_attention_fwd": [_vp] * 6 + [_i] * 7 + [_f, _i, _i, _i, _vp],
     "grouped_matmul_fwd": [_vp] * 4 + [_i] * 7 + [_vp],
     "grouped_matmul_dw": [_vp] * 4 + [_i] * 6 + [_vp],
 }

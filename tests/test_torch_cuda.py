@@ -159,8 +159,8 @@ def test_rms_norm_residual_kernels(cuda, dtype, n, d):
 def _chunk_inputs(cuda, dtype, n, vc, lo, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     logits = (3 * torch.randn(n, vc, device=cuda, generator=g)).to(dtype)
-    local = torch.randint(lo, vc, (n,), device=cuda, generator=g,
-                          dtype=torch.int32)
+    local = torch.randint(min(lo, vc - 1), vc, (n,), device=cuda,
+                          generator=g, dtype=torch.int32)
     # labels in another chunk (below 0, at or past vc), in the overlap
     # prefix (below lo) and at both ends of the chunk's own columns
     local[:6] = torch.tensor([-3, vc, vc + 5, max(lo - 1, 0), lo, vc - 1],
@@ -170,8 +170,14 @@ def _chunk_inputs(cuda, dtype, n, vc, lo, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,vc,lo", [(37, 1024, 0), (37, 1024, 768),
-                                     (9, 40, 13)])
+                                     (9, 40, 13), (33, 4096, 0),
+                                     (17, 32000, 1000), (9, 1024, 1024),
+                                     (9, 37, 3)])
 def test_chunk_stats_kernel(cuda, dtype, n, vc, lo):
+    """K10 against its plain version: a row of one slab (vc 1024 bf16),
+    rows of several (f32, vc 4096, a 32000-column chunk), a row with no
+    column left (lo = vc: m = -inf, s = 0), and a row that is not 16-byte
+    vectors (vc 37); a second launch repeats the bits."""
     logits, local = _chunk_inputs(cuda, dtype, n, vc, lo)
     before = kce.chunk_stats.launches
     m, s, t = kce.chunk_stats(logits, local, lo)
@@ -180,10 +186,13 @@ def test_chunk_stats_kernel(cuda, dtype, n, vc, lo):
     assert kce.chunk_stats.launches == before + 1
     # the max and the gathered target are exact
     assert torch.equal(m, rm) and torch.equal(t, rt)
-    # an online f32 sum of exps (a lane's sum rescaled when its max
-    # grows) against the plain one; leaving out or adding one column
-    # moves s by some 1/vc of itself, 50 times this limit
+    # an f32 sum of exps in another order, with ex2.approx, against the
+    # plain one; leaving out or adding one column moves s by some 1/vc of
+    # itself, 50 times this limit at vc 1024
     _assert_close(s, rs, 2e-5 * rs)
+    again = kce.chunk_stats(logits, local, lo)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((m, s, t), again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -715,9 +724,10 @@ def test_ragged_kernels_are_deterministic(cuda, C):
         assert torch.equal(first, second)
 
 
-def _decode(cuda, dtype, H, KVH, D, page, seed=0):
+def _decode(cuda, dtype, H, KVH, D, page, ctx=None, seed=0):
     rng = np.random.RandomState(seed)
-    ctx = np.array([0, 1, 15, 16, 17, 100, 257, 40], np.int32)
+    if ctx is None:
+        ctx = np.array([0, 1, 15, 16, 17, 100, 257, 40], np.int32)
     B = len(ctx)
     pages = -(-int(ctx.max()) // page) + 1
     P = B * pages + 1
@@ -735,14 +745,42 @@ def _decode(cuda, dtype, H, KVH, D, page, seed=0):
     return (q, kp, vp, *ints), ctx
 
 
+def _decode_contexts(case, H, KVH, D, page):
+    """The contexts of a decode case. The split body's plan depends on
+    the table's length alone, so it is taken at the table the case ends
+    with (the longest context, rounded up to a page, plus one page)."""
+    if case == "mixed":
+        return None
+    if case == "empty":                     # every sequence at ctx 0
+        return np.zeros(8, np.int32)
+    if case == "b1":
+        return np.array([300], np.int32)
+    if case == "b64":
+        return np.linspace(1, 700, 64).astype(np.int32)
+    top = 600                               # "splits": split edges
+    max_keys = (-(-top // page) + 1) * page
+    n, length = kpa.decode_split_plan(8, KVH, H // KVH, D, max_keys)
+    assert n > 2, (n, length)
+    # on a split's first and last key, past one, and contexts that leave
+    # the later splits (or all but the first) empty
+    return np.array([length, 2 * length, length - 1, length + 1,
+                     2 * length + 1, 1, min(3 * length, top), top],
+                    np.int32)
+
+
+@pytest.mark.parametrize("case", ["mixed", "splits", "empty", "b1", "b64"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KVH,D,page", [(32, 8, 128, 16), (28, 4, 128, 16),
                                           (8, 8, 64, 8), (16, 2, 64, 4),
                                           (12, 4, 128, 32)])
-def test_paged_attention_kernel(cuda, dtype, H, KVH, D, page):
+def test_paged_attention_kernel(cuda, dtype, H, KVH, D, page, case):
     """K16 against its plain version; the trash page holds NaN, and a
-    sequence with an empty cache gets zeros."""
-    args, ctx = _decode(cuda, dtype, H, KVH, D, page)
+    sequence with an empty cache gets zeros. In bf16 (the split body)
+    contexts on and beside split edges, splits left empty (their CTAs
+    still reach the cluster's barriers), every sequence at ctx 0, B 1
+    and B 64, rep 1 to 8; a second launch repeats the bits."""
+    args, ctx = _decode(cuda, dtype, H, KVH, D, page,
+                        ctx=_decode_contexts(case, H, KVH, D, page))
     out = kpa.paged_attention(*args)
     ref = kpa.paged_attention_reference(*args)
     torch.cuda.synchronize()
@@ -760,6 +798,9 @@ def test_paged_attention_kernel(cuda, dtype, H, KVH, D, page):
         _assert_close(out, ref, 1.01 * (2 ** -8 * a + BF16_ULP
                                         * ref.float().abs()) + 1e-6)
         _assert_close(out, ref32, BF16_ULP * ref32.abs() + 1e-5 * a + 1e-6)
+    again = kpa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def test_paged_attention_equals_ragged_at_one_token(cuda):
