@@ -19,7 +19,7 @@ non-zero without printing a result:
    forward and backward launched twice must repeat their bits, and are
    timed at [2, 2049] and [4, 2049] with their rates; K10, K12 and K13
    too must repeat their bits;
-   quant_kernels (run after moe_kernels, phase 14): K13 over int8 and
+   quant_kernels (run after moe_kernels, phase 16): K13 over int8 and
    fp8 pools (scales with NaN on the trash page) at K12's mixed batch,
    at 32/8 and 28/4 heads and at serve_quant's decode step (one token
    in each of 8 slots, its split plan, bits repeated), and K16 at decode
@@ -29,9 +29,13 @@ non-zero without printing a result:
    plain version too;
 3. serve: the serving path at full width: a 32-layer Llama-3-8B with
    seeded random weights served by the continuous-batching engine (12
-   requests through 8 slots), with the kernels' launch counters read
-   around it; then two more requests under torch.profiler (device time
-   by layer, K12's share of it, the attention kernels' device symbols);
+   requests through 8 slots, the prefix cache off) through the pipelined
+   ``run()``, with the kernels' launch counters read around it, then two
+   more requests under torch.profiler (device time by layer, K12's share
+   of it, the attention kernels' device symbols, the idle share); then
+   the same 12 requests and two profiled ones through serial ``step()``
+   turns, whose greedy streams must equal run()'s (tok/s, idle share
+   and ``prefill_overlap_frac`` of both);
 4. serve_quant: the same model and traffic with ``kv_quant="int8"`` and
    ``"fp8"`` (K13): launches, streams against the bf16 pools' (greedy
    top-1 agreement), and a 1500-token prefill whose logits with
@@ -39,40 +43,56 @@ non-zero without printing a result:
    two requests profiled as in serve (K13's share);
 5. capacity: the JAX bench's equal-byte A/B at that width: a bf16
    engine of 16 slots with 256 usable pages against an int8 engine with
-   the same bytes of pools, 24 requests of 1024-1500 prompt tokens; the
-   int8 engine must hold more requests at once;
-6. parity: the same width at depth 2 in f32, greedy streams on the GPU
-   against the CPU (plain versions), token for token;
-7. quant_parity: the same with int8 pools;
-8. decode: ``incubate.nn.functional.block_multihead_attention`` (K16)
+   the same bytes of pools, each built as the bench builds it (prefix
+   cache on, warm-up, cache reset), 24 requests of 1024-1500 prompt
+   tokens; the int8 engine must hold 1.7x the requests at once; the
+   prefix cache's residency after the storm;
+6. prefix: the JAX bench's shared-prefix storm uncut: Llama-1B (16
+   layers, bf16, seeded random weights), 8 slots, page 32, 64 requests
+   sharing a 512-token prefix with tails of 0-63 tokens, 32 new; one
+   engine cold then warm, one with the cache off: identical greedy
+   streams, a positive warm hit rate, a balanced page audit (hit rate,
+   prefill tokens saved, COW forks, p99 TTFT of each);
+7. overload: the JAX bench's overload section uncut on that model: 96
+   requests (48-192 prompt tokens, 32-96 new, priorities 0-2) through an
+   AdmissionController (queue 48, TTFT SLO 30 s) over an
+   EngineSupervisor, a total SLO of 120 s: every accepted request
+   completes or ends with a typed error, no page leaks (tok/s, p99 TTFT,
+   shed share, preemption rate, goodput, restarts); then a poisoned
+   request is quarantined while an innocent's stream equals its solo
+   run;
+8. parity: the Llama-3-8B width at depth 2 in f32, greedy streams on the
+   GPU against the CPU (plain versions), token for token;
+9. quant_parity: the same with int8 pools;
+10. decode: ``incubate.nn.functional.block_multihead_attention`` (K16)
    at Llama-3-8B's head layout over 32 layers' pools, 8 sequences, 8
    decode steps, then one more step under torch.profiler (its device
    time and K16's share of it);
-9. train: Llama-3-8B width at 8 layers in bf16, the unfused stack
+11. train: Llama-3-8B width at 8 layers in bf16, the unfused stack
    (``FLAGS_fused_rmsnorm_residual`` off), the port's AdamW, 2 warm-up
    and 5 timed steps on [2, 2049] token ids (step time, tokens/s,
    model-FLOP share, peak memory, losses, launches per step), one step
    timed by part (forward, backward, optimizer) and one profiled (device
    time by layer, idle share), then 5 steps on one batch that must lower
    its loss;
-10. train_parity: Llama-1B width at depth 2 in f32, one forward, backward
+12. train_parity: Llama-1B width at depth 2 in f32, one forward, backward
    and AdamW step on the card and on the CPU: loss, every gradient and
    every updated weight;
-11. train_full: bench.py's headline training step on the port: the
+13. train_full: bench.py's headline training step on the port: the
    32-layer Llama-3-8B in bf16, [4, 2049] token ids, ``core_attn``
    recompute under ``dots_saveable``, the fused residual carry, the loss
    over full logits, forward and backward with the grads cleared and no
    optimizer; 2 warm-up and 5 timed steps, launches per step, one step
    profiled;
-12. fit: bench.py's fit bench on the port: Llama-1B at full depth in bf16
+14. fit: bench.py's fit bench on the port: Llama-1B at full depth in bf16
    through ``hapi.Model(net).prepare(SGD(1e-4), criterion).fit`` over 12
    batches of [8, 1025] for 2 epochs (the fused linear+CE on), epoch 1
    measured; launches per step, the fused CE tail against the unfused
    one, one fit of two steps profiled;
-13. fused_parity: Llama-1B width at depth 2 in f32 on the card against
+15. fused_parity: Llama-1B width at depth 2 in f32 on the card against
    the CPU: a labelled forward and backward with the fused carry and
    ``core_attn`` recompute, and ``fit(compiled=True)`` with SGD;
-14. moe_kernels (run after phase 2's kernels): the grouped matmul (K14,
+16. moe_kernels (run after phase 2's kernels): the grouped matmul (K14,
     K14 transposed) and its weight gradient (K15) against their plain
     versions, per element, at the wide training shape of qwen2_moe_a14b
     (bf16, timed, with torch._grouped_mm as the yardstick where it takes
@@ -81,20 +101,20 @@ non-zero without printing a result:
     layout (32 real rows in 7808); K12 and K7-K9 at Qwen2's 28/4 heads,
     K12 also at serve_moe's decode step (one token in each of 8 slots,
     its split plan, bits repeated);
-15. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
+17. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
     experts, top-4, dropless) with seeded random weights through the
     engine, the serve phase's traffic, launch counters read around it;
-16. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
+18. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
     whole-layer recompute under ``dots_saveable``, the fused carry, aux
     0; forward and backward with the grads cleared (the JAX bench's MoE
     step): step time, tokens/s, activated-FLOP share, peak memory, the
     step-0 loss, launches per step, one step profiled;
-17. moe_bench: bench.py's MoE step uncut (H 1024, 12 layers, 16 experts,
+19. moe_bench: bench.py's MoE step uncut (H 1024, 12 layers, 16 experts,
     top-2, every second layer saved whole), the same readings;
-18. moe_parity: the MoE bench width at depth 2 in f32 on the card
+20. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-19. the ``kernels`` JSON line, then the result line.
+21. the ``kernels`` JSON line, then the result line.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -1069,9 +1089,21 @@ def serve_model(cfg, dev="cuda", dtype=None):
     return model
 
 
+def _serial(eng):
+    """Drive ``eng`` with serial ``step()`` turns (admit, dispatch,
+    harvest, drain) until it holds no work; returns the completions."""
+    done = []
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        done += eng.step()
+    return done
+
+
 def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
     """Llama-3-8B at full width and depth through the engine, with
-    bf16 pools (phase serve) or int8/fp8 ones (phase serve_quant)."""
+    bf16 pools (phase serve) or int8/fp8 ones (phase serve_quant), the
+    prefix cache off. Serve runs its traffic twice on one engine: through
+    the pipelined ``run()`` (launches counted) and through serial
+    ``step()`` turns; the greedy streams must agree token for token."""
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     tag = "serve" if kv_quant == "none" else f"serve_quant {kv_quant}"
@@ -1080,6 +1112,7 @@ def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
     eng = ContinuousBatchingEngine(model, num_slots=8, page_size=16,
                                    max_len=2048, prefill_chunk=256,
                                    decode_chunk=8, kv_quant=kv_quant,
+                                   prefix_cache=False, audit=True,
                                    device=dev)
     pool_gb = sum(p.numel() * p.element_size() for p in eng.pools) / 1e9
     g = eng.gauges()
@@ -1091,10 +1124,11 @@ def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
     # warm-up (cuBLAS handles, allocator) outside the counted run
     eng.add_request(warm, 4)
     eng.run()
+    eng.reset_gauges()
     n_new = 32
     ids = [eng.add_request(p, n_new) for p in prompts]
     names = ("rms_norm", "swiglu", attn)
-    fw0, st0 = eng.stats["forwards"], eng.stats["steps"]
+    fw0 = eng._stats["forwards"]
     torch.cuda.reset_peak_memory_stats()
     wrappers = _counted(names)
     t0 = time.perf_counter()
@@ -1102,7 +1136,8 @@ def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    forwards = eng.stats["forwards"] - fw0
+    forwards = eng._stats["forwards"] - fw0
+    gp = eng.gauges()
     if len(done) != 12:
         raise AssertionError(f"{len(done)} of 12 requests completed")
     bad = [(r.request_id, len(r.tokens)) for r in done
@@ -1121,31 +1156,67 @@ def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
     peak = torch.cuda.max_memory_allocated() / 1e9
     prompt_lens = sorted(len(p) for p in prompts)
     log(f"[{tag}] 12 requests (prompts {prompt_lens}, "
-        f"{n_new} new each) in {wall:.2f} s: {12 * n_new / wall:.1f} "
-        f"generated tok/s, {eng.stats['steps'] - st0} steps, {forwards} "
-        f"forwards, "
-        f"peak memory {peak:.2f} GB")
+        f"{n_new} new each) in {wall:.2f} s through run(): "
+        f"{12 * n_new / wall:.1f} generated tok/s, {gp['unified_steps']} "
+        f"steps, {forwards} forwards, prefill_overlap_frac "
+        f"{gp['prefill_overlap_frac']:.3f}, peak memory {peak:.2f} GB")
     log(f"[{tag}] launches {launches} (per forward: {2 * L + 1} rms_norm, "
         f"{L} swiglu, {L} attention)")
     by = {r.request_id: r.tokens for r in done}
-    prof = _profile_two_requests(tag, eng, model.config.vocab_size)
+    streams = [by[i] for i in ids]
+    res = dict(launches=launches, streams=streams, wall_s=wall,
+               tok_s=12 * n_new / wall, peak_gb=peak, pool_gb=pool_gb,
+               forwards=forwards,
+               overlap=gp["prefill_overlap_frac"],
+               profile=_profile_two_requests(tag, eng,
+                                             model.config.vocab_size))
+    if kv_quant == "none":
+        # the same traffic through serial step() turns on the same engine
+        eng.reset_gauges()
+        ids = [eng.add_request(p, n_new) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = _serial(eng)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        by = {r.request_id: r.tokens for r in done}
+        serial = [by[i] for i in ids]
+        if serial != streams:
+            diff = [i for i, (a, b) in enumerate(zip(serial, streams))
+                    if a != b]
+            raise AssertionError(f"[serve] serial step() streams differ "
+                                 f"from run()'s at requests {diff}")
+        gs = eng.gauges()
+        log(f"[serve] the same 12 requests through serial step(): "
+            f"{wall_s:.2f} s, {12 * n_new / wall_s:.1f} generated tok/s, "
+            f"{gs['unified_steps']} steps, prefill_overlap_frac "
+            f"{gs['prefill_overlap_frac']:.3f}; greedy streams identical "
+            f"to run()'s")
+        res["serial"] = dict(
+            wall_s=wall_s, tok_s=12 * n_new / wall_s,
+            overlap=gs["prefill_overlap_frac"],
+            profile=_profile_two_requests("serve serial", eng,
+                                          model.config.vocab_size,
+                                          serial=True))
     del eng
     torch.cuda.empty_cache()
-    return dict(launches=launches, streams=[by[i] for i in ids],
-                wall_s=wall, tok_s=12 * n_new / wall, peak_gb=peak,
-                pool_gb=pool_gb, forwards=forwards, profile=prof)
+    return res
 
 
-def _profile_two_requests(tag, eng, vocab, seed=43):
+def _profile_two_requests(tag, eng, vocab, seed=43, serial=False):
     """Two more requests (700 and 300 prompt tokens, 16 new) through the
-    engine under torch.profiler: the device time by layer, K12/K13's
-    share of it and the attention kernels' device symbols."""
+    engine (``run()``, or serial ``step()`` turns) under torch.profiler:
+    the device time by layer, K12/K13's share of it and the attention
+    kernels' device symbols."""
     rng = np.random.RandomState(seed)
 
     def two_requests():
         for n in (700, 300):
             eng.add_request(rng.randint(0, vocab, n), 16)
-        eng.run()
+        if serial:
+            _serial(eng)
+        else:
+            eng.run()
     prof = _profile(tag, two_requests)
     if prof:
         cat = "paged attention K12/K13/K16"
@@ -1672,8 +1743,11 @@ def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=24,
     """The JAX bench's equal-byte capacity A/B (bench.py:_cb_quant_bench)
     at full width: a bf16 engine whose page budget binds (256 usable
     pages) and an int8 engine holding the same bytes of pools, its page
-    count from the engines' own gauges; the same requests through both;
-    the peak number of occupied slots after each step."""
+    count from the engines' own gauges; the same requests through both,
+    each engine built as the bench builds it (prefix cache on, a warm-up
+    request, then ``reset_prefix_cache`` and ``reset_gauges``); the peak
+    number of occupied slots after each step (bar: int8 holds 1.7x), and
+    the prefix cache's resident pages after the storm."""
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
 
@@ -1681,7 +1755,7 @@ def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=24,
         return ContinuousBatchingEngine(
             model, num_slots=nslots, page_size=16, num_pages=pages,
             max_len=2048, prefill_chunk=256, decode_chunk=8,
-            kv_quant=mode, device=dev)
+            kv_quant=mode, audit=True, device=dev)
 
     base = make(base_pages, "none")
     base_bytes = base.gauges()["kv_quant_pool_bytes"]
@@ -1700,6 +1774,10 @@ def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=24,
         gq = eng.gauges()
         pool_bytes = gq["kv_quant_pool_bytes"] + gq[
             "kv_quant_scale_pool_bytes"]
+        eng.add_request(prompts[0], 2)
+        eng.run()                     # warm-up, off the clock
+        eng.reset_prefix_cache()      # drop the warm-up's pages
+        eng.reset_gauges()
         for p in prompts:
             eng.add_request(p, n_new)
         peak, done = 0, []
@@ -1713,32 +1791,289 @@ def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=24,
         if len(done) != n_req or any(len(r.tokens) != n_new for r in done):
             raise AssertionError(f"capacity {mode}: {len(done)} of {n_req} "
                                  f"requests completed")
-        if len(eng._free_pages) != eng.num_pages - 1:
+        if len(eng._free_pages) + eng.prefix_cache_pages \
+                != eng.num_pages - 1:
             raise AssertionError(f"capacity {mode}: pages not all returned")
+        resident = eng.prefix_cache_pages
         log(f"[capacity] {mode}: {pages} pages ({pages - 1} usable), "
             f"{pool_bytes / 1e6:.1f} MB of pools, peak {peak} of {slots} "
             f"slots occupied; {n_req} requests of 1024-1500 prompt tokens "
             f"and {n_new} new in {wall:.2f} s "
-            f"({n_req * n_new / wall:.1f} generated tok/s)")
+            f"({n_req * n_new / wall:.1f} generated tok/s); "
+            f"{resident} prefix-cache pages resident after the storm, "
+            f"{eng.gauges()['prefix_cache_evictions']} evicted")
         res[mode] = dict(pages=pages, pool_bytes=pool_bytes, peak=peak,
-                         wall_s=wall)
+                         wall_s=wall, resident=resident)
         if mode != "none":
             del eng
         torch.cuda.empty_cache()
     ratio = res["int8"]["peak"] / max(res["none"]["peak"], 1)
+    residency = res["int8"]["resident"] / max(res["none"]["resident"], 1)
     # bytes a token and kv head: 2 * D * e (e bytes an element) against
     # 2 * D int8 codes and two f32 scales
     d, e = model.config.head_dim, base.gauges()["kv_quant_bits"] // 8
     log(f"[capacity] int8 / {e * 8}-bit: pages {q_pages / base_pages:.3f}x "
         f"at equal bytes (predicted 2*D*{e} / (2*D + 2*4) = "
         f"{2 * d * e / (2 * d + 8):.3f}), peak occupied slots "
-        f"{ratio:.3f}x")
+        f"{ratio:.3f}x (bar 1.7), prefix-cache residency {residency:.3f}x")
     del base
     torch.cuda.empty_cache()
-    if not res["int8"]["peak"] > res["none"]["peak"]:
-        raise AssertionError(f"int8 pools held no more requests at once: "
-                             f"{res}")
+    if not (res["int8"]["peak"] > res["none"]["peak"] and ratio >= 1.7):
+        raise AssertionError(f"int8 pools held fewer than 1.7x the "
+                             f"requests at once: {res}")
     res["ratio"] = ratio
+    res["residency"] = residency
+    return res
+
+
+SERVE_KERNELS = ("rms_norm", "swiglu", "ragged_paged_attention")
+
+
+def serve_model_1b(cfg1b, dev="cuda"):
+    """Llama-1B at full width and depth in bf16, seeded random weights
+    (seed 1): the model of the JAX bench's prefix and overload sections."""
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg1b, device=dev, dtype=torch.bfloat16,
+                             seed=1)
+    model.eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[prefix] Llama-1B {cfg1b.num_hidden_layers} layers, "
+        f"{n_params / 1e9:.2f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def _p99(ms):
+    """bench.py's p99: the nearest rank of the sorted values."""
+    ms = sorted(ms)
+    return ms[max(0, int(round(0.99 * (len(ms) - 1))))] if ms else 0.0
+
+
+def _launch_check(tag, launches, forwards, n_layers):
+    """Each forward launches 2L + 1 RMSNorms, L SwiGLUs and L K12s."""
+    want = {"rms_norm": (2 * n_layers + 1) * forwards,
+            "swiglu": n_layers * forwards,
+            "ragged_paged_attention": n_layers * forwards}
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want} for "
+                             f"{forwards} forwards")
+
+
+def phase_prefix(model, dev="cuda"):
+    """The JAX bench's shared-prefix storm (bench.py:_cb_prefix_bench)
+    with its TPU configuration uncut: Llama-1B bf16, 8 slots, page 32,
+    decode chunk 32, prefill chunk 256, max_len 768; 64 requests sharing
+    one 512-token prefix, each with a tail of 0-63 tokens, 32 new. One
+    engine runs the storm cold (after ``reset_prefix_cache``), then warm;
+    an engine with the cache off runs it too. The three must give the
+    same greedy streams, the warm hit rate must be positive and the page
+    audit must balance. Launches are counted over the three storms."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    cfg = model.config
+    n_req, prefix_len, tail_hi, n_new = 64, 512, 64, 32
+    rng = np.random.RandomState(55)
+    prefix = rng.randint(0, cfg.vocab_size, (prefix_len,)).astype(np.int32)
+    specs = [(np.concatenate([prefix, rng.randint(
+        0, cfg.vocab_size, (int(rng.randint(0, tail_hi)),)).astype(
+            np.int32)]), n_new) for _ in range(n_req)]
+    prompt_tokens = sum(len(p) for p, _ in specs)
+
+    def make(**kw):
+        eng = ContinuousBatchingEngine(
+            model, num_slots=8, page_size=32, max_len=768, decode_chunk=32,
+            prefill_chunk=256, greedy=True, audit=True, device=dev, **kw)
+        eng.add_request(specs[0][0], 2)
+        eng.run()                     # warm-up, off the clock
+        return eng
+
+    def storm(eng):
+        eng.reset_gauges()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.add_request(p, n) for p, n in specs]
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by = {r.request_id: r for r in done}
+        if sorted(by) != sorted(ids) or any(
+                by[i].error is not None or len(by[i].tokens) != n_new
+                for i in ids):
+            raise AssertionError("[prefix] a request did not complete")
+        if len(eng._free_pages) + eng.prefix_cache_pages \
+                != eng.num_pages - 1:
+            raise AssertionError("[prefix] pages not all returned")
+        eng._audit_pages("prefix phase")
+        ttft = [(by[i].t_first - by[i].t_arrive) * 1e3 for i in ids]
+        return dict(tok_s=n_req * n_new / wall, wall_s=wall,
+                    p99_ttft_ms=_p99(ttft), gauges=eng.gauges(),
+                    forwards=eng._stats["forwards"],
+                    streams=[by[i].tokens for i in ids])
+
+    eng = make()
+    off = make(prefix_cache=False)
+    eng.reset_prefix_cache()          # drop the warm-up's pages
+    wrappers = _counted(SERVE_KERNELS)
+    cold, warm, cache_off = storm(eng), storm(eng), storm(off)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    _launch_check("prefix", launches,
+                  sum(r["forwards"] for r in (cold, warm, cache_off)),
+                  cfg.num_hidden_layers)
+    for name, r in (("cold", cold), ("warm", warm)):
+        if r["streams"] != cache_off["streams"]:
+            diff = [i for i, (a, b) in enumerate(
+                zip(r["streams"], cache_off["streams"])) if a != b]
+            raise AssertionError(f"[prefix] {name} streams differ from "
+                                 f"the cache-off engine's at {diff}")
+    g = warm["gauges"]
+    if not g["prefix_cache_hit_rate"] > 0:
+        raise AssertionError(f"[prefix] warm hit rate {g}")
+    saved = g["prefix_cache_tokens_saved"] / prompt_tokens
+    for name, r in (("cold", cold), ("warm", warm), ("off", cache_off)):
+        rg = r["gauges"]
+        log(f"[prefix] {name}: {n_req} requests x {prefix_len}-token "
+            f"prefix in {r['wall_s']:.2f} s, {r['tok_s']:.1f} generated "
+            f"tok/s, p99 TTFT {r['p99_ttft_ms']:.1f} ms, hit rate "
+            f"{rg['prefix_cache_hit_rate']:.4f}, prefill tokens saved "
+            f"{rg['prefix_cache_tokens_saved'] / prompt_tokens:.4f}, "
+            f"{rg['prefix_cache_cow_forks']} COW forks, "
+            f"{rg['unified_steps']} steps")
+    log(f"[prefix] greedy streams identical cold, warm and cache off; "
+        f"warm hit rate {g['prefix_cache_hit_rate']:.4f}, prefill tokens "
+        f"saved {saved:.4f}, COW forks {g['prefix_cache_cow_forks']}, "
+        f"p99 TTFT cold/warm/off {cold['p99_ttft_ms']:.1f} / "
+        f"{warm['p99_ttft_ms']:.1f} / {cache_off['p99_ttft_ms']:.1f} ms; "
+        f"launches {launches}")
+    del eng, off
+    torch.cuda.empty_cache()
+    return dict(launches=launches, hit_rate=g["prefix_cache_hit_rate"],
+                saved_frac=saved, cow_forks=g["prefix_cache_cow_forks"],
+                **{f"{n}_{k}": r[k] for n, r in (("cold", cold),
+                                                 ("warm", warm),
+                                                 ("off", cache_off))
+                   for k in ("tok_s", "p99_ttft_ms")})
+
+
+def phase_overload(model, dev="cuda"):
+    """The JAX bench's overload section (bench.py:_cb_overload_bench)
+    with its TPU configuration uncut: Llama-1B bf16, 8 slots, page 32,
+    decode chunk 32, max_len 384; 96 requests of 48-192 prompt tokens
+    and 32-96 new, priorities 0-2, seed 33, a TTFT SLO of 30 s and a
+    total one of 120 s, through an ``AdmissionController`` (max_queue
+    48) over an ``EngineSupervisor`` (two restarts). Every accepted
+    request must complete or end with a typed error, and no page may
+    leak. Then a poison request (``poison_request``, twice) and an
+    innocent one: the poison is quarantined and the innocent's stream
+    equals its solo run."""
+    import torch
+    from paddle_tpu_torch.inference import (AdmissionController,
+                                            EngineSupervisor, Overloaded,
+                                            RequestQuarantined,
+                                            ServingError)
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.testing import FaultInjector
+    cfg = model.config
+    n_req, plen_lo, plen_hi, new_lo, new_hi = 96, 48, 192, 32, 96
+    ttft_slo_s, total_slo_s = 30.0, 120.0
+
+    def factory():
+        return ContinuousBatchingEngine(
+            model, num_slots=8, page_size=32, max_len=384, decode_chunk=32,
+            greedy=True, audit=True, device=dev)
+
+    warm = factory()                  # cuBLAS handles, off the clock
+    warm.add_request(np.arange(100) % cfg.vocab_size, 4)
+    warm.run()
+    del warm
+    sup = EngineSupervisor(factory, max_restarts=2)
+    adm = AdmissionController(sup, max_queue=n_req // 2,
+                              default_ttft_slo_s=ttft_slo_s)
+    rng = np.random.RandomState(33)
+    accepted, shed = [], 0
+    wrappers = _counted(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_req):
+        plen = int(rng.randint(plen_lo, plen_hi + 1))
+        n_new = int(rng.randint(new_lo, new_hi + 1))
+        try:
+            accepted.append(adm.submit(
+                rng.randint(0, cfg.vocab_size, (plen,)).astype(np.int32),
+                n_new, priority=int(rng.randint(0, 3)),
+                ttft_deadline_s=ttft_slo_s, deadline_s=total_slo_s))
+        except Overloaded:
+            shed += 1
+    done = sup.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    by = {r.request_id: r for r in done}
+    for rid in accepted:
+        r = by.get(rid)
+        if r is None or not r.finished or not (
+                isinstance(r.error, ServingError) if r.error is not None
+                else r.finish_reason in ("eos", "length")):
+            raise AssertionError(f"[overload] request {rid} neither "
+                                 f"completed nor ended with a typed error")
+    eng = sup.engine
+    if len(eng._free_pages) + eng.prefix_cache_pages != eng.num_pages - 1 \
+            or eng._deferred_free or any(eng.slot_pages):
+        raise AssertionError("[overload] pages leaked")
+    eng._audit_pages("overload phase")
+    g = sup.gauges()
+    if sup.restarts == 0:
+        _launch_check("overload", launches, eng._stats["forwards"],
+                      cfg.num_hidden_layers)
+    ok = [by[i] for i in accepted if by[i].error is None]
+    toks = sum(len(r.tokens) for r in ok)
+    ttft = [(r.t_first - r.t_arrive) * 1e3 for r in ok if r.t_first]
+    met = [r for r in ok if r.t_first - r.t_arrive <= ttft_slo_s
+           and r.t_done - r.t_arrive <= total_slo_s]
+    res = dict(launches=launches, tok_s=toks / wall, p99_ttft_ms=_p99(ttft),
+               shed_frac=shed / n_req,
+               preempt_rate=g["preempt_evictions"] / max(1, len(accepted)),
+               goodput=len(met) / max(1, len(accepted)),
+               restarts=sup.restarts)
+    log(f"[overload] {n_req} offered / {len(accepted)} accepted / {shed} "
+        f"shed, {toks} tokens in {wall:.2f} s ({res['tok_s']:.1f} tok/s), "
+        f"p99 TTFT {res['p99_ttft_ms']:.1f} ms, shed share "
+        f"{res['shed_frac']:.4f}, preemption rate "
+        f"{res['preempt_rate']:.4f}, goodput {res['goodput']:.4f}, "
+        f"restarts {sup.restarts}, {g['unified_steps']} steps; no page "
+        f"leaked; launches {launches}")
+    del sup, adm, eng
+    # containment on the card: a poisoned request and an innocent one
+    rng = np.random.RandomState(34)
+    poison, innocent = (rng.randint(0, cfg.vocab_size, n) for n in (64, 96))
+    solo = factory()
+    solo.add_request(innocent, 24)
+    want = solo.run()[0].tokens
+    del solo
+    eng = factory()
+    rp = eng.add_request(poison, 24)
+    ri = eng.add_request(innocent, 24)
+    with FaultInjector() as fi:
+        fi.poison_request(rp, times=2)
+        eng.run()
+        fires = fi.fires()
+    got = {r.request_id: r for r in eng.completed}
+    if not isinstance(got[rp].error, RequestQuarantined) \
+            or got[ri].error is not None or got[ri].tokens != want:
+        raise AssertionError(f"[overload] containment: poison "
+                             f"{got[rp].error!r}, innocent "
+                             f"{got[ri].error!r} {got[ri].tokens} vs {want}")
+    if len(eng._free_pages) + eng.prefix_cache_pages != eng.num_pages - 1:
+        raise AssertionError("[overload] containment leaked pages")
+    gc = eng.gauges()
+    log(f"[overload] poison request quarantined after {fires} injected "
+        f"harvest failures ({gc['containments']} containments); the "
+        f"innocent's {len(want)} tokens equal its solo run")
+    del eng
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2671,7 +3006,8 @@ def phase_serve_moe(cfg, dev="cuda"):
         f"{time.perf_counter() - t0:.1f} s")
     eng = ContinuousBatchingEngine(model, num_slots=8, page_size=16,
                                    max_len=2048, prefill_chunk=256,
-                                   decode_chunk=8, device=dev)
+                                   decode_chunk=8, prefix_cache=False,
+                                   device=dev)
     rng = np.random.RandomState(42)
     eng.add_request(rng.randint(0, cfg.vocab_size, 16), 4)
     eng.run()
@@ -2680,14 +3016,14 @@ def phase_serve_moe(cfg, dev="cuda"):
     for n in prompt_lens:
         eng.add_request(rng.randint(0, cfg.vocab_size, int(n)), n_new)
     names = ("rms_norm", "swiglu", "ragged_paged_attention") + MOE_KERNELS
-    fw0, st0 = eng.stats["forwards"], eng.stats["steps"]
+    fw0, st0 = eng._stats["forwards"], eng._stats["unified_steps"]
     wrappers = _counted(names)
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    forwards = eng.stats["forwards"] - fw0
+    forwards = eng._stats["forwards"] - fw0
     peak = torch.cuda.max_memory_allocated() / 1e9
     if len(done) != 12 or any(len(r.tokens) != n_new for r in done):
         raise AssertionError(f"{len(done)} of 12 requests completed with "
@@ -2700,8 +3036,8 @@ def phase_serve_moe(cfg, dev="cuda"):
                              f"{forwards} forwards")
     log(f"[serve_moe] 12 requests (prompts {sorted(prompt_lens.tolist())}, "
         f"{n_new} new each) in {wall:.2f} s: {12 * n_new / wall:.1f} "
-        f"generated tok/s, {eng.stats['steps'] - st0} steps, {forwards} "
-        f"forwards, peak memory {peak:.2f} GB")
+        f"generated tok/s, {eng._stats['unified_steps'] - st0} steps, "
+        f"{forwards} forwards, peak memory {peak:.2f} GB")
     log(f"[serve_moe] launches {launches} (per forward: {2 * L + 1} "
         f"rms_norm, {L} swiglu, {L} attention, {3 * L} grouped_matmul; a "
         f"decode forward routes {8 * cfg.num_experts_per_tok} rows into "
@@ -2963,6 +3299,10 @@ def main():
     phase_quant_accuracy(model)
     phase_capacity(model)
     del model
+    model1b = serve_model_1b(cfg1b)
+    prefix = phase_prefix(model1b)
+    overload = phase_overload(model1b)
+    del model1b
     phase_parity(cfg)
     phase_parity(cfg, kv_quant="int8")
     decode = phase_decode(cfg)
@@ -3019,13 +3359,16 @@ def main():
     for name, (src, replaces) in sources.items():
         r = res[name]
         # each path ran with the counts at 0 just before it: serving
-        # (phase 3), quantized serving (int8 and fp8, 4), the decode entry
-        # point (8), unfused training (9), the full training step (11), fit
-        # (12), MoE serving (15) and the two MoE training steps (16, 17);
-        # launches is their sum
+        # (phase 3), quantized serving (int8 and fp8, 4), the prefix and
+        # overload storms (6, 7), the decode entry point (10), unfused
+        # training (11), the full training step (13), fit (14), MoE
+        # serving (17) and the two MoE training steps (18, 19); launches
+        # is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
+                  "prefix": prefix["launches"].get(name, 0),
+                  "overload": overload["launches"].get(name, 0),
                   "decode": decode["launches"].get(name, 0),
                   "train": train["launches"].get(name, 0),
                   "train_full": full["launches"].get(name, 0),

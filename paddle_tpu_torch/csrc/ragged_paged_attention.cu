@@ -48,11 +48,15 @@
 //     of 512 keys, Qwen2's decode step 8 of 256 (256 CTAs).
 //   * Products on mma.sync m16n8k16 (bf16 in, f32 sums), four warps. Not
 //     wgmma: its 64-row tile would hold a decode step's rep rows (4 for
-//     Llama-3-8B, 7 for Qwen2) in 64, where m16 wastes less. A q block of
-//     more than 16 rows gives each warp 16 rows and every key of a tile; a
-//     block of at most 16 (a decode step) gives every warp those rows and
-//     16 keys of each tile, and the warps' softmax states are combined at
-//     the end, in warp order. Tiles of 64 keys come in by cp.async (zero
+//     Llama-3-8B, 7 for Qwen2) in 64, where m16 wastes less. Where the
+//     shapes give a q block more than 16 rows (C * rep > 16) each warp
+//     takes 16 rows and every key of a tile; in a decode step (C * rep <=
+//     16) every warp takes the block's rows and 16 keys of each tile, and
+//     the warps' softmax states are combined at the end, in warp order.
+//     The choice follows the shapes, never the lengths: a row's bits do
+//     not depend on the other tokens of its block, so a one-token
+//     prefill (the prefix cache's copy-on-write) gives the bits the same
+//     token gets inside a full chunk. Tiles of 64 keys come in by cp.async (zero
 //     fill by predicate) through a ring of three stages (two tiles in
 //     flight while one is multiplied, one __syncthreads a tile); the
 //     split's block-table entries are read into shared memory once, and a
@@ -443,11 +447,13 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 // TP: the pools' element type, bf16 (K12) or int8_t / __nv_fp8_e4m3 codes
 // with f32 scales ksc / vsc (K13). One CTA per (q block and key split,
 // slot, kv head); with one split it writes `out`, with several it writes
-// its f32 partials (o, and m, l a row) for ragged_merge. A block with
-// more than 16 rows gives each warp 16 rows and every key of a tile; a
-// block of at most 16 rows (a decode step: rep rows) gives every warp
-// those rows and 16 keys of each tile, and the four warps' softmax states
-// are combined once at the end, in warp order.
+// its f32 partials (o, and m, l a row) for ragged_merge. Where a block
+// may hold more than 16 rows (C * rep > 16) each warp takes 16 rows and
+// every key of a tile; in a decode step (C * rep <= 16: rep rows) every
+// warp takes those rows and 16 keys of each tile, and the four warps'
+// softmax states are combined once at the end, in warp order. The
+// choice is the shapes', not the lengths', so a row's bits never depend
+// on how many tokens share its block.
 template <typename TP, int D>
 __global__ void __launch_bounds__(kThreads, 2)
     ragged_mma(const bf16* __restrict__ q, const TP* __restrict__ kpool,
@@ -583,10 +589,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (n_tiles > 1) load_tile(1, 1);
   cp_async_commit();
 
-  // rows: a block of more than 16 rows gives warp w rows 16w .. 16w + 15;
-  // a smaller one gives every warp rows 0 .. 15 and keys 16w .. 16w + 15
-  // of each tile (warp-uniform)
-  const bool key_split = n_rows <= 16;
+  // rows: where a block may hold more than 16 rows, warp w takes rows
+  // 16w .. 16w + 15; in a decode step every warp takes rows 0 .. 15 and
+  // keys 16w .. 16w + 15 of each tile (grid-uniform: from the shapes)
+  const bool key_split = C * rep <= 16;
   const int r0 = (key_split ? 0 : warp * 16) + g;
   const bool active = key_split || warp * 16 < n_rows;
   // the last key each of rows r0, r0 + 8 may see (its token's causal

@@ -11,7 +11,7 @@ loaded with ``ctypes``. The library's name carries a hash of the sources
 and flags, so a changed source is never served from an old build. The
 build directory is ``paddle_tpu_torch/_build`` (gitignored), or
 ``$PADDLE_TPU_TORCH_BUILD_DIR``. A failed build raises ``RuntimeError``
-with the compiler's output; nothing falls back.
+(``KernelError``) with the compiler's output; nothing falls back.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -27,7 +27,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "build_seconds", "build_log", "dtype_code",
+__all__ = ["KernelError", "build", "build_seconds", "build_log", "dtype_code",
            "pool_code", "check", "stream_ptr", "CSRC_DIR"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
@@ -63,6 +63,11 @@ _SIGNATURES = {
 }
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched. The serving
+    engine's step-failure containment never absorbs it: it propagates."""
+
+
 class _Built:
     lib = None
     seconds = None
@@ -82,7 +87,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda: "
+    raise KernelError("nvcc not found on PATH or under /usr/local/cuda: "
                        "the port's CUDA kernels cannot be built")
 
 
@@ -90,7 +95,7 @@ def _sources():
     cu = sorted(CSRC_DIR.glob("*.cu"))
     headers = sorted(CSRC_DIR.glob("*.cuh"))
     if not cu:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+        raise KernelError(f"no CUDA sources under {CSRC_DIR}")
     return cu, headers
 
 
@@ -120,7 +125,7 @@ def _compile(nvcc, sources, out_dir: Path) -> tuple[list[Path], str]:
             failed.append(f"{src.name} (exit {proc.returncode})")
     log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        raise KernelError(f"nvcc failed for {', '.join(failed)}:\n{log}")
     return [obj for _, obj, _ in procs], log
 
 
@@ -144,7 +149,7 @@ def build() -> ctypes.CDLL:
              "-o", str(tmp), *map(str, objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"linking the kernel library failed:\n"
+            raise KernelError(f"linking the kernel library failed:\n"
                                f"{link.stdout}")
         os.replace(tmp, so)
         shutil.rmtree(work, ignore_errors=True)
@@ -194,7 +199,7 @@ def pool_code(dtype) -> int:
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch "
+        raise KernelError(f"{name}: CUDA error {rc} at launch "
                            f"(cudaGetLastError)")
 
 

@@ -55,7 +55,8 @@ def chunk_dlogits_reference(logits: torch.Tensor, lse: torch.Tensor,
 
 def _check(name, logits, lo, **vectors):
     if logits.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {logits.device}")
+        raise _build.KernelError(
+            f"{name}: no kernel for device {logits.device}")
     if logits.dim() != 2 or not logits.is_contiguous():
         raise ValueError(f"{name}: logits must be a contiguous [N, vc] "
                          f"block, not {tuple(logits.shape)}")

@@ -142,7 +142,7 @@ def _check(name, q, k, v, *more):
     """Raise unless the kernels take these tensors. ``more`` holds
     (tensor, shape, dtype) triples for the other inputs."""
     if q.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {q.device}")
+        raise _build.KernelError(f"{name}: no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not [B, S, heads, D]")

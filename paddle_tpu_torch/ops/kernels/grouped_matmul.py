@@ -72,7 +72,7 @@ def _check(name, x, w, tile_gid, w_rank, k_dim, out_dim):
     """Device, rank, dtype, layout and width checks of x [P, k_dim] and the
     second operand w (rank ``w_rank``); returns bm."""
     if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+        raise _build.KernelError(f"{name}: no kernel for device {x.device}")
     if x.dim() != 2 or w.dim() != w_rank:
         raise ValueError(f"{name}: x {tuple(x.shape)}, second operand "
                          f"{tuple(w.shape)}: wrong ranks")

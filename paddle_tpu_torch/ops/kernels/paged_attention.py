@@ -123,7 +123,7 @@ def paged_attention(q, key_pages, value_pages, block_tables, context_lens,
         return paged_attention_reference(q, key_pages, value_pages,
                                          block_tables, context_lens, scale)
     if q.device.type != "cuda":
-        raise RuntimeError(f"paged_attention: no kernel for device "
+        raise _build.KernelError(f"paged_attention: no kernel for device "
                            f"{q.device}")
     b, h, d = q.shape
     kvh, num_pages, page, dk = key_pages.shape

@@ -195,7 +195,7 @@ def _launch(name, q, key_pages, value_pages, scales, block_tables,
     """Checks shared by K12 and K13, then the launch; ``scales`` is () or
     (k_scales, v_scales)."""
     if q.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {q.device}")
+        raise _build.KernelError(f"{name}: no kernel for device {q.device}")
     b, c, h, d = q.shape
     kvh, num_pages, page, dk = key_pages.shape
     if value_pages.shape != key_pages.shape or dk != d:

@@ -31,7 +31,7 @@ def rms_norm_reference(x: torch.Tensor, w: torch.Tensor,
 
 def _check(name, x, *others):
     if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+        raise _build.KernelError(f"{name}: no kernel for device {x.device}")
     d = x.shape[-1]
     for t in others:
         if t.device != x.device or t.dtype != x.dtype:

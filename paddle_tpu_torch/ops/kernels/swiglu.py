@@ -26,7 +26,7 @@ def swiglu_reference(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def _check(name, gate, *others):
     if gate.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {gate.device}")
+        raise _build.KernelError(f"{name}: no kernel for device {gate.device}")
     for t in others:
         if (t.shape != gate.shape or t.dtype != gate.dtype
                 or t.device != gate.device):

@@ -1,0 +1,5 @@
+"""Observability of the port: the typed metrics registry."""
+
+from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]

@@ -889,7 +889,8 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
             eng.add_request(prompt, n)
         streams.append([r.tokens for r in sorted(
             eng.run(), key=lambda r: r.request_id)])
-        assert len(eng._free_pages) == eng.num_pages - 1
+        assert len(eng._free_pages) + eng.prefix_cache_pages \
+            == eng.num_pages - 1
     assert streams[0] == streams[1]
 
 
@@ -1143,7 +1144,7 @@ def test_engine_step_runs_without_host_synchronisation(cuda):
     for n in (40, 9):
         eng.add_request(rng.randint(0, cfg.vocab_size, n), 6)
     eng.step()                                  # builds the kernels
-    inputs = torch.zeros(2, 16 + 3, dtype=torch.int32, device=cuda)
+    inputs = torch.zeros(2, eng._in_width, dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
     before = krpa.ragged_paged_attention.launches
     torch.cuda.set_sync_debug_mode("error")
@@ -1155,3 +1156,243 @@ def test_engine_step_runs_without_host_synchronisation(cuda):
     L = cfg.num_hidden_layers
     assert krpa.ragged_paged_attention.launches == before + 4 * L
     assert packed.shape[0] == 2
+
+
+# ---- the scheduler's conditions: shared prefixes, COW, the pipeline -----------
+
+def _shared_prefix_batch(cuda, H, KVH, D, page, C, seed=0):
+    """A batch as the prefix cache leaves it: rows whose block tables
+    point at the SAME physical pages s0-s2 (a published 3-page prefix).
+    Row 0 owns the prefix and decodes past it; row 1 is a prefix hit, a
+    full prefill chunk starting at ctx 2 * page (a page multiple, not a
+    chunk multiple); row 2 is a copy-on-write hit, a one-token prefill at
+    ctx 3 * page - 1 into f, a fork of s2; row 3 decodes over s0 and a
+    page of its own. Trash page 0 holds NaN."""
+    assert (2 * page) % C
+    rng = np.random.RandomState(seed)
+    ctx = np.array([3 * page + 5, 2 * page, 3 * page - 1, page + 3],
+                   np.int32)
+    lengths = np.array([1, C, 1, 1], np.int32)
+    width = -(-int((ctx + lengths).max()) // page) + 1
+    P = 4 * width + 4
+    free = list(rng.permutation(np.arange(1, P)))
+    s, fork = [int(free.pop()) for _ in range(3)], int(free.pop())
+    tables = np.zeros((4, width), np.int32)
+    for b, head in enumerate((s, s[:2], s[:2] + [fork], s[:1])):
+        n = -(-int(ctx[b] + lengths[b]) // page)
+        tables[b, :len(head)] = head
+        tables[b, len(head):n] = [int(free.pop())
+                                  for _ in range(n - len(head))]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    kp = torch.randn(KVH, P, page, D, device=cuda, generator=g)
+    vp = torch.randn(KVH, P, page, D, device=cuda, generator=g)
+    kp[:, fork] = kp[:, s[2]]
+    vp[:, fork] = vp[:, s[2]]
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    q = torch.randn(4, C, H, D, device=cuda, generator=g)
+    ints = [torch.from_numpy(a).to(cuda) for a in (tables, ctx, lengths)]
+    return (q, kp, vp, *ints), lengths
+
+
+@pytest.mark.parametrize("pool", [None, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("H,KVH,D,page,C", [(32, 8, 128, 16, 24),
+                                            (16, 8, 128, 32, 256),
+                                            (8, 2, 64, 8, 12)])
+def test_ragged_kernels_over_shared_prefix_pages(cuda, pool, H, KVH, D,
+                                                 page, C):
+    """K12 (f32 and bf16 q) and K13 (int8, fp8) over the prefix cache's
+    tables (shared pages, a prefill chunk from a page multiple, a
+    one-token prefill at ctx L - 1 in a forked page) against their plain
+    versions; the rows that read the same keys through the shared and
+    the forked page agree."""
+    args, lengths = _shared_prefix_batch(cuda, H, KVH, D, page, C)
+    if pool is not None:
+        _check_split_quant(args, lengths, pool)
+        return
+    _, out = _check_split(args, lengths)
+    q, kp, vp, *ints = args
+    out32 = krpa.ragged_paged_attention(*args)
+    ref32 = krpa.ragged_paged_attention_reference(*args)
+    a = krpa.ragged_paged_attention_reference(q, kp, vp.abs(), *ints)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out32).all()
+    _assert_close(out32, ref32, 1e-5 * a + 1e-6)
+    # the same query through s2 and through its fork f sees the same keys
+    q2 = q.clone()
+    q2[0, 0] = q2[2, 0]
+    ctx = ints[1].clone()
+    ctx[0] = ctx[2]
+    same = krpa.ragged_paged_attention(q2, kp, vp, ints[0], ctx, ints[2])
+    torch.cuda.synchronize()
+    assert torch.equal(same[0, 0], same[2, 0])
+
+
+@pytest.mark.parametrize("pool", [None, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("H,KVH,D,page,C", [(32, 8, 128, 16, 256),
+                                            (16, 8, 128, 32, 256),
+                                            (28, 4, 128, 16, 256),
+                                            (8, 2, 64, 8, 12)])
+def test_one_token_prefill_equals_its_row_in_a_chunk(cuda, pool, H, KVH,
+                                                     D, page, C):
+    """A fully cached prompt's last token is re-prefilled alone (ctx
+    L - 1, one token) where an engine without the cache computed it as
+    the last row of a full chunk at ctx L - C: bf16 K12 and K13 give the
+    two the same bits (the warps' layout follows the shapes, never the
+    lengths), beside a decode row in the same step."""
+    L = 2 * C
+    pages = L // page + 1
+    rng = np.random.RandomState(2)
+    row = (rng.permutation(3 * pages) + 1)[:pages].astype(np.int32)
+    tables = np.stack([row, row, np.roll(row, 1)])
+    ctx = np.array([L - C, L - 1, L - 7], np.int32)
+    lengths = np.array([C, 1, 1], np.int32)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    P = 3 * pages + 1
+    kp = torch.randn(KVH, P, page, D, device=cuda, generator=g)
+    vp = torch.randn(KVH, P, page, D, device=cuda, generator=g)
+    q = torch.randn(3, C, H, D, device=cuda, generator=g)
+    q[1, 0] = q[0, C - 1]
+    q = q.to(torch.bfloat16)
+    ints = [torch.from_numpy(a).to(cuda) for a in (tables, ctx, lengths)]
+    if pool is None:
+        out = krpa.ragged_paged_attention(q, kp.to(torch.bfloat16),
+                                          vp.to(torch.bfloat16), *ints)
+    else:
+        kc, ks = PA.quantize_kv(kp, pool)
+        vc, vs = PA.quantize_kv(vp, pool)
+        out = krpa.ragged_paged_attention(q, kc, vc, *ints, k_scales=ks,
+                                          v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[1, 0], out[0, C - 1])
+
+
+def _card_engine(cuda, kv_quant="none", dtype=torch.bfloat16, layers=2,
+                 heads=4, **kw):
+    """A 2-layer Llama of hidden 256 (head dim 64 at 4 heads, 128 at 2;
+    rep 2) on the card, and an engine over it."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=256,
+                              intermediate_size=256, num_hidden_layers=layers,
+                              num_attention_heads=heads,
+                              num_key_value_heads=heads // 2,
+                              max_position_embeddings=512)
+    model = LlamaForCausalLM(cfg, device=cuda, dtype=dtype, seed=3)
+    kw = {**dict(num_slots=4, page_size=16, max_len=256, decode_chunk=4,
+                 prefill_chunk=32, audit=True), **kw}
+    return ContinuousBatchingEngine(model, kv_quant=kv_quant, device=cuda,
+                                    **kw)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "fp8"])
+def test_cow_fork_copies_a_page_in_every_pool(cuda, kv_quant):
+    """The copy-on-write fork makes page dst a bit-for-bit copy of page
+    src in all 2L (4L quantized: codes and f32 scales) pools, fp8 codes
+    included, and leaves every other page as it was."""
+    eng = _card_engine(cuda, kv_quant, layers=3)
+    assert len(eng.pools) == (2 if kv_quant == "none" else 4) * 3
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for p in eng.pools:
+        bits = p.view(torch.uint8)
+        bits.copy_(torch.randint(0, 256, bits.shape, generator=g,
+                                 device=cuda, dtype=torch.int32))
+    before = [p.view(torch.uint8).clone() for p in eng.pools]
+    src, dst = 5, 11
+    eng._pc_cow(src, dst)
+    torch.cuda.synchronize()
+    for p, old in zip(eng.pools, before):
+        bits = p.view(torch.uint8)
+        assert torch.equal(bits[:, dst], old[:, src])
+        keep = torch.ones(bits.shape[1], dtype=torch.bool, device=cuda)
+        keep[dst] = False
+        assert torch.equal(bits[:, keep], old[:, keep])
+    assert eng.gauges()["prefix_cache_cow_forks"] == 1
+
+
+def _storm(eng, specs, serial=False):
+    ids = [eng.add_request(p, n) for p, n in specs]
+    if serial:
+        done = []
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            done += eng.step()
+    else:
+        done = eng.run()
+    by = {r.request_id: r.tokens for r in done}
+    return [by[i] for i in ids]
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_pipelined_run_matches_serial_steps(cuda, kv_quant):
+    """run() dispatches a step before it harvests the last one; the
+    greedy streams equal those of serial step() turns, with the prefix
+    cache off and on (shared prefixes, COW forks, evictions in a small
+    pool), and the page audit balances."""
+    rng = np.random.RandomState(5)
+    prefix = rng.randint(0, 256, 48)
+    specs = [(np.concatenate([prefix, rng.randint(0, 256, t)]), int(n))
+             for t, n in zip(rng.randint(0, 20, 10), rng.randint(2, 12, 10))]
+    specs += [(prefix, 6), (rng.randint(0, 256, 70), 9)]
+    streams = {}
+    for cache in (False, True):
+        for serial in (False, True):
+            eng = _card_engine(cuda, kv_quant, prefix_cache=cache,
+                               num_pages=40)
+            streams[cache, serial] = _storm(eng, specs, serial)
+            assert len(eng._free_pages) + eng.prefix_cache_pages \
+                == eng.num_pages - 1
+            eng._audit_pages("test")
+            if cache and not serial:
+                g = eng.gauges()
+                assert g["prefix_cache_hits"] and g["prefix_cache_cow_forks"]
+                assert g["prefill_overlap_frac"] > 0
+    assert streams[False, False] == streams[False, True]
+    assert streams[True, False] == streams[True, True]
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("heads", [4, 2])
+def test_prefix_cache_streams_equal_cache_off(cuda, kv_quant, heads):
+    """bf16 greedy streams with the prefix cache on equal those with it
+    off, bit for bit: prefixes of a page multiple that is not a chunk
+    multiple (the cached suffix streams from another chunk offset) and
+    whole cached prompts (a copy-on-write fork and a one-token prefill),
+    at head dims 64 and 128."""
+    rng = np.random.RandomState(8)
+    prefix = rng.randint(0, 256, 48)      # 3 pages of 16; chunks of 32
+    specs = [(prefix, 7)]
+    specs += [(np.concatenate([prefix, rng.randint(0, 256, t)]), 9)
+              for t in (1, 5, 16, 23, 40)]
+    specs += [(prefix, 5), (prefix[:32], 6), (prefix[:32], 4)]
+    streams, forks = [], 0
+    for cache in (False, True):
+        eng = _card_engine(cuda, kv_quant, heads=heads, prefix_cache=cache)
+        streams.append(_storm(eng, specs[:1]) + _storm(eng, specs[1:]))
+        forks += eng.gauges()["prefix_cache_cow_forks"]
+    assert forks >= 2
+    assert streams[0] == streams[1]
+
+
+def test_dispatch_runs_without_host_synchronisation(cuda):
+    """A dispatch (the upload of the step's inputs from pinned memory,
+    the step, the copy of its packed output back into pinned memory)
+    and a pipelined successor's dispatch synchronise nothing: under sync
+    debug mode 'error' any synchronising call raises. The harvest then
+    waits on each step's event alone and the streams come out whole."""
+    eng = _card_engine(cuda, prefix_cache=True)
+    rng = np.random.RandomState(3)
+    _storm(eng, [(rng.randint(0, 256, 40), 4)])      # builds the kernels
+    prompt = rng.randint(0, 256, 64)
+    for n in (40, 9):
+        eng.add_request(prompt[:n], 6)
+    eng._admit()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = eng._dispatch_step()
+        second = eng._dispatch_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._harvest_step(first)
+    eng._harvest_step(second)
+    done = eng.run()
+    assert sorted(len(r.tokens) for r in done) == [6, 6]

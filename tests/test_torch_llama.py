@@ -151,6 +151,9 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.models.qwen2\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
             "import paddle_tpu_torch.ops.kernels.paged_attention\n"
+            "import paddle_tpu_torch.inference.reliability\n"
+            "import paddle_tpu_torch.profiler.metrics\n"
+            "import paddle_tpu_torch.testing.fault_injection\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

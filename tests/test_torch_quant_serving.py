@@ -219,6 +219,8 @@ def test_quant_ragged_reference_never_reads_the_trash_page(mode):
 
 SPECS = [(5, 7), (13, 4), (9, 11), (21, 6), (3, 8)]   # (prompt, new)
 ENGINE = dict(num_slots=2, page_size=8, max_len=64, decode_chunk=4)
+KV_GAUGES = ("kv_quant_bits", "kv_quant_pool_bytes",
+             "kv_quant_scale_pool_bytes")
 
 
 def _prompts(specs=SPECS, seed=1, vocab=256):
@@ -267,7 +269,8 @@ def _port_run(tm, kv_quant, specs=SPECS, **kw):
                                    kv_quant=kv_quant, **{**ENGINE, **kw})
     ids = [eng.add_request(p, n) for p, (_, n) in zip(_prompts(specs), specs)]
     by = {r.request_id: r for r in eng.run()}
-    assert len(eng._free_pages) == eng.num_pages - 1
+    assert len(eng._free_pages) + eng.prefix_cache_pages \
+        == eng.num_pages - 1
     return [by[i].tokens for i in ids], eng
 
 
@@ -287,9 +290,8 @@ def test_quant_engine_streams_match_jax_engine(mode, model, request):
     assert teng.pools[0].dtype == MODES[mode][0]
     assert teng.pools[2].dtype == torch.float32
     assert teng.pools[2].shape == teng.pools[0].shape[:3]
-    jg = jeng.gauges()
-    assert teng.gauges() == {k: jg[k] for k in (
-        "kv_quant_bits", "kv_quant_pool_bytes", "kv_quant_scale_pool_bytes")}
+    jg, tg = jeng.gauges(), teng.gauges()
+    assert {k: tg[k] for k in KV_GAUGES} == {k: jg[k] for k in KV_GAUGES}
 
 
 def test_unquantized_engine_gauges_match_jax(llamas):
@@ -326,7 +328,7 @@ def test_small_pool_makes_admission_wait(llamas):
     by = {r.request_id: r.tokens for r in done}
     assert waited
     assert [by[i] for i in ids] == ref
-    assert len(eng._free_pages) == 5
+    assert len(eng._free_pages) + eng.prefix_cache_pages == 5
     with pytest.raises(ValueError, match="pages"):
         eng.add_request(np.arange(40), 20)      # 8 pages, 5 allocatable
 

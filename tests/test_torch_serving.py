@@ -71,9 +71,10 @@ def test_mixed_length_streams_match_jax_engine(models, jax_streams):
         assert by_id[rid].tokens == ref, (rid, by_id[rid].tokens, ref)
         assert len(ref) == n and by_id[rid].finish_reason == "length"
     # 5 requests through 2 slots: slots drained and were re-admitted,
-    # and every page came back
-    assert eng.stats["admitted"] == 5
-    assert len(eng._free_pages) == free_before == eng.num_pages - 1
+    # and every page came back (free, or resident in the prefix cache)
+    assert eng._stats["prefills"] == 5
+    assert free_before == eng.num_pages - 1
+    assert len(eng._free_pages) + eng.prefix_cache_pages == free_before
     assert not eng.active.any() and all(r is None for r in eng.slot_req)
 
 
@@ -92,7 +93,8 @@ def test_eos_stops_stream_early(models, jax_streams):
     (req,) = eng.run()
     assert req.finish_reason == "eos"
     assert req.tokens == ref[:n_stop]
-    assert len(eng._free_pages) == eng.num_pages - 1
+    assert len(eng._free_pages) + eng.prefix_cache_pages \
+        == eng.num_pages - 1
 
 
 def test_chunked_prefill_is_token_identical_to_one_chunk(models):
