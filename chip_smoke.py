@@ -18,8 +18,10 @@ non-zero without printing a result:
    version's, the bound and a library call's; flash attention's bf16
    forward and backward launched twice must repeat their bits, and are
    timed at [2, 2049] and [4, 2049] with their rates; K10, K12 and K13
-   too must repeat their bits;
-   quant_kernels (run after moe_kernels, phase 16): K13 over int8 and
+   too must repeat their bits; K12 also at the spec phase's verification
+   step (8 slots of 5 real rows in a chunk of 64, pages of 32, at 16/8
+   and 32/8 heads), timed with its bound;
+   quant_kernels (run after moe_kernels, phase 19): K13 over int8 and
    fp8 pools (scales with NaN on the trash page) at K12's mixed batch,
    at 32/8 and 28/4 heads and at serve_quant's decode step (one token
    in each of 8 slots, its split plan, bits repeated), and K16 at decode
@@ -47,13 +49,23 @@ non-zero without printing a result:
    cache on, warm-up, cache reset), 24 requests of 1024-1500 prompt
    tokens; the int8 engine must hold 1.7x the requests at once; the
    prefix cache's residency after the storm;
-6. prefix: the JAX bench's shared-prefix storm uncut: Llama-1B (16
+6. spec_8b: speculative decoding on that model, the first 4 of serve's
+   requests (32 new each) at decode chunk 1: n-gram and oracle drafts'
+   greedy streams must equal the plain engine's; the share equal to
+   serve's decode-chunk-8 streams is printed;
+7. weight_quant: that model built anew from its seed and converted to
+   weight-only int8, then int4 (``quantize_for_serving``): layers, bytes
+   and bytes saved, ``WeightOnlyLinear`` at the down_proj and lm_head
+   shapes against its plain version per element, a 1500-token prefill's
+   logits distance from bf16 and serve's traffic (launches counted,
+   greedy agreement with serve's streams; reported, not gated);
+8. prefix: the JAX bench's shared-prefix storm uncut: Llama-1B (16
    layers, bf16, seeded random weights), 8 slots, page 32, 64 requests
    sharing a 512-token prefix with tails of 0-63 tokens, 32 new; one
    engine cold then warm, one with the cache off: identical greedy
    streams, a positive warm hit rate, a balanced page audit (hit rate,
    prefill tokens saved, COW forks, p99 TTFT of each);
-7. overload: the JAX bench's overload section uncut on that model: 96
+9. overload: the JAX bench's overload section uncut on that model: 96
    requests (48-192 prompt tokens, 32-96 new, priorities 0-2) through an
    AdmissionController (queue 48, TTFT SLO 30 s) over an
    EngineSupervisor, a total SLO of 120 s: every accepted request
@@ -61,38 +73,46 @@ non-zero without printing a result:
    shed share, preemption rate, goodput, restarts); then a poisoned
    request is quarantined while an innocent's stream equals its solo
    run;
-8. parity: the Llama-3-8B width at depth 2 in f32, greedy streams on the
+10. spec: the JAX bench's spec section (bench.py:_cb_spec_bench) with its
+   TPU configuration on that model: page 32, max_len 384, prefill chunk
+   64, decode chunk 1, spec_k 4, n-gram drafts, prompts of 16 random
+   tokens tiled 3 times, 96 new; batches of 1, 4 and 8, a warm-up and 2
+   timed runs a leg: spec and plain tok/s, accept rate, ITL p99, greedy
+   streams identical (launches counted); then self-speculative drafts,
+   oracle drafts (accept rate 1.0) and adversarial ones (0.0) at batch 1
+   and int8 pools at batch 4, each with the plain streams;
+11. parity: the Llama-3-8B width at depth 2 in f32, greedy streams on the
    GPU against the CPU (plain versions), token for token;
-9. quant_parity: the same with int8 pools;
-10. decode: ``incubate.nn.functional.block_multihead_attention`` (K16)
+12. quant_parity: the same with int8 pools;
+13. decode: ``incubate.nn.functional.block_multihead_attention`` (K16)
    at Llama-3-8B's head layout over 32 layers' pools, 8 sequences, 8
    decode steps, then one more step under torch.profiler (its device
    time and K16's share of it);
-11. train: Llama-3-8B width at 8 layers in bf16, the unfused stack
+14. train: Llama-3-8B width at 8 layers in bf16, the unfused stack
    (``FLAGS_fused_rmsnorm_residual`` off), the port's AdamW, 2 warm-up
    and 5 timed steps on [2, 2049] token ids (step time, tokens/s,
    model-FLOP share, peak memory, losses, launches per step), one step
    timed by part (forward, backward, optimizer) and one profiled (device
    time by layer, idle share), then 5 steps on one batch that must lower
    its loss;
-12. train_parity: Llama-1B width at depth 2 in f32, one forward, backward
+15. train_parity: Llama-1B width at depth 2 in f32, one forward, backward
    and AdamW step on the card and on the CPU: loss, every gradient and
    every updated weight;
-13. train_full: bench.py's headline training step on the port: the
+16. train_full: bench.py's headline training step on the port: the
    32-layer Llama-3-8B in bf16, [4, 2049] token ids, ``core_attn``
    recompute under ``dots_saveable``, the fused residual carry, the loss
    over full logits, forward and backward with the grads cleared and no
    optimizer; 2 warm-up and 5 timed steps, launches per step, one step
    profiled;
-14. fit: bench.py's fit bench on the port: Llama-1B at full depth in bf16
+17. fit: bench.py's fit bench on the port: Llama-1B at full depth in bf16
    through ``hapi.Model(net).prepare(SGD(1e-4), criterion).fit`` over 12
    batches of [8, 1025] for 2 epochs (the fused linear+CE on), epoch 1
    measured; launches per step, the fused CE tail against the unfused
    one, one fit of two steps profiled;
-15. fused_parity: Llama-1B width at depth 2 in f32 on the card against
+18. fused_parity: Llama-1B width at depth 2 in f32 on the card against
    the CPU: a labelled forward and backward with the fused carry and
    ``core_attn`` recompute, and ``fit(compiled=True)`` with SGD;
-16. moe_kernels (run after phase 2's kernels): the grouped matmul (K14,
+19. moe_kernels (run after phase 2's kernels): the grouped matmul (K14,
     K14 transposed) and its weight gradient (K15) against their plain
     versions, per element, at the wide training shape of qwen2_moe_a14b
     (bf16, timed, with torch._grouped_mm as the yardstick where it takes
@@ -101,20 +121,20 @@ non-zero without printing a result:
     layout (32 real rows in 7808); K12 and K7-K9 at Qwen2's 28/4 heads,
     K12 also at serve_moe's decode step (one token in each of 8 slots,
     its split plan, bits repeated);
-17. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
+20. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
     experts, top-4, dropless) with seeded random weights through the
     engine, the serve phase's traffic, launch counters read around it;
-18. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
+21. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
     whole-layer recompute under ``dots_saveable``, the fused carry, aux
     0; forward and backward with the grads cleared (the JAX bench's MoE
     step): step time, tokens/s, activated-FLOP share, peak memory, the
     step-0 loss, launches per step, one step profiled;
-19. moe_bench: bench.py's MoE step uncut (H 1024, 12 layers, 16 experts,
+22. moe_bench: bench.py's MoE step uncut (H 1024, 12 layers, 16 experts,
     top-2, every second layer saved whole), the same readings;
-20. moe_parity: the MoE bench width at depth 2 in f32 on the card
+23. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-21. the ``kernels`` JSON line, then the result line.
+24. the ``kernels`` JSON line, then the result line.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -517,8 +537,163 @@ def phase_kernels(cfg, dev="cuda"):
         max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
         library_ms=None,
         bound_ms=b_ms, bound_by=b_by, design=RAGGED_DESIGN,
-        shape=f"q[{B},{C},{nh},{d}] pools[{kvh},{P},{page},{d}] bf16")
+        shape=f"q[{B},{C},{nh},{d}] pools[{kvh},{P},{page},{d}] bf16",
+        verify=k12_spec_shapes(cfg, rand, dev))
     return res
+
+
+def _spec_geometry(B=8, rows=5, page=32, max_len=384):
+    """The spec phase's attention inputs: B decoding slots, each with its
+    pending token and 4 drafts (``rows`` real rows) inside a chunk of 64,
+    pages of 32, contexts 48-300. Returns (pages a row, pool pages,
+    lengths, ctx)."""
+    mp = max_len // page
+    return (mp, B * mp + 1, np.full(B, rows, np.int32),
+            np.linspace(48, 300, B).astype(np.int32))
+
+
+def k12_spec_shapes(cfg, rand, dev, B=8, C=64, page=32):
+    """K12 at the spec phase's shapes: the verification step (8 slots of 5
+    real rows in a chunk of 64) at Llama-1B's 16/8 heads and Llama-3-8B's
+    32/8 (D 128), and the self-speculative draft's micro-step (one slot,
+    one row, ctx 96) at 16/8: each against its plain version per element
+    (``ragged_checks``), a second launch repeating its bits, timed with
+    its bound. Returns {"16/8": entry, "32/8": entry, "draft 16/8":
+    entry}."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
+    mp, _, lengths, ctx = _spec_geometry(B, page=page)
+    cfg1b = LlamaConfig.llama_1b()
+    out_entries = {}
+    for tag, model_cfg, b, c, ln_np, ctx_np in (
+            ("", cfg1b, B, C, lengths, ctx), ("", cfg, B, C, lengths, ctx),
+            ("draft ", cfg1b, 1, 1, np.ones(1, np.int32),
+             np.array([96], np.int32))):
+        nh, kvh, d = (model_cfg.num_attention_heads,
+                      model_cfg.num_key_value_heads, model_cfg.head_dim)
+        rows = int(ln_np[0])
+        p = b * mp + 1
+        tables = _mixed_tables(b, p, mp, page, ctx_np, ln_np, 21)
+        kp, vp = rand(kvh, p, page, d), rand(kvh, p, page, d)
+        kp[:, 0] = float("nan")
+        vp[:, 0] = float("nan")
+        q = rand(b, c, nh, d)
+        args = (q, kp, vp, *(torch.from_numpy(a).to(dev)
+                              for a in (tables, ctx_np, ln_np)))
+        what = f"K12 at the {tag or 'verify '}shape {nh}/{kvh}"
+        out = krpa.ragged_paged_attention(*args)
+        ref = krpa.ragged_paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all() or out[:, rows:].any():
+            raise AssertionError(f"{what}: non-finite output or rows past "
+                                 f"a slot's length not zero")
+        err, worst, worst1, _, worst32 = ragged_checks(krpa, args, ref, out)
+        if not torch.equal(krpa.ragged_paged_attention(*args), out):
+            raise AssertionError(f"{what}: a second launch gave other bits")
+        ms = time_ms(krpa.ragged_paged_attention, args)
+        plain = time_ms(krpa.ragged_paged_attention_reference, args,
+                        iters=2)
+        keys = int(np.sum(ctx_np + ln_np))
+        pairs = sum(int(x) * rows + rows * (rows + 1) // 2 for x in ctx_np)
+        b_ms, b_by = bound(b * rows * nh * d * 2 + b * c * nh * d * 2
+                           + 2 * keys * kvh * d * 2, 4 * d * nh * pairs,
+                           PEAK_BF16)
+        plan = krpa.split_plan(b, c, kvh, nh // kvh, d, mp * page)
+        log(f"[kernels] ragged_paged_attention at the "
+            f"{tag or 'verify '}shape B={b} C={c} ({rows} real rows a slot) "
+            f"H={nh} KVH={kvh} D={d} page {page} ctx {ctx_np.tolist()}: "
+            f"split plan {plan}; bf16 max abs err {err:.3g} (limit "
+            f"2^-8*sum p|v| + 1 ulp of each |ref|, worst err/limit "
+            f"{worst:.3g}; against the f32 plain version {worst1:.3g}; f32 "
+            f"kernel {worst32:.3g}); a second launch repeats it bit for "
+            f"bit; kernel {ms:.4f} ms plain {plain:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of the time)")
+        out_entries[f"{tag}{nh}/{kvh}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, split_plan=list(plan),
+            shape=f"q[{b},{c},{nh},{d}] ({rows} rows a slot) pools"
+                  f"[{kvh},{p},{page},{d}] bf16, ctx "
+                  f"{int(ctx_np.min())}-{int(ctx_np.max())}")
+        del kp, vp, q, args, out, ref
+        torch.cuda.empty_cache()
+    return out_entries
+
+
+def k13_verify_shape(cfg, rand, dev, B=8, C=64, page=32):
+    """K13 at the spec phase's verification step over int8 and fp8 pools,
+    on K12's verify inputs (``_spec_geometry``) at Llama-1B's 16/8 heads
+    (the spec phase's int8 leg) and Llama-3-8B's 32/8: against its plain
+    version per element at the quant_kernels limits, a second launch
+    repeating its bits, timed with its bound. Returns {"int8 16/8":
+    entry, ...}."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
+    mp, P, lengths, ctx = _spec_geometry(B, page=page)
+    rows = int(lengths[0])
+    out_entries = {}
+    for model_cfg in (LlamaConfig.llama_1b(), cfg):
+        nh, kvh, d = (model_cfg.num_attention_heads,
+                      model_cfg.num_key_value_heads, model_cfg.head_dim)
+        tb, ct, ln = (torch.from_numpy(a).to(dev) for a in (
+            _mixed_tables(B, P, mp, page, ctx, lengths, 22), ctx, lengths))
+        kf, vf = rand(kvh, P, page, d).float(), rand(kvh, P, page, d).float()
+        q = rand(B, C, nh, d)
+        for mode in QUANT_MODES:
+            kc, ks = PA.quantize_kv(kf, _pool_dtype(mode))
+            vc, vs = PA.quantize_kv(vf, _pool_dtype(mode))
+            ks[:, 0] = vs[:, 0] = float("nan")
+            if mode == "fp8":
+                kc.view(torch.uint8)[:, 0] = 0x7F
+                vc.view(torch.uint8)[:, 0] = 0x7F
+            a = krpa.ragged_paged_attention_reference(
+                q.float(), PA.dequantize_pages(kc, ks),
+                PA.dequantize_pages(vc, vs).abs(), tb, ct, ln).float()
+            args = (q, kc, vc, ks, vs, tb, ct, ln)
+            what = f"K13 {mode} at the verify shape {nh}/{kvh}"
+            out = krpa.ragged_paged_attention_quant(*args)
+            ref = _k13_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all() or out[:, rows:].any():
+                raise AssertionError(f"{what}: non-finite output or rows "
+                                     f"past a slot's length not zero")
+            # the quant_kernels limit: both sides dequantize the same
+            # codes and keep f32 probabilities (1e-5 * a), one rounding of
+            # each bf16 output (1 ulp of |ref|)
+            err, worst = check_close(
+                what, out, ref, 1e-5 * a + BF16_ULP * ref.float().abs()
+                + 1e-6)
+            if not torch.equal(krpa.ragged_paged_attention_quant(*args),
+                               out):
+                raise AssertionError(f"{what}: a second launch gave other "
+                                     f"bits")
+            ms = time_ms(krpa.ragged_paged_attention_quant, args)
+            plain = time_ms(_k13_plain, args, iters=2)
+            keys = int(np.sum(ctx + lengths))
+            pairs = sum(int(x) * rows + rows * (rows + 1) // 2 for x in ctx)
+            b_ms, b_by = bound(B * rows * nh * d * 2 + B * C * nh * d * 2
+                               + 2 * keys * kvh * (d + 4),
+                               4 * d * nh * pairs, PEAK_BF16)
+            log(f"[quant_kernels] ragged_paged_attention_quant {mode} at "
+                f"the verify shape B={B} C={C} ({rows} real rows a slot) "
+                f"H={nh} KVH={kvh} D={d} page {page} ctx {ctx.tolist()}: "
+                f"max abs err {err:.3g} (limit 1e-5*sum p|v| + 1 ulp of "
+                f"|ref| + 1e-6, worst err/limit {worst:.3g}); a second "
+                f"launch repeats it bit for bit; kernel {ms:.4f} ms plain "
+                f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+                f"{100 * b_ms / ms:.1f}% of the time)")
+            out_entries[f"{mode} {nh}/{kvh}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"q[{B},{C},{nh},{d}] ({rows} rows a slot) bf16, "
+                      f"{mode} pools[{kvh},{P},{page},{d}] + f32 scales, "
+                      f"ctx 48-300")
+            del kc, vc, ks, vs, a, args, out, ref
+        del kf, vf, q
+        torch.cuda.empty_cache()
+    return out_entries
 
 
 def phase_train_kernels(cfg, batch=2, seq=2049, dev="cuda"):
@@ -1505,6 +1680,8 @@ def phase_quant_kernels(cfg, head_cfg, dev="cuda"):
             f"{ms:.4f} ms")
     del kf, vf, q16, kc, vc, ks, vs, a, out, ref, args
     torch.cuda.empty_cache()
+    # ---- K13 at the spec phase's verification step
+    r["verify"] = k13_verify_shape(cfg, rand, dev)
 
     # ---- K16: decode shapes (one query token a sequence)
     r = res["paged_attention"] = {"max_abs_err": 0.0,
@@ -1852,11 +2029,18 @@ def _p99(ms):
     return ms[max(0, int(round(0.99 * (len(ms) - 1))))] if ms else 0.0
 
 
-def _launch_check(tag, launches, forwards, n_layers):
-    """Each forward launches 2L + 1 RMSNorms, L SwiGLUs and L K12s."""
-    want = {"rms_norm": (2 * n_layers + 1) * forwards,
-            "swiglu": n_layers * forwards,
-            "ragged_paged_attention": n_layers * forwards}
+def _launch_check(tag, launches, forwards, n_layers, attn=None,
+                  draft_forwards=0, draft_layers=0):
+    """Each forward launches 2L + 1 RMSNorms, L SwiGLUs and L ragged
+    attentions (K12, or ``attn``: K13 over quantized pools); a
+    self-speculative draft forward the same over its ``draft_layers``."""
+    attn = attn or "ragged_paged_attention"
+    want = {n: 0 for n in launches}
+    want.update({
+        "rms_norm": (2 * n_layers + 1) * forwards
+        + (2 * draft_layers + 1) * draft_forwards,
+        "swiglu": n_layers * forwards + draft_layers * draft_forwards,
+        attn: n_layers * forwards + draft_layers * draft_forwards})
     if launches != want:
         raise AssertionError(f"[{tag}] launches {launches} != {want} for "
                              f"{forwards} forwards")
@@ -2077,6 +2261,347 @@ def phase_overload(model, dev="cuda"):
     return res
 
 
+def _drain_check(tag, eng):
+    if len(eng._free_pages) + eng.prefix_cache_pages != eng.num_pages - 1:
+        raise AssertionError(f"[{tag}] pages not all returned")
+    eng._audit_pages(tag)
+
+
+def _first_diff(a, b):
+    """(stream index, token index) of each pair of streams that differ."""
+    return [(i, next((j for j, (u, w) in enumerate(zip(x, y)) if u != w),
+                     min(len(x), len(y))))
+            for i, (x, y) in enumerate(zip(a, b)) if x != y]
+
+
+def phase_spec(model, dev="cuda"):
+    """Speculative decoding on Llama-1B (bf16, full width and depth) with
+    the JAX bench's TPU configuration (bench.py:_cb_spec_bench): page 32,
+    max_len 384, prefill chunk 64, decode chunk 1 for both legs, spec_k
+    4, n-gram drafts; prompts of 16 seeded random tokens tiled 3 times,
+    96 new tokens each; batches of 1, 4 and 8 slots (as many requests),
+    one warm-up run then 2 timed ones for each leg. The greedy spec
+    streams must equal the plain engine's (both legs run [B, 64]
+    forwards only, so K12 sums every row in one order). Launches are
+    counted over the A/B. Then, at batch 1: self-speculative drafts,
+    oracle drafts (the plain stream: accept rate exactly 1.0) and
+    adversarial ones (the oracle + 1: exactly 0.0), and at batch 4 int8
+    pools against int8 plain, each with the plain stream."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.spec_decode import draft_skip_layers
+    from paddle_tpu_torch.testing import OracleDraftSource
+    cfg = model.config
+    vocab = cfg.vocab_size
+    page, max_len, chunk, k = 32, 384, 64, 4
+    base_len, tile, n_new, reps = 16, 3, 96, 2
+
+    def make(slots, spec, **kw):
+        if spec:
+            kw = dict(spec_k=k, spec_draft="ngram") | kw
+        return ContinuousBatchingEngine(
+            model, num_slots=slots, page_size=page, max_len=max_len,
+            decode_chunk=1, prefill_chunk=chunk, greedy=True, audit=True,
+            device=dev, **kw)
+
+    def prompts_for(nreq, seed):
+        rng = np.random.RandomState(seed)
+        return [np.tile(rng.randint(0, vocab, (base_len,)).astype(np.int32),
+                        tile) for _ in range(nreq)]
+
+    def erun(eng, prompts):
+        ids = [eng.add_request(p, n_new) for p in prompts]
+        by = {r.request_id: r for r in eng.run()}
+        if sorted(by) != sorted(ids) or any(
+                by[i].error is not None or len(by[i].tokens) != n_new
+                for i in ids):
+            raise AssertionError("[spec] a request did not complete")
+        _drain_check("spec", eng)
+        return [by[i].tokens for i in ids]
+
+    def timed(eng, nreq, seed0):
+        erun(eng, prompts_for(nreq, 900))            # warm-up
+        fw = eng._stats["forwards"]
+        eng.reset_gauges()
+        best, streams = 0.0, []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streams.append(erun(eng, prompts_for(nreq, seed0 + i)))
+            best = max(best, nreq * n_new / (time.perf_counter() - t0))
+        return best, streams, eng.gauges(), fw + eng._stats["forwards"]
+
+    wrappers = _counted(SERVE_KERNELS)
+    forwards = 0
+    batches, ref = {}, {}
+    for b in (1, 4, 8):
+        p_tps, p_streams, p_g, p_fw = timed(make(b, False), b, 910 + b)
+        s_tps, s_streams, s_g, s_fw = timed(make(b, True), b, 910 + b)
+        forwards += p_fw + s_fw
+        if s_streams != p_streams:
+            diff = [_first_diff(s, p) for s, p in zip(s_streams, p_streams)]
+            raise AssertionError(f"[spec] b{b}: spec streams differ from "
+                                 f"the plain engine's at (stream, token) "
+                                 f"{diff} (one list a timed run)")
+        ref[b] = p_streams[0]
+        batches[f"b{b}"] = dict(
+            tok_s=s_tps, plain_tok_s=p_tps, vs_plain=s_tps / p_tps,
+            accept_rate=s_g["spec_accept_rate"],
+            itl_ms_p99=s_g["itl_ms_p99"], plain_itl_ms_p99=p_g["itl_ms_p99"],
+            steps=s_g["unified_steps"], plain_steps=p_g["unified_steps"],
+            drafted=s_g["spec_tokens_drafted"],
+            accepted=s_g["spec_tokens_accepted"])
+        bb = batches[f"b{b}"]
+        log(f"[spec] b{b}: {b} requests x {n_new} new, spec {s_tps:.1f} "
+            f"tok/s against plain {p_tps:.1f} (spec/plain "
+            f"{bb['vs_plain']:.4f}), accept rate {bb['accept_rate']:.4f} "
+            f"({bb['accepted']}/{bb['drafted']} drafts), ITL p99 "
+            f"{bb['itl_ms_p99']:.2f} ms against {bb['plain_itl_ms_p99']:.2f}"
+            f", steps {bb['steps']} against {bb['plain_steps']} (the 2 "
+            f"timed runs); greedy streams identical")
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    _launch_check("spec", launches, forwards, cfg.num_hidden_layers)
+    log(f"[spec] launches over the A/B {launches} ({forwards} forwards)")
+    res = dict(launches=launches, batches=batches)
+
+    p1 = prompts_for(1, 911)
+    eng = make(1, True, spec_draft="self")
+    L = cfg.num_hidden_layers
+    skip = draft_skip_layers(cfg)
+    wrappers = _counted(SERVE_KERNELS)
+    got = erun(eng, p1)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    _launch_check("spec self", launches, eng._stats["forwards"], L,
+                  draft_forwards=eng._stats["draft_forwards"],
+                  draft_layers=L - len(skip))
+    res["launches_self"] = launches
+    g = eng.gauges()
+    if got != ref[1]:
+        raise AssertionError(f"[spec] self-speculative stream differs from "
+                             f"the plain one at {_first_diff(got, ref[1])}")
+    res["self_accept_rate"] = g["spec_accept_rate"]
+    log(f"[spec] self-speculative drafts (layers {skip[0]}-{skip[-1]} "
+        f"skipped), b1: accept rate {g['spec_accept_rate']:.4f} "
+        f"({g['spec_tokens_accepted']}/{g['spec_tokens_drafted']}), "
+        f"{g['unified_steps']} steps, {eng._stats['forwards']} verify "
+        f"forwards and {eng._stats['draft_forwards']} draft forwards; "
+        f"stream identical to the plain engine's; launches {launches}")
+    for name, shift, rate in (("oracle", 0, 1.0), ("adversarial", 1, 0.0)):
+        eng = make(1, True, spec_draft=OracleDraftSource(
+            dict(enumerate(ref[1])), vocab, shift))
+        got = erun(eng, p1)
+        g = eng.gauges()
+        if got != ref[1] or g["spec_accept_rate"] != rate \
+                or not g["spec_tokens_drafted"]:
+            raise AssertionError(f"[spec] {name} drafts: accept rate "
+                                 f"{g['spec_accept_rate']} (want {rate}), "
+                                 f"streams equal {got == ref[1]}")
+        log(f"[spec] {name} drafts, b1: accept rate "
+            f"{g['spec_accept_rate']:.4f} exactly ({g['spec_tokens_drafted']}"
+            f" drafted), {g['unified_steps']} steps; stream identical")
+    p4 = prompts_for(4, 914)
+    plain8 = erun(make(4, False, kv_quant="int8"), p4)
+    eng = make(4, True, kv_quant="int8")
+    quant = SERVE_KERNELS + ("ragged_paged_attention_quant",)
+    wrappers = _counted(quant)
+    spec8 = erun(eng, p4)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    _launch_check("spec int8", launches, eng._stats["forwards"], L,
+                  attn="ragged_paged_attention_quant")
+    res["launches_int8"] = launches
+    if spec8 != plain8:
+        raise AssertionError(f"[spec] int8 pools: spec streams differ from "
+                             f"int8 plain at {_first_diff(spec8, plain8)}")
+    log(f"[spec] int8 pools, b4: spec streams identical to int8 plain, "
+        f"accept rate {eng.gauges()['spec_accept_rate']:.4f}, "
+        f"{eng._stats['forwards']} forwards; launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_spec_8b(model, serve_streams, dev="cuda"):
+    """Speculative decoding at Llama-3-8B's full width and depth (rep 4):
+    the first 4 of the serve phase's requests, 32 new tokens each, in the
+    serve phase's geometry with decode chunk 1. n-gram and oracle spec
+    streams must equal the plain engine's; the share of them equal to
+    the serve phase's streams (decode chunk 8, whose [B, 1] decode
+    forwards take K12's other warp layout and cuBLAS's other shapes) is
+    printed, not required."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.testing import OracleDraftSource
+    vocab = model.config.vocab_size
+    _, prompts = _serve_traffic(vocab)
+    prompts, n_new = prompts[:4], 32
+
+    def make(**kw):
+        return ContinuousBatchingEngine(
+            model, num_slots=8, page_size=16, max_len=2048,
+            prefill_chunk=256, decode_chunk=1, prefix_cache=False,
+            audit=True, device=dev, **kw)
+
+    streams = {}
+    for name in ("plain", "ngram", "oracle"):
+        if name == "plain":
+            eng = make()
+        else:
+            eng = make(spec_k=4, spec_draft=name if name == "ngram" else
+                       OracleDraftSource(dict(enumerate(streams["plain"])),
+                                         vocab))
+        ids = [eng.add_request(p, n_new) for p in prompts]
+        t0 = time.perf_counter()
+        by = {r.request_id: r.tokens for r in eng.run()}
+        wall = time.perf_counter() - t0
+        _drain_check("spec_8b", eng)
+        streams[name] = [by[i] for i in ids]
+        g = eng.gauges()
+        log(f"[spec_8b] {name}: 4 requests x {n_new} new in {wall:.2f} s, "
+            f"{g['unified_steps']} steps"
+            + (f", accept rate {g['spec_accept_rate']:.4f}" if name != "plain"
+               else ""))
+        if name == "oracle" and g["spec_accept_rate"] != 1.0:
+            raise AssertionError(f"[spec_8b] oracle accept rate "
+                                 f"{g['spec_accept_rate']}")
+        if name != "plain" and streams[name] != streams["plain"]:
+            raise AssertionError(
+                f"[spec_8b] {name} streams differ from plain at "
+                f"{_first_diff(streams[name], streams['plain'])}")
+        del eng
+    serve4 = serve_streams[:4]
+    same = sum(a == b for a, b in zip(streams["plain"], serve4))
+    log(f"[spec_8b] n-gram and oracle spec streams identical to plain at "
+        f"decode chunk 1; {same}/4 equal the serve phase's decode-chunk-8 "
+        f"streams (first divergences (stream, token): "
+        f"{_first_diff(streams['plain'], serve4)})")
+    torch.cuda.empty_cache()
+    return dict(equal_to_serve=same / 4)
+
+
+WOL_ALGOS = ("weight_only_int8", "weight_only_int4")
+
+
+def phase_weight_quant(cfg, serve_streams, dev="cuda", n_tokens=1500):
+    """Weight-only quantization of the serve phase's Llama-3-8B (seed 0,
+    bf16, full width and depth), built anew and converted to int8, then
+    again to int4 (``quantize_for_serving``): the layers, bytes and bytes
+    saved; ``WeightOnlyLinear`` at the down_proj and lm_head shapes
+    against its plain version (the same codes and scales in f32) per
+    element; the RMS distance of a 1500-token prefill's logits from the
+    bf16 model's; the serve phase's traffic through the engine (launches
+    counted) and its greedy top-1 agreement with the bf16 streams.
+    Random weights make agreement and distance hard to judge: both are
+    reported, not gated."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn.quant import quantize_for_serving
+    L = cfg.num_hidden_layers
+    tokens = np.random.RandomState(9).randint(0, cfg.vocab_size, n_tokens)
+    warm, prompts = _serve_traffic(cfg.vocab_size)
+    n_new = 32
+    gen = torch.Generator(device=dev).manual_seed(77)
+    base = rms = None
+    res = {"launches": {}}
+    for algo in WOL_ALGOS:
+        tag = f"weight_quant {algo[12:]}"
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=0)
+        model.eval()
+        if base is None:
+            base = _prefill_logits(model, tokens).float()
+            rms = base.square().mean().sqrt().item()
+        dense = sum(p.numel() * p.element_size()
+                    for p in model.parameters())
+        t0 = time.perf_counter()
+        stats = quantize_for_serving(model, algo)
+        torch.cuda.synchronize()
+        if stats["layers"] != 7 * L + 1 or not stats["bytes_saved"] > 0:
+            raise AssertionError(f"[{tag}] converted {stats}")
+        log(f"[{tag}] {stats['layers']} layers converted in "
+            f"{time.perf_counter() - t0:.1f} s: {stats['bytes'] / 1e9:.3f} "
+            f"GB of codes and scales, {stats['bytes_saved'] / 1e9:.3f} GB "
+            f"saved of {dense / 1e9:.3f} GB of bf16 weights")
+        for name, lin in (("down_proj", model.llama.layers[0].mlp.down_proj),
+                          ("lm_head", model.lm_head)):
+            codes = lin.codes().float()
+            w16 = (codes * lin.weight_scale[:, None]).bfloat16()
+            for rows in (8, 256):
+                x = torch.randn(rows, lin.in_features, device=dev,
+                                generator=gen).bfloat16()
+                out = lin(x)
+                xf = x.float()
+                ref = (xf @ codes.t()) * lin.weight_scale
+                mag = (xf.abs() @ codes.abs().t()) * lin.weight_scale
+                # the product and the scaled result are each rounded to
+                # bf16 once (1 ulp of |ref| together, 2 allowed); the
+                # f32 sums of either side differ by far less than 2^-20
+                # of the summed magnitudes
+                err, worst = check_close(
+                    f"{tag} {name} rows {rows}", out, ref,
+                    2 * BF16_ULP * ref.abs() + 2 ** -20 * mag + 1e-6)
+                ms = time_ms(lin, (x,))
+                lib = time_ms(torch.nn.functional.linear, (x, w16))
+                log(f"[{tag}] WeightOnlyLinear {name} x[{rows},"
+                    f"{lin.in_features}] -> {lin.out_features}: max abs err "
+                    f"{err:.3g} (limit 2 ulps of each |ref| + 2^-20 of the "
+                    f"summed magnitudes, worst err/limit {worst:.3g}) "
+                    f"{ms:.4f} ms, a bf16 linear over the dequantized "
+                    f"weights {lib:.4f} ms")
+            del codes, w16, x, out, ref, mag
+        lq = _prefill_logits(model, tokens).float()
+        if not torch.isfinite(lq).all():
+            raise AssertionError(f"[{tag}] non-finite prefill logits")
+        rel = ((lq - base).square().mean().sqrt() / rms).item()
+        top1 = (lq.argmax(-1) == base.argmax(-1)).float().mean().item()
+        log(f"[{tag}] {n_tokens}-token prefill: RMS logit difference / RMS "
+            f"{rel:.4g} against the bf16 weights', top-1 agreement "
+            f"{top1:.4f} (reported, not gated)")
+        del lq
+        eng = ContinuousBatchingEngine(model, num_slots=8, page_size=16,
+                                       max_len=2048, prefill_chunk=256,
+                                       decode_chunk=8, prefix_cache=False,
+                                       audit=True, device=dev)
+        if eng.pools[0].dtype != torch.bfloat16:
+            raise AssertionError(f"[{tag}] pools {eng.pools[0].dtype}")
+        eng.add_request(warm, 4)
+        eng.run()
+        eng.reset_gauges()
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = _counted(SERVE_KERNELS)
+        ids = [eng.add_request(p, n_new) for p in prompts]
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in wrappers.items()}
+        _launch_check(tag, launches, eng._stats["forwards"], L)
+        for n, c in launches.items():
+            res["launches"][n] = res["launches"].get(n, 0) + c
+        by = {r.request_id: r.tokens for r in done}
+        streams = [by[i] for i in ids]
+        if any(len(t) != n_new for t in streams):
+            raise AssertionError(f"[{tag}] a request did not complete")
+        _drain_check(tag, eng)
+        agree = _agreement(streams, serve_streams)
+        log(f"[{tag}] 12 requests x {n_new} new in {wall:.2f} s "
+            f"({12 * n_new / wall:.1f} tok/s), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; greedy top-1 "
+            f"agreement with the bf16 weights' serve streams {agree:.4f} "
+            f"({sum(a == b for a, b in zip(streams, serve_streams))}/12 "
+            f"identical; reported, not gated); launches {launches}")
+        res[algo] = dict(stats=stats, rel_rms=rel, top1=top1,
+                         agreement=agree, tok_s=12 * n_new / wall)
+        del eng, model
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return res
+
+
 # the kernels a training step may launch (each phase checks every count)
 TRAIN_KERNELS = ("rms_norm", "rms_norm_dx", "rms_norm_residual",
                  "rms_norm_residual_dh", "swiglu", "swiglu_bwd",
@@ -2262,6 +2787,7 @@ def _profile(tag, fn, per=1):
     layer, and the device's idle share of the wall time (``per``: the
     steps ``fn`` runs, to report per step)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2270,13 +2796,14 @@ def _profile(tag, fn, per=1):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / per
+    # the device events straight from the trace: the same totals by name
+    # as key_averages(), which builds a Python object for every host
+    # event of the trace and so takes many times the profiled run itself
     kernels = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = e.cuda_time_total
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / per
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            kernels[e.name()] = (kernels.get(e.name(), 0.0)
+                                 + e.duration_ns() / 1e6 / per)
     busy = sum(kernels.values())
     if not busy:
         log(f"[{tag}] the profiler saw no device time (not measured)")
@@ -3280,12 +3807,19 @@ def main():
     cfg = LlamaConfig.llama3_8b()
     cfg1b = LlamaConfig.llama_1b()
     t_start = time.perf_counter()
+
+    def mark(tag):
+        """Log the script's elapsed time after a phase (where it goes)."""
+        log(f"[time] {tag} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_setup()
+    mark("setup")
     res = phase_kernels(cfg)
     res.update(phase_train_kernels(cfg))
     res.update(phase_fused_kernels(cfg))
     res.update(phase_moe_kernels(Qwen2MoeConfig.qwen2_moe_a14b()))
     res.update(phase_quant_kernels(cfg, Qwen2MoeConfig.qwen2_moe_a14b()))
+    mark("kernel checks")
     model = serve_model(cfg)
     serve = phase_serve(cfg, model)
     serve_quant = {m: phase_serve(cfg, model, kv_quant=m)
@@ -3296,16 +3830,26 @@ def main():
             f"{_agreement(r['streams'], serve['streams']):.4f} "
             f"({sum(a == b for a, b in zip(r['streams'], serve['streams']))}"
             f"/12 streams identical)")
+    mark("serve, serve_quant")
     phase_quant_accuracy(model)
     phase_capacity(model)
+    mark("quant_accuracy, capacity")
+    phase_spec_8b(model, serve["streams"])
     del model
+    mark("spec_8b")
+    weight_quant = phase_weight_quant(cfg, serve["streams"])
+    mark("weight_quant")
     model1b = serve_model_1b(cfg1b)
     prefix = phase_prefix(model1b)
     overload = phase_overload(model1b)
+    mark("prefix, overload")
+    spec = phase_spec(model1b)
     del model1b
+    mark("spec")
     phase_parity(cfg)
     phase_parity(cfg, kv_quant="int8")
     decode = phase_decode(cfg)
+    mark("parity, decode")
     flags.set_flags({"FLAGS_fused_rmsnorm_residual": False})
     try:
         train = phase_train(cfg)
@@ -3315,6 +3859,7 @@ def main():
     full = phase_train_full(cfg)
     fit = phase_fit(cfg1b)
     phase_fused_parity(cfg1b)
+    mark("training")
     a14b = Qwen2MoeConfig.qwen2_moe_a14b()
     serve_moe = phase_serve_moe(a14b)
     wide = phase_moe_train("moe_train_wide", dataclasses.replace(
@@ -3322,6 +3867,7 @@ def main():
         router_aux_loss_coef=0.0))
     moe_bench = phase_moe_train("moe_bench", moe_bench_config())
     phase_moe_parity(moe_bench_config())
+    mark("moe")
     pallas = "paddle_tpu/ops/pallas/"
     gm_cu = "paddle_tpu_torch/csrc/grouped_matmul.cu"
     rms_cu = "paddle_tpu_torch/csrc/rms_norm.cu"
@@ -3359,16 +3905,22 @@ def main():
     for name, (src, replaces) in sources.items():
         r = res[name]
         # each path ran with the counts at 0 just before it: serving
-        # (phase 3), quantized serving (int8 and fp8, 4), the prefix and
-        # overload storms (6, 7), the decode entry point (10), unfused
-        # training (11), the full training step (13), fit (14), MoE
-        # serving (17) and the two MoE training steps (18, 19); launches
+        # (phase 3), quantized serving (int8 and fp8, 4), serving with
+        # weight-only int8 and int4 (7), the prefix and overload storms
+        # (8, 9), the spec A/B, self-speculative drafts and spec over
+        # int8 pools (10), the decode entry point (13), unfused
+        # training (14), the full training step (16), fit (17), MoE
+        # serving (20) and the two MoE training steps (21, 22); launches
         # is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
+                  "weight_quant": weight_quant["launches"].get(name, 0),
                   "prefix": prefix["launches"].get(name, 0),
                   "overload": overload["launches"].get(name, 0),
+                  "spec": spec["launches"].get(name, 0),
+                  "spec_self": spec["launches_self"].get(name, 0),
+                  "spec_int8": spec["launches_int8"].get(name, 0),
                   "decode": decode["launches"].get(name, 0),
                   "train": train["launches"].get(name, 0),
                   "train_full": full["launches"].get(name, 0),
@@ -3390,7 +3942,7 @@ def main():
                            else {}),
                         **{k: r[k] for k in ("fp8", "b64", "k12_at_decode_ms",
                                              "split_plan", "design", "wide",
-                                             "decode")
+                                             "decode", "verify")
                            if k in r}})
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was launched on no path")

@@ -54,10 +54,22 @@ Quantized KV (``kv_quant="int8"|"fp8"``): each layer holds four pools,
 ``[KVH, num_pages, page, D]`` and f32 scales ``[KVH, num_pages, page]``,
 one scale per (token, kv head); attention goes through K13.
 
-Not ported yet: speculative decoding, disaggregation and KV migration
-(``handoff``, ``import_migration``, ``role``), the legacy engine
-(``unified=False``), weight-only quantization, the tuner lookup of the
-chunk sizes, tracing, the flight recorder and ``request_trace_summary``.
+Speculative decoding (``spec_k`` or ``spec_draft`` given;
+``spec_decode=True`` is the JAX signature's switch and means ``spec_k=4,
+spec_draft="ngram"``, the JAX engine's fallbacks when its tuner has no
+entry): every step is a spec step, one ``[num_slots, prefill_chunk]``
+forward in which a decoding slot rides its pending token and up to ``K``
+drafts (``inference.spec_decode``: n-gram or self-speculative), verified
+exactly (greedy: exact match, so the streams are the plain engine's);
+no decode tail. ``run()`` drives it serially: a draft depends on the
+harvested stream. Weight-only quantization: a model whose config sets
+``weight_quant`` has its projections converted at construction
+(``nn.quant.quantize_for_serving``).
+
+Not ported yet: disaggregation and KV migration (``handoff``,
+``import_migration``, ``role``), the legacy engine (``unified=False``),
+the tuner lookup of the chunk sizes and of ``spec_k``, tracing, the
+flight recorder and ``request_trace_summary``.
 """
 
 from __future__ import annotations
@@ -72,10 +84,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..nn.quant import quantize_for_serving
 from ..ops.kernels._build import KernelError
 from ..profiler.metrics import MetricsRegistry
 from .reliability import (DeadlineExceeded, RequestCancelled,
                           RequestQuarantined, record_hop)
+from .spec_decode import get_draft_source, verify_drafts
 
 __all__ = ["ContinuousBatchingEngine", "ServedRequest"]
 
@@ -88,8 +102,9 @@ _KV_QUANT = {"none": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
 _UNCONTAINABLE = (AssertionError, KernelError,
                   getattr(torch, "AcceleratorError", KernelError))
 
-#: the JAX engine's ``_stats`` key set, plus the port's count of model
-#: forwards (one batching step is ``decode_chunk`` of them)
+#: the JAX engine's ``_stats`` key set, plus the port's counts of model
+#: forwards (one batching step is ``decode_chunk`` of them) and of the
+#: self-speculative draft's layer-skipping ones
 _STAT_KEYS = ("chunks", "chunk_slot_steps", "active_slot_steps",
               "tokens_emitted", "prefills", "prefills_overlapped",
               "prefill_waves", "chunks_empty", "unified_steps",
@@ -100,7 +115,7 @@ _STAT_KEYS = ("chunks", "chunk_slot_steps", "active_slot_steps",
               "quarantined", "containments", "shed_rejections",
               "prefix_cache_hits", "prefix_cache_misses",
               "prefix_cache_tokens_saved", "prefix_cache_evictions",
-              "prefix_cache_cow_forks", "forwards")
+              "prefix_cache_cow_forks", "forwards", "draft_forwards")
 
 
 def _env_bool(name, default=False):
@@ -242,7 +257,14 @@ class ContinuousBatchingEngine:
 
     ``prompt_buckets`` is kept for the JAX engine's signature: its
     largest bucket seeds the default ``prefill_chunk``. ``admit_batch``
-    bounds the prefilling slots one step carries (default all)."""
+    bounds the prefilling slots one step carries (default all).
+
+    ``spec_decode`` / ``spec_k`` / ``spec_draft``: speculative decoding
+    (any of them turns it on). ``spec_k`` drafts a step (default 4,
+    clamped to ``prefill_chunk - 1``; ``prefill_chunk >= 2`` is
+    required), ``spec_draft`` ``"ngram"`` (default), ``"self"`` or a
+    ``spec_decode.DraftSource``. The port has no tuner, so knobs left
+    None take the JAX engine's static fallbacks."""
 
     def __init__(self, model, num_slots=4, page_size=16, num_pages=None,
                  max_len=512, decode_chunk=16,
@@ -250,14 +272,14 @@ class ContinuousBatchingEngine:
                  greedy=True, temperature=1.0, seed=0, prefill_chunk=None,
                  admit_batch=None, latency_reservoir=2048, max_strikes=2,
                  max_containments=8, audit=None, prefix_cache=None,
+                 spec_decode=False, spec_k=None, spec_draft=None,
                  kv_quant="none", device=None):
         if kv_quant not in _KV_QUANT:
             raise ValueError(f"unknown kv_quant {kv_quant!r} "
                              "(expected 'none', 'int8' or 'fp8')")
         self.kv_quant = kv_quant
         self.device = resolve_device(device)
-        params = list(model.parameters())
-        wrong = {str(p.device) for p in params
+        wrong = {str(p.device) for p in model.parameters()
                  if p.device.type != self.device.type}
         if wrong:
             raise ValueError(f"the model's weights are on {sorted(wrong)}, "
@@ -265,6 +287,11 @@ class ContinuousBatchingEngine:
         self.model = model
         cfg = model.config
         self.cfg = cfg
+        # weight-only serving quantization, once (a converted model, or a
+        # second engine over it, is left as it is)
+        if getattr(cfg, "weight_quant", None):
+            quantize_for_serving(model)
+        params = list(model.parameters())
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         self.max_len = int(max_len)
@@ -285,6 +312,20 @@ class ContinuousBatchingEngine:
             admit_batch = self.num_slots
         self.admit_batch = max(1, min(int(admit_batch), self.num_slots))
         self.eos = -1 if eos_token_id is None else int(eos_token_id)
+        # speculative decoding: K drafts ride a [B, prefill_chunk] step
+        self._spec = bool(spec_decode) or spec_k is not None \
+            or spec_draft is not None
+        self._spec_k = 0
+        self._spec_source = None
+        if self._spec:
+            if self.prefill_chunk < 2:
+                raise ValueError("speculative decoding needs "
+                                 "prefill_chunk >= 2 to carry a "
+                                 "verification chunk")
+            self._spec_k = max(1, min(int(4 if spec_k is None else spec_k),
+                                      self.prefill_chunk - 1))
+            self._spec_source = get_draft_source(
+                "ngram" if spec_draft is None else spec_draft)
         self.greedy = bool(greedy)
         self.temperature = float(temperature)
         self._seed = int(seed)
@@ -344,11 +385,13 @@ class ContinuousBatchingEngine:
         # device-resident slot state, chained from step to step
         self._dev_tok, self._dev_ctx, self._dev_act = self._new_dev_state()
         # the step's input row: C prompt ids, nq, last, tgt, MP table
-        # entries, limit, eos, reset, reset ctx
-        self._in_width = self.prefill_chunk + 3 + MP + 4
-        n_steps = 1 + self._n_decode
-        self._ring = _PinnedRing(2, (B, self._in_width),
-                                 (B, 2 * n_steps + 2)) \
+        # entries, limit, eos, reset, reset ctx, and under spec the draft
+        # count. The packed output: n_steps tokens and emitted flags,
+        # ctx, active, and under spec the committed and drafted counts.
+        self._in_width = self.prefill_chunk + 3 + MP + 4 + int(self._spec)
+        out_width = 2 * (1 + self._spec_k) + 4 if self._spec \
+            else 2 * (1 + self._n_decode) + 2
+        self._ring = _PinnedRing(2, (B, self._in_width), (B, out_width)) \
             if self.device.type == "cuda" else None
 
         self.queue: deque[ServedRequest] = deque()
@@ -397,6 +440,12 @@ class ContinuousBatchingEngine:
             "serving/ttft_ms", capacity=int(latency_reservoir))
         self._h_itl = self.metrics.histogram(
             "serving/itl_ms", capacity=int(latency_reservoir))
+        self._c_spec_steps = self.metrics.counter("spec/steps")
+        self._c_spec_drafted = self.metrics.counter("spec/tokens_drafted")
+        self._c_spec_accepted = self.metrics.counter(
+            "spec/tokens_accepted")
+        self._c_spec_rejected = self.metrics.counter(
+            "spec/tokens_rejected")
         # seconds spent inside instrumentation (obs_overhead_frac)
         self._obs_s = 0.0
         self._overlap_admission = False
@@ -514,7 +563,8 @@ class ContinuousBatchingEngine:
         self._admit()
         try:
             if self._worth_step():
-                self._harvest_step(self._dispatch_step())
+                self._harvest_step(self._dispatch_spec_step()
+                                   if self._spec else self._dispatch_step())
         except Exception as exc:  # noqa: BLE001 — containment boundary
             if not self._containable(exc):
                 raise
@@ -531,7 +581,12 @@ class ContinuousBatchingEngine:
         the successor computes. A slot that finished inside the previous
         step is already inactive in the successor. The successor is
         skipped when no slot is prefilling and every active slot's
-        predicted budget is spent."""
+        predicted budget is spent.
+
+        Under speculative decoding the same loop runs serially (each
+        step harvested before the next is drafted): drafts are made from
+        the harvested stream and the device state after it, so a
+        pipelined successor would draft from a stale stream."""
         return self._run_driver()
 
     def _idle_turn_unified(self):
@@ -539,6 +594,14 @@ class ContinuousBatchingEngine:
         anything. Returns (progressed, in-flight record or None)."""
         if self._worth_step():
             return True, self._dispatch_step()
+        return False, None
+
+    def _idle_turn_spec(self):
+        """Nothing in flight: draft and dispatch one spec step if it would
+        advance anything (harvested at the next turn, with no successor
+        dispatched before it)."""
+        if self._worth_step():
+            return True, self._dispatch_spec_step()
         return False, None
 
     def _run_driver(self):
@@ -571,7 +634,8 @@ class ContinuousBatchingEngine:
                     # the host harvests, drains and admits
                     try:
                         nxt = self._dispatch_step() \
-                            if self._worth_step() else None
+                            if not self._spec and self._worth_step() \
+                            else None
                     except Exception as exc:  # noqa: BLE001
                         extra = contained(exc)
                         if extra is None:
@@ -602,7 +666,8 @@ class ContinuousBatchingEngine:
                 self._admit()
                 done.extend(self._drain())
                 try:
-                    progressed, inflight = self._idle_turn_unified()
+                    progressed, inflight = self._idle_turn_spec() \
+                        if self._spec else self._idle_turn_unified()
                 except Exception as exc:  # noqa: BLE001
                     extra = contained(exc)
                     if extra is None:
@@ -751,37 +816,18 @@ class ContinuousBatchingEngine:
         eviction asked for. Returns the packed [B, 2 * n + 2] int32
         output: emitted tokens, emitted flags, final ctx, final
         active."""
-        C, MP = self.prefill_chunk, self.pages_per_slot
         model = self.model
-        B = self.num_slots
-        ids = inputs[:, :C]
-        nq = inputs[:, C]
-        last = inputs[:, C + 1].bool()
-        tgt = inputs[:, C + 2].bool()
-        tbl = inputs[:, C + 3:C + 3 + MP].contiguous()
-        lim, eos, reset, ctx0 = inputs[:, C + 3 + MP:].unbind(1)
-        reset = reset.bool()
+        ids, nq, last, tgt, tbl, lim, eos, ctx, act, _ = \
+            self._step_inputs(inputs)
         tok = self._dev_tok
-        ctx = torch.where(reset, ctx0, self._dev_ctx)
-        # stale instant-eos guard
-        act = self._dev_act & ~reset & ((eos < 0) | (tok != eos))
         is_pre = nq > 0
         lengths = torch.where(is_pre, nq, act.to(torch.int32))
-        # decode slots carry their device-resident pending token in
-        # stream column 0
-        ids[:, 0] = torch.where(is_pre, ids[:, 0], tok)
-        logits, _ = model(ids, caches=self.pools, pos=ctx,
-                          tables=(tbl, lengths))
-        idx = (lengths - 1).clamp(0, C - 1).long()
-        last_lg = logits[torch.arange(B, device=ids.device), idx].float()
-        sampled = self._sample(last_lg)
+        _, sampled, ctx1, hit_eos, act_pre = self._ragged_pass(
+            ids, is_pre, last, tgt, tbl, lim, eos, ctx, lengths)
         # a next token fires for completing prompts and advancing decodes
         fire = (is_pre & last) | (act & ~is_pre)
         nxt = torch.where(fire, sampled, tok)
-        ctx1 = ctx + lengths
-        hit_eos = (eos >= 0) & (nxt == eos)
         still_dec = act & ~is_pre & (ctx1 < lim) & ~hit_eos
-        act_pre = is_pre & last & tgt & (ctx1 < lim) & ~hit_eos
         act_c = torch.where(is_pre, act_pre, still_dec)
         toks = [torch.where(fire, nxt, -1)]
         emitted = [fire]
@@ -802,18 +848,116 @@ class ContinuousBatchingEngine:
                           ctx_c[:, None], act_c[:, None].to(torch.int32)],
                          dim=1)
 
-    def _launch(self, inputs):
-        """Run the step on ``inputs`` (host int32). On the card: the
-        inputs go up from a pinned buffer without blocking and the
+    def _step_inputs(self, inputs):
+        """Unpack a step's input rows on the device: ids [B, C], nq, last,
+        tgt, the block-table rows, limits, eos ids, the ctx after the
+        resets, the active flags after the resets and the stale
+        instant-eos guard, and the columns past those (the spec step's
+        draft counts)."""
+        C, MP = self.prefill_chunk, self.pages_per_slot
+        tbl = inputs[:, C + 3:C + 3 + MP].contiguous()
+        lim, eos, reset, ctx0 = inputs[:, C + 3 + MP:C + 7 + MP].unbind(1)
+        reset = reset.bool()
+        ctx = torch.where(reset, ctx0, self._dev_ctx)
+        act = self._dev_act & ~reset & ((eos < 0) | (self._dev_tok != eos))
+        return (inputs[:, :C], inputs[:, C], inputs[:, C + 1].bool(),
+                inputs[:, C + 2].bool(), tbl, lim, eos, ctx, act,
+                inputs[:, C + 7 + MP:])
+
+    def _ragged_pass(self, ids, is_pre, last, tgt, tbl, lim, eos, ctx,
+                     lengths):
+        """The first forward of both steps: the ragged pass over
+        ``lengths`` rows a slot (decode slots carry their device-resident
+        pending token in stream column 0), the sample at each slot's last
+        row, and what it means for a completing prompt. Returns (logits,
+        sampled, ctx + lengths, whether the sample is the slot's eos, the
+        activation of completing prompts)."""
+        C, B = self.prefill_chunk, self.num_slots
+        ids[:, 0] = torch.where(is_pre, ids[:, 0], self._dev_tok)
+        logits, _ = self.model(ids, caches=self.pools, pos=ctx,
+                               tables=(tbl, lengths))
+        idx = (lengths - 1).clamp(0, C - 1).long()
+        sampled = self._sample(
+            logits[torch.arange(B, device=ids.device), idx].float())
+        ctx1 = ctx + lengths
+        hit_eos = (eos >= 0) & (sampled == eos)
+        act_pre = is_pre & last & tgt & (ctx1 < lim) & ~hit_eos
+        return logits, sampled, ctx1, hit_eos, act_pre
+
+    @torch.no_grad()
+    def _device_spec_step(self, inputs):
+        """The speculative batching step, on the device: the plain step's
+        ragged pass (same inputs, plus each slot's draft count nd in the
+        last column), where a decoding slot rides its pending token and
+        its drafts as ``1 + nd`` rows, and no decode tail. The drafts are
+        verified (``spec_decode.verify_drafts``); a slot emits its
+        accepted drafts and the token after them, trimmed by its ctx
+        budget and by an eos inside the chunk (the eos itself is
+        emitted). Accepting commits by advancing ctx over KV already
+        written; rejected rows stay behind ctx. Returns the packed [B,
+        2(K+1) + 4] int32: tokens, emitted flags, ctx, active, committed
+        drafts, drafted count."""
+        K = self._spec_k
+        ids, nq, last, tgt, tbl, lim, eos, ctx, act, nd = \
+            self._step_inputs(inputs)
+        nd = nd[:, 0]
+        tok = self._dev_tok
+        is_pre = nq > 0
+        dec = act & ~is_pre
+        # drafts were clamped against the host's view: re-gate on the
+        # device's (the eos guard may have retired the slot)
+        nd = torch.where(dec, nd, 0)
+        lengths = torch.where(is_pre, nq, torch.where(dec, 1 + nd, 0))
+        drafts = ids[:, 1:K + 1].clone()
+        # a completing prompt's first token is the sample at its last row
+        logits, sampled, ctx1, _, act_pre = self._ragged_pass(
+            ids, is_pre, last, tgt, tbl, lim, eos, ctx, lengths)
+        n_acc, fin = verify_drafts(logits[:, :K + 1].float(), drafts, nd,
+                                   self.greedy, self.temperature, self._gen)
+        n_acc, fin = n_acc.to(torch.int32), fin.to(torch.int32)
+        # the emission ladder: accepted drafts, then the target's token
+        jk = torch.arange(K + 1, device=ids.device)[None, :]
+        e = torch.where(jk < n_acc[:, None],
+                        torch.nn.functional.pad(drafts, (0, 1)),
+                        fin[:, None])
+        hit = ((eos[:, None] >= 0) & (e == eos[:, None])).to(torch.int32)
+        alive = (jk <= n_acc[:, None]) & (ctx[:, None] + jk < lim[:, None]) \
+            & (torch.cumsum(hit, 1) - hit == 0) & dec[:, None]
+        n_emit = alive.sum(1, dtype=torch.int32)
+        ctx_dec = ctx + n_emit
+        last_e = e.gather(1, (n_emit - 1).clamp(0, K).long()[:, None])[:, 0]
+        still_dec = dec & (n_emit > 0) & (ctx_dec < lim) \
+            & ((eos < 0) | (last_e != eos))
+        fire_pre = is_pre & last
+        toks = torch.where(dec[:, None], e, -1)
+        toks[:, 0] = torch.where(fire_pre, sampled, toks[:, 0])
+        emitted = alive.clone()
+        emitted[:, 0] |= fire_pre
+        tok_f = torch.where(dec, torch.where(n_emit > 0, last_e, tok),
+                            torch.where(fire_pre, sampled, tok))
+        ctx_f = torch.where(dec, ctx_dec, ctx1)
+        act_f = torch.where(is_pre, act_pre,
+                            torch.where(dec, still_dec, act))
+        committed = torch.where(
+            dec, torch.minimum(n_acc, (n_emit - 1).clamp(min=0)), 0)
+        self._stats.inc("forwards")
+        self._dev_tok, self._dev_ctx, self._dev_act = tok_f, ctx_f, act_f
+        return torch.cat([toks.to(torch.int32), emitted.to(torch.int32),
+                          ctx_f[:, None], act_f[:, None].to(torch.int32),
+                          committed[:, None].to(torch.int32),
+                          nd[:, None]], dim=1)
+
+    def _launch(self, inputs, device_step):
+        """Run ``device_step`` on ``inputs`` (host int32). On the card:
+        the inputs go up from a pinned buffer without blocking and the
         packed output comes back into a pinned buffer behind the step's
         kernels; returns (pinned output, event). On the CPU: the packed
         tensor itself."""
         if self._ring is None:
-            return self._device_step(torch.from_numpy(inputs))
+            return device_step(torch.from_numpy(inputs))
         pin_in, pin_out, event = self._ring.take()
         pin_in.numpy()[...] = inputs
-        packed = self._device_step(
-            pin_in.to(self.device, non_blocking=True))
+        packed = device_step(pin_in.to(self.device, non_blocking=True))
         pin_out.copy_(packed, non_blocking=True)
         event.record()
         return pin_out, event
@@ -833,6 +977,46 @@ class ContinuousBatchingEngine:
         update the host's bookkeeping (prompt progress is exact; decode
         activity is a prediction the harvest refines). Returns the
         in-flight record for :meth:`_harvest_step`."""
+        inputs, n_pre = self._stage_inputs()
+        n_steps = 1 + self._n_decode
+        self._compiled.add(("unified", self.prefill_chunk, n_steps))
+        self._count_dispatch(inputs, n_pre, n_steps)
+        packed = self._launch(inputs, self._device_step)
+        return self._book_dispatch(packed, inputs, n_steps, self._n_decode)
+
+    def _dispatch_spec_step(self):
+        """Launch one speculative step: prompt chunks as in
+        :meth:`_dispatch_step`; every decoding slot with budget asks the
+        draft source for up to K tokens, clamped to ``limit - ctx - 1``
+        so every verify write stays inside its row. The host's ctx
+        (``_pred_ctx``) is exact here: the spec loop harvests each step
+        before drafting the next."""
+        B, C, K = self.num_slots, self.prefill_chunk, self._spec_k
+        inputs, n_pre = self._stage_inputs()
+        drafting = [s for s in range(B)
+                    if self.active[s] and not self._prefilling[s]
+                    and self.slot_req[s] is not None
+                    and int(self.limits[s]) - int(self._pred_ctx[s]) > 1]
+        if drafting:
+            drafts, counts = self._spec_source.propose(self, drafting, K)
+            for s in drafting:
+                c = min(int(counts[s]), K,
+                        int(self.limits[s]) - int(self._pred_ctx[s]) - 1)
+                if c > 0:
+                    inputs[s, 1:1 + c] = drafts[s, :c]
+                    inputs[s, -1] = c
+        self._compiled.add(("spec", C, 1 + K))
+        self._count_dispatch(inputs, n_pre, 1 + K)
+        self._c_spec_steps.inc()
+        packed = self._launch(inputs, self._device_spec_step)
+        # no decode tail: a completing prompt lands its first token only
+        return self._book_dispatch(packed, inputs, 1 + K, 0)
+
+    def _stage_inputs(self):
+        """The step's input rows on the host: the next prompt chunk of up
+        to ``admit_batch`` prefilling slots, the block tables, limits,
+        eos ids and the pending device resets (consumed here). Returns
+        (inputs, prefilling slots staged)."""
         B, C, MP = self.num_slots, self.prefill_chunk, self.pages_per_slot
         inputs = np.zeros((B, self._in_width), np.int32)
         n_pre = 0
@@ -853,11 +1037,12 @@ class ContinuousBatchingEngine:
         inputs[:, C + 5 + MP] = self._reset
         inputs[:, C + 6 + MP] = self._reset_ctx
         self._reset[:] = False
-        nq = inputs[:, C]
-        last = inputs[:, C + 1].astype(bool)
-        tgt = inputs[:, C + 2].astype(bool)
-        n_steps = 1 + self._n_decode
-        self._compiled.add(("unified", C, n_steps))
+        return inputs, n_pre
+
+    def _count_dispatch(self, inputs, n_pre, n_steps):
+        """Advance the dispatch sequence and count the step."""
+        nq = inputs[:, self.prefill_chunk]
+        B = self.num_slots
         self._seq += 1
         self._last_fetch_dispatch_seq = self._seq
         # a slot advances this step if it decodes with budget left or
@@ -873,7 +1058,17 @@ class ContinuousBatchingEngine:
             self._stats.inc("prefill_waves")
         self._stats.inc("active_slot_steps", n_active * n_steps)
         self._obs_s += time.perf_counter() - _t_obs
-        packed = self._launch(inputs)
+
+    def _book_dispatch(self, packed, inputs, n_steps, tail):
+        """The host's bookkeeping after a launch: prompt progress, the
+        activation of completing prompts (their first token and ``tail``
+        decode micro-steps land in this step) and the ctx prediction of
+        decoding slots (``tail + 1`` more). Returns the in-flight
+        record."""
+        B, C = self.num_slots, self.prefill_chunk
+        nq = inputs[:, C]
+        last = inputs[:, C + 1].astype(bool)
+        tgt = inputs[:, C + 2].astype(bool)
         emits = np.zeros((B,), bool)
         for slot in range(B):
             if nq[slot] > 0:
@@ -889,7 +1084,7 @@ class ContinuousBatchingEngine:
                     self.active[slot] = bool(tgt[slot])
                     self._act_since[slot] = self._seq
                     self._pred_ctx[slot] = min(
-                        int(self.limits[slot]), tl + self._n_decode)
+                        int(self.limits[slot]), tl + tail)
                     # the prompt's full pages are final now (decode
                     # writes land past tl): publish them for sharing
                     self._pc_insert(slot)
@@ -898,7 +1093,7 @@ class ContinuousBatchingEngine:
                     and self.limits[slot] > self._pred_ctx[slot]:
                 self._pred_ctx[slot] = min(
                     int(self.limits[slot]),
-                    int(self._pred_ctx[slot]) + n_steps)
+                    int(self._pred_ctx[slot]) + tail + 1)
                 emits[slot] = True
         self._emits_inflight += emits.astype(np.int32)
         return (packed, list(self.slot_req), emits, n_steps, self._seq)
@@ -943,12 +1138,20 @@ class ContinuousBatchingEngine:
         self._stats.inc("tokens_emitted", appended)
         if appended == 0:
             self._stats.inc("chunks_empty")
+        # a spec step's two accounting columns: committed and drafted
+        if arr.shape[1] > 2 * n_steps + 2:
+            drafted = int(arr[:, 2 * n_steps + 3].sum())
+            if drafted:
+                committed = int(arr[:, 2 * n_steps + 2].sum())
+                self._c_spec_drafted.inc(drafted)
+                self._c_spec_accepted.inc(committed)
+                self._c_spec_rejected.inc(drafted - committed)
         self._obs_s += time.perf_counter() - _t_obs
 
     # ---- observability ---------------------------------------------------
 
     def gauges(self) -> dict:
-        """The JAX engine's serving gauges (all but the ``spec_*`` ones):
+        """The JAX engine's serving gauges:
 
         - ``slot_occupancy``: emitted tokens / dispatched slot-steps;
         - ``active_occupancy``: slot-steps of slots that could advance /
@@ -965,7 +1168,10 @@ class ContinuousBatchingEngine:
           reliability and prefix-cache counters, the queue depth, the
           prefix cache's resident pages, and the ``kv_quant_*`` pool
           geometry (bits of a pool element, bytes of the data pools and
-          of the scales pools)."""
+          of the scales pools);
+        - ``spec_steps``, ``spec_tokens_drafted``, ``spec_tokens_accepted``
+          and ``spec_tokens_rejected`` (drafted = accepted + rejected), and
+          ``spec_accept_rate`` = accepted / drafted."""
         s = self._stats.as_dict()
         steps = s["chunk_slot_steps"]
         pc = s["prefix_cache_hits"] + s["prefix_cache_misses"]
@@ -1017,6 +1223,13 @@ class ContinuousBatchingEngine:
             "kv_quant_scale_pool_bytes": sum(
                 p.numel() * p.element_size() for p in self.pools
                 if p.dim() == 3),
+            "spec_steps": self._c_spec_steps.value,
+            "spec_tokens_drafted": self._c_spec_drafted.value,
+            "spec_tokens_accepted": self._c_spec_accepted.value,
+            "spec_tokens_rejected": self._c_spec_rejected.value,
+            "spec_accept_rate": (self._c_spec_accepted.value
+                                 / self._c_spec_drafted.value)
+            if self._c_spec_drafted.value else 0.0,
         }
 
     def reset_gauges(self):
@@ -1024,6 +1237,9 @@ class ContinuousBatchingEngine:
         run, say). The set of step shapes is kept."""
         for k in self._stats:
             self._stats[k] = 0.0 if k == "run_seconds" else 0
+        for c in (self._c_spec_steps, self._c_spec_drafted,
+                  self._c_spec_accepted, self._c_spec_rejected):
+            c.set(0)
         self._h_ttft.reset()
         self._h_itl.reset()
         self._obs_s = 0.0

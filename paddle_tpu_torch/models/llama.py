@@ -81,6 +81,11 @@ class LlamaConfig:
     core_attn_interval: int = 1
     # every k-th layer is not recomputed at all; 0 = off
     full_save_interval: int = 0
+    # weight-only serving quantization: None keeps full precision;
+    # "weight_only_int8" / "weight_only_int4" turn the projections and
+    # the lm_head into nn.quant.WeightOnlyLinear when the serving engine
+    # is built (nn.quant.quantize_for_serving)
+    weight_quant: str | None = None
 
     def __post_init__(self):
         if self.recompute_granularity not in ("full", "core_attn",
@@ -88,6 +93,7 @@ class LlamaConfig:
             raise ValueError(
                 f"recompute_granularity={self.recompute_granularity!r} "
                 "is not one of 'full' | 'core_attn' | 'full_attn'")
+        check_weight_quant(self.weight_quant)
 
     @classmethod
     def llama3_8b(cls):
@@ -110,6 +116,13 @@ class LlamaConfig:
     @property
     def head_dim(self):
         return self.hidden_size // self.num_attention_heads
+
+
+def check_weight_quant(mode):
+    if mode not in (None, "weight_only_int8", "weight_only_int4"):
+        raise ValueError(
+            f"weight_quant={mode!r} is not one of "
+            "None | 'weight_only_int8' | 'weight_only_int4'")
 
 
 def rope_with_offset(sin_tab, cos_tab, pos, seq_len):
@@ -317,7 +330,8 @@ class LlamaModel(nn.Module):
         self.rope_sin.copy_(sin)
         self.rope_cos.copy_(cos)
 
-    def forward(self, input_ids, caches=None, pos=None, tables=None):
+    def forward(self, input_ids, caches=None, pos=None, tables=None,
+                skip_layers=None):
         """input_ids [B, S]. Without caches: the final hidden states [B, S,
         H] of the training path. With them, a serving step returning
         ``(hidden, caches)``: caches are the flat [k0, v0, k1, v1, ...]
@@ -325,20 +339,28 @@ class LlamaModel(nn.Module):
         per-layer stride is ``len(caches) // num_layers``), written in
         place; pos [B] or [B, 1] cache lengths before
         the chunk; tables ``(block_tables [B, pages], valid)`` where valid
-        is an int count per slot or a bool active mask."""
+        is an int count per slot or a bool active mask. ``skip_layers``
+        (with caches only: the self-speculative draft) lists decoder
+        layers that pass the hidden state through and neither write nor
+        read their pools."""
         b, s = input_ids.shape
+        if caches is None and skip_layers:
+            raise ValueError("skip_layers requires the caches "
+                             "(serving) path")
         x = self.embed_tokens(input_ids)
         if caches is None:
             return self._train_stack(x, (self.rope_sin[None, :s],
                                          self.rope_cos[None, :s]))
+        skip = frozenset(skip_layers or ())
         ctx = pos.reshape(b).to(torch.int32)
         tbl, gate = tables
         tables = (tbl.to(torch.int32), gate.to(torch.int32))
         rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
         stride = len(caches) // len(self.layers)
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope, caches[stride * i:stride * (i + 1)], ctx,
-                      tables)
+            if i not in skip:
+                x = layer(x, rope, caches[stride * i:stride * (i + 1)], ctx,
+                          tables)
         return self.norm(x), caches
 
     def _train_stack(self, x, rope):
@@ -418,12 +440,13 @@ class LlamaForCausalLM(nn.Module):
         self.llama.reset_rope()
 
     def _logits(self, hidden):
-        weight = self.llama.embed_tokens.weight if self.lm_head is None \
-            else self.lm_head.weight
-        return torch.nn.functional.linear(hidden, weight)
+        if self.lm_head is None:
+            return torch.nn.functional.linear(
+                hidden, self.llama.embed_tokens.weight)
+        return self.lm_head(hidden)    # a WeightOnlyLinear once quantized
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
-                tables=None):
+                tables=None, skip_layers=None):
         """The JAX package's signature. With ``caches``: a serving step,
         ``(logits [B, S, V], caches)`` with the pools updated in place
         (no autograd: the in-place pool writes must not join a graph).
@@ -431,12 +454,14 @@ class LlamaForCausalLM(nn.Module):
         ``(logits, loss)`` with the loss over ``logits[:, :-1]`` against
         ``labels[:, 1:]``; ``(None, loss)`` through the fused linear+CE
         when ``FLAGS_fused_linear_cross_entropy`` is on and the
-        ``lm_head`` is untied."""
+        ``lm_head`` is untied. ``skip_layers``: see
+        :meth:`LlamaModel.forward` (with caches only)."""
         if caches is not None:
             with torch.no_grad():
-                hidden, caches = self.llama(input_ids, caches, pos, tables)
+                hidden, caches = self.llama(input_ids, caches, pos, tables,
+                                            skip_layers)
                 return self._logits(hidden), caches
-        hidden = self.llama(input_ids)
+        hidden = self.llama(input_ids, skip_layers=skip_layers)
         if (labels is not None and self.lm_head is not None
                 and flags.flag("FLAGS_fused_linear_cross_entropy")):
             h2 = hidden[:, :-1].reshape(-1, self.config.hidden_size)

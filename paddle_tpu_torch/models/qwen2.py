@@ -44,7 +44,8 @@ from ..nn import RMSNorm
 from ..nn import functional as F
 from ..ops.rope import build_sin_cos, rotate
 from .llama import (LlamaAttention, LlamaMLP, LlamaPretrainingCriterion,
-                    _shifted_cross_entropy, rope_with_offset)
+                    _shifted_cross_entropy, check_weight_quant,
+                    rope_with_offset)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
            "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion"]
@@ -66,6 +67,11 @@ class Qwen2Config:
     use_recompute: bool = False
     # every k-th layer is not recomputed at all; 0 = off
     full_save_interval: int = 0
+    # weight-only serving quantization: see LlamaConfig
+    weight_quant: str | None = None
+
+    def __post_init__(self):
+        check_weight_quant(self.weight_quant)
 
     @classmethod
     def qwen2_7b(cls):
@@ -261,9 +267,10 @@ class _Qwen2Base(nn.Module):
                 for _ in range(2 * cfg.num_hidden_layers)]
 
     def _logits(self, hidden):
-        weight = self.embed_tokens.weight if self.lm_head is None \
-            else self.lm_head.weight
-        return torch.nn.functional.linear(hidden, weight)
+        if self.lm_head is None:
+            return torch.nn.functional.linear(hidden,
+                                              self.embed_tokens.weight)
+        return self.lm_head(hidden)    # a WeightOnlyLinear once quantized
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
                 tables=None):

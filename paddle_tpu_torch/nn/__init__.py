@@ -1,7 +1,8 @@
-"""``nn`` of the port: the functional forms and the RMSNorm layer.
-``Linear`` and ``Embedding`` are ``torch.nn``'s own."""
+"""``nn`` of the port: the functional forms, the RMSNorm layer and the
+weight-only serving quantization (``quant``). ``Linear`` and
+``Embedding`` are ``torch.nn``'s own."""
 
-from . import functional
+from . import functional, quant
 from .layer import RMSNorm
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["functional", "quant", "RMSNorm"]

@@ -3,7 +3,8 @@ routing (full precision and quantize-at-write), the KV codec, and the
 ragged and decode attention entry points.
 
 Port of ``paddle_tpu/ops/paged_attention.py`` (``paged_prefill_write``,
-``paged_prefill_write_quant``, ``kv_quant_range``, ``quantize_kv``,
+``paged_prefill_write_quant``, ``paged_verify_write``,
+``paged_verify_write_quant``, ``kv_quant_range``, ``quantize_kv``,
 ``dequantize_pages``, ``paged_prefill_attention_reference``,
 ``ragged_paged_attention_reference``, ``paged_attention_reference`` and
 the dispatches ``ragged_paged_attention`` and ``paged_attention``).
@@ -33,6 +34,7 @@ from .kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_reference)
 
 __all__ = ["paged_prefill_write", "paged_prefill_write_quant",
+           "paged_verify_write", "paged_verify_write_quant",
            "paged_prefill_attention_reference", "kv_quant_range",
            "quantize_kv", "dequantize_pages", "paged_attention",
            "paged_attention_reference", "ragged_paged_attention",
@@ -127,6 +129,40 @@ def paged_prefill_write_quant(kp, vp, ks, vs, k, v, block_tables, ctx,
     _bits(vp)[:, pid, off] = codes[1]
     ks[:, pid, off] = scales[0].to(ks.dtype)
     vs[:, pid, off] = scales[1].to(vs.dtype)
+
+
+def paged_verify_write(kp, vp, k, v, block_tables, ctx, valid) -> None:
+    """Speculative verify write: a ``1 + K``-token verification chunk
+    (the pending token and ``K`` drafts) written at positions ``ctx ..
+    ctx + K`` of each slot's row, in place, before the target has
+    accepted any draft. The routing is :func:`paged_prefill_write`'s: to
+    the pool, a verification chunk is a short prefill chunk.
+
+    Rolling back a rejected draft needs no undo, for three reasons:
+
+    - reads are fenced by ctx: query token ``j`` attends positions up to
+      ``ctx + j``, and the engine advances ctx by the emitted length
+      only, so KV written past it is never read;
+    - writes overwrite in place: the slot's next chunk starts at the
+      committed ctx and rewrites those offsets before reading them;
+    - sharing is prompt-only: the prefix cache publishes full pages of
+      prompt tokens, and verify positions lie past the prompt in the
+      slot's private pages.
+
+    The serving models route the verification chunk through their own
+    prefill write, which is the same routing; this is the public entry
+    point under the verify name."""
+    paged_prefill_write(kp, vp, k, v, block_tables, ctx, valid)
+
+
+def paged_verify_write_quant(kp, vp, ks, vs, k, v, block_tables, ctx,
+                             valid) -> None:
+    """Speculative verify write into int8/fp8 pools with their scales:
+    :func:`paged_prefill_write_quant`'s routing, under the rollback
+    argument of :func:`paged_verify_write` (a scale is only read with the
+    codes it was written with)."""
+    paged_prefill_write_quant(kp, vp, ks, vs, k, v, block_tables, ctx,
+                              valid)
 
 
 def paged_prefill_attention_reference(q, key_pages, value_pages,

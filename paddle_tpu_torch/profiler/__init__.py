@@ -1,5 +1,7 @@
 """Observability of the port: the typed metrics registry."""
 
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      get_registry)
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "get_registry"]

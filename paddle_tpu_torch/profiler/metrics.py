@@ -10,9 +10,10 @@
 
 Every name is ``subsystem/name``. Each serving engine owns a private
 :class:`MetricsRegistry`, so two engines in one process never mix their
-counts. Not ported: labels, the trace mirror, the process-wide registry,
-the metric catalog, the Prometheus and JSON exports and the federated
-registry. Standard library only.
+counts; :func:`get_registry` is the process-wide one (the ``quant/*``
+gauges of ``nn.quant.quantize_for_serving``). Not ported: labels, the
+trace mirror, the metric catalog, the Prometheus and JSON exports and the
+federated registry. Standard library only.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import threading
 import zlib
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "METRIC_NAME_RE"]
+           "METRIC_NAME_RE", "get_registry"]
 
 #: the ``subsystem/name`` convention
 METRIC_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*/[a-z][a-z0-9_]*$")
@@ -206,3 +207,12 @@ class MetricsRegistry:
             metrics = list(self._metrics.values())
         return {m.name: m.to_dict() if isinstance(m, Histogram)
                 else m.value for m in metrics}
+
+
+_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry. A serving engine keeps its own private
+    one instead, so its gauges stay scoped to it."""
+    return _registry

@@ -20,6 +20,7 @@ import torch
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn.quant import WeightOnlyLinear
 from paddle_tpu_torch.hapi import Model
 from paddle_tpu_torch.io import TensorDataset
 from paddle_tpu_torch.models import (LlamaPretrainingCriterion,
@@ -35,6 +36,7 @@ from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
 from paddle_tpu_torch.ops.kernels import rms_norm as krms
 from paddle_tpu_torch.ops.kernels import swiglu as ksw
 from paddle_tpu_torch.optimizer import SGD, AdamW
+from paddle_tpu_torch.testing import OracleDraftSource
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import adam_first_step_limit, attention_scales  # noqa
@@ -1396,3 +1398,85 @@ def test_dispatch_runs_without_host_synchronisation(cuda):
     eng._harvest_step(second)
     done = eng.run()
     assert sorted(len(r.tokens) for r in done) == [6, 6]
+
+
+# ---- speculative decoding and weight-only quantization -----------------
+
+def _spec_specs(rng, n=6):
+    """Prompts of a random span tiled three times (the n-gram source
+    drafts from them), 12-40 new tokens each."""
+    return [(np.tile(rng.randint(0, 256, int(rng.randint(4, 12))), 3),
+             int(rng.randint(12, 40))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("draft", ["ngram", "self", "oracle"])
+def test_spec_streams_equal_plain_at_one_token_steps(cuda, kv_quant, draft):
+    """bf16 greedy spec streams equal the plain engine's at decode_chunk
+    1, whose every forward is, like the verify step's, a [B,
+    prefill_chunk] ragged pass (K12's warps' layout follows the step's
+    width, so a [B, 1] decode tail would sum in another order). Oracle
+    drafts (the plain streams) are all accepted."""
+    rng = np.random.RandomState(12)
+    specs = _spec_specs(rng)
+    plain = _storm(_card_engine(cuda, kv_quant, decode_chunk=1), specs)
+    source = OracleDraftSource(dict(enumerate(plain)), 256) \
+        if draft == "oracle" else draft
+    eng = _card_engine(cuda, kv_quant, decode_chunk=1, spec_k=4,
+                       spec_draft=source)
+    assert _storm(eng, specs) == plain
+    g = eng.gauges()
+    assert g["spec_tokens_drafted"] > 0
+    if draft == "oracle":
+        assert g["spec_accept_rate"] == 1.0
+    assert len(eng._free_pages) + eng.prefix_cache_pages \
+        == eng.num_pages - 1
+    eng._audit_pages("test")
+
+
+def test_self_spec_draft_leaves_committed_kv_untouched(cuda):
+    """On the card: a slot at ctx 250 of a 256-position row drafting K 8
+    would reach past the row (the clamp lands on its last page, over
+    committed positions); the draft must leave every committed position
+    of every pool bit for bit as it was."""
+    eng = _card_engine(cuda, num_slots=1, spec_k=8, spec_draft="self",
+                       prefix_cache=False, prefill_chunk=64)
+    rng = np.random.RandomState(4)
+    eng.add_request(rng.randint(0, 256, 250), 4)
+    eng.step()
+    while eng._prefilling.any():
+        eng.step()
+    ctx = int(eng._pred_ctx[0])
+    assert ctx == 250 and eng.active[0]
+    assert ctx + eng._spec_k - 1 >= eng.pages_per_slot * eng.page_size
+    pos = torch.arange(ctx)
+    row = torch.from_numpy(eng.tables[0]).long()
+    pages, offs = row[pos // eng.page_size].to(cuda), (pos % eng.page_size
+                                                        ).to(cuda)
+    before = [p[:, pages, offs].clone() for p in eng.pools]
+    eng._spec_source.propose(eng, [0], eng._spec_k)
+    torch.cuda.synchronize()
+    for p, was in zip(eng.pools, before):
+        assert torch.equal(p[:, pages, offs].view(torch.uint8),
+                           was.view(torch.uint8))
+
+
+@pytest.mark.parametrize("algo", ["weight_only_int8", "weight_only_int4"])
+@pytest.mark.parametrize("shape", [(3, 256, 512), (5, 4096, 14336)])
+def test_weight_only_linear_on_the_card(cuda, algo, shape):
+    """WeightOnlyLinear in bf16 against its plain version, the same codes
+    dequantized in f32 and multiplied in f64: per element within 2 bf16
+    ulps of |ref| (the product and the scaled result are each rounded
+    to bf16 once) plus the f32 accumulation over the inputs."""
+    rows, n_out, n_in = shape
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    w = (torch.randn(n_out, n_in, device=cuda, generator=g) * 0.02).bfloat16()
+    x = torch.randn(rows, n_in, device=cuda, generator=g).bfloat16()
+    lin = WeightOnlyLinear(w, algo=algo)
+    out = lin(x)
+    codes = lin.codes().double()
+    ref = (x.double() @ codes.t()) * lin.weight_scale.double()
+    mag = (x.double().abs() @ codes.abs().t()) * lin.weight_scale.double()
+    tol = 2 * BF16_ULP * ref.abs() + 2 ** -22 * mag + 1e-6
+    _assert_close(out, ref, tol)
+    assert out.dtype == torch.bfloat16
