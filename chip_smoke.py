@@ -82,8 +82,11 @@ non-zero without printing a result:
    oracle drafts (accept rate 1.0) and adversarial ones (0.0) at batch 1
    and int8 pools at batch 4, each with the plain streams;
 11. parity: the Llama-3-8B width at depth 2 in f32, greedy streams on the
-   GPU against the CPU (plain versions), token for token;
-12. quant_parity: the same with int8 pools;
+   GPU against the CPU (plain versions), token for token (a divergence
+   only on a near tie), through the unified engine, the legacy engine
+   and ``generate`` (scores within ``GEN_SCORE_TOL``); on the card,
+   whether both engines' streams equal ``generate``'s;
+12. quant_parity: the two engines with int8 pools;
 13. decode: ``incubate.nn.functional.block_multihead_attention`` (K16)
    at Llama-3-8B's head layout over 32 layers' pools, 8 sequences, 8
    decode steps, then one more step under torch.profiler (its device
@@ -135,6 +138,27 @@ non-zero without printing a result:
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
 24. the ``kernels`` JSON line, then the result line.
+
+Two paths of the serving slice run between those phases:
+
+25. generate (``model.generate`` over dense caches; K1, K5, and K14 for
+    the MoE model): on serve's Llama-3-8B after spec_8b, batch 8,
+    prompts of 128, 64 new, greedy (launches), sampling with
+    examples/serve_llama.py's settings twice (the same ids), and an eos
+    run of one prompt that stops at its greedy stream's token; after
+    spec, bench.py:_decode_bench uncut on the prefix phase's Llama-1B
+    (batch 8, prompt 128, 512 new, greedy, the long-minus-short
+    protocol: ms/token/batch, tokens/s, launches per token, peak
+    memory), then 32 tokens under ``torch.cuda.set_sync_debug_mode
+    ("error")``; after serve_moe, qwen2_moe_a14b at batch 4, prompt
+    64, 16 new (K14 launches);
+26. legacy (after generate on the 8B model): the legacy engine
+    (``unified=False``) on serve's model, geometry and 12 requests
+    through ``run()`` (launches) and serial ``step()`` (the same
+    streams): tok/s beside serve's (the JAX bench's A/B, telemetry),
+    ``compiled_programs``, prefill waves, chunks, empty chunks, the
+    greedy agreement with serve's streams (reported); then 4 requests
+    over int8 pools (K13).
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -1460,9 +1484,39 @@ def _top2_gap(model, tokens, kv_quant="none"):
     return float(top[0] - top[1])
 
 
+#: |GPU - CPU| of a ``generate`` score (the mean f32 logprob of 16
+#: tokens, about -12 at the init's logits) at depth 2 in f32
+GEN_SCORE_TOL = 1e-3
+
+
+def _hold_streams(tag, what, gpu, cpu, cpu_model, prompts, kv_quant):
+    """GPU streams against CPU ones, token for token; a divergence is
+    allowed only on a near tie (the CPU's top-2 gap at that token under
+    1e-3). Returns the indices of the identical streams."""
+    for i, (g, c) in enumerate(zip(gpu, cpu)):
+        if g == c:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(g, c)) if a != b)
+        gap = _top2_gap(cpu_model, list(prompts[i]) + c[:j], kv_quant)
+        if gap >= 1e-3:
+            raise AssertionError(
+                f"[{tag}] {what} request {i}: GPU and CPU streams diverge "
+                f"at token {j} with a CPU top-2 gap of {gap:.3g}: {g} vs {c}")
+        log(f"[{tag}] {what} request {i} diverges at token {j} on a near "
+            f"tie (CPU top-2 gap {gap:.3g} < 1e-3)")
+    same = [i for i, (g, c) in enumerate(zip(gpu, cpu)) if g == c]
+    log(f"[{tag}] {what}: {len(gpu)} greedy streams of "
+        f"{len(gpu[0])} tokens: cuda vs cpu {len(same)}/{len(gpu)} identical")
+    return same
+
+
 def phase_parity(cfg, dev="cuda", kv_quant="none"):
     """Depth 2, f32: greedy streams on the GPU and on the CPU, with f32
-    pools (phase parity) or int8/fp8 ones (phase quant_parity)."""
+    pools (phase parity) or int8/fp8 ones (phase quant_parity), through
+    the unified engine and the legacy one (``unified=False``); with f32
+    pools also ``generate`` of each prompt alone (tokens, and scores
+    within ``GEN_SCORE_TOL``), and, on the card, whether both engines'
+    streams equal ``generate``'s."""
     import dataclasses
 
     import torch
@@ -1480,31 +1534,48 @@ def phase_parity(cfg, dev="cuda", kv_quant="none"):
     rng = np.random.RandomState(3)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (128, 77, 31, 100)]
     streams = {}
-    for name, model in ((dev, gpu_model), ("cpu", cpu_model)):
-        eng = ContinuousBatchingEngine(model, num_slots=4, page_size=16,
-                                       max_len=256, prefill_chunk=128,
-                                       decode_chunk=4, kv_quant=kv_quant,
-                                       device=name)
-        for p in prompts:
-            eng.add_request(p, 16)
-        t0 = time.perf_counter()
-        done = sorted(eng.run(), key=lambda r: r.request_id)
-        streams[name] = [r.tokens for r in done]
-        log(f"[{tag}] {name}: {time.perf_counter() - t0:.1f} s")
-    for i, (g, c) in enumerate(zip(streams[dev], streams["cpu"])):
-        if g == c:
-            continue
-        j = next(k for k, (a, b) in enumerate(zip(g, c)) if a != b)
-        gap = _top2_gap(cpu_model, list(prompts[i]) + c[:j], kv_quant)
-        if gap >= 1e-3:
-            raise AssertionError(
-                f"request {i}: GPU and CPU streams diverge at token {j} "
-                f"with a CPU top-2 gap of {gap:.3g}: {g} vs {c}")
-        log(f"[{tag}] request {i} diverges at token {j} on a near tie "
-            f"(CPU top-2 gap {gap:.3g} < 1e-3)")
-    log(f"[{tag}] 4 greedy streams of 16 tokens: cuda vs cpu "
-        f"{sum(g == c for g, c in zip(streams[dev], streams['cpu']))}/4 "
-        f"identical")
+    for engine in ("unified", "legacy"):
+        for name, model in ((dev, gpu_model), ("cpu", cpu_model)):
+            eng = ContinuousBatchingEngine(
+                model, num_slots=4, page_size=16, max_len=256,
+                prefill_chunk=128, decode_chunk=4, kv_quant=kv_quant,
+                unified=engine == "unified", device=name)
+            for p in prompts:
+                eng.add_request(p, 16)
+            t0 = time.perf_counter()
+            done = sorted(eng.run(), key=lambda r: r.request_id)
+            streams[engine, name] = [r.tokens for r in done]
+            log(f"[{tag}] {engine} engine on {name}: "
+                f"{time.perf_counter() - t0:.1f} s")
+        _hold_streams(tag, f"{engine} engine", streams[engine, dev],
+                      streams[engine, "cpu"], cpu_model, prompts, kv_quant)
+    if kv_quant == "none":
+        scores = {}
+        for name, model in ((dev, gpu_model), ("cpu", cpu_model)):
+            t0 = time.perf_counter()
+            outs = [model.generate(torch.tensor(p[None], device=name),
+                                   max_new_tokens=16,
+                                   decode_strategy="greedy_search")
+                    for p in prompts]
+            streams["generate", name] = [o[0].tolist() for o, _ in outs]
+            scores[name] = [float(sc[0]) for _, sc in outs]
+            log(f"[{tag}] generate on {name}: "
+                f"{time.perf_counter() - t0:.1f} s")
+        same = _hold_streams(tag, "generate", streams["generate", dev],
+                             streams["generate", "cpu"], cpu_model, prompts,
+                             kv_quant)
+        err = max((abs(scores[dev][i] - scores["cpu"][i]) for i in same),
+                  default=0.0)
+        if err > GEN_SCORE_TOL:
+            raise AssertionError(f"[{tag}] generate scores differ by "
+                                 f"{err:.3g} > {GEN_SCORE_TOL}: {scores}")
+        ref = streams["generate", dev]
+        eq = {e: sum(a == b for a, b in zip(streams[e, dev], ref))
+              for e in ("unified", "legacy")}
+        log(f"[{tag}] generate scores: max |cuda - cpu| {err:.3g} over the "
+            f"identical streams (limit {GEN_SCORE_TOL}); on the card, engine "
+            f"streams equal to generate's: unified {eq['unified']}/4, "
+            f"legacy {eq['legacy']}/4")
     del gpu_model
     torch.cuda.empty_cache()
 
@@ -3571,10 +3642,13 @@ def phase_serve_moe(cfg, dev="cuda"):
         f"P = {(1 + cfg.num_experts) * 128}, a tile for every expert)")
 
     prof = _profile_two_requests("serve_moe", eng, cfg.vocab_size)
-    del eng, model
+    del eng
+    torch.cuda.empty_cache()
+    gen = generate_moe(model)
+    del model
     torch.cuda.empty_cache()
     return dict(wall_s=wall, tok_s=12 * n_new / wall, peak_gb=peak,
-                launches=launches, profile=prof)
+                launches=launches, profile=prof, generate=gen)
 
 
 def moe_bench_config():
@@ -3794,6 +3868,277 @@ def phase_moe_parity(bench_cfg, layers=2, dev="cuda"):
     return worst_g
 
 
+# ---- generate over dense caches, and the legacy engine ---------------------
+
+GEN_KERNELS = ("rms_norm", "swiglu")
+
+
+def _generate(model, ids, n_new, **kw):
+    """``model.generate`` with the JAX bench's arguments (greedy unless
+    ``kw`` says otherwise, no eos, pad 0), waited on; returns (ids,
+    scores, seconds)."""
+    import torch
+    kw = {**dict(decode_strategy="greedy_search", eos_token_id=None,
+                 pad_token_id=0), **kw}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, scores = model.generate(ids, max_new_tokens=n_new, **kw)
+    torch.cuda.synchronize()
+    return out, scores, time.perf_counter() - t0
+
+
+def _gen_launch_check(tag, launches, forwards, cfg, moe=False):
+    """A dense-cache forward launches 2L + 1 RMSNorms and L SwiGLUs (the
+    shared expert's, in a MoE layer) and, dropless, 3L grouped matmuls;
+    its attention is plain PyTorch (``sdpa_with_cache``), so no K12."""
+    L = cfg.num_hidden_layers
+    want = {n: 0 for n in launches}
+    want.update({"rms_norm": (2 * L + 1) * forwards,
+                 "swiglu": L * forwards})
+    if moe:
+        want["grouped_matmul"] = 3 * L * forwards
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want} for "
+                             f"{forwards} forwards")
+
+
+def phase_decode_bench(model, batch=8, prompt=128, n_new=512, dev="cuda"):
+    """bench.py:_decode_bench uncut on the port: Llama-1B (16 layers,
+    bf16, seeded random weights), batch 8, prompts of 128 tokens, 512 new,
+    greedy, no eos. Per token: the long run's time minus a 4-token run's
+    over the 508 tokens between them (the minimum of two runs each, on
+    distinct prompts; both lengths warmed up first). Launches are counted
+    over the four timed runs; then one run under sync debug mode 'error'
+    holds the eos-less loop to no host synchronisation."""
+    import torch
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    base = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                            (batch, prompt))
+    ids = torch.tensor(base, device=dev)
+    prompts = [torch.tensor(np.roll(base, i + 1, axis=1), device=dev)
+               for i in range(6)]
+    _generate(model, ids, n_new)
+    _generate(model, prompts[0], 4)
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _counted(GEN_KERNELS)
+    long_s = min(_generate(model, prompts[i], n_new)[2] for i in (1, 2))
+    short_s = min(_generate(model, prompts[i], 4)[2] for i in (3, 4))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    forwards = 2 * n_new + 2 * 4
+    _gen_launch_check("generate", launches, forwards, cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_tok = max(long_s - short_s, 1e-9) / (n_new - 4)
+    log(f"[generate] decode bench (bench.py:_decode_bench, Llama-1B bf16, "
+        f"batch {batch}, prompt {prompt}): {n_new} new in {long_s:.3f} s, "
+        f"4 new in {short_s:.3f} s: {per_tok * 1e3:.2f} ms/token/batch, "
+        f"{batch / per_tok:.1f} tokens/s; peak memory {peak:.2f} GB")
+    log(f"[generate] launches over the 4 timed runs ({forwards} forwards): "
+        f"{launches}; per token {2 * L + 1} rms_norm, {L} swiglu")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, scores = model.generate(ids, max_new_tokens=32,
+                                     decode_strategy="greedy_search")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (batch, 32) or not torch.isfinite(scores).all():
+        raise AssertionError(f"[generate] sync-debug run gave "
+                             f"{tuple(out.shape)}, scores {scores}")
+    log(f"[generate] 32 new tokens under torch.cuda.set_sync_debug_mode"
+        f"('error'): the eos-less loop made no host synchronisation")
+    return dict(launches=launches, ms_per_token=per_tok * 1e3,
+                tok_s=batch / per_tok, peak_gb=peak)
+
+
+def phase_generate_8b(model, batch=8, prompt=128, n_new=64, dev="cuda"):
+    """``generate`` on serve's Llama-3-8B (32 layers, bf16): batch 8,
+    prompts of 128 tokens, 64 new: greedy (launches counted), then
+    sampling as examples/serve_llama.py samples (top_p 0.9, temperature
+    0.8, seed 7) twice, which must give the same ids; then the first
+    prompt alone, greedy, and with an eos from its stream, which must
+    stop there with the greedy prefix (one host synchronisation a
+    token)."""
+    import torch
+    cfg = model.config
+    ids = torch.tensor(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (batch, prompt)), device=dev)
+    _generate(model, ids, 4)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _counted(GEN_KERNELS)
+    greedy, scores, wall = _generate(model, ids, n_new)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    _gen_launch_check("generate 8b", launches, n_new, cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.isfinite(scores).all():
+        raise AssertionError(f"[generate 8b] scores {scores}")
+    log(f"[generate 8b] Llama-3-8B bf16 greedy, batch {batch}, prompt "
+        f"{prompt}, {n_new} new in {wall:.3f} s (prefill included): "
+        f"{batch * n_new / wall:.1f} tokens/s, peak memory {peak:.2f} GB; "
+        f"scores {[round(float(s), 3) for s in scores]}")
+    sample = dict(decode_strategy="sampling", top_p=0.9, temperature=0.8,
+                  seed=7)
+    a, sa, wall_s = _generate(model, ids, n_new, **sample)
+    b, _, _ = _generate(model, ids, n_new, **sample)
+    if not torch.equal(a, b):
+        raise AssertionError("[generate 8b] two sampling runs with seed 7 "
+                             "gave different ids")
+    log(f"[generate 8b] sampling (top_p 0.9, temperature 0.8, seed 7) in "
+        f"{wall_s:.3f} s: {batch * n_new / wall_s:.1f} tokens/s; a second "
+        f"run with the seed gave the same ids; {int((a == greedy).sum())}"
+        f"/{a.numel()} tokens equal greedy's")
+    # the first prompt alone, greedy without and with an eos: the first
+    # token of the second half of its stream that it has not emitted
+    # before (else its last new one). Batch 1, not row 0 of batch 8:
+    # cuBLAS rounds another M otherwise, and bf16 near ties flip.
+    one, _, wall_1 = _generate(model, ids[:1], n_new)
+    row = one[0].tolist()
+    new = [i for i in range(n_new) if row[i] not in row[:i]]
+    j = next((i for i in new if i >= n_new // 2), new[-1])
+    out, _, wall_e = _generate(model, ids[:1], n_new, eos_token_id=row[j])
+    if out[0].tolist() != row[:j + 1]:
+        raise AssertionError(f"[generate 8b] eos run gave {out[0].tolist()}"
+                             f", not the greedy prefix {row[:j + 1]}")
+    log(f"[generate 8b] batch 1: {n_new} new in {wall_1:.3f} s without an "
+        f"eos ({wall_1 / n_new * 1e3:.2f} ms a token, prefill included); "
+        f"eos = its token {j}: stopped after {j + 1} tokens in "
+        f"{wall_e:.3f} s ({wall_e / (j + 1) * 1e3:.2f} ms a token, one "
+        f"poll of the device a token); {int((one[0] == greedy[0]).sum())}"
+        f"/{n_new} tokens equal batch 8's row 0")
+    return dict(launches=launches, tok_s=batch * n_new / wall, peak_gb=peak)
+
+
+def generate_moe(model, batch=4, prompt=64, n_new=16, dev="cuda"):
+    """``generate`` on serve_moe's qwen2_moe_a14b (28 layers, dropless,
+    bf16): batch 4, prompts of 64 tokens, 16 new, greedy; each forward
+    routes B * S rows through K14."""
+    import torch
+    cfg = model.config
+    ids = torch.tensor(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (batch, prompt)), device=dev)
+    _generate(model, ids, 2)                     # warm-up
+    wrappers = _counted(GEN_KERNELS + MOE_KERNELS)
+    out, scores, wall = _generate(model, ids, n_new)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    _gen_launch_check("generate moe", launches, n_new, cfg, moe=True)
+    if tuple(out.shape) != (batch, n_new) or not torch.isfinite(
+            scores).all():
+        raise AssertionError(f"[generate moe] {tuple(out.shape)} {scores}")
+    log(f"[generate moe] qwen2_moe_a14b greedy, batch {batch}, prompt "
+        f"{prompt}, {n_new} new in {wall:.3f} s (prefill included): "
+        f"{batch * n_new / wall:.1f} tokens/s; launches {launches} "
+        f"(a decode forward routes {batch * cfg.num_experts_per_tok} rows "
+        f"through 3 grouped matmuls a layer)")
+    return dict(launches=launches, tok_s=batch * n_new / wall)
+
+
+def phase_legacy(cfg, model, serve, dev="cuda"):
+    """The legacy engine (``unified=False``: prefill waves and adaptive
+    decode chunks) on serve's model, geometry and traffic: 12 requests
+    through the pipelined ``run()`` (launches counted), then the same
+    through serial ``step()`` turns, whose greedy streams must equal
+    run()'s; tok/s against serve's unified engine (telemetry, as the JAX
+    bench's A/B), the counters, and the greedy agreement with serve's
+    streams (reported: K12 takes another warp layout at the legacy
+    engine's [S, 1] decode forwards than at the unified step's [S, C]
+    one). Then 4 requests over int8 pools (K13)."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    L = cfg.num_hidden_layers
+
+    def make(**kw):
+        return ContinuousBatchingEngine(
+            model, num_slots=8, page_size=16, max_len=2048,
+            prefill_chunk=256, decode_chunk=8, prefix_cache=False,
+            audit=True, unified=False, device=dev, **kw)
+
+    eng = make()
+    warm, prompts = _serve_traffic(cfg.vocab_size)
+    eng.add_request(warm, 4)
+    eng.run()
+    eng.reset_gauges()
+    n_new = 32
+    ids = [eng.add_request(p, n_new) for p in prompts]
+    attn = "ragged_paged_attention"
+    wrappers = _counted(("rms_norm", "swiglu", attn))
+    fw0 = eng._stats["forwards"]
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    forwards = eng._stats["forwards"] - fw0
+    _launch_check("legacy", launches, forwards, L)
+    _drain_check("legacy", eng)
+    by = {r.request_id: r.tokens for r in done}
+    streams = [by[i] for i in ids]
+    if any(len(s) != n_new for s in streams):
+        raise AssertionError(f"[legacy] {[len(s) for s in streams]} tokens")
+    g = eng.gauges()
+    tok_s = 12 * n_new / wall
+    log(f"[legacy] 12 requests ({n_new} new each) in {wall:.2f} s through "
+        f"run(): {tok_s:.1f} generated tok/s (unified {serve['tok_s']:.1f}:"
+        f" unified/legacy x{serve['tok_s'] / tok_s:.2f}); compiled_programs"
+        f" {g['compiled_programs']} {sorted(eng._compiled)}, prefill_waves "
+        f"{g['prefill_waves']}, chunks {g['chunks_dispatched']}, "
+        f"chunks_empty {g['chunks_empty']}, {forwards} forwards, "
+        f"prefill_overlap_frac {g['prefill_overlap_frac']:.3f}")
+    log(f"[legacy] launches {launches} (per forward: {2 * L + 1} rms_norm, "
+        f"{L} swiglu, {L} attention)")
+    same = sum(a == b for a, b in zip(streams, serve["streams"]))
+    log(f"[legacy] greedy agreement with serve's unified streams: "
+        f"{_agreement(streams, serve['streams']):.4f} ({same}/12 streams "
+        f"identical; first divergences (stream, token): "
+        f"{_first_diff(streams, serve['streams'])})")
+    eng.reset_gauges()
+    ids = [eng.add_request(p, n_new) for p in prompts]
+    t0 = time.perf_counter()
+    done = _serial(eng)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    by = {r.request_id: r.tokens for r in done}
+    if [by[i] for i in ids] != streams:
+        raise AssertionError(
+            f"[legacy] serial step() streams differ from run()'s at "
+            f"{_first_diff([by[i] for i in ids], streams)}")
+    g = eng.gauges()
+    log(f"[legacy] the same 12 requests through serial step(): "
+        f"{wall_s:.2f} s, {12 * n_new / wall_s:.1f} generated tok/s, "
+        f"prefill_waves {g['prefill_waves']}, chunks "
+        f"{g['chunks_dispatched']}; greedy streams identical to run()'s")
+    _drain_check("legacy", eng)
+    del eng
+    torch.cuda.empty_cache()
+    # int8 pools: the first 4 requests, 16 new
+    eng = make(kv_quant="int8")
+    eng.add_request(warm, 4)
+    eng.run()
+    quant = "ragged_paged_attention_quant"
+    wrappers = _counted(("rms_norm", "swiglu", attn, quant))
+    fw0 = eng._stats["forwards"]
+    ids = [eng.add_request(p, 16) for p in prompts[:4]]
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall_q = time.perf_counter() - t0
+    launches_q = {k: w.launches for k, w in wrappers.items()}
+    forwards_q = eng._stats["forwards"] - fw0
+    _launch_check("legacy int8", launches_q, forwards_q, L, attn=quant)
+    _drain_check("legacy int8", eng)
+    by = {r.request_id: r.tokens for r in done}
+    q_streams = [by[i] for i in ids]
+    log(f"[legacy int8] 4 requests x 16 new over int8 pools in "
+        f"{wall_q:.2f} s, {forwards_q} forwards, launches {launches_q}; "
+        f"greedy agreement with the bf16 legacy streams "
+        f"{_agreement(q_streams, [s[:16] for s in streams[:4]]):.4f}")
+    del eng
+    torch.cuda.empty_cache()
+    total = {k: launches.get(k, 0) + launches_q.get(k, 0)
+             for k in set(launches) | set(launches_q)}
+    return dict(launches=total, tok_s=tok_s, streams=streams)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3835,8 +4180,10 @@ def main():
     phase_capacity(model)
     mark("quant_accuracy, capacity")
     phase_spec_8b(model, serve["streams"])
+    gen8b = phase_generate_8b(model)
+    legacy = phase_legacy(cfg, model, serve)
     del model
-    mark("spec_8b")
+    mark("spec_8b, generate 8b, legacy")
     weight_quant = phase_weight_quant(cfg, serve["streams"])
     mark("weight_quant")
     model1b = serve_model_1b(cfg1b)
@@ -3844,8 +4191,9 @@ def main():
     overload = phase_overload(model1b)
     mark("prefix, overload")
     spec = phase_spec(model1b)
+    decode_bench = phase_decode_bench(model1b)
     del model1b
-    mark("spec")
+    mark("spec, decode bench")
     phase_parity(cfg)
     phase_parity(cfg, kv_quant="int8")
     decode = phase_decode(cfg)
@@ -3910,8 +4258,9 @@ def main():
         # (8, 9), the spec A/B, self-speculative drafts and spec over
         # int8 pools (10), the decode entry point (13), unfused
         # training (14), the full training step (16), fit (17), MoE
-        # serving (20) and the two MoE training steps (21, 22); launches
-        # is their sum
+        # serving (20) and the two MoE training steps (21, 22), generate
+        # (25: the decode bench, the 8B runs and the MoE run) and the
+        # legacy engine (26, bf16 and int8 pools); launches is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -3927,7 +4276,10 @@ def main():
                   "fit": fit["launches"].get(name, 0),
                   "serve_moe": serve_moe["launches"].get(name, 0),
                   "moe_train_wide": wide["launches"].get(name, 0),
-                  "moe_bench": moe_bench["launches"].get(name, 0)}
+                  "moe_bench": moe_bench["launches"].get(name, 0),
+                  "generate": sum(g["launches"].get(name, 0) for g in (
+                      decode_bench, gen8b, serve_moe["generate"])),
+                  "legacy": legacy["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

@@ -1,7 +1,8 @@
 """Continuous-batching serving engine over paged KV pools.
 
-Port of the unified scheduler of ``paddle_tpu/inference/serving.py``:
-``ServedRequest`` and ``ContinuousBatchingEngine`` with ``unified=True``.
+Port of ``paddle_tpu/inference/serving.py``: ``ServedRequest`` and
+``ContinuousBatchingEngine``, with its unified scheduler (the default)
+and its legacy one (``unified=False``).
 
 One batching step is a ragged mixed pass (prefilling slots stream their
 next ``prefill_chunk`` prompt tokens, decoding slots ride their pending
@@ -66,10 +67,26 @@ harvested stream. Weight-only quantization: a model whose config sets
 ``weight_quant`` has its projections converted at construction
 (``nn.quant.quantize_for_serving``).
 
+The legacy engine (``unified=False``), the JAX engine's scheduling-parity
+oracle: batched prefill waves (one ``[num_slots, prefill_chunk]``
+forward over the prefilling slots; a prompt's first token is sampled on
+the device where it ends and stays there) interleaved with decode chunks
+(``n`` ``[num_slots, 1]`` forwards over the active slots; the chunk after
+a prefill echoes its first token in the packed output). ``n`` follows
+the adaptive power-of-two ladder (``adaptive_chunk``): the least
+remaining budget of the active slots, rounded down to a power of two,
+at most ``decode_chunk``. ``run()`` dispatches the next chunk before it
+harvests the previous one and streams one prefill wave a turn;
+``step()`` streams every pending wave, then one chunk. It shares the
+scheduler above (prefix cache, priorities, deadlines, containment, the
+audit, quantized pools, weight-only projections); speculative decoding
+needs the unified engine. ``compiled_programs`` counts the JAX engine's
+shapes, ``("prefill", C)`` and ``("chunk", n)`` for each ``n`` run.
+
 Not ported yet: disaggregation and KV migration (``handoff``,
-``import_migration``, ``role``), the legacy engine (``unified=False``),
-the tuner lookup of the chunk sizes and of ``spec_k``, tracing, the
-flight recorder and ``request_trace_summary``.
+``import_migration``, ``role``), the tuner lookup of the chunk sizes and
+of ``spec_k``, tracing, the flight recorder and
+``request_trace_summary``.
 """
 
 from __future__ import annotations
@@ -258,6 +275,10 @@ class ContinuousBatchingEngine:
     ``prompt_buckets`` is kept for the JAX engine's signature: its
     largest bucket seeds the default ``prefill_chunk``. ``admit_batch``
     bounds the prefilling slots one step carries (default all).
+    ``unified=False`` runs the legacy prefill-wave/decode-chunk engine
+    (module docstring), whose chunk lengths follow the power-of-two
+    ladder unless ``adaptive_chunk=False`` fixes them at
+    ``decode_chunk``.
 
     ``spec_decode`` / ``spec_k`` / ``spec_draft``: speculative decoding
     (any of them turns it on). ``spec_k`` drafts a step (default 4,
@@ -270,7 +291,8 @@ class ContinuousBatchingEngine:
                  max_len=512, decode_chunk=16,
                  prompt_buckets=(32, 64, 128), eos_token_id=None,
                  greedy=True, temperature=1.0, seed=0, prefill_chunk=None,
-                 admit_batch=None, latency_reservoir=2048, max_strikes=2,
+                 admit_batch=None, adaptive_chunk=True, unified=True,
+                 latency_reservoir=2048, max_strikes=2,
                  max_containments=8, audit=None, prefix_cache=None,
                  spec_decode=False, spec_k=None, spec_draft=None,
                  kv_quant="none", device=None):
@@ -301,6 +323,8 @@ class ContinuousBatchingEngine:
         self.num_pages = int(num_pages) if num_pages is not None else \
             self.num_slots * self.pages_per_slot + 1
         self.decode_chunk = int(decode_chunk)
+        self.adaptive_chunk = bool(adaptive_chunk)
+        self._unified = bool(unified)
         self._n_decode = max(0, self.decode_chunk - 1)
         self.prompt_buckets = tuple(sorted(prompt_buckets)) \
             if prompt_buckets else ()
@@ -315,6 +339,9 @@ class ContinuousBatchingEngine:
         # speculative decoding: K drafts ride a [B, prefill_chunk] step
         self._spec = bool(spec_decode) or spec_k is not None \
             or spec_draft is not None
+        if self._spec and not self._unified:
+            raise ValueError("speculative decoding requires the unified "
+                             "batching-step engine (unified=True)")
         self._spec_k = 0
         self._spec_source = None
         if self._spec:
@@ -381,6 +408,11 @@ class ContinuousBatchingEngine:
         # per slot: dispatched-but-unharvested steps that may emit
         # tokens for it; the drain defers while any are in flight
         self._emits_inflight = np.zeros((B,), np.int32)
+        # legacy: slots whose prefill wave sampled a first token the host
+        # has not seen yet (the next chunk echoes it), and slots whose
+        # echo rides a dispatched, unharvested chunk (no drain until then)
+        self._pending_first = np.zeros((B,), bool)
+        self._echo_inflight = np.zeros((B,), bool)
 
         # device-resident slot state, chained from step to step
         self._dev_tok, self._dev_ctx, self._dev_act = self._new_dev_state()
@@ -388,10 +420,19 @@ class ContinuousBatchingEngine:
         # entries, limit, eos, reset, reset ctx, and under spec the draft
         # count. The packed output: n_steps tokens and emitted flags,
         # ctx, active, and under spec the committed and drafted counts.
+        # The legacy chunk's output: n tokens and emitted flags, the
+        # echoed first token, ctx and active.
         self._in_width = self.prefill_chunk + 3 + MP + 4 + int(self._spec)
-        out_width = 2 * (1 + self._spec_k) + 4 if self._spec \
-            else 2 * (1 + self._n_decode) + 2
-        self._ring = _PinnedRing(2, (B, self._in_width), (B, out_width)) \
+        if self._spec:
+            out_width = 2 * (1 + self._spec_k) + 4
+        elif self._unified:
+            out_width = 2 * (1 + self._n_decode) + 2
+        else:
+            out_width = 2 * self.decode_chunk + 3
+        # in flight at once: two steps (unified), or two chunks and the
+        # prefill wave between them (legacy)
+        self._ring = _PinnedRing(2 if self._unified else 3,
+                                 (B, self._in_width), (B, out_width)) \
             if self.device.type == "cuda" else None
 
         self.queue: deque[ServedRequest] = deque()
@@ -556,13 +597,18 @@ class ContinuousBatchingEngine:
             or bool(self._prefilling.any())
 
     def step(self):
-        """Admit what fits, run one batching step if it advances
-        anything, drain finished slots. Returns the requests completed
-        here. A step failure hits the containment boundary of
-        :meth:`run`."""
+        """Admit what fits, advance every slot one scheduler turn (one
+        batching step if it advances anything; legacy: every pending
+        prefill wave, then one decode chunk if a slot is active), drain
+        finished slots. Returns the requests completed here. A step
+        failure hits the containment boundary of :meth:`run`."""
         self._admit()
         try:
-            if self._worth_step():
+            if not self._unified:
+                self._pump_prefill()
+                if self.active.any():
+                    self._decode_chunk()
+            elif self._worth_step():
                 self._harvest_step(self._dispatch_spec_step()
                                    if self._spec else self._dispatch_step())
         except Exception as exc:  # noqa: BLE001 — containment boundary
@@ -586,8 +632,29 @@ class ContinuousBatchingEngine:
         Under speculative decoding the same loop runs serially (each
         step harvested before the next is drafted): drafts are made from
         the harvested stream and the device state after it, so a
-        pipelined successor would draft from a stale stream."""
-        return self._run_driver()
+        pipelined successor would draft from a stale stream.
+
+        The legacy engine runs the same loop with its own hooks: the
+        successor is a decode chunk (skipped when no active slot has
+        budget left), and one prefill wave is streamed after each turn's
+        admissions, so prompts interleave with decode chunks."""
+        if not self._unified:
+            return self._run_driver(
+                spec_dispatch=lambda: self._dispatch_chunk()
+                if self._worth_dispatching() else None,
+                harvest=self._harvest_chunk,
+                after_admit=lambda: self._pump_prefill(max_waves=1),
+                idle_turn=self._idle_turn_legacy)
+        if self._spec:
+            return self._run_driver(spec_dispatch=lambda: None,
+                                    harvest=self._harvest_step,
+                                    after_admit=lambda: None,
+                                    idle_turn=self._idle_turn_spec)
+        return self._run_driver(
+            spec_dispatch=lambda: self._dispatch_step()
+            if self._worth_step() else None,
+            harvest=self._harvest_step, after_admit=lambda: None,
+            idle_turn=self._idle_turn_unified)
 
     def _idle_turn_unified(self):
         """Nothing in flight: dispatch a step if it would advance
@@ -604,12 +671,28 @@ class ContinuousBatchingEngine:
             return True, self._dispatch_spec_step()
         return False, None
 
-    def _run_driver(self):
-        """The scheduler loop. Every dispatch and harvest runs inside the
-        containment boundary (admission, drain and reap do not: a host
-        scheduler bug is not a per-request fault). Overload never
-        stalls: a turn without progress while requests wait evicts the
-        youngest, lowest-priority occupant for recompute; the stall
+    def _idle_turn_legacy(self):
+        """Nothing in flight: stream one prefill wave if prompts are
+        pending, else dispatch a decode chunk if a slot is active."""
+        if self._prefilling.any():
+            self._pump_prefill(max_waves=1)
+            return True, None
+        if self.active.any():
+            return True, self._dispatch_chunk()
+        return False, None
+
+    def _run_driver(self, spec_dispatch, harvest, after_admit, idle_turn):
+        """The scheduler loop every mode shares, with its hooks: the
+        successor dispatched before a harvest (``spec_dispatch``, None
+        when it would advance nothing), the ``harvest`` of an in-flight
+        record, the dispatches after a turn's admissions
+        (``after_admit``: the legacy prefill wave) and the turn with
+        nothing in flight (``idle_turn`` -> (progressed, in-flight
+        record)). Every dispatch and harvest runs inside the containment
+        boundary (admission, drain and reap do not: a host scheduler bug
+        is not a per-request fault). Overload never stalls: a turn
+        without progress while requests wait evicts the youngest,
+        lowest-priority occupant for recompute; the stall
         ``RuntimeError`` is left for a pool exhausted with no occupant
         to evict (a leak)."""
         done = []
@@ -633,9 +716,7 @@ class ContinuousBatchingEngine:
                     # the successor first: the device never idles while
                     # the host harvests, drains and admits
                     try:
-                        nxt = self._dispatch_step() \
-                            if not self._spec and self._worth_step() \
-                            else None
+                        nxt = spec_dispatch()
                     except Exception as exc:  # noqa: BLE001
                         extra = contained(exc)
                         if extra is None:
@@ -644,7 +725,7 @@ class ContinuousBatchingEngine:
                         done.extend(extra)
                         continue
                     try:
-                        self._harvest_step(inflight)
+                        harvest(inflight)
                     except Exception as exc:  # noqa: BLE001
                         # blame the harvested step's dispatch-time cohort
                         extra = contained(exc, cohort=inflight[1])
@@ -658,6 +739,16 @@ class ContinuousBatchingEngine:
                     self._overlap_admission = nxt is not None
                     try:
                         self._admit()
+                        try:
+                            # a legacy prefill wave is a dispatch: nxt is
+                            # abandoned with the rest of the device state
+                            after_admit()
+                        except Exception as exc:  # noqa: BLE001
+                            extra = contained(exc)
+                            if extra is None:
+                                raise
+                            nxt = None
+                            done.extend(extra)
                     finally:
                         self._overlap_admission = False
                     inflight = nxt
@@ -666,8 +757,7 @@ class ContinuousBatchingEngine:
                 self._admit()
                 done.extend(self._drain())
                 try:
-                    progressed, inflight = self._idle_turn_spec() \
-                        if self._spec else self._idle_turn_unified()
+                    progressed, inflight = idle_turn()
                 except Exception as exc:  # noqa: BLE001
                     extra = contained(exc)
                     if extra is None:
@@ -777,6 +867,8 @@ class ContinuousBatchingEngine:
         self._reset_ctx[:] = 0
         self._act_since[:] = 0
         self._emits_inflight[:] = 0
+        self._pending_first[:] = False
+        self._echo_inflight[:] = False
         self._dev_tok, self._dev_ctx, self._dev_act = self._new_dev_state()
         # the generator chained through the failed step (greedy streams
         # do not depend on it)
@@ -816,7 +908,6 @@ class ContinuousBatchingEngine:
         eviction asked for. Returns the packed [B, 2 * n + 2] int32
         output: emitted tokens, emitted flags, final ctx, final
         active."""
-        model = self.model
         ids, nq, last, tgt, tbl, lim, eos, ctx, act, _ = \
             self._step_inputs(inputs)
         tok = self._dev_tok
@@ -829,24 +920,76 @@ class ContinuousBatchingEngine:
         nxt = torch.where(fire, sampled, tok)
         still_dec = act & ~is_pre & (ctx1 < lim) & ~hit_eos
         act_c = torch.where(is_pre, act_pre, still_dec)
-        toks = [torch.where(fire, nxt, -1)]
-        emitted = [fire]
-        tok_c, ctx_c = nxt, ctx1
-        for _ in range(self._n_decode):
-            lg, _ = model(tok_c[:, None], caches=self.pools, pos=ctx_c,
-                          tables=(tbl, act_c))
-            nx = torch.where(act_c, self._sample(lg[:, -1].float()), tok_c)
-            ctx_n = ctx_c + act_c.to(torch.int32)
-            still = act_c & (ctx_n < lim) & ((eos < 0) | (nx != eos))
-            toks.append(torch.where(act_c, nx, -1))
-            emitted.append(act_c)
-            tok_c, ctx_c, act_c = nx, ctx_n, still
+        toks, emitted, tok_c, ctx_c, act_c = self._decode_steps(
+            nxt, ctx1, act_c, tbl, lim, eos, self._n_decode)
         self._stats.inc("forwards", 1 + self._n_decode)
         self._dev_tok, self._dev_ctx, self._dev_act = tok_c, ctx_c, act_c
-        return torch.cat([torch.stack(toks, 1).to(torch.int32),
-                          torch.stack(emitted, 1).to(torch.int32),
+        return torch.cat([torch.stack([torch.where(fire, nxt, -1)] + toks,
+                                      1).to(torch.int32),
+                          torch.stack([fire] + emitted, 1).to(torch.int32),
                           ctx_c[:, None], act_c[:, None].to(torch.int32)],
                          dim=1)
+
+    def _decode_steps(self, tok, ctx, act, tbl, lim, eos, n):
+        """``n`` decode micro-steps, one ``[num_slots, 1]`` forward each:
+        an active slot feeds its pending token, samples the next and
+        stops at its ctx limit or its eos. Returns (tokens a step, -1
+        where inactive; emitted flags a step; the final token, ctx and
+        active)."""
+        toks, emitted = [], []
+        for _ in range(n):
+            lg, _ = self.model(tok[:, None], caches=self.pools, pos=ctx,
+                               tables=(tbl, act))
+            nx = torch.where(act, self._sample(lg[:, -1].float()), tok)
+            ctx_n = ctx + act.to(torch.int32)
+            still = act & (ctx_n < lim) & ((eos < 0) | (nx != eos))
+            toks.append(torch.where(act, nx, -1))
+            emitted.append(act)
+            tok, ctx, act = nx, ctx_n, still
+        return toks, emitted, tok, ctx, act
+
+    @torch.no_grad()
+    def _device_prefill(self, inputs):
+        """A legacy prefill wave, on the device: one ``[num_slots,
+        prefill_chunk]`` forward over the prompt tokens staged in
+        ``inputs`` (the step's rows; slots with none are length 0),
+        written into the pools at each slot's ctx; where a prompt ends,
+        its first token is sampled at its last row and stays on the
+        device, and the slot turns active if it decodes afterwards. No
+        output."""
+        C, B = self.prefill_chunk, self.num_slots
+        ids, nq, last, tgt, tbl, _, _, ctx, act, _ = \
+            self._step_inputs(inputs)
+        nq = nq.contiguous()          # a column of the inputs
+        logits, _ = self.model(ids, caches=self.pools, pos=ctx,
+                               tables=(tbl, nq))
+        idx = (nq - 1).clamp(0, C - 1).long()
+        sampled = self._sample(
+            logits[torch.arange(B, device=ids.device), idx].float())
+        fire = last & (nq > 0)
+        self._stats.inc("forwards")
+        self._dev_tok = torch.where(fire, sampled, self._dev_tok)
+        self._dev_ctx = ctx + nq
+        self._dev_act = torch.where(fire, tgt, act)
+
+    @torch.no_grad()
+    def _device_chunk(self, inputs, n):
+        """A legacy decode chunk, on the device: ``n`` micro-steps over
+        the active slots (:meth:`_decode_steps`). A slot whose prefill's
+        first token is already its eos does not decode. Returns the
+        packed [B, 2n + 3] int32: tokens, emitted flags, the token each
+        slot held on entry (the first-token echo), final ctx and
+        active."""
+        _, _, _, _, tbl, lim, eos, ctx, act, _ = self._step_inputs(inputs)
+        first = self._dev_tok
+        toks, emitted, tok, ctx, act = self._decode_steps(
+            first, ctx, act, tbl, lim, eos, n)
+        self._stats.inc("forwards", n)
+        self._dev_tok, self._dev_ctx, self._dev_act = tok, ctx, act
+        return torch.cat([torch.stack(toks, 1).to(torch.int32),
+                          torch.stack(emitted, 1).to(torch.int32),
+                          first[:, None], ctx[:, None],
+                          act[:, None].to(torch.int32)], dim=1)
 
     def _step_inputs(self, inputs):
         """Unpack a step's input rows on the device: ids [B, C], nq, last,
@@ -952,15 +1095,22 @@ class ContinuousBatchingEngine:
         the inputs go up from a pinned buffer without blocking and the
         packed output comes back into a pinned buffer behind the step's
         kernels; returns (pinned output, event). On the CPU: the packed
-        tensor itself."""
+        tensor itself. A step without output (the legacy prefill wave)
+        returns None; its event still guards its input buffer."""
         if self._ring is None:
             return device_step(torch.from_numpy(inputs))
         pin_in, pin_out, event = self._ring.take()
         pin_in.numpy()[...] = inputs
         packed = device_step(pin_in.to(self.device, non_blocking=True))
-        pin_out.copy_(packed, non_blocking=True)
+        if packed is None:
+            event.record()
+            return None
+        # the first rows * width elements: a contiguous view, whatever
+        # the width (the legacy chunk's follows its length)
+        out = pin_out.view(-1)[:packed.numel()].view(packed.shape)
+        out.copy_(packed, non_blocking=True)
         event.record()
-        return pin_out, event
+        return out, event
 
     @staticmethod
     def _fetch(handle):
@@ -1012,16 +1162,18 @@ class ContinuousBatchingEngine:
         # no decode tail: a completing prompt lands its first token only
         return self._book_dispatch(packed, inputs, 1 + K, 0)
 
-    def _stage_inputs(self):
+    def _stage_inputs(self, prompts=True):
         """The step's input rows on the host: the next prompt chunk of up
-        to ``admit_batch`` prefilling slots, the block tables, limits,
-        eos ids and the pending device resets (consumed here). Returns
-        (inputs, prefilling slots staged)."""
+        to ``admit_batch`` prefilling slots (none when not ``prompts``:
+        a legacy decode chunk), the block tables, limits, eos ids and the
+        pending device resets (consumed here). Returns (inputs,
+        prefilling slots staged)."""
         B, C, MP = self.num_slots, self.prefill_chunk, self.pages_per_slot
         inputs = np.zeros((B, self._in_width), np.int32)
         n_pre = 0
         for slot in range(B):
-            if not self._prefilling[slot] or n_pre >= self.admit_batch:
+            if not prompts or not self._prefilling[slot] \
+                    or n_pre >= self.admit_batch:
                 continue
             prm = self._slot_prompt[slot]
             off = int(self._prefill_off[slot])
@@ -1148,6 +1300,146 @@ class ContinuousBatchingEngine:
                 self._c_spec_rejected.inc(drafted - committed)
         self._obs_s += time.perf_counter() - _t_obs
 
+    # ---- the legacy engine: prefill waves and decode chunks --------------
+
+    def _pump_prefill(self, max_waves=None):
+        """Dispatch prefill waves until every prefilling slot has streamed
+        its whole prompt (or ``max_waves`` waves went out: the interleave
+        throttle). Nothing is fetched: a wave's completion is known on
+        the host (prompt lengths are), and a completed prompt's first
+        token waits on the device for the next chunk's echo."""
+        while self._prefilling.any():
+            if max_waves is not None and max_waves <= 0:
+                return
+            inputs, _ = self._stage_inputs()
+            C = self.prefill_chunk
+            self._compiled.add(("prefill", C))
+            self._seq += 1
+            self._stats.inc("prefill_waves")
+            self._launch(inputs, self._device_prefill)
+            for slot in np.flatnonzero(inputs[:, C] > 0):
+                self._prefill_off[slot] += inputs[slot, C]
+                if not inputs[slot, C + 1]:
+                    continue
+                # the prompt's last wave: the first token stays on the
+                # device until the next chunk echoes it (or the drain
+                # reads it, for a slot no chunk follows)
+                req = self.slot_req[slot]
+                req.t_prefill_done = time.perf_counter()
+                self._prefilling[slot] = False
+                self._pred_ctx[slot] = len(self._slot_prompt[slot])
+                self._pending_first[slot] = True
+                self._act_since[slot] = self._seq
+                # an instant eos (first token == stop token) is found on
+                # the device at the next chunk's entry
+                self.active[slot] = bool(self._act_target[slot])
+                # the prompt's full pages are final: publish them
+                self._pc_insert(slot)
+            if max_waves is not None:
+                max_waves -= 1
+
+    def _worth_dispatching(self):
+        """Could a decode chunk advance any slot? Exact for
+        length-limited slots (the host's ctx prediction); an eos stop
+        the host cannot see may still give an empty chunk
+        (``chunks_empty``)."""
+        return bool(np.any(self.active & (self.limits > self._pred_ctx)))
+
+    def _next_chunk_len(self):
+        """The adaptive chunk length: the least predicted remaining
+        budget of the active slots, rounded down to a power of two, at
+        most ``decode_chunk`` (so no slot oversteps its limit inside a
+        chunk, and the lengths stay on a ladder)."""
+        if not self.adaptive_chunk:
+            return self.decode_chunk
+        rem = (self.limits - self._pred_ctx)[self.active
+                                             & (self.limits
+                                                > self._pred_ctx)]
+        if rem.size == 0:
+            return self.decode_chunk
+        m = int(rem.min())
+        if m >= self.decode_chunk:
+            return self.decode_chunk
+        return 1 << (m.bit_length() - 1)
+
+    def _dispatch_chunk(self):
+        """Launch one decode chunk (not waiting for it) and advance the
+        host's ctx prediction. Returns the in-flight record for
+        :meth:`_harvest_chunk`: the slots' requests and pending
+        first-token echoes as dispatched (a slot may be drained and
+        re-admitted before the harvest)."""
+        n = self._next_chunk_len()
+        self._compiled.add(("chunk", n))
+        self._seq += 1
+        self._last_fetch_dispatch_seq = self._seq
+        # a slot the chunk can advance: active with budget left
+        n_active = int(np.sum(self.active & (self.limits > self._pred_ctx)))
+        _t_obs = time.perf_counter()
+        self._stats.inc("chunks")
+        self._stats.inc("chunk_slot_steps", self.num_slots * n)
+        self._stats.inc("active_slot_steps", n_active * n)
+        self._obs_s += time.perf_counter() - _t_obs
+        inputs, _ = self._stage_inputs(prompts=False)
+        packed = self._launch(inputs,
+                              lambda x: self._device_chunk(x, n))
+        self._pred_ctx = np.where(
+            self.active, np.minimum(self.limits, self._pred_ctx + n),
+            self._pred_ctx).astype(np.int32)
+        rec = (packed, list(self.slot_req), self._pending_first.copy(), n,
+               self._seq)
+        self._echo_inflight |= self._pending_first
+        self._pending_first[:] = False
+        return rec
+
+    def _harvest_chunk(self, rec):
+        """Fetch one in-flight chunk's packed output and apply it: the
+        echoed first tokens, the emitted tokens and the active mirrors
+        (unless the slot was re-admitted, or activated by a later
+        prefill wave, since the chunk went out)."""
+        packed, snap_req, pending, n, seq = rec
+        arr = self._fetch(packed)
+        self._last_harvest_seq = max(self._last_harvest_seq, seq)
+        self._release_deferred()
+        toks_np = arr[:, :n]
+        emitted_np = arr[:, n:2 * n].astype(bool)
+        first = arr[:, 2 * n]
+        act_m = arr[:, 2 * n + 2].astype(bool)
+        t_now = time.perf_counter()
+        appended = 0
+        for slot in range(self.num_slots):
+            req = snap_req[slot]
+            if req is not self.slot_req[slot]:
+                continue    # evicted or re-admitted since the dispatch
+            if pending[slot]:
+                # the echo is delivered: the slot may drain from here on
+                self._echo_inflight[slot] = False
+            if self._act_since[slot] <= seq:
+                self.active[slot] = act_m[slot]
+            if req is None:
+                continue
+            if pending[slot]:
+                if not req.tokens:
+                    req.t_first = t_now
+                req.tokens.append(int(first[slot]))
+                appended += 1
+            if req.finished:
+                continue
+            req.strikes = 0     # a clean harvest exonerates its riders
+            for j in range(n):
+                if emitted_np[slot, j]:
+                    if not req.tokens:
+                        req.t_first = t_now
+                    req.tokens.append(int(toks_np[slot, j]))
+                    appended += 1
+        _t_obs = time.perf_counter()
+        self._stats.inc("tokens_emitted", appended)
+        if appended == 0:
+            self._stats.inc("chunks_empty")
+        self._obs_s += time.perf_counter() - _t_obs
+
+    def _decode_chunk(self):
+        self._harvest_chunk(self._dispatch_chunk())
+
     # ---- observability ---------------------------------------------------
 
     def gauges(self) -> dict:
@@ -1163,7 +1455,8 @@ class ContinuousBatchingEngine:
           on the host, and (t_done - t_first) / (tokens - 1), over the
           bounded reservoirs;
         - ``compiled_programs``: distinct shapes of the batching step
-          (steady state 1);
+          (steady state 1; legacy: the prefill wave's and each chunk
+          length's);
         - the counters of steps, tokens, admissions and completions, the
           reliability and prefix-cache counters, the queue depth, the
           prefix cache's resident pages, and the ``kv_quant_*`` pool
@@ -1553,6 +1846,8 @@ class ContinuousBatchingEngine:
             self.active[slot] = False
             self._prefilling[slot] = False
             self._emits_inflight[slot] = 0
+            self._pending_first[slot] = False
+            self._echo_inflight[slot] = False
             self._reset[slot] = True
             self._reset_ctx[slot] = 0
 
@@ -1787,9 +2082,12 @@ class ContinuousBatchingEngine:
     def _drain(self):
         """Reap cancelled and expired requests, then finish every
         occupied slot that is done prefilling, has no step in flight
-        that may emit for it, and is no longer active; its pages return
-        to the free list (its writes go to the trash page in every step
-        dispatched since)."""
+        that may emit for it (legacy: nor a chunk carrying its first
+        token's echo), and is no longer active; its pages return to the
+        free list (its writes go to the trash page in every step
+        dispatched since). A legacy slot that went inactive with its
+        first token never echoed (a one-token request that no chunk
+        followed) reads that token from the device here."""
         done = self._reap()
         if self._done_pending:
             done.extend(self._done_pending)
@@ -1797,8 +2095,14 @@ class ContinuousBatchingEngine:
         for slot in range(self.num_slots):
             req = self.slot_req[slot]
             if req is None or self._prefilling[slot] \
-                    or self._emits_inflight[slot] or self.active[slot]:
+                    or self._emits_inflight[slot] \
+                    or self._echo_inflight[slot] or self.active[slot]:
                 continue
+            if self._pending_first[slot]:
+                req.t_first = time.perf_counter()
+                req.tokens.append(int(self._dev_tok[slot]))
+                self._stats.inc("tokens_emitted")
+                self._pending_first[slot] = False
             finished_now = not req.finished
             self._release_pages(self.slot_pages[slot], safe=True)
             self._clear_slot(slot)

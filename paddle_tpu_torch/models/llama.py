@@ -1,12 +1,18 @@
-"""Llama for training and for serving over paged KV pools.
+"""Llama for training, for ``generate`` over a dense KV cache and for
+serving over paged KV pools.
 
 Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` (the ``tiny``,
 ``llama_1b`` and ``llama3_8b`` presets, the recompute fields), the dense
-training path and the cache path of ``LlamaAttention``/``LlamaMLP``/
+training path and both cache paths of ``LlamaAttention``/``LlamaMLP``/
 ``LlamaDecoderLayer``/``LlamaModel``/``LlamaForCausalLM``,
-``LlamaPretrainingCriterion``, ``rope_with_offset`` and
-``_paged_attention_step`` (bf16/f32 pools, and int8/fp8 pools with their
-scales).
+``LlamaPretrainingCriterion``, ``rope_with_offset``,
+``_alloc_kv_caches``/``init_kv_cache`` and ``_paged_attention_step``
+(bf16/f32 pools, and int8/fp8 pools with their scales).
+
+Caches without ``tables`` are the dense [B, max_len, KVH, D] caches of
+``generate`` (``generation.GenerationMixin``): RoPE at ``pos + [0..S)``
+and ``nn.functional.sdpa_with_cache``, a scalar ``pos`` for the whole
+batch. Caches with ``tables`` are the engine's paged pools.
 
 Training (no caches): ``model(ids, labels=ids)`` returns ``(logits,
 loss)``, the shifted next-token cross entropy, and ``loss.backward()``
@@ -48,6 +54,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..framework import flags
+from ..generation import GenerationMixin
 from ..incubate.recompute import recompute
 from ..nn import RMSNorm
 from ..nn import functional as F
@@ -137,6 +144,39 @@ def rope_with_offset(sin_tab, cos_tab, pos, seq_len):
     return sin_tab[pid], cos_tab[pid]
 
 
+def slot_positions(pos, batch, device):
+    """The per-slot positions [B] int32 of a dense-cache step, whose
+    ``pos`` (an int or a 0-d tensor) is one offset for the whole batch:
+    a fill or a broadcast on the device, never a copy from the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(()).to(torch.int32).expand(batch)
+    return torch.full((batch,), int(pos), dtype=torch.int32, device=device)
+
+
+def _alloc_kv_caches(cfg, batch_size, max_length, dtype, device):
+    """Zero dense KV caches: per layer (k, v) of [B, max_len, KVH, D]."""
+    shape = (batch_size, max_length, cfg.num_key_value_heads, cfg.head_dim)
+    return [torch.zeros(shape, dtype=dtype, device=device)
+            for _ in range(2 * cfg.num_hidden_layers)]
+
+
+def kv_cache_dtype(model):
+    """The dtype of ``generate``'s caches: the model's first floating
+    parameter's (a weight-quantized model also holds integer codes)."""
+    return next(p.dtype for p in model.parameters() if p.is_floating_point())
+
+
+def _dense_attention_step(attn, q, k, v, cache, pos, rope):
+    """``generate``'s attention over the dense caches ``(k_cache,
+    v_cache)``: rotate q/k at ``pos + [0..S)``, write k/v at ``pos`` and
+    attend over the cache (``sdpa_with_cache``; in place)."""
+    b, s = q.shape[0], q.shape[1]
+    sin, cos = rope
+    out, _, _ = F.sdpa_with_cache(rotate(q, sin, cos), rotate(k, sin, cos),
+                                  v, cache[0], cache[1], pos)
+    return attn.o_proj(out.reshape(b, s, attn.num_heads * attn.head_dim))
+
+
 def _paged_attention_step(attn, q, k, v, cache, ctx, tables, rope):
     """Continuous-batching attention over the paged pools: rotate q/k,
     write the chunk's k/v into the slot pages at ``ctx .. ctx + valid - 1``
@@ -187,8 +227,13 @@ class LlamaAttention(nn.Module):
                 self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim))
 
     def forward(self, x, rope, cache, ctx, tables):
-        """A paged serving step. The training path goes through the
+        """A cache step: over the paged pools (``tables``, per-slot
+        ``ctx``), or without ``tables`` over ``generate``'s dense caches
+        (``ctx`` the scalar offset). The training path goes through the
         decoder layer's stages (``_qkv_from``, ``_attend``, ``o_proj``)."""
+        if tables is None:
+            return _dense_attention_step(self, *self._proj(x), cache, ctx,
+                                         rope)
         return _paged_attention_step(self, *self._proj(x), cache, ctx,
                                      tables, rope)
 
@@ -333,16 +378,19 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, caches=None, pos=None, tables=None,
                 skip_layers=None):
         """input_ids [B, S]. Without caches: the final hidden states [B, S,
-        H] of the training path. With them, a serving step returning
-        ``(hidden, caches)``: caches are the flat [k0, v0, k1, v1, ...]
-        pools, or [k0, v0, ks0, vs0, k1, ...] for quantized pools (the
-        per-layer stride is ``len(caches) // num_layers``), written in
-        place; pos [B] or [B, 1] cache lengths before
-        the chunk; tables ``(block_tables [B, pages], valid)`` where valid
-        is an int count per slot or a bool active mask. ``skip_layers``
-        (with caches only: the self-speculative draft) lists decoder
-        layers that pass the hidden state through and neither write nor
-        read their pools."""
+        H] of the training path. With them, a cache step returning
+        ``(hidden, caches)``, the caches written in place. With
+        ``tables``, a serving step over the paged pools: caches are the
+        flat [k0, v0, k1, v1, ...] pools, or [k0, v0, ks0, vs0, k1, ...]
+        for quantized pools (the per-layer stride is ``len(caches) //
+        num_layers``); pos [B] or [B, 1] cache lengths before the chunk;
+        tables ``(block_tables [B, pages], valid)`` where valid is an int
+        count per slot or a bool active mask. Without ``tables``, a step
+        of ``generate`` over the dense [k0, v0, ...] caches of
+        ``init_kv_cache``, ``pos`` the one offset of the whole batch (an
+        int or a 0-d tensor). ``skip_layers`` (with caches only: the
+        self-speculative draft) lists decoder layers that pass the hidden
+        state through and neither write nor read their caches."""
         b, s = input_ids.shape
         if caches is None and skip_layers:
             raise ValueError("skip_layers requires the caches "
@@ -352,10 +400,15 @@ class LlamaModel(nn.Module):
             return self._train_stack(x, (self.rope_sin[None, :s],
                                          self.rope_cos[None, :s]))
         skip = frozenset(skip_layers or ())
-        ctx = pos.reshape(b).to(torch.int32)
-        tbl, gate = tables
-        tables = (tbl.to(torch.int32), gate.to(torch.int32))
-        rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
+        if tables is None:
+            rope = rope_with_offset(self.rope_sin, self.rope_cos,
+                                    slot_positions(pos, b, x.device), s)
+            ctx = pos
+        else:
+            ctx = pos.reshape(b).to(torch.int32)
+            tbl, gate = tables
+            tables = (tbl.to(torch.int32), gate.to(torch.int32))
+            rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
         stride = len(caches) // len(self.layers)
         for i, layer in enumerate(self.layers):
             if i not in skip:
@@ -407,11 +460,12 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Causal LM. Built on ``device`` (``cuda`` unless given; raises with
     no GPU and no device) in ``dtype``, with weights drawn from
     ``torch.Generator`` seeded by ``seed``: N(0, initializer_range) for
-    projections and embeddings, ones for norms."""
+    projections and embeddings, ones for norms. ``generate`` decodes over
+    dense caches (``generation.GenerationMixin``)."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.float32, seed=0):
@@ -439,6 +493,14 @@ class LlamaForCausalLM(nn.Module):
                 mod.weight.fill_(1.0)
         self.llama.reset_rope()
 
+    def init_kv_cache(self, batch_size, max_length, dtype=None):
+        """Zero dense caches for ``generate``: per layer (k, v) of [B,
+        max_len, KVH, D], on the weights' device, in ``dtype`` or the
+        first floating parameter's."""
+        return _alloc_kv_caches(self.config, batch_size, max_length,
+                                dtype or kv_cache_dtype(self),
+                                self.llama.embed_tokens.weight.device)
+
     def _logits(self, hidden):
         if self.lm_head is None:
             return torch.nn.functional.linear(
@@ -447,9 +509,11 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
                 tables=None, skip_layers=None):
-        """The JAX package's signature. With ``caches``: a serving step,
-        ``(logits [B, S, V], caches)`` with the pools updated in place
-        (no autograd: the in-place pool writes must not join a graph).
+        """The JAX package's signature. With ``caches``: a cache step
+        (paged with ``tables``, dense without: :meth:`LlamaModel.
+        forward`), ``(logits [B, S, V], caches)`` with the caches updated
+        in place (no autograd: the in-place writes must not join a
+        graph).
         Without: the training forward, ``logits`` or, given ``labels``,
         ``(logits, loss)`` with the loss over ``logits[:, :-1]`` against
         ``labels[:, 1:]``; ``(None, loss)`` through the fused linear+CE

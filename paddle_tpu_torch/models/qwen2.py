@@ -1,5 +1,5 @@
-"""Qwen2 (dense) and Qwen2-MoE for training and for serving over paged
-KV pools.
+"""Qwen2 (dense) and Qwen2-MoE for training, for ``generate`` over a
+dense KV cache and for serving over paged KV pools.
 
 Port of ``paddle_tpu/models/qwen2.py``: ``Qwen2Config`` (``qwen2_7b``,
 ``tiny``), ``Qwen2MoeConfig`` (``qwen2_moe_a14b``, ``tiny``),
@@ -7,9 +7,9 @@ Port of ``paddle_tpu/models/qwen2.py``: ``Qwen2Config`` (``qwen2_7b``,
 (routed experts plus a shared expert scaled by a sigmoid gate),
 ``Qwen2DecoderLayer``, the base model with its recompute dose and router
 aux loss, ``Qwen2ForCausalLM``, ``Qwen2MoeForCausalLM`` and
-``Qwen2MoePretrainingCriterion``. The pipeline variants are not ported,
-nor the dense-cache path of ``generate``: the port serves through the
-continuous-batching engine's paged pools.
+``Qwen2MoePretrainingCriterion``, and ``init_kv_cache`` with the dense
+cache branch of the forward (``generate``, through
+``generation.GenerationMixin``). The pipeline variants are not ported.
 
 Training (no caches): neox RoPE and flash attention (K7-K9); the
 input norm is RMSNorm (K1/K2); under ``FLAGS_fused_rmsnorm_residual``
@@ -23,7 +23,10 @@ one excepted. The loss is over the full shifted logits, plus
 ``router_aux_loss_coef`` times each MoE layer's aux loss.
 
 Serving (caches, ``tables``): the paged step of ``models.llama`` (K12,
-or K13 over quantized pools), the unfused stack. The state-dict keys are
+or K13 over quantized pools), the unfused stack. ``generate`` (caches,
+no ``tables``): the same stack over dense caches, attention through
+``nn.functional.sdpa_with_cache`` (plain ops: XLA in the JAX package),
+the MoE block through ``MoELayer`` (K14 when dropless). The state-dict keys are
 the JAX package's (``layers.0.self_attn.q_proj.bias``,
 ``layers.0.mlp.moe.w_gate``, ...).
 """
@@ -37,6 +40,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..framework import flags
+from ..generation import GenerationMixin
 from ..incubate.distributed.models.moe import MoELayer
 from ..incubate.distributed.models.moe.moe_layer import xavier_normal_std
 from ..incubate.recompute import recompute
@@ -44,8 +48,9 @@ from ..nn import RMSNorm
 from ..nn import functional as F
 from ..ops.rope import build_sin_cos, rotate
 from .llama import (LlamaAttention, LlamaMLP, LlamaPretrainingCriterion,
-                    _shifted_cross_entropy, check_weight_quant,
-                    rope_with_offset)
+                    _alloc_kv_caches, _shifted_cross_entropy,
+                    check_weight_quant, kv_cache_dtype, rope_with_offset,
+                    slot_positions)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
            "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion"]
@@ -118,8 +123,8 @@ class Qwen2MoeConfig(Qwen2Config):
 
 
 class Qwen2Attention(LlamaAttention):
-    """Llama's GQA attention with QKV bias; serving steps go through the
-    paged step (``forward``), training through the decoder layer."""
+    """Llama's GQA attention with QKV bias; cache steps go through
+    ``forward`` (paged or dense), training through the decoder layer."""
 
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__(cfg, device, dtype, qkv_bias=True)
@@ -190,7 +195,7 @@ class Qwen2DecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class _Qwen2Base(nn.Module):
+class _Qwen2Base(nn.Module, GenerationMixin):
     """The decoder stack with the LM head. Built on ``device`` (``cuda``
     unless given; raises with no GPU and no device) in ``dtype``, with
     weights drawn from a ``torch.Generator`` seeded by ``seed`` as the
@@ -253,18 +258,12 @@ class _Qwen2Base(nn.Module):
         self.rope_cos.copy_(cos)
 
     def init_kv_cache(self, batch_size, max_length, dtype=None):
-        """Zero dense KV caches, per layer (k, v) of [B, max_len, KVH, D],
-        as the JAX package allocates them for ``generate`` (whose dense
-        cache path the port does not run: it serves through the engine's
-        paged pools)."""
-        cfg = self.config
-        if dtype is None:
-            dtype = self.embed_tokens.weight.dtype
-        shape = (batch_size, max_length, cfg.num_key_value_heads,
-                 cfg.head_dim)
-        return [torch.zeros(shape, dtype=dtype,
-                            device=self.embed_tokens.weight.device)
-                for _ in range(2 * cfg.num_hidden_layers)]
+        """Zero dense caches for ``generate``: per layer (k, v) of [B,
+        max_len, KVH, D], on the weights' device, in ``dtype`` or the
+        first floating parameter's."""
+        return _alloc_kv_caches(self.config, batch_size, max_length,
+                                dtype or kv_cache_dtype(self),
+                                self.embed_tokens.weight.device)
 
     def _logits(self, hidden):
         if self.lm_head is None:
@@ -277,9 +276,12 @@ class _Qwen2Base(nn.Module):
         """The JAX package's signature. With ``caches`` and ``tables``: a
         paged serving step, ``(logits [B, S, V], caches)`` with the flat
         [k0, v0, k1, v1, ...] pools (or [k0, v0, ks0, vs0, ...] for
-        quantized ones) written in place (no autograd). Without
-        caches: the training forward, ``logits`` or, given ``labels``,
-        ``(logits, loss)``."""
+        quantized ones) written in place (no autograd). With ``caches``
+        and no ``tables``: a step of ``generate`` over the dense caches
+        of :meth:`init_kv_cache` at the batch's one offset ``pos`` (an
+        int or a 0-d tensor), written in place. Without caches: the
+        training forward, ``logits`` or, given ``labels``, ``(logits,
+        loss)``."""
         cfg = self.config
         if self._moe and self.training and cfg.use_recompute \
                 and cfg.router_aux_loss_coef:
@@ -290,16 +292,19 @@ class _Qwen2Base(nn.Module):
                 "router_aux_loss_coef=0.0 or use_recompute=False.")
         b, s = input_ids.shape
         if caches is not None:
-            if tables is None:
-                raise NotImplementedError(
-                    "the dense-cache path (generate) is not ported: serve "
-                    "through inference.ContinuousBatchingEngine")
             with torch.no_grad():
-                ctx = pos.reshape(b).to(torch.int32)
-                tbl, gate = tables
-                tables = (tbl.to(torch.int32), gate.to(torch.int32))
-                rope = rope_with_offset(self.rope_sin, self.rope_cos, ctx, s)
                 x = self.embed_tokens(input_ids)
+                if tables is None:
+                    rope = rope_with_offset(
+                        self.rope_sin, self.rope_cos,
+                        slot_positions(pos, b, x.device), s)
+                    ctx = pos
+                else:
+                    ctx = pos.reshape(b).to(torch.int32)
+                    tbl, gate = tables
+                    tables = (tbl.to(torch.int32), gate.to(torch.int32))
+                    rope = rope_with_offset(self.rope_sin, self.rope_cos,
+                                            ctx, s)
                 # 2 pools a layer, or 4 with the scales of quantized ones
                 stride = len(caches) // len(self.layers)
                 for i, layer in enumerate(self.layers):

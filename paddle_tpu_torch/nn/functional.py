@@ -3,12 +3,14 @@
 Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm`` and
 ``::fused_rms_norm_residual``, ``activation.py::swiglu``,
 ``attention.py::scaled_dot_product_attention`` (with
-``sdpa_reference``, the JAX package's non-kernel path) and
-``loss.py::cross_entropy`` (hard labels and the mean, what the model
-uses). Where the JAX package chose the Pallas kernel by backend and
-flags, the port's kernel wrappers choose by the device of the tensor:
-CUDA launches the kernel, the CPU takes the plain version. Gradients are
-torch autograd, through the kernels' ``autograd.Function``s.
+``sdpa_reference``, the JAX package's non-kernel path),
+``attention.py::sdpa_with_cache`` (the dense KV cache of ``generate``,
+plain ops as the JAX package's XLA ones) and ``loss.py::cross_entropy``
+(hard labels and the mean, what the model uses). Where the JAX package
+chose the Pallas kernel by backend and flags, the port's kernel
+wrappers choose by the device of the tensor: CUDA launches the kernel,
+the CPU takes the plain version. Gradients are torch autograd, through
+the kernels' ``autograd.Function``s.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import swiglu as _sw
 
 __all__ = ["rms_norm", "fused_rms_norm_residual", "swiglu",
-           "scaled_dot_product_attention", "sdpa_reference", "cross_entropy"]
+           "scaled_dot_product_attention", "sdpa_reference",
+           "sdpa_with_cache", "cross_entropy"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -51,12 +54,12 @@ def sdpa_reference(q, k, v, attn_mask=None, dropout_p=0.0,
     mask keeps where True; any other mask is added to the logits."""
     s = 1.0 / math.sqrt(q.shape[-1])
     if k.shape[2] != q.shape[2]:
-        rep = q.shape[2] // k.shape[2]
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
+        k, v = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     logits = (qh @ kh.transpose(-1, -2)) * s
-    neg = torch.tensor(-1e30, dtype=logits.dtype, device=logits.device)
+    # a fill, not a host tensor: no copy to the device (generate's
+    # eos-less loop makes no host synchronisation)
+    neg = torch.full((), -1e30, dtype=logits.dtype, device=logits.device)
     if is_causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         mask = torch.ones(sq, sk, dtype=torch.bool,
@@ -72,6 +75,42 @@ def sdpa_reference(q, k, v, attn_mask=None, dropout_p=0.0,
         keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
         probs = probs * keep / (1 - dropout_p)
     return (probs @ vh).transpose(1, 2)
+
+
+def _repeat_kv(t, heads):
+    """[B, S, KVH, D] -> [B, S, heads, D], each kv head repeated
+    ``heads // KVH`` times in place (``repeat_interleave`` by a view)."""
+    b, s, kvh, d = t.shape
+    return t[:, :, :, None].expand(b, s, kvh, heads // kvh, d).reshape(
+        b, s, heads, d)
+
+
+def sdpa_with_cache(query, key, value, k_cache, v_cache, pos):
+    """Attention of ``generate`` over a dense KV cache.
+
+    Writes the new ``key``/``value`` [B, S, KVH, D] into ``k_cache``/
+    ``v_cache`` [B, max_len, KVH, D] at sequence offset ``pos`` (an int or
+    a 0-d integer tensor on the caches' device; the write starts at
+    ``pos`` clamped to ``max_len - S``, as ``lax.dynamic_update_slice``
+    does), **in place** and outside autograd, as the engine writes its
+    paged pools; then attends ``query`` [B, S, H, D] over the whole cache
+    with the mask ``cache_index <= pos + query_index``
+    (:func:`sdpa_reference`: kv heads repeated, logits in the input dtype,
+    softmax in f32). Prefill (``pos`` 0, S the prompt) and decode (S 1)
+    alike. Returns ``(out, k_cache, v_cache)``."""
+    s, max_len = query.shape[1], k_cache.shape[1]
+    dev = query.device
+    rows = torch.arange(s, device=dev)
+    start = pos.clamp(0, max_len - s) if isinstance(pos, torch.Tensor) \
+        else min(max(int(pos), 0), max_len - s)
+    with torch.no_grad():
+        k_cache.index_copy_(1, start + rows, key.to(k_cache.dtype))
+        v_cache.index_copy_(1, start + rows, value.to(v_cache.dtype))
+    mask = torch.arange(max_len, device=dev)[None, :] \
+        <= pos + rows[:, None]                             # [S, max_len]
+    out = sdpa_reference(query, k_cache.to(query.dtype),
+                         v_cache.to(query.dtype), attn_mask=mask[None, None])
+    return out, k_cache, v_cache
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

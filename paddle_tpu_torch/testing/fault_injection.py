@@ -1,16 +1,17 @@
 """Deterministic fault injection into the port's serving engine: the
 serving plans of ``paddle_tpu/testing/fault_injection.py``.
 
-- :meth:`FaultInjector.poison_request`: harvesting a step raises
-  ``FloatingPointError`` (the shape of a NaN sampler output reaching the
-  packed fetch) whenever the chosen request rode that step. The
+- :meth:`FaultInjector.poison_request`: harvesting a step (or a legacy
+  decode chunk) raises ``FloatingPointError`` (the shape of a NaN
+  sampler output reaching the packed fetch) whenever the chosen request
+  rode it. The
   engine's containment must quarantine the poison and replay its
   co-scheduled innocents.
 - :meth:`FaultInjector.wedge_slot`: the drain skips the chosen slot, so
   a finished stream sits undrained and holds its pages (the stuck-slot
   shape that the deadlock eviction and the ``EngineSupervisor`` answer).
 
-Each plan patches a method of ``ContinuousBatchingEngine`` while the
+Each plan patches methods of ``ContinuousBatchingEngine`` while the
 injector is installed, fires at most ``times`` times, and only when the
 chosen request or slot is involved. Use it as a context manager so the
 engine class is always restored::
@@ -66,11 +67,12 @@ class FaultInjector:
             plan.fired += 1
             return True
 
-    def _arm(self, method, plan, make_patched):
+    def _arm(self, methods, plan, make_patched):
         self.plans.append(plan)
-        self._targets.append((method, plan, make_patched))
-        if self._installed:
-            self._patch(method, plan, make_patched)
+        for method in methods:
+            self._targets.append((method, plan, make_patched))
+            if self._installed:
+                self._patch(method, plan, make_patched)
         return plan
 
     def _patch(self, method, plan, make_patched):
@@ -81,9 +83,9 @@ class FaultInjector:
         self._patched.append((method, original))
 
     def poison_request(self, request_id, times=1):
-        """Harvesting a step raises ``FloatingPointError`` whenever
-        request ``request_id`` rides it (the harvest record's
-        dispatch-time snapshot, index 1)."""
+        """Harvesting a step or a legacy chunk raises
+        ``FloatingPointError`` whenever request ``request_id`` rides it
+        (both harvest records' dispatch-time snapshot, index 1)."""
         rid = int(request_id)
         injector = self
 
@@ -97,7 +99,7 @@ class FaultInjector:
                 return original(eng, rec, *a, **kw)
             return patched
 
-        return self._arm("_harvest_step",
+        return self._arm(("_harvest_step", "_harvest_chunk"),
                          FaultPlan(f"poison_request:{rid}", times), make)
 
     def wedge_slot(self, slot, times=1):
@@ -122,8 +124,8 @@ class FaultInjector:
                     eng._emits_inflight[slot_i] -= 1
             return patched
 
-        return self._arm("_drain", FaultPlan(f"wedge_slot:{slot_i}", times),
-                         make)
+        return self._arm(("_drain",),
+                         FaultPlan(f"wedge_slot:{slot_i}", times), make)
 
     def install(self):
         if self._installed:

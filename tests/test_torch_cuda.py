@@ -1480,3 +1480,123 @@ def test_weight_only_linear_on_the_card(cuda, algo, shape):
     tol = 2 * BF16_ULP * ref.abs() + 2 ** -22 * mag + 1e-6
     _assert_close(out, ref, tol)
     assert out.dtype == torch.bfloat16
+
+
+# ---- generate over dense caches, and the legacy engine -----------------------
+
+def test_generate_without_eos_runs_without_host_synchronisation(cuda):
+    """The eos-less ``generate`` (the prefill and every decode step, the
+    RMSNorm and SwiGLU kernels, the dense-cache attention, the pick)
+    copies nothing to the host, greedy or sampled: under sync debug mode
+    'error' any synchronising call raises."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=256,
+                              intermediate_size=256)
+    model = LlamaForCausalLM(cfg, device=cuda, dtype=torch.bfloat16, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (3, 9), device=cuda,
+                        generator=gen)
+    sample = dict(decode_strategy="sampling", top_k=20, top_p=0.9,
+                  temperature=0.7, seed=5, repetition_penalty=1.2)
+    model.generate(ids, max_new_tokens=4, **sample)     # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        greedy = model.generate(ids, max_new_tokens=12,
+                                decode_strategy="greedy_search")
+        sampled = model.generate(ids, max_new_tokens=12, **sample)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for out, scores in (greedy, sampled):
+        assert out.shape == (3, 12) and out.device.type == "cuda"
+        assert torch.isfinite(scores).all()
+
+
+def test_generate_on_the_card_matches_the_cpu(cuda):
+    """f32: greedy tokens of both drivers (no eos; an eos that stops a
+    row) equal the CPU's, scores within 1e-4; seeded sampling repeats
+    on the card."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128,
+                              intermediate_size=256)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu_model = LlamaForCausalLM(cfg, device=cuda, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ids = np.random.RandomState(2).randint(0, cfg.vocab_size, (3, 11))
+    first, _ = cpu_model.generate(ids, max_new_tokens=3,
+                                  decode_strategy="greedy_search")
+    for kw in (dict(), dict(eos_token_id=int(first[0, 2]))):
+        outs = [m.generate(ids, max_new_tokens=10,
+                           decode_strategy="greedy_search", **kw)
+                for m in (cpu_model, gpu_model)]
+        assert torch.equal(outs[0][0], outs[1][0].cpu())
+        torch.testing.assert_close(outs[1][1].cpu(), outs[0][1], rtol=0,
+                                   atol=1e-4)
+    sample = dict(decode_strategy="sampling", top_p=0.9, temperature=0.8,
+                  seed=7)
+    a, _ = gpu_model.generate(ids, max_new_tokens=10, **sample)
+    b, _ = gpu_model.generate(ids, max_new_tokens=10, **sample)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_legacy_engine_on_the_card_matches_the_cpu(cuda, kv_quant):
+    """f32: the legacy engine's greedy streams on the card equal the
+    CPU's and the unified engine's on the card, and the dense
+    ``generate``'s (f32 pools)."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128,
+                              intermediate_size=256)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu_model = LlamaForCausalLM(cfg, device=cuda, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.RandomState(1)
+    specs = [(rng.randint(0, cfg.vocab_size, p), n)
+             for p, n in [(5, 7), (13, 4), (9, 11), (21, 6), (3, 8)]]
+    streams = {}
+    for model, dev, unified in ((cpu_model, "cpu", False),
+                                (gpu_model, cuda, False),
+                                (gpu_model, cuda, True)):
+        eng = ContinuousBatchingEngine(model, num_slots=2, page_size=8,
+                                       max_len=64, decode_chunk=4,
+                                       prefill_chunk=16, kv_quant=kv_quant,
+                                       unified=unified, audit=True,
+                                       device=dev)
+        streams[str(dev), unified] = _storm(eng, specs)
+        assert len(eng._free_pages) + eng.prefix_cache_pages \
+            == eng.num_pages - 1
+    legacy = streams["cuda", False]
+    assert legacy == streams["cpu", False]
+    assert legacy == streams["cuda", True]
+    if kv_quant == "none":
+        for (p, n), s in zip(specs, legacy):
+            out, _ = gpu_model.generate(p[None], max_new_tokens=n,
+                                        decode_strategy="greedy_search")
+            assert out[0].tolist() == s
+
+
+def test_legacy_launch_counts(cuda):
+    """A prefill wave is one [S, C] forward and a decode chunk of n steps
+    n [S, 1] forwards: each forward launches 2L + 1 RMSNorms, L SwiGLUs
+    and L ragged attentions (K12)."""
+    eng = _card_engine(cuda, unified=False, decode_chunk=8)
+    rng = np.random.RandomState(4)
+    eng.add_request(rng.randint(0, 256, 40), 12)
+    eng.add_request(rng.randint(0, 256, 9), 12)
+    eng._admit()
+    L = eng.cfg.num_hidden_layers
+    kernels = (krms.rms_norm, ksw.swiglu, krpa.ragged_paged_attention)
+    before = [k.launches for k in kernels]
+    eng._pump_prefill(max_waves=1)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] \
+        == [2 * L + 1, L, L]
+    eng._pump_prefill()
+    before = [k.launches for k in kernels]
+    rec = eng._dispatch_chunk()
+    n = rec[3]
+    eng._harvest_chunk(rec)
+    assert n == 8      # both slots have 11 tokens of budget left
+    assert [k.launches - b for k, b in zip(kernels, before)] \
+        == [(2 * L + 1) * n, L * n, L * n]
+    assert ("chunk", 8) in eng._compiled
+    done = eng.run()
+    assert sorted(len(r.tokens) for r in done) == [12, 12]

@@ -157,6 +157,7 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.testing.drafts\n"
             "import paddle_tpu_torch.inference.spec_decode\n"
             "import paddle_tpu_torch.nn.quant\n"
+            "import paddle_tpu_torch.generation\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
