@@ -137,9 +137,10 @@ non-zero without printing a result:
 23. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-24. the ``kernels`` JSON line, then the result line.
+24. the ``kernels`` JSON line, then the result line (after phase 27).
 
-Two paths of the serving slice run between those phases:
+Three more paths run between those phases, two of the serving slice
+and the training loop users run:
 
 25. generate (``model.generate`` over dense caches; K1, K5, and K14 for
     the MoE model): on serve's Llama-3-8B after spec_8b, batch 8,
@@ -158,7 +159,24 @@ Two paths of the serving slice run between those phases:
     streams): tok/s beside serve's (the JAX bench's A/B, telemetry),
     ``compiled_programs``, prefill waves, chunks, empty chunks, the
     greedy agreement with serve's streams (reported); then 4 requests
-    over int8 pools (K13).
+    over int8 pools (K13);
+27. train_loop (after fused_parity): examples/train_gpt2.py's flow on
+    the port at Llama-1B's full width and depth in bf16: AdamW (decay off
+    for norms by ``apply_decay_param_fun``) under
+    ``LinearWarmup(CosineAnnealingDecay(3e-4, T_max=40), 10 steps from
+    0)`` with ``nn.ClipGradByGlobalNorm(1.0)``, 40 steps of ``model(ids,
+    labels=ids)``, backward, ``opt.step()``, ``opt.clear_grad()``,
+    ``sched.step()`` on [8, 1024] windows of a 512-token Markov corpus
+    (the mean of the last 5 losses must be 0.15 below the first 5's; the
+    rate of every step must equal its closed form; step time by part,
+    forward+backward, clip and update, from CUDA events; peak memory;
+    launches per step of K1-K9, exact); ``Model.save_checkpoint`` before
+    step 30, and a fresh model and optimizer loaded from it repeat
+    steps 30-39; ``Model.save``/``load`` (predict's logits equal) and
+    ``evaluate`` on 4 held-out batches; ``fit`` at depth 2 with
+    ``save_dir``, resumed by a new Model (``resume=True``) to equal an
+    uninterrupted fit; O1 and O2 ``train_batch`` at depth 2 on the card
+    against the CPU; a ``GradScaler`` step with an inf in one gradient.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -3292,6 +3310,382 @@ def phase_fused_parity(cfg1b, layers=2, seq=300, dev="cuda"):
     return worst_g, worst_w
 
 
+def synthetic_corpus(vocab, n_tokens, seed=0, chains=64):
+    """examples/train_gpt2.py's Markov corpus, vectorised: the same
+    transition matrix for the seed (rows of a Dirichlet(0.05) draw), the
+    tokens walked by ``chains`` chains side by side (one uniform draw and
+    one row lookup a step for all of them) and laid end to end. The
+    stream has the same statistics, not the same tokens."""
+    rng = np.random.RandomState(seed)
+    cum = np.cumsum(rng.dirichlet(np.ones(vocab) * 0.05, size=vocab),
+                    axis=1)
+    steps = -(-n_tokens // chains)
+    out = np.empty((chains, steps), np.int64)
+    tok = np.zeros(chains, np.int64)
+    u = rng.random_sample((steps, chains))
+    for i in range(steps):
+        tok = np.minimum((cum[tok] < u[i][:, None]).sum(1), vocab - 1)
+        out[:, i] = tok
+    return out.reshape(-1)[:n_tokens]
+
+
+def _warmup_cosine_lr(step, peak=3e-4, warmup=10, t_max=40):
+    """The rate the scheduler of phase train_loop gives at ``step`` (its
+    last_epoch), in closed form: linear from 0 over the warm-up, then
+    the cosine, whose own epoch is the number of outer steps at or past
+    the warm-up."""
+    if step < warmup:
+        return peak * step / warmup
+    return peak * (1 + np.cos(np.pi * (step - warmup + 1) / t_max)) / 2
+
+
+def phase_train_loop(cfg1b, batch=8, seq=1024, steps=40, save_at=30,
+                     dev="cuda"):
+    """examples/train_gpt2.py's flow on the port at Llama-1B's full width
+    and depth in bf16 (module docstring, phase 27): AdamW under a
+    warm-up-cosine schedule with global-norm clipping, the checkpoint and
+    its resume, save/load, evaluate, fit with resume, AMP and the
+    scaler."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    cfg = cfg1b
+    L = cfg.num_hidden_layers
+    corpus = synthetic_corpus(512, batch * seq * 50)
+
+    def sample_batch(step):
+        rng = np.random.RandomState(step)
+        idx = rng.randint(0, corpus.size - seq, batch)
+        return torch.from_numpy(np.stack(
+            [corpus[i:i + seq] for i in idx])).to(dev)
+
+    def build(seed):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=seed)
+        for name, p in model.named_parameters():
+            p.param_name = name          # what apply_decay_param_fun sees
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=40),
+                                warmup_steps=10, start_lr=0.0, end_lr=3e-4)
+        opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                    weight_decay=0.01,
+                    apply_decay_param_fun=lambda n: "norm" not in n,
+                    grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+        m = Model(model)
+        m.prepare(opt, LlamaPretrainingCriterion(cfg))
+        return model, opt, sched, m
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def train_step(model, opt, sched, step):
+        """One step of the flow; opt.step()'s two halves (the clip and
+        the updates) are called apart to put an event between them."""
+        want = _warmup_cosine_lr(step)
+        if abs(opt.get_lr() - want) > 1e-12 * 3e-4:
+            raise AssertionError(f"[train_loop] step {step}: lr "
+                                 f"{opt.get_lr()!r}, closed form {want!r}")
+        ids = sample_batch(step)
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, loss = model(ids, labels=ids)
+        loss.backward()
+        ev[1].record()
+        pgs = opt._clipped()
+        ev[2].record()
+        opt._apply(pgs)
+        ev[3].record()
+        opt.clear_grad()
+        sched.step()
+        value = loss.item()              # synchronises
+        wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return value, wall, [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    tmp = tempfile.mkdtemp(prefix="train_loop_")
+    try:
+        t0 = time.perf_counter()
+        model, opt, sched, m = build(0)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[train_loop] Llama-1B, {L} layers, {n_params / 1e9:.3f} B "
+            f"params bf16, AdamW (f32 master weights and moments, decay "
+            f"off for norms), LinearWarmup(CosineAnnealingDecay(3e-4, "
+            f"T_max=40), 10 steps from 0), ClipGradByGlobalNorm(1.0), "
+            f"batches [{batch}, {seq}] of a 512-token Markov corpus; built "
+            f"in {time.perf_counter() - t0:.1f} s")
+        wrappers = _counted(TRAIN_KERNELS)
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, parts = [], [], []
+        ckpt_dir = os.path.join(tmp, "step_30")
+        for step in range(steps):
+            if step == save_at:
+                t0 = time.perf_counter()
+                m.save_checkpoint(ckpt_dir, epoch=0)
+                save_s = time.perf_counter() - t0
+            loss, wall, part = train_step(model, opt, sched, step)
+            losses.append(loss)
+            walls.append(wall)
+            parts.append(part)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = {"rms_norm": 1, "rms_norm_dx": 1, "rms_norm_residual": 2 * L,
+                "rms_norm_residual_dh": 2 * L, "swiglu": L, "swiglu_bwd": L,
+                "flash_attention_fwd": L, "flash_attention_dkv": L,
+                "flash_attention_dq": L, "chunk_stats": 0,
+                "chunk_dlogits": 0}
+        per_step = {k: v / steps for k, v in launches.items()}
+        if per_step != want:
+            raise AssertionError(f"[train_loop] launches per step "
+                                 f"{per_step} != {want}")
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        if not (all(np.isfinite(losses)) and last < first - 0.15):
+            raise AssertionError(f"[train_loop] loss did not drop: {first} "
+                                 f"-> {last} ({losses})")
+        step_ms = Timing(walls[5:])
+        fb, clip, upd = (Timing([p[i] for p in parts[5:]])
+                         for i in range(3))
+        tokens = batch * seq
+        log(f"[train_loop] {steps} steps: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, mean of the first 5 {first:.4f}, of the "
+            f"last 5 {last:.4f} (bar: a drop of 0.15); lr of every step "
+            f"equal to the closed form")
+        log(f"[train_loop] step {step_ms:.2f} ms (host clock, median "
+            f"[least-greatest] of steps 5-{steps - 1}), "
+            f"{tokens / (step_ms / 1e3):.0f} tokens/s; by part (CUDA "
+            f"events): forward+backward {fb:.2f} ms, clip {clip:.2f} ms, "
+            f"update {upd:.2f} ms ({100 * upd / step_ms:.1f}% of the step); "
+            f"peak memory {peak:.2f} GB")
+        log(f"[train_loop] launches per step {per_step}")
+        # the resume: a fresh model and optimizer from the committed
+        # checkpoint repeat the uninterrupted steps 30-39
+        del model, opt, sched, m
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model, opt, sched, m = build(1)
+        if dckpt.latest_valid_checkpoint(tmp) != ckpt_dir:
+            raise AssertionError("[train_loop] the checkpoint is not the "
+                                 "newest valid one")
+        if m.load_checkpoint(ckpt_dir) != 0 or opt._step_count != save_at:
+            raise AssertionError("[train_loop] load_checkpoint: epoch or "
+                                 "@step not restored")
+        load_s = time.perf_counter() - t0
+        resumed = [train_step(model, opt, sched, s)[0]
+                   for s in range(save_at, steps)]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                      losses[save_at:]))
+        bitwise = resumed == losses[save_at:]
+        # no port kernel uses atomics; a resumed run repeats its losses
+        # bit for bit unless a library call does not (reported); the
+        # bound is bf16's noise after 10 steps, far below what a lost
+        # slot, master weight or schedule position does (0.05 and more)
+        if gap > 2e-3:
+            raise AssertionError(f"[train_loop] resumed losses {resumed} vs "
+                                 f"{losses[save_at:]}")
+        ck_gb = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                    for f in os.listdir(ckpt_dir)) / 1e9
+        log(f"[train_loop] resume from step_30 (a committed checkpoint of "
+            f"{ck_gb:.2f} GB: weights, master weights, moments, beta "
+            f"powers, the schedule, @step): save {save_s:.1f} s, fresh "
+            f"model + load {load_s:.1f} s; steps 30-39 repeat the "
+            f"uninterrupted losses bit for bit: {bitwise} (largest "
+            f"relative gap {gap:.3g}, limit 2e-3)")
+        shutil.rmtree(ckpt_dir)
+        # save/load and predict; evaluate on held-out batches
+        probe = TensorDataset([sample_batch(10_000)[:2]])
+        logits = m.predict(probe, batch_size=2)[0]
+        m.save(os.path.join(tmp, "final"), training=False)
+        other = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=2)
+        om = Model(other)
+        om.load(os.path.join(tmp, "final"))
+        if not torch.equal(om.predict(probe, batch_size=2)[0], logits):
+            raise AssertionError("[train_loop] save/load: predict differs")
+        del other, om, logits
+        held = torch.cat([sample_batch(20_000 + i) for i in range(4)])
+        ev_loss = m.evaluate(TensorDataset([held, held]), batch_size=batch,
+                             verbose=0)["loss"][0]
+        if not (np.isfinite(ev_loss) and ev_loss < losses[0]):
+            raise AssertionError(f"[train_loop] evaluate: {ev_loss} vs the "
+                                 f"first loss {losses[0]}")
+        log(f"[train_loop] Model.save/load (.pdparams): predict's logits "
+            f"equal; evaluate on 4 held-out batches: loss {ev_loss:.4f} "
+            f"(the first step's {losses[0]:.4f})")
+        del model, opt, sched, m, held
+        torch.cuda.empty_cache()
+        fit_res = _train_loop_fit(cfg, tmp, dev)
+        amp_res = _train_loop_amp(cfg, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(losses=losses, step_ms=step_ms, parts=dict(
+        forward_backward=fb, clip=clip, update=upd), peak_gb=peak,
+        launches=launches, resume_gap=gap, resume_bitwise=bitwise,
+        save_s=save_s, load_s=load_s, checkpoint_gb=ck_gb,
+        eval_loss=ev_loss, fit=fit_res, amp=amp_res)
+
+
+def _train_loop_fit(cfg1b, tmp, dev, layers=2, rows=6, seq=257):
+    """fit at Llama-1B width and depth ``layers`` in bf16 with SGD: two
+    epochs with ``save_dir``, then a new Model resumes to three; its
+    weights must equal an uninterrupted three-epoch fit's (shuffled
+    batches: a loader fit builds seeds an epoch's order with its
+    number)."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import SGD
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    ids = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (rows + 2, seq))).to(dev)
+    train = TensorDataset([ids[:rows], ids[:rows]])
+    held = TensorDataset([ids[rows:], ids[rows:]])
+
+    def make(seed):
+        net = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                               seed=seed)
+        m = Model(net)
+        m.prepare(SGD(1e-2, parameters=net.parameters()),
+                  LlamaPretrainingCriterion(cfg))
+        return net, m
+
+    save_dir = os.path.join(tmp, "fit")
+    t0 = time.perf_counter()
+    net, m = make(0)
+    m.fit(train, held, batch_size=2, epochs=2, save_dir=save_dir,
+          keep_last_n=1, verbose=0)
+    names = sorted(os.listdir(save_dir))
+    want_names = ["epoch_0.pdopt", "epoch_0.pdparams", "epoch_1.pdopt",
+                  "epoch_1.pdparams", "step_1"]
+    if names != want_names or not dckpt.is_committed(
+            os.path.join(save_dir, "step_1")):
+        raise AssertionError(f"[train_loop fit] save_dir holds {names}, "
+                             f"not {want_names} with step_1 committed")
+    del net, m
+    net, m = make(1)
+    m.fit(train, held, batch_size=2, epochs=3, save_dir=save_dir,
+          keep_last_n=1, resume=True, verbose=0)
+    resumed = [s["epoch"] for s in m._epoch_summaries]
+    got = {k: v.clone() for k, v in net.state_dict().items()}
+    del net, m
+    net, m = make(0)
+    m.fit(train, held, batch_size=2, epochs=3, verbose=0)
+    same = all(torch.equal(got[k], v) for k, v in net.state_dict().items())
+    steps = sorted(n for n in os.listdir(save_dir) if n.startswith("step_"))
+    if resumed != [2] or not same or steps != ["step_2"]:
+        raise AssertionError(f"[train_loop fit] resumed epochs {resumed}, "
+                             f"weights equal {same}, steps kept {steps}")
+    log(f"[train_loop] fit at depth {layers}: 2 epochs with save_dir "
+        f"(committed step_N, epoch_N.pdparams/.pdopt, keep_last_n=1), then "
+        f"fit(epochs=3, resume=True) ran epoch 2 only and its weights equal "
+        f"an uninterrupted 3-epoch fit's bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del net, m, ids
+    torch.cuda.empty_cache()
+    return dict(resumed_epochs=resumed, equal=same)
+
+
+def _train_loop_amp(cfg1b, dev, layers=2, seq=128):
+    """AMP at Llama-1B width and depth ``layers``, f32 parameters, on the
+    card against the CPU: one ``train_batch`` at O1 (grads kept) and one
+    at O2 (bf16 parameters, f32 master copies); then a GradScaler step
+    with an inf in one gradient (skipped, scale halved, weights
+    untouched) and a clean one."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import SGD
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=11).state_dict()
+    ids = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (1, seq)))
+    out = {}
+    for level in ("O1", "O2"):
+        for name in ("cpu", dev):
+            net = LlamaForCausalLM(cfg, device=name)
+            net.load_state_dict(weights)
+            m = Model(net)
+            m.prepare(SGD(1e-3, parameters=net.parameters()),
+                      LlamaPretrainingCriterion(cfg), amp_configs=level)
+            t = ids.to(name)
+            loss = m.train_batch([t], t, update=False)[0]
+            grads = convert.grads_to_numpy(net)
+            m._optimizer.step()
+            dtypes = {p.dtype for p in net.parameters()}
+            masters = len(m._optimizer._master_weights)
+            out[level, name] = (loss, grads, convert.to_numpy_state_dict(net),
+                                dtypes, masters)
+            del net, m
+    lines = []
+    for level in ("O1", "O2"):
+        (l0, g0, w0, d0, n0), (l1, g1, w1, d1, n1) = out[level, "cpu"], \
+            out[level, dev]
+        want_dt = {torch.float32} if level == "O1" else {torch.bfloat16}
+        if d0 != want_dt or d1 != want_dt or n1 != (
+                0 if level == "O1" else len(w1)):
+            raise AssertionError(f"[train_loop amp] {level}: parameter "
+                                 f"dtypes {d1}, {n1} master copies")
+        # bf16 matmuls on both sides, summed in other orders: the loss
+        # within 2e-3 of itself, each grad within 5e-2 of its norm
+        worst = max(float(np.linalg.norm(g1[k] - g0[k])
+                          / max(np.linalg.norm(g0[k]), 1e-30)) for k in g0)
+        if abs(l1 - l0) > 2e-3 * abs(l0) or worst > 5e-2:
+            raise AssertionError(f"[train_loop amp] {level}: loss card {l1} "
+                                 f"vs CPU {l0}, worst grad error {worst:.3g}")
+        lines.append(f"{level} loss card {l1:.5f} vs CPU {l0:.5f}, worst "
+                     f"grad error {worst:.3g}")
+    # the scaler on the card: an inf in one gradient skips the step
+    net = LlamaForCausalLM(cfg, device=dev)
+    net.load_state_dict(weights)
+    opt = SGD(1e-3, parameters=net.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 10, incr_every_n_steps=1)
+    t = ids.to(dev)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    _, loss = net(t, labels=t)
+    scaler.scale(loss).backward()
+    next(net.parameters()).grad[0, 0] = float("inf")
+    scaler.step(opt)
+    opt.clear_grad()
+    untouched = all(torch.equal(before[k], v)
+                    for k, v in net.state_dict().items())
+    scale_after_inf = scaler.get_loss_scaling()
+    _, loss = net(t, labels=t)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    moved = not torch.equal(before["lm_head.weight"],
+                            net.state_dict()["lm_head.weight"])
+    if not (untouched and scale_after_inf == 2.0 ** 9 and moved
+            and scaler.get_loss_scaling() == 2.0 ** 10):
+        raise AssertionError(f"[train_loop amp] scaler: untouched "
+                             f"{untouched}, scale {scale_after_inf} then "
+                             f"{scaler.get_loss_scaling()}, moved {moved}")
+    lines.append("GradScaler: an inf in one grad skipped the step (weights "
+                 "untouched), the scale went 1024 -> 512, a clean step "
+                 "moved the weights and grew it back to 1024")
+    log(f"[train_loop] AMP at depth {layers}, [1, {seq}], card vs CPU: "
+        + "; ".join(lines))
+    del net, opt
+    torch.cuda.empty_cache()
+    return lines
+
+
 # ---- the Qwen2-MoE slice -----------------------------------------------------
 
 # the grouped-matmul kernels and the kernels a MoE path may launch
@@ -4208,6 +4602,8 @@ def main():
     fit = phase_fit(cfg1b)
     phase_fused_parity(cfg1b)
     mark("training")
+    train_loop = phase_train_loop(cfg1b)
+    mark("train_loop")
     a14b = Qwen2MoeConfig.qwen2_moe_a14b()
     serve_moe = phase_serve_moe(a14b)
     wide = phase_moe_train("moe_train_wide", dataclasses.replace(
@@ -4257,7 +4653,8 @@ def main():
         # weight-only int8 and int4 (7), the prefix and overload storms
         # (8, 9), the spec A/B, self-speculative drafts and spec over
         # int8 pools (10), the decode entry point (13), unfused
-        # training (14), the full training step (16), fit (17), MoE
+        # training (14), the full training step (16), fit (17), the
+        # train_gpt2 loop's 40 steps (27), MoE
         # serving (20) and the two MoE training steps (21, 22), generate
         # (25: the decode bench, the 8B runs and the MoE run) and the
         # legacy engine (26, bf16 and int8 pools); launches is their sum
@@ -4274,6 +4671,7 @@ def main():
                   "train": train["launches"].get(name, 0),
                   "train_full": full["launches"].get(name, 0),
                   "fit": fit["launches"].get(name, 0),
+                  "train_loop": train_loop["launches"].get(name, 0),
                   "serve_moe": serve_moe["launches"].get(name, 0),
                   "moe_train_wide": wide["launches"].get(name, 0),
                   "moe_bench": moe_bench["launches"].get(name, 0),

@@ -12,5 +12,6 @@ with no GPU and no explicit device they raise.
 """
 
 from .device import resolve_device
+from .framework.io import load, save
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "save", "load"]

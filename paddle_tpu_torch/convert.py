@@ -10,15 +10,29 @@ as they are. A missing or unexpected key raises.
 ``to_numpy_state_dict(model)`` and ``grads_to_numpy(model)`` go the other
 way: the port's weights, or their gradients, as f32 numpy arrays in the
 JAX package's layout (Linear weights transposed back).
+
+``from_numpy_optimizer_state(model, state)`` turns a JAX optimizer's
+``state_dict()`` (numpy arrays) into the port's, and
+``to_numpy_optimizer_state`` goes back, so both packages can continue
+one run from the same state. Both key a parameter's slots by its
+position (``param_<i>_<slot>``, ``param_<i>_master``), and both models
+list their parameters in the same order (the state-dict order), so a
+key names the same parameter on both sides. A Linear weight's moments,
+master copy and other slots of its shape are transposed as the weight
+is; beta powers (0-d) are not. ``@step``, ``LR_Scheduler`` and keys of
+named parameters keep their names and values.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_numpy_state_dict", "to_numpy_state_dict", "grads_to_numpy"]
+__all__ = ["from_numpy_state_dict", "to_numpy_state_dict", "grads_to_numpy",
+           "from_numpy_optimizer_state", "to_numpy_optimizer_state"]
 
 
 def _linear_keys(model: nn.Module) -> set[str]:
@@ -71,3 +85,44 @@ def grads_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
     grads = {name: p.grad for name, p in model.named_parameters()
              if p.grad is not None}
     return _to_numpy(grads, _linear_keys(model))
+
+
+_SLOT = re.compile(r"param_(\d+)_(.+)")
+
+
+def _convert_slots(model, state, convert):
+    """``convert(value, transpose)`` each ``param_<i>_<slot>`` value, the
+    transpose decided by the model's i-th parameter; keys stay as they
+    are and other keys pass through."""
+    names = [n for n, _ in model.named_parameters()]
+    linear = _linear_keys(model)
+    out = {}
+    for key, v in state.items():
+        m = _SLOT.fullmatch(key)
+        out[key] = v if m is None else convert(
+            v, names[int(m.group(1))] in linear)
+    return out
+
+
+def from_numpy_optimizer_state(model: nn.Module, state: dict) -> dict:
+    """A JAX optimizer's ``state_dict()`` (values as numpy arrays) as the
+    port's optimizer over ``model.parameters()`` takes it (module
+    docstring); slots become f32 CPU tensors."""
+    def convert(v, transpose):
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":   # ml_dtypes: no torch.from_numpy
+            a = a.astype(np.float32)
+        if transpose and a.ndim == 2:
+            a = a.T
+        return torch.tensor(a)
+    return _convert_slots(model, state, convert)
+
+
+def to_numpy_optimizer_state(model: nn.Module, state: dict) -> dict:
+    """The port's optimizer ``state_dict()`` as f32 numpy arrays in the
+    JAX package's layout: the inverse of
+    :func:`from_numpy_optimizer_state`."""
+    def convert(v, transpose):
+        a = v.detach().float().cpu().numpy()
+        return np.ascontiguousarray(a.T) if transpose and a.ndim == 2 else a
+    return _convert_slots(model, state, convert)

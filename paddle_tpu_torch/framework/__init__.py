@@ -1,5 +1,6 @@
-"""``framework`` of the port: the runtime flags."""
+"""``framework`` of the port: the runtime flags and ``save``/``load``
+(``io``)."""
 
-from . import flags
+from . import flags, io
 
-__all__ = ["flags"]
+__all__ = ["flags", "io"]

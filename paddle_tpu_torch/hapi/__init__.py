@@ -1,5 +1,6 @@
-"""``hapi`` of the port: the high-level ``Model``."""
+"""``hapi`` of the port: the high-level ``Model`` and its callbacks."""
 
+from . import callbacks
 from .model import Model
 
-__all__ = ["Model"]
+__all__ = ["Model", "callbacks"]

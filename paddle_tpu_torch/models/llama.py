@@ -56,7 +56,7 @@ from ..device import resolve_device
 from ..framework import flags
 from ..generation import GenerationMixin
 from ..incubate.recompute import recompute
-from ..nn import RMSNorm
+from ..nn import Linear, RMSNorm
 from ..nn import functional as F
 from ..ops import paged_attention as PA
 from ..ops.fused_ce import fused_linear_cross_entropy
@@ -215,10 +215,10 @@ class LlamaAttention(nn.Module):
         self.head_dim = cfg.head_dim
         kw = dict(device=device, dtype=dtype)
         h, d = cfg.hidden_size, self.head_dim
-        self.q_proj = nn.Linear(h, self.num_heads * d, bias=qkv_bias, **kw)
-        self.k_proj = nn.Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
-        self.v_proj = nn.Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
-        self.o_proj = nn.Linear(self.num_heads * d, h, bias=False, **kw)
+        self.q_proj = Linear(h, self.num_heads * d, bias=qkv_bias, **kw)
+        self.k_proj = Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
+        self.v_proj = Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
+        self.o_proj = Linear(self.num_heads * d, h, bias=False, **kw)
 
     def _proj(self, x):
         b, s, _ = x.shape
@@ -252,9 +252,9 @@ class LlamaMLP(nn.Module):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
         h, i = cfg.hidden_size, intermediate or cfg.intermediate_size
-        self.gate_proj = nn.Linear(h, i, **kw)
-        self.up_proj = nn.Linear(h, i, **kw)
-        self.down_proj = nn.Linear(i, h, **kw)
+        self.gate_proj = Linear(h, i, **kw)
+        self.up_proj = Linear(h, i, **kw)
+        self.down_proj = Linear(i, h, **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -475,7 +475,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         # built on the meta device, then materialised once: no throwaway
         # default initialisation of billions of weights
         self.llama = LlamaModel(config, device="meta", dtype=dtype)
-        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
+        self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, bias=False,
             device="meta", dtype=dtype)
         self.to_empty(device=device)
@@ -503,8 +503,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:
-            return torch.nn.functional.linear(
-                hidden, self.llama.embed_tokens.weight)
+            return F.linear(hidden, self.llama.embed_tokens.weight)
         return self.lm_head(hidden)    # a WeightOnlyLinear once quantized
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,

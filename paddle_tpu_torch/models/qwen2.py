@@ -44,7 +44,7 @@ from ..generation import GenerationMixin
 from ..incubate.distributed.models.moe import MoELayer
 from ..incubate.distributed.models.moe.moe_layer import xavier_normal_std
 from ..incubate.recompute import recompute
-from ..nn import RMSNorm
+from ..nn import Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.rope import build_sin_cos, rotate
 from .llama import (LlamaAttention, LlamaMLP, LlamaPretrainingCriterion,
@@ -148,8 +148,8 @@ class Qwen2MoeBlock(nn.Module):
         self.shared_expert = Qwen2MLP(
             cfg, device, dtype,
             intermediate=cfg.shared_expert_intermediate_size)
-        self.shared_expert_gate = nn.Linear(cfg.hidden_size, 1, bias=False,
-                                            device=device, dtype=dtype)
+        self.shared_expert_gate = Linear(cfg.hidden_size, 1, bias=False,
+                                         device=device, dtype=dtype)
 
     def forward(self, x):
         routed = self.moe(x)
@@ -218,7 +218,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device=meta,
                             dtype=dtype)
-        self.lm_head = None if cfg.tie_word_embeddings else nn.Linear(
+        self.lm_head = None if cfg.tie_word_embeddings else Linear(
             cfg.hidden_size, cfg.vocab_size, bias=False, device=meta,
             dtype=dtype)
         # RoPE tables: derived, not weights, so outside the state dict
@@ -267,8 +267,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:
-            return torch.nn.functional.linear(hidden,
-                                              self.embed_tokens.weight)
+            return F.linear(hidden, self.embed_tokens.weight)
         return self.lm_head(hidden)    # a WeightOnlyLinear once quantized
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,

@@ -1,8 +1,13 @@
-"""``nn`` of the port: the functional forms, the RMSNorm layer and the
-weight-only serving quantization (``quant``). ``Linear`` and
-``Embedding`` are ``torch.nn``'s own."""
+"""``nn`` of the port: the functional forms, the ``Linear`` and ``RMSNorm``
+layers, the weight-only serving quantization (``quant``) and the
+gradient clips (``ClipGradBy*``, re-exported from ``optimizer.clip`` as
+``paddle_tpu.nn`` re-exports them). ``Embedding`` is ``torch.nn``'s
+own."""
 
+from ..optimizer.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                              ClipGradByValue)
 from . import functional, quant
-from .layer import RMSNorm
+from .layer import Linear, RMSNorm
 
-__all__ = ["functional", "quant", "RMSNorm"]
+__all__ = ["functional", "quant", "Linear", "RMSNorm",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]

@@ -2,12 +2,14 @@
 
 Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm`` and
 ``::fused_rms_norm_residual``, ``activation.py::swiglu``,
-``attention.py::scaled_dot_product_attention`` (with
-``sdpa_reference``, the JAX package's non-kernel path),
-``attention.py::sdpa_with_cache`` (the dense KV cache of ``generate``,
-plain ops as the JAX package's XLA ones) and ``loss.py::cross_entropy``
-(hard labels and the mean, what the model uses). Where the JAX package
-chose the Pallas kernel by backend and flags, the port's kernel
+``attention.py::scaled_dot_product_attention`` (with ``sdpa_reference``,
+the JAX package's non-kernel path), ``attention.py::sdpa_with_cache``
+(the dense KV cache of ``generate``, plain ops as the JAX package's XLA
+ones), ``common.py::linear`` and ``loss.py::cross_entropy`` (hard labels
+and the mean, what the model uses). ``linear`` and
+``scaled_dot_product_attention`` cast their matmul operands under
+``amp.auto_cast``, where the JAX package casts them. Where the JAX
+package chose the Pallas kernel by backend and flags, the port's kernel
 wrappers choose by the device of the tensor: CUDA launches the kernel,
 the CPU takes the plain version. Gradients are torch autograd, through
 the kernels' ``autograd.Function``s.
@@ -19,13 +21,25 @@ import math
 
 import torch
 
+from ..amp.auto_cast import maybe_cast_matmul
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import swiglu as _sw
 
-__all__ = ["rms_norm", "fused_rms_norm_residual", "swiglu",
+__all__ = ["linear", "rms_norm", "fused_rms_norm_residual", "swiglu",
            "scaled_dot_product_attention", "sdpa_reference",
            "sdpa_with_cache", "cross_entropy"]
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ weight.T (+ bias)``, the weight in torch's [out, in] layout;
+    under ``amp.auto_cast`` x and the weight in the AMP dtype (the bias
+    is cast to the product's dtype, as the JAX package adds it)."""
+    x, weight = maybe_cast_matmul(x, weight)
+    if bias is not None and bias.dtype != x.dtype:
+        bias = bias.to(x.dtype)
+    return torch.nn.functional.linear(x, weight, bias)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -38,7 +52,12 @@ def fused_rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
                             weight: torch.Tensor, epsilon: float = 1e-6):
     """``(rms_norm(x + residual) * weight, x + residual)`` as one op, the
     add in the input dtype: the decoder layer's residual add and the
-    RMSNorm after it (K3 forward, K4 backward)."""
+    RMSNorm after it (K3 forward, K4 backward). Inputs of two dtypes (a
+    bf16 projection onto an f32 stream under ``amp.auto_cast``) are
+    promoted first, as ``x + residual`` promotes them."""
+    if x.dtype != residual.dtype:
+        dt = torch.promote_types(x.dtype, residual.dtype)
+        x, residual = x.to(dt), residual.to(dt)
     return _rms.RMSNormResidualFunction.apply(x, residual, weight, epsilon)
 
 
@@ -118,7 +137,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True):
     """Inputs and output [batch, seq, heads, head_dim]. With no mask, no
     dropout and equal query and key lengths this is flash attention (the
-    kernels); otherwise the plain :func:`sdpa_reference`."""
+    kernels); otherwise the plain :func:`sdpa_reference`. Under
+    ``amp.auto_cast`` q, k and v are cast to the AMP dtype first."""
+    query, key, value = maybe_cast_matmul(query, key, value)
     if (attn_mask is None and dropout_p == 0.0
             and query.shape[1] == key.shape[1]):
         return _fa.flash_attention(query, key, value, causal=is_causal)

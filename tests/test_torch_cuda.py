@@ -1600,3 +1600,175 @@ def test_legacy_launch_counts(cuda):
     assert ("chunk", 8) in eng._compiled
     done = eng.run()
     assert sorted(len(r.tokens) for r in done) == [12, 12]
+
+
+# ---- the training loop users run (optimizers, clip, schedule, AMP, scaler,
+# checkpoints) -------------------------------------------------------------
+
+def _clipped_numpy(model, opt):
+    """The clipped grads ``opt.step`` would apply, by state-dict key in the
+    JAX package's layout."""
+    names = [n for n, _ in model.named_parameters()]
+    pgs = opt._clipped()
+    return pgs, convert._to_numpy({n: g for n, (_, g) in zip(names, pgs)},
+                                  convert._linear_keys(model))
+
+
+def test_adamw_clip_schedule_on_the_card_match_the_cpu(cuda):
+    """AdamW under a warm-up-cosine schedule with global-norm clipping,
+    f32, 3 steps: the rates are equal, the clipped first step within
+    the Adam first-step limit, the losses within 1e-4 of each other
+    (Adam carries the grads' f32 noise into the later steps)."""
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, lr
+    cfg = LlamaConfig.tiny()
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=5).state_dict()
+    rows = [torch.from_numpy(np.random.RandomState(20 + i).randint(
+        0, cfg.vocab_size, (2, 65))) for i in range(3)]
+    out = []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(weights)
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-2, T_max=10), 2,
+                                1e-3, 1e-2)
+        opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(0.5))
+        losses, rates = [], []
+        for i, ids in enumerate(rows):
+            t = ids.to(dev)
+            _, loss = model(t, labels=t)
+            loss.backward()
+            rates.append(opt.get_lr())
+            if i == 0:
+                pgs, clipped = _clipped_numpy(model, opt)
+                opt._apply(pgs)
+                # copies: on the CPU the arrays share the weights
+                first = (clipped, {k: v.copy() for k, v in
+                                   convert.to_numpy_state_dict(
+                                       model).items()})
+            else:
+                opt.step()
+            opt.clear_grad()
+            sched.step()
+            losses.append(loss.item())
+        out.append((losses, rates, first))
+    (l0, r0, (g0, w0)), (l1, r1, (g1, w1)) = out
+    assert r0 == r1 and r0[0] == 1e-3
+    for key in g0:
+        lim = adam_first_step_limit(g0[key], g1[key], w0[key], r0[0])
+        assert (np.abs(w1[key] - w0[key]) <= lim).all(), key
+    for a, b in zip(l0, l1):
+        assert abs(a - b) <= 1e-4 * abs(a)
+
+
+def test_grad_scaler_skip_on_the_card(cuda):
+    from paddle_tpu_torch.amp import GradScaler
+    cfg = LlamaConfig.tiny()
+    model = LlamaForCausalLM(cfg, device=cuda, seed=6)
+    opt = AdamW(1e-3, parameters=model.parameters())
+    scaler = GradScaler(init_loss_scaling=256.0)
+    t = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 33))).to(cuda)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _, loss = model(t, labels=t)
+    scaler.scale(loss).backward()
+    model.lm_head.weight.grad[1, 2] = float("nan")
+    scaler.step(opt)
+    opt.clear_grad()
+    assert scaler.get_loss_scaling() == 128.0
+    assert all(torch.equal(before[k], v)
+               for k, v in model.state_dict().items())
+    assert opt._step_count == 0 and opt._accumulators == {}
+    _, loss = model(t, labels=t)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    assert opt._step_count == 1
+    assert not torch.equal(before["lm_head.weight"], model.lm_head.weight)
+
+
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_amp_train_batch_on_the_card_matches_the_cpu(cuda, level):
+    """bf16 matmuls on both sides (and bf16 parameters at O2): the loss
+    within 2e-3 of itself, each gradient within 5e-2 of its norm."""
+    from paddle_tpu_torch.hapi import Model
+    cfg = LlamaConfig.tiny()
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=7).state_dict()
+    ids = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (2, 65)))
+    out = []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(weights)
+        m = Model(model)
+        m.prepare(SGD(1e-2, parameters=model.parameters()),
+                  LlamaPretrainingCriterion(cfg), amp_configs=level)
+        t = ids.to(dev)
+        loss = m.train_batch([t], t, update=False)[0]
+        out.append((loss, convert.grads_to_numpy(model),
+                    {p.dtype for p in model.parameters()}))
+    (l0, g0, d0), (l1, g1, d1) = out
+    want = torch.float32 if level == "O1" else torch.bfloat16
+    assert d0 == d1 == {want}
+    assert abs(l1 - l0) <= 2e-3 * abs(l0)
+    for key in g0:
+        err = np.linalg.norm(g1[key] - g0[key]) / np.linalg.norm(g0[key])
+        assert err <= 5e-2, (key, err)
+
+
+def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
+    """Model.save_checkpoint from the card (bf16 weights, f32 slots and
+    masters) and load_checkpoint into a CPU model and optimizer: every
+    tensor equal bit for bit, and the next step equal within f32 noise."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import lr
+    cfg = LlamaConfig.tiny()
+    ids = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab_size, (2, 33)))
+
+    def make(dev, seed):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=seed)
+        sched = lr.StepDecay(1e-3, 2)
+        m = Model(model)
+        m.prepare(AdamW(sched, parameters=model.parameters()),
+                  LlamaPretrainingCriterion(cfg))
+        return m, sched
+
+    card, sched = make(cuda, 1)
+    t = ids.to(cuda)
+    for _ in range(2):
+        card.train_batch([t], t)
+        sched.step()
+    path = str(tmp_path / "step_0")
+    card.save_checkpoint(path, epoch=0)
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    stored = dckpt.read_state_dict(path, prefix="optimizer")
+    for k, v in card._optimizer.state_dict().items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(stored[k], v.cpu()), k
+    cpu, cpu_sched = make("cpu", 2)
+    assert cpu.load_checkpoint(path) == 0
+    for k, v in card.network.state_dict().items():
+        assert torch.equal(cpu.network.state_dict()[k], v.cpu()), k
+    assert cpu_sched.state_dict() == sched.state_dict()
+    assert cpu._optimizer._step_count == 2
+    l_card = card.train_batch([t], t)[0]
+    l_cpu = cpu.train_batch([ids], ids)[0]
+    # bf16 on both sides, kernels against plain versions
+    assert abs(l_card - l_cpu) <= 1e-2 * abs(l_card)
+    a = card._optimizer.state_dict()
+    b = cpu._optimizer.state_dict()
+    assert set(a) == set(b)
+    rate = card._optimizer.get_lr()
+    assert rate == cpu._optimizer.get_lr() and abs(rate - 1e-4) < 1e-12
+    for k in a:
+        if k.endswith("_master"):
+            # from equal masters and moments the third step moves each copy
+            # by rate * m_hat / (sqrt(v_hat) + eps); with betas 0.9/0.999
+            # at step 3, |m_hat| / sqrt(v_hat) <= 1.004 (Cauchy-Schwarz
+            # over the three grads), so the copies part by at most 2.01
+            # rates, and only where a grad's sign differs: most elements
+            # stay equal (masters rebuilt from the bf16 weights would
+            # differ by their rounding, about 3e-5, everywhere)
+            err = (b[k] - a[k].cpu()).abs()
+            assert err.max().item() <= 2.01 * rate, k
+            assert err.median().item() <= 1e-6, k

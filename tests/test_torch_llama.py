@@ -158,6 +158,21 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.inference.spec_decode\n"
             "import paddle_tpu_torch.nn.quant\n"
             "import paddle_tpu_torch.generation\n"
+            "import paddle_tpu_torch.optimizer.lr\n"
+            "import paddle_tpu_torch.optimizer.clip\n"
+            "import paddle_tpu_torch.regularizer\n"
+            "import paddle_tpu_torch.amp, paddle_tpu_torch.amp.auto_cast\n"
+            "import paddle_tpu_torch.amp.grad_scaler\n"
+            "import paddle_tpu_torch.metric\n"
+            "import paddle_tpu_torch.framework.io\n"
+            "import paddle_tpu_torch.utils.retry\n"
+            "import paddle_tpu_torch.utils.monitor\n"
+            "import paddle_tpu_torch.distributed.checkpoint\n"
+            "import paddle_tpu_torch.distributed.checkpoint.validation\n"
+            "import paddle_tpu_torch.distributed.checkpoint.save_load\n"
+            "import paddle_tpu_torch.distributed.checkpoint.metadata\n"
+            "import paddle_tpu_torch.hapi.callbacks\n"
+            "import paddle_tpu_torch.nn.layer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
