@@ -137,7 +137,7 @@ non-zero without printing a result:
 23. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-24. the ``kernels`` JSON line, then the result line (after phase 27).
+24. the ``kernels`` JSON line, then the result line (after phase 33).
 
 Three more paths run between those phases, two of the serving slice
 and the training loop users run:
@@ -177,6 +177,38 @@ and the training loop users run:
     ``save_dir``, resumed by a new Model (``resume=True``) to equal an
     uninterrupted fit; O1 and O2 ``train_batch`` at depth 2 on the card
     against the CPU; a ``GradScaler`` step with an inf in one gradient.
+
+The model families, after moe_parity:
+
+28. model_kernels: the kernels at the new paths' shapes against their
+    plain versions per element, bits repeated, timed beside their
+    bounds: K7-K9 at ERNIE's [16, 512] non-causal and GPT-2's [8, 1024]
+    causal (12 heads, D 64); K12 at GPT-2's 12/12 heads and Llama-3-70B's
+    64/8 (rep 8), a mixed and a decode step each; K1/K2 at widths 512,
+    1536 and 5120, K5/K6 at 1536, 3072 and 12288; K14, K14-T and K15 at
+    DeepSeek-V2's training layout (160 experts, top-6 of 4096 tokens, d
+    5120, h 1536) and K14 both modes at its decode layout;
+29. gpt2: GPT-2 small: examples/train_gpt2.py's flow in f32 with dropout
+    0.1 (40 AdamW steps on [8, 1024] windows of the Markov corpus, the
+    loss 0.15 lower; save, load, a resumed step bit for bit), a bf16 step
+    at dropout 0 (K7-K9 counted), ``generate`` at batch 8, the engine
+    (12 requests, prompts 64-900; then int8 pools, K13; then weight-only
+    int8), launches exact;
+30. ernie: ERNIE-3.0-base in bf16: 10 AdamW steps of pretraining on [16,
+    512] (K7-K9 non-causal, counted), a padded batch under
+    ``attention_mask`` against each row's unpadded run, a classification
+    step;
+31. deepseek: DeepSeek-V2's published width: at depth 4 ``generate`` on
+    the capacity path and dropless (K14), the latent cache's bytes; at
+    depth 2 a dropless training step on [2, 2049] (the chunked MLA
+    core), launches of K1-K6 and K14/K15 exact, profiled;
+    bench.py:_moe_decode_bench uncut (long minus short);
+32. llama70: Llama-3-70B's width at depth 4 through the engine, 4 of
+    serve's requests (K12 at rep 8);
+33. model_parity: GPT-2 (2 heads), ERNIE and DeepSeek-V2 (capacity and
+    dropless) at their tiny widths and depth 2 in f32, card against CPU:
+    loss, every gradient, greedy ``generate`` streams, GPT-2's engine
+    streams equal to its ``generate``'s.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -447,81 +479,203 @@ def phase_setup():
     return card
 
 
-def phase_kernels(cfg, dev="cuda"):
-    """Each kernel against its plain version at the 8B shapes."""
+def _repeats(name, fn, args):
+    """A second launch on the same inputs must give the same bits."""
+    import torch
+    a, b = fn(*args), fn(*args)
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: a second launch on the same "
+                                 f"inputs gave other bits")
+
+
+def norm_checks(n, D, eps, rand, kernels=("rms_norm", "rms_norm_dx"),
+                tag="kernels"):
+    """K1 (RMSNorm) and K2 (its dx), those named in ``kernels``, on x[n,
+    D] against their plain versions per element: K1 in bf16, K2 in bf16
+    and f32; in bf16 a second launch must repeat the bits, and each is
+    timed beside its bound, K1 also beside ``torch.nn.functional.rms_norm``.
+    Returns {kernel: entry}."""
     import torch
     import torch.nn.functional as tF
-    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.ops.kernels import rms_norm as krms
-    from paddle_tpu_torch.ops.kernels import swiglu as ksw
-    dev = torch.device(dev)
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    bf16 = torch.bfloat16
-    H, I = cfg.hidden_size, cfg.intermediate_size
     res = {}
-
-    def rand(*shape):
-        return torch.randn(*shape, device=dev, generator=gen).to(bf16)
-
-    for name in ("rms_norm", "swiglu"):
-        res[name] = {"max_abs_err": 0.0}
-    for n in (8, 2048):
-        x, w = rand(n, H), 1 + 0.1 * rand(H)
-        y = krms.rms_norm(x, w, cfg.rms_norm_eps)
-        ref = krms.rms_norm_reference(x, w, cfg.rms_norm_eps)
+    if "rms_norm" in kernels:
+        x, w = rand(n, D), 1 + 0.1 * rand(D)
+        ref = krms.rms_norm_reference(x, w, eps)
         # per element. Same rounding points as the plain version: the f32
         # statistics' summation order may move x*inv by one ulp, which the
         # product with w and its rounding carry to at most three ulps
-        err, worst = check_close(f"rms_norm N={n}", y, ref,
+        err, worst = check_close(f"rms_norm N={n} D={D}",
+                                 krms.rms_norm(x, w, eps), ref,
                                  3 * BF16_ULP * ref.float().abs() + 1e-6)
-        args = (x, w, cfg.rms_norm_eps)
+        args = (x, w, eps)
+        _repeats("rms_norm", krms.rms_norm, args)
         ms = time_ms(krms.rms_norm, args)
         eager = eager_ms(krms.rms_norm, args)
         plain = time_ms(krms.rms_norm_reference, args)
-        lib = time_ms(lambda x, w, eps: tF.rms_norm(x, (H,), w, eps), args)
-        b_ms, b_by = bound((2 * n * H + H) * 2, 4 * n * H, PEAK_F32_CORES)
-        log(f"[kernels] rms_norm N={n} D={H}: max abs err {err:.3g} "
-            f"(limit 3 ulps of each |ref|, worst err/limit {worst:.3g}) "
-            f"kernel {ms:.4f} ms (eager {eager:.4f}) plain {plain:.4f} ms "
-            f"library {lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if n == 2048:
-            # the same inputs every call stay in the 50 MB L2: a time that
-            # can fall below the HBM bound, kept only to show the effect
-            warm = time_ms(krms.rms_norm, args, cycle=False)
-            log(f"[kernels] rms_norm N={n}: {warm:.4f} ms re-reading the "
-                f"same inputs from L2 (not kept)")
-        r = res["rms_norm"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.update(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
-                 bound_ms=b_ms,
-                 bound_by=b_by, shape=f"x[{n},{H}] bf16")
+        lib = time_ms(lambda x, w, eps: tF.rms_norm(x, (D,), w, eps), args)
+        b_ms, b_by = bound((2 * n * D + D) * 2, 4 * n * D, PEAK_F32_CORES)
+        log(f"[{tag}] rms_norm N={n} D={D}: max abs err {err:.3g} (limit 3 "
+            f"ulps of each |ref|, worst err/limit {worst:.3g}); a second "
+            f"launch repeats it bit for bit; kernel {ms:.4f} ms (eager "
+            f"{eager:.4f}) plain {plain:.4f} ms library {lib:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        res["rms_norm"] = dict(
+            max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
+            library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+            shape=f"x[{n},{D}] bf16")
+        del x, w, ref, args
+    if "rms_norm_dx" in kernels:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g = rand(n, D, dtype=dtype), rand(n, D, dtype=dtype)
+            w = 1 + 0.1 * rand(D, dtype=dtype)
+            ref = krms.rms_norm_dx_reference(x, w, g, eps)
+            # per element. Both sides f32 inside and rounded once; the row
+            # sums and the difference inv*g*w - x*c come in another order,
+            # which moves dx by f32 noise of the magnitudes summed, mag (c
+            # taken over |g*w*x|: the row sum may cancel); in bf16 that may
+            # flip the output's rounding: one ulp of |ref|
+            xf, gw = x.float(), g.float() * w.float()
+            inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            c = inv ** 3 * (gw * xf).abs().mean(-1, keepdim=True)
+            mag = (inv * gw).abs() + xf.abs() * c
+            ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5
+            err, worst = check_close(f"rms_norm_dx N={n} D={D} {dtype}",
+                                     krms.rms_norm_dx(x, w, g, eps), ref,
+                                     ulp * ref.float().abs() + 1e-5 * mag
+                                     + 1e-6)
+            del xf, gw, inv, c, mag, ref
+            log(f"[{tag}] rms_norm_dx N={n} D={D} {dtype}: max abs err "
+                f"{err:.3g} (limit {'1 ulp' if ulp == BF16_ULP else '1e-5'} "
+                f"of each |ref| + 1e-5 of |inv*g*w| + |x*c|, worst "
+                f"err/limit {worst:.3g})")
+            if dtype == torch.float32:
+                res["rms_norm_dx"]["max_abs_err_f32"] = err
+                continue
+            args = (x, w, g, eps)
+            _repeats("rms_norm_dx", krms.rms_norm_dx, args)
+            ms = time_ms(krms.rms_norm_dx, args)
+            eager = eager_ms(krms.rms_norm_dx, args)
+            plain = time_ms(krms.rms_norm_dx_reference, args)
+            b_ms, b_by = bound((3 * n * D + D) * 2, 8 * n * D,
+                               PEAK_F32_CORES)
+            log(f"[{tag}] rms_norm_dx N={n} D={D}: a second launch repeats "
+                f"it bit for bit; kernel {ms:.4f} ms (eager {eager:.4f}) "
+                f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+            res["rms_norm_dx"] = dict(
+                max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=f"x,g[{n},{D}] bf16")
+            del args
+        del x, g, w
+    torch.cuda.empty_cache()
+    return res
 
+
+def swiglu_checks(n, I, rand, kernels=("swiglu", "swiglu_bwd"),
+                  tag="kernels"):
+    """K5 (SwiGLU) and K6 (its backward), those named in ``kernels``, on
+    [n, I] against their plain versions per element: K5 in bf16 (and
+    against silu(g)*u in f32 rounded once), K6 in bf16 and f32; in bf16 a
+    second launch must repeat the bits, and each is timed beside its
+    bound. Returns {kernel: entry}."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.ops.kernels import swiglu as ksw
+    bf16 = torch.bfloat16
+    res = {}
+    if "swiglu" in kernels:
         g, u = rand(n, I) * 2, rand(n, I)
         out = ksw.swiglu(g, u)
         ref = ksw.swiglu_reference(g, u)
         # per element. The kernel rounds once from f32, the plain version
         # twice (silu, then the product): two ulps of each |ref|
-        err, worst = check_close(f"swiglu N={n}", out, ref,
+        err, worst = check_close(f"swiglu N={n} I={I}", out, ref,
                                  2 * BF16_ULP * ref.float().abs() + 1e-6)
         # against silu(g)*u in f32 rounded once, as the kernel computes:
         # one ulp (the exp implementations differ in the last f32 bits)
         once = (tF.silu(g.float()) * u.float()).to(bf16)
-        _, worst1 = check_close(f"swiglu N={n} vs f32 rounded once", out,
-                                once, BF16_ULP * once.float().abs() + 1e-6)
+        _, worst1 = check_close(f"swiglu N={n} I={I} vs f32 rounded once",
+                                out, once, BF16_ULP * once.float().abs()
+                                + 1e-6)
+        del out, ref, once
+        _repeats("swiglu", ksw.swiglu, (g, u))
         ms = time_ms(ksw.swiglu, (g, u))
         eager = eager_ms(ksw.swiglu, (g, u))
         plain = time_ms(ksw.swiglu_reference, (g, u))
         b_ms, b_by = bound(3 * n * I * 2, 5 * n * I, PEAK_F32_CORES)
-        log(f"[kernels] swiglu N={n} I={I}: max abs err {err:.3g} (limit 2 "
+        log(f"[{tag}] swiglu N={n} I={I}: max abs err {err:.3g} (limit 2 "
             f"ulps of each |ref|, worst err/limit {worst:.3g}; against f32 "
-            f"rounded once, limit 1 ulp, worst {worst1:.3g}) "
-            f"kernel {ms:.4f} ms (eager {eager:.4f}) plain {plain:.4f} ms "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        r = res["swiglu"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.update(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
-                 bound_ms=b_ms,
-                 bound_by=b_by, shape=f"gate,up[{n},{I}] bf16")
+            f"rounded once, limit 1 ulp, worst {worst1:.3g}); a second "
+            f"launch repeats it bit for bit; kernel {ms:.4f} ms (eager "
+            f"{eager:.4f}) plain {plain:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by})")
+        res["swiglu"] = dict(
+            max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"gate,up[{n},{I}] bf16")
+        del g, u
+    if "swiglu_bwd" in kernels:
+        for dtype in (bf16, torch.float32):
+            gate, up = 2 * rand(n, I, dtype=dtype), rand(n, I, dtype=dtype)
+            go = rand(n, I, dtype=dtype)
+            dg, du = ksw.swiglu_bwd(gate, up, go)
+            rg, ru = ksw.swiglu_bwd_reference(gate, up, go)
+            # per element: the same f32 formula rounded once on both
+            # sides; the exp implementations differ in the last f32 bits,
+            # which may flip a bf16 rounding: one ulp (f32: 1e-5 of |ref|)
+            ulp = BF16_ULP if dtype == bf16 else 1e-5
+            err, worst = check_close(f"swiglu_bwd dgate N={n} I={I} {dtype}",
+                                     dg, rg, ulp * rg.float().abs() + 1e-6)
+            err2, worst2 = check_close(f"swiglu_bwd dup N={n} I={I} {dtype}",
+                                       du, ru, ulp * ru.float().abs() + 1e-6)
+            del dg, du, rg, ru
+            log(f"[{tag}] swiglu_bwd N={n} I={I} {dtype}: max abs err "
+                f"{max(err, err2):.3g} (limit {ulp:.3g} of each |ref|, worst "
+                f"err/limit {max(worst, worst2):.3g})")
+            if dtype == torch.float32:
+                res["swiglu_bwd"]["max_abs_err_f32"] = max(err, err2)
+                continue
+            args = (gate, up, go)
+            _repeats("swiglu_bwd", ksw.swiglu_bwd, args)
+            ms = time_ms(ksw.swiglu_bwd, args)
+            eager = eager_ms(ksw.swiglu_bwd, args)
+            plain = time_ms(ksw.swiglu_bwd_reference, args)
+            b_ms, b_by = bound(5 * n * I * 2, 12 * n * I, PEAK_F32_CORES)
+            log(f"[{tag}] swiglu_bwd N={n} I={I}: a second launch repeats "
+                f"it bit for bit; kernel {ms:.4f} ms (eager {eager:.4f}) "
+                f"plain {plain:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+            res["swiglu_bwd"] = dict(
+                max_abs_err=max(err, err2), ms=ms, eager_ms=eager,
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, shape=f"gate,up,grad[{n},{I}] bf16")
+            del args
+        del gate, up, go
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_kernels(cfg, dev="cuda"):
+    """Each kernel against its plain version at the 8B shapes."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    res = {}
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    for n in (8, 2048):
+        for r in (norm_checks(n, H, cfg.rms_norm_eps, rand, ("rms_norm",)),
+                  swiglu_checks(n, I, rand, ("swiglu",))):
+            for name, entry in r.items():
+                entry["max_abs_err"] = max(entry["max_abs_err"], res.get(
+                    name, {}).get("max_abs_err", 0.0))
+                res[name] = entry
 
     # ragged attention over a mixed batch: idle, decode, prefill chunks
     B, C, page, max_len = 8, 256, 16, 2048
@@ -743,8 +897,6 @@ def phase_train_kernels(cfg, batch=2, seq=2049, dev="cuda"):
     versions at the shapes of the training phase (batch x seq tokens of
     Llama-3-8B width), in bf16 (timed) and in f32."""
     import torch
-    from paddle_tpu_torch.ops.kernels import rms_norm as krms
-    from paddle_tpu_torch.ops.kernels import swiglu as ksw
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(4321)
     H, I = cfg.hidden_size, cfg.intermediate_size
@@ -756,82 +908,8 @@ def phase_train_kernels(cfg, batch=2, seq=2049, dev="cuda"):
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    # K2: RMSNorm dx
-    for dtype in (torch.bfloat16, torch.float32):
-        x, g = rand(n, H, dtype=dtype), rand(n, H, dtype=dtype)
-        w = 1 + 0.1 * rand(H, dtype=dtype)
-        dx = krms.rms_norm_dx(x, w, g, eps)
-        ref = krms.rms_norm_dx_reference(x, w, g, eps)
-        # per element. Both sides f32 inside and rounded once; the row
-        # sums and the difference inv*g*w - x*c come in another order,
-        # which moves dx by f32 noise of the magnitudes summed, mag (c
-        # taken over |g*w*x|: the row sum may cancel); in bf16 that may
-        # flip the output's rounding: one ulp of |ref|
-        xf, gw = x.float(), g.float() * w.float()
-        inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-        c = inv ** 3 * (gw * xf).abs().mean(-1, keepdim=True)
-        mag = (inv * gw).abs() + xf.abs() * c
-        ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5
-        err, worst = check_close(f"rms_norm_dx {dtype}", dx, ref,
-                                 ulp * ref.float().abs() + 1e-5 * mag
-                                 + 1e-6)
-        del xf, gw, inv, c, mag
-        log(f"[kernels] rms_norm_dx N={n} D={H} {dtype}: max abs err "
-            f"{err:.3g} (limit {'1 ulp' if ulp == BF16_ULP else '1e-5'} "
-            f"of each |ref| + 1e-5 of |inv*g*w| + |x*c|, worst err/limit "
-            f"{worst:.3g})")
-        if dtype == torch.bfloat16:
-            args = (x, w, g, eps)
-            ms = time_ms(krms.rms_norm_dx, args)
-            eager = eager_ms(krms.rms_norm_dx, args)
-            plain = time_ms(krms.rms_norm_dx_reference, args)
-            b_ms, b_by = bound((3 * n * H + H) * 2, 8 * n * H,
-                               PEAK_F32_CORES)
-            log(f"[kernels] rms_norm_dx: kernel {ms:.4f} ms (eager "
-                f"{eager:.4f}) plain {plain:.4f} ms bound {b_ms:.4f} ms "
-                f"({b_by})")
-            res["rms_norm_dx"] = dict(
-                max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                shape=f"x,g[{n},{H}] bf16")
-        else:
-            res["rms_norm_dx"]["max_abs_err_f32"] = err
-        del x, g, w, dx, ref
-
-    # K6: SwiGLU backward
-    for dtype in (torch.bfloat16, torch.float32):
-        gate, up = 2 * rand(n, I, dtype=dtype), rand(n, I, dtype=dtype)
-        go = rand(n, I, dtype=dtype)
-        dg, du = ksw.swiglu_bwd(gate, up, go)
-        rg, ru = ksw.swiglu_bwd_reference(gate, up, go)
-        # per element: the same f32 formula rounded once on both sides;
-        # the exp implementations differ in the last f32 bits, which may
-        # flip a bf16 rounding: one ulp (f32: 1e-5 of |ref|)
-        ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-5
-        err, worst = check_close(f"swiglu_bwd dgate {dtype}", dg, rg,
-                                 ulp * rg.float().abs() + 1e-6)
-        err2, worst2 = check_close(f"swiglu_bwd dup {dtype}", du, ru,
-                                   ulp * ru.float().abs() + 1e-6)
-        log(f"[kernels] swiglu_bwd N={n} I={I} {dtype}: max abs err "
-            f"{max(err, err2):.3g} (limit {ulp:.3g} of each |ref|, worst "
-            f"err/limit {max(worst, worst2):.3g})")
-        del dg, du, rg, ru
-        if dtype == torch.bfloat16:
-            args = (gate, up, go)
-            ms = time_ms(ksw.swiglu_bwd, args)
-            eager = eager_ms(ksw.swiglu_bwd, args)
-            plain = time_ms(ksw.swiglu_bwd_reference, args)
-            b_ms, b_by = bound(5 * n * I * 2, 12 * n * I, PEAK_F32_CORES)
-            log(f"[kernels] swiglu_bwd: kernel {ms:.4f} ms (eager "
-                f"{eager:.4f}) plain {plain:.4f} ms bound {b_ms:.4f} ms "
-                f"({b_by})")
-            res["swiglu_bwd"] = dict(
-                max_abs_err=max(err, err2), ms=ms, eager_ms=eager,
-                plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, shape=f"gate,up,grad[{n},{I}] bf16")
-        else:
-            res["swiglu_bwd"]["max_abs_err_f32"] = max(err, err2)
-        del gate, up, go
+    res.update(norm_checks(n, H, eps, rand, ("rms_norm_dx",)))
+    res.update(swiglu_checks(n, I, rand, ("swiglu_bwd",)))
     torch.cuda.empty_cache()
     res.update(flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=4))
     return res
@@ -992,8 +1070,10 @@ def phase_fused_kernels(cfg, n_res=4 * 2049, n_ce=8 * 1024, vc=1024,
     return res
 
 
-def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
-    """K7, K8 and K9 at the training shapes, causal, against the plain
+def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None,
+                 causal=True):
+    """K7, K8 and K9 at one shape ([batch, seq] tokens, nh query and kvh
+    key/value heads of width d; ``causal`` or not) against the plain
     versions, with per-element limits. ``a = sum_i p_i |v_i|`` scales a
     forward output's rounding error and ``attention_scales`` the
     gradients'. A key dropped from or added to a row of n keys moves its
@@ -1004,25 +1084,29 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
     forward's out and lse; the times come with the rate achieved (the
     bound's operations over the time) and the bound's share of the time,
     and with ``wide_batch`` K7, K8 and K9 are also timed at that batch
-    (train_full's [4, 2049])."""
+    (train_full's [4, 2049]). The library times are SDPA's: its forward,
+    and its backward (dq, dk and dv in one) as the device time of forward
+    plus backward less the forward's, both captured in CUDA graphs."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     res = {}
     s_tok = seq
-    pairs = s_tok * (s_tok + 1) // 2            # causal (query, key) pairs
+    # the (query, key) pairs attended
+    pairs = s_tok * (s_tok + 1) // 2 if causal else s_tok * s_tok
+    word = "causal" if causal else "non-causal"
     bh = batch * nh
     for dtype in (torch.bfloat16, torch.float32):
         q = rand(batch, s_tok, nh, d, dtype=dtype)
         k = rand(batch, s_tok, kvh, d, dtype=dtype)
         v = rand(batch, s_tok, kvh, d, dtype=dtype)
         go = rand(batch, s_tok, nh, d, dtype=dtype)
-        out, lse = kfa.flash_attention_fwd(q, k, v, True)
-        ref, ref_lse = kfa.flash_attention_fwd_reference(q, k, v, True)
+        out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = kfa.flash_attention_fwd_reference(q, k, v, causal)
         torch.cuda.synchronize()
         f32 = [t.float() for t in (q, k, v)]
         a = kfa.flash_attention_fwd_reference(f32[0], f32[1], f32[2].abs(),
-                                              True)[0]
+                                              causal)[0]
         if dtype == torch.bfloat16:
             # both sides round each probability to bf16 before P.V (at
             # most 2^-8 * a each: bf16's unit roundoff is 2^-8) and round
@@ -1030,7 +1114,7 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
             err, worst = check_close(
                 "flash fwd bf16", out, ref,
                 1.01 * (2 ** -7 * a + BF16_ULP * ref.float().abs()) + 1e-6)
-            ref32, _ = kfa.flash_attention_fwd_reference(*f32, True)
+            ref32, _ = kfa.flash_attention_fwd_reference(*f32, causal)
             # against f32 throughout: the kernel's P rounding (2^-8 * a)
             # and its output rounding
             _, worst1 = check_close("flash fwd bf16 vs f32 plain", out,
@@ -1042,13 +1126,23 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
                                      1e-5 * a + 1e-6)
             tol = 1e-5 * a + 1e-6
             # the same check must refuse a plain version whose rows each
-            # lose their last key (causal offset -1) or gain one (+1)
-            dropped = kfa.flash_attention_fwd_reference(
-                torch.cat([q, q[:, -1:]], 1), k, v, True)[0][:, :s_tok]
-            extra = kfa.flash_attention_fwd_reference(
-                q[:, :s_tok - 1], k, v, True)[0]
-            # rows s/2 .. s-2 only: each sees over a thousand keys
-            sl = slice(s_tok // 2, s_tok - 1)
+            # lose their last key or gain one: causal, the diagonal
+            # offset by -1 or +1 (rows s/2 .. s-2 only: each sees at
+            # least s/2 keys); not causal, the last key left out or the
+            # first key seen twice
+            if causal:
+                dropped = kfa.flash_attention_fwd_reference(
+                    torch.cat([q, q[:, -1:]], 1), k, v, True)[0][:, :s_tok]
+                extra = kfa.flash_attention_fwd_reference(
+                    q[:, :s_tok - 1], k, v, True)[0]
+                sl = slice(s_tok // 2, s_tok - 1)
+            else:
+                dropped = kfa.flash_attention_fwd_reference(
+                    q, k[:, :-1], v[:, :-1], False)[0]
+                extra = kfa.flash_attention_fwd_reference(
+                    q, torch.cat([k, k[:, :1]], 1),
+                    torch.cat([v, v[:, :1]], 1), False)[0]
+                sl = slice(None)
             for name, bad in (("dropped", dropped), ("extra", extra)):
                 try:
                     check_close(f"flash fwd f32 vs one key {name}",
@@ -1063,19 +1157,16 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
         lse_err, _ = check_close(f"flash lse {dtype}", lse, ref_lse,
                                  1e-6 * ref_lse.abs() + 1e-5)
         delta = kfa._delta(ref, go)
-        dk, dv = kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta, True)
-        dq = kfa.flash_attention_dq(q, k, v, go, ref_lse, delta, True)
-        rk, rv = kfa.flash_attention_dkv_reference(q, k, v, go, ref_lse,
-                                                   delta, True)
-        rq = kfa.flash_attention_dq_reference(q, k, v, go, ref_lse, delta,
-                                              True)
+        bwd_args = (q, k, v, go, ref_lse, delta, causal)
+        dk, dv = kfa.flash_attention_dkv(*bwd_args)
+        dq = kfa.flash_attention_dq(*bwd_args)
+        rk, rv = kfa.flash_attention_dkv_reference(*bwd_args)
+        rq = kfa.flash_attention_dq_reference(*bwd_args)
         torch.cuda.synchronize()
         if dtype == torch.bfloat16:
-            again = (*kfa.flash_attention_fwd(q, k, v, True),
-                     *kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta,
-                                              True),
-                     kfa.flash_attention_dq(q, k, v, go, ref_lse, delta,
-                                            True))
+            again = (*kfa.flash_attention_fwd(q, k, v, causal),
+                     *kfa.flash_attention_dkv(*bwd_args),
+                     kfa.flash_attention_dq(*bwd_args))
             for name, a1, a2 in zip(("out", "lse", "dk", "dv", "dq"),
                                     (out, lse, dk, dv, dq), again):
                 if not torch.equal(a1, a2):
@@ -1084,9 +1175,10 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
                                          f"other bits")
             del again
             log(f"[kernels] flash fwd/dkv/dq bf16 B={batch} S={s_tok} "
-                f"H={nh} KVH={kvh}: a second launch repeats out, lse, dk, "
+                f"H={nh} KVH={kvh} D={d} {word}: a second launch repeats "
+                f"out, lse, dk, "
                 f"dv and dq bit for bit")
-        sq_, sk_, sv_ = attention_scales(q, k, v, go, ref_lse, delta, True)
+        sq_, sk_, sv_ = attention_scales(*bwd_args)
         errs = {}
         for name, got, want, sc in (("dq", dq, rq, sq_), ("dk", dk, rk, sk_),
                                     ("dv", dv, rv, sv_)):
@@ -1101,7 +1193,7 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
             errs[name] = check_close(f"flash {name} {dtype}", got, want, tol)
         del sq_, sk_, sv_, rq, rk, rv, a
         log(f"[kernels] flash attention B={batch} S={s_tok} H={nh} "
-            f"KVH={kvh} D={d} causal {dtype}: fwd max abs err {err:.3g} "
+            f"KVH={kvh} D={d} {word} {dtype}: fwd max abs err {err:.3g} "
             f"(worst err/limit {worst:.3g}"
             + (f"; vs f32 plain {worst1:.3g}" if dtype == torch.bfloat16
                else "") + f"), lse {lse_err:.3g}; "
@@ -1113,6 +1205,7 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
                 errs["dk"][0], errs["dv"][0])
             res["flash_attention_dq"]["max_abs_err_f32"] = errs["dq"][0]
             del q, k, v, go, out, lse, ref, ref_lse, delta, dq, dk, dv
+            del bwd_args
             torch.cuda.empty_cache()
             continue
         # bf16: times at the training shape
@@ -1120,7 +1213,7 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
         qb = batch * s_tok * nh * d * elt        # q, out, dO, dq bytes
         kb = batch * s_tok * kvh * d * elt       # k, v, dk, dv bytes
         sb = bh * s_tok * 4                      # lse or delta bytes
-        fwd_args = (q, k, v, True)
+        fwd_args = (q, k, v, causal)
         ms = time_ms(kfa.flash_attention_fwd, fwd_args, iters=5)
         plain = time_ms(kfa.flash_attention_fwd_reference, fwd_args,
                         iters=2)
@@ -1128,35 +1221,35 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
 
         def sdpa(qt, kt, vt):
             return tF.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True,
+                                                   is_causal=causal,
                                                    enable_gqa=True)
         lib = time_ms(sdpa, (qt, kt, vt), iters=5)
         b_ms, b_by = bound(2 * qb + 2 * kb + sb, 4 * d * pairs * bh,
                            PEAK_BF16)
         shape = (f"q[{batch},{s_tok},{nh},{d}] kv[{batch},{s_tok},{kvh},"
-                 f"{d}] bf16 causal")
+                 f"{d}] bf16 {word}")
         res["flash_attention_fwd"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=b_ms, bound_by=b_by, shape=shape)
-        bwd_args = (q, k, v, go, ref_lse, delta, True)
         ms_kv = time_ms(kfa.flash_attention_dkv, bwd_args, iters=5)
         ms_q = time_ms(kfa.flash_attention_dq, bwd_args, iters=5)
         plain_kv = time_ms(kfa.flash_attention_dkv_reference, bwd_args,
                            iters=2)
         plain_q = time_ms(kfa.flash_attention_dq_reference, bwd_args,
                           iters=2)
-        qg, kg, vg = (t.detach().clone().requires_grad_()
-                      for t in (qt, kt, vt))
         gt = go.transpose(1, 2)
 
-        def sdpa_fwd_bwd(qg, kg, vg, gt):
-            out = sdpa(qg, kg, vg)
-            return torch.autograd.grad(out, (qg, kg, vg), gt)
-        lib_fb = eager_ms(sdpa_fwd_bwd, (qg, kg, vg, gt), iters=5)
-        lib_f = eager_ms(sdpa, (qg.detach(), kg.detach(), vg.detach()),
-                         iters=5)
-        # SDPA's backward computes dq, dk and dv in one: K8 + K9 together
-        lib_bwd = float(lib_fb) - float(lib_f)
+        def sdpa_fwd_bwd(*qkv_g):
+            # leaves made inside the captured call: autograd syncs with
+            # the streams its leaves were made on, which must be the
+            # capturing one
+            qkv = [t.detach().requires_grad_() for t in qkv_g[:3]]
+            return torch.autograd.grad(sdpa(*qkv), qkv, qkv_g[3])
+        # SDPA's backward computes dq, dk and dv in one: K8 + K9 together;
+        # its device time is that of forward plus backward less the
+        # forward's, each from a CUDA graph
+        lib_fb = time_ms(sdpa_fwd_bwd, (qt, kt, vt, gt), iters=5)
+        lib_bwd = float(lib_fb) - float(lib)
         kv_ms, kv_by = bound(2 * qb + 2 * kb + 2 * sb + 2 * kb,
                              8 * d * pairs * bh, PEAK_BF16)
         q_ms, q_by = bound(2 * qb + 2 * kb + 2 * sb + qb,
@@ -1181,11 +1274,11 @@ def flash_checks(batch, seq, nh, kvh, d, rand, wide_batch=None):
             f"flash_attention_dq: kernel {ms_q:.4f} ms plain {plain_q:.4f} "
             f"ms bound {q_ms:.4f} ms ({q_by}); "
             f"{_rate(6 * d * pairs * bh, ms_q, q_ms)}; SDPA backward (dq, "
-            f"dk, dv together; eager fwd+bwd {lib_fb:.4f} - fwd "
-            f"{lib_f:.4f}) {lib_bwd:.4f} ms; K8 + K9 "
+            f"dk, dv together; fwd+bwd {lib_fb:.4f} - fwd {lib:.4f}, "
+            f"device times) {lib_bwd:.4f} ms; K8 + K9 "
             f"{float(ms_kv) + float(ms_q):.4f} ms")
         del q, k, v, go, out, lse, ref, ref_lse, delta, dq, dk, dv
-        del qt, kt, vt, qg, kg, vg, gt
+        del qt, kt, vt, gt, bwd_args
         torch.cuda.empty_cache()
         if wide_batch:
             for name, wide in zip(("flash_attention_fwd",
@@ -3731,86 +3824,25 @@ def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
     8196 tokens) in f32 and bf16. With ``head_cfg``, K12 and K7-K9 at its
     head layout too (:func:`_qwen2_head_checks`)."""
     import torch
-    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
     res = {}
     types = {"bf16": torch.bfloat16, "f32": torch.float32}
     for tag, E, k, d, h, dtypes in shapes:
-        dtypes = [types[t] for t in dtypes]
-        perm, gid, P, real = _routed_layout(n_tokens, k, E, dev, seed=E)
-        counts = torch.bincount(gid.long(), minlength=E).tolist()
-        log(f"[moe_kernels] {tag}: P {P}, {len(counts)} experts, row tiles "
-            f"per expert {min(counts)}..{max(counts)}")
-        gen = torch.Generator(device=dev).manual_seed(7 + E)
-        for dtype in dtypes:
-            # padding rows are zero in x and in dy, as on the path
-            x = torch.randn(P, d, device=dev, generator=gen) * real[:, None]
-            dy = torch.randn(P, h, device=dev, generator=gen) * real[:, None]
-            w = 0.02 * torch.randn(E, d, h, device=dev, generator=gen)
-            x, dy, w = x.to(dtype), dy.to(dtype), w.to(dtype)
-            calls = {
-                "grouped_matmul": (kgmm.grouped_matmul, (x, w, gid),
-                                   lambda a, b, g: kgmm.grouped_matmul_reference(
-                                       a, b, g)),
-                "grouped_matmul_t": (kgmm.grouped_matmul_t, (dy, w, gid),
-                                     lambda a, b, g: kgmm.grouped_matmul_reference(
-                                         a, b, g, True)),
-                "grouped_dw": (kgmm.grouped_dw, (x, dy, gid, E),
-                               kgmm.grouped_dw_reference),
-            }
-            for name, (fn, args, plain) in calls.items():
-                out = fn(*args)
-                ref = plain(*args)
-                mag = plain(*(a.float().abs() if torch.is_tensor(a)
-                              and a.is_floating_point() else a
-                              for a in args))
-                torch.cuda.synchronize()
-                # every output element is written once, in one order
-                if not torch.equal(fn(*args), out):
-                    raise AssertionError(f"{name} {tag} {dtype}: a second "
-                                         f"launch on the same inputs gave "
-                                         f"other bits")
-                # per element: both sides take f32 products and round once;
-                # the sums come in another order, 1e-5 of the sum of
-                # |terms|, which in bf16 may flip the rounding: one ulp
-                ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
-                err, worst = check_close(
-                    f"{name} {tag} {dtype}", out, ref,
-                    ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
-                del out, ref, mag
-                log(f"[moe_kernels] {name} {tag} {dtype}: max abs err "
-                    f"{err:.3g} (limit {'1 ulp of |ref| + ' if ulp else ''}"
-                    f"1e-5 of the sum of |terms|, worst err/limit "
-                    f"{worst:.3g}); a second launch repeats it bit for bit")
-                r = res.setdefault(name, {"max_abs_err": 0.0})
-                key = "max_abs_err" if dtype == torch.bfloat16 \
-                    else "max_abs_err_f32"
-                r[key] = max(r.get(key, 0.0), err)
-                if dtype != torch.bfloat16:
-                    continue
-                ms = time_ms(fn, args, iters=5)
-                # the plain version reads its run boundaries on the host:
-                # eager, host included
-                plain_ms = eager_ms(plain, args, iters=2)
-                # each mode reads two of x [P, d], dy [P, h] and the bank
-                # [E, d, h] and writes the third
-                n_bytes = (P * d + P * h + E * d * h) * 2
-                b_ms, b_by = bound(n_bytes, 2.0 * P * d * h, PEAK_BF16)
-                lib = _grouped_mm_ms(name, args, E)
-                log(f"[moe_kernels] {name} {tag}: kernel {ms:.4f} ms "
-                    f"({_rate(2.0 * P * d * h, ms, b_ms)}) plain "
-                    f"{plain_ms:.4f} ms (eager) library "
-                    f"{'none' if lib is None else f'{lib:.4f} ms'} bound "
-                    f"{b_ms:.4f} ms ({b_by})")
-                entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                             bound_ms=b_ms, bound_by=b_by,
-                             shape=f"P {P} d {d} h {h} E {E} bf16")
-                entry["design"] = WGMMA_DESIGN
-                if tag == "wide":
-                    r.update(entry)
-                else:
-                    r["bench"] = entry
-            del x, dy, w
-            torch.cuda.empty_cache()
+        errs, entries = _grouped_at(tag, E, k, d, h,
+                                    [types[t] for t in dtypes], n_tokens,
+                                    dev)
+        for name, (e16, e32) in errs.items():
+            r = res.setdefault(name, {"max_abs_err": 0.0})
+            if e16 is not None:
+                r["max_abs_err"] = max(r["max_abs_err"], e16)
+            if e32 is not None:
+                r["max_abs_err_f32"] = max(r.get("max_abs_err_f32", 0.0),
+                                           e32)
+            if name not in entries:
+                continue
+            if tag == "wide":
+                r.update(entries[name])
+            else:
+                r["bench"] = entries[name]
     for name, entry in _grouped_decode().items():
         res[name]["decode"] = entry
     if head_cfg is not None:
@@ -3818,8 +3850,91 @@ def phase_moe_kernels(head_cfg=None, dev="cuda", n_tokens=8196,
     return res
 
 
+def _grouped_at(tag, E, k, d, h, dtypes, n_tokens, dev,
+                log_tag="moe_kernels"):
+    """K14 (both modes) and K15 at one routed layout (a seeded top-``k``
+    routing of ``n_tokens`` tokens over ``E`` experts, widths d and h) in
+    each of ``dtypes``, against their plain versions per element, a
+    second launch repeating the bits; bf16 timed beside the plain
+    version, torch._grouped_mm and the bound. Returns ({name: (bf16 max
+    abs err or None, f32 or None)}, {name: bf16 entry})."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgmm
+    perm, gid, P, real = _routed_layout(n_tokens, k, E, dev, seed=E)
+    counts = torch.bincount(gid.long(), minlength=E).tolist()
+    log(f"[{log_tag}] {tag}: P {P}, {len(counts)} experts, row tiles per "
+        f"expert {min(counts)}..{max(counts)}")
+    gen = torch.Generator(device=dev).manual_seed(7 + E)
+    errs, entries = {}, {}
+    for dtype in dtypes:
+        # padding rows are zero in x and in dy, as on the path
+        x = torch.randn(P, d, device=dev, generator=gen) * real[:, None]
+        dy = torch.randn(P, h, device=dev, generator=gen) * real[:, None]
+        w = 0.02 * torch.randn(E, d, h, device=dev, generator=gen)
+        x, dy, w = x.to(dtype), dy.to(dtype), w.to(dtype)
+        calls = {
+            "grouped_matmul": (kgmm.grouped_matmul, (x, w, gid),
+                               lambda a, b, g: kgmm.grouped_matmul_reference(
+                                   a, b, g)),
+            "grouped_matmul_t": (kgmm.grouped_matmul_t, (dy, w, gid),
+                                 lambda a, b, g: kgmm.grouped_matmul_reference(
+                                     a, b, g, True)),
+            "grouped_dw": (kgmm.grouped_dw, (x, dy, gid, E),
+                           kgmm.grouped_dw_reference),
+        }
+        for name, (fn, args, plain) in calls.items():
+            out = fn(*args)
+            ref = plain(*args)
+            mag = plain(*(a.float().abs() if torch.is_tensor(a)
+                          and a.is_floating_point() else a for a in args))
+            torch.cuda.synchronize()
+            # every output element is written once, in one order
+            if not torch.equal(fn(*args), out):
+                raise AssertionError(f"{name} {tag} {dtype}: a second "
+                                     f"launch on the same inputs gave "
+                                     f"other bits")
+            # per element: both sides take f32 products and round once;
+            # the sums come in another order, 1e-5 of the sum of |terms|,
+            # which in bf16 may flip the rounding: one ulp
+            ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+            err, worst = check_close(
+                f"{name} {tag} {dtype}", out, ref,
+                ulp * ref.float().abs() + 1e-5 * mag + 1e-6)
+            del out, ref, mag
+            log(f"[{log_tag}] {name} {tag} {dtype}: max abs err {err:.3g} "
+                f"(limit {'1 ulp of |ref| + ' if ulp else ''}1e-5 of the "
+                f"sum of |terms|, worst err/limit {worst:.3g}); a second "
+                f"launch repeats it bit for bit")
+            e16, e32 = errs.get(name, (None, None))
+            errs[name] = (err, e32) if dtype == torch.bfloat16 \
+                else (e16, err)
+            if dtype != torch.bfloat16:
+                continue
+            ms = time_ms(fn, args, iters=5)
+            # the plain version reads its run boundaries on the host:
+            # eager, host included
+            plain_ms = eager_ms(plain, args, iters=2)
+            # each mode reads two of x [P, d], dy [P, h] and the bank
+            # [E, d, h] and writes the third
+            n_bytes = (P * d + P * h + E * d * h) * 2
+            b_ms, b_by = bound(n_bytes, 2.0 * P * d * h, PEAK_BF16)
+            lib = _grouped_mm_ms(name, args, E)
+            log(f"[{log_tag}] {name} {tag}: kernel {ms:.4f} ms "
+                f"({_rate(2.0 * P * d * h, ms, b_ms)}) plain {plain_ms:.4f}"
+                f" ms (eager) library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'} bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            entries[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 shape=f"P {P} d {d} h {h} E {E} bf16",
+                                 design=WGMMA_DESIGN)
+        del x, dy, w
+        torch.cuda.empty_cache()
+    return errs, entries
+
+
 def _grouped_decode(slots=8, top_k=4, n_experts=60, d=3584, h=1408,
-                    dev="cuda"):
+                    dev="cuda", tag="moe_kernels"):
     """K14 and K14 transposed at the layout of a serve_moe decode forward:
     ``slots`` tokens routed top-``top_k`` over ``n_experts`` experts give
     32 real rows in P = (1 + 60) * 128 = 7808 (every expert owns a padding
@@ -3850,18 +3965,28 @@ def _grouped_decode(slots=8, top_k=4, n_experts=60, d=3584, h=1408,
         err, worst = check_close(f"{name} decode", out, ref,
                                  BF16_ULP * ref.float().abs() + 1e-5 * mag
                                  + 1e-6)
+        if not torch.equal(fn(*args), out):
+            raise AssertionError(f"{name} decode: a second launch on the "
+                                 f"same inputs gave other bits")
         ms = time_ms(fn, args, iters=5)
+        # the plain version reads its run boundaries on the host: eager
+        plain_ms = eager_ms(lambda a, b, g, t=t:
+                            kgmm.grouped_matmul_reference(a, b, g, t),
+                            args, iters=2)
         lib = _grouped_mm_ms(name, args, n_experts)
         b_ms, b_by = bound((P * d + P * h + n_experts * d * h) * 2,
                            2.0 * P * d * h, PEAK_BF16)
         shape = (f"P {P} ({int(real.sum())} real rows) d {d} h {h} "
                  f"E {n_experts} bf16")
-        log(f"[moe_kernels] {name} decode {shape}: kernel {ms:.4f} ms "
+        log(f"[{tag}] {name} decode {shape}: kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms (eager) "
             f"library {'none' if lib is None else f'{lib:.4f} ms'} bound "
             f"{b_ms:.4f} ms ({b_by}); max abs err {err:.3g} (worst "
-            f"err/limit {worst:.3g})")
-        res[name] = dict(ms=ms, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, shape=shape, max_abs_err=err)
+            f"err/limit {worst:.3g}); a second launch repeats it bit for "
+            f"bit")
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, shape=shape,
+                         max_abs_err=err)
         del out, ref, mag
     del x, dy, w
     torch.cuda.empty_cache()
@@ -3873,64 +3998,18 @@ def _qwen2_head_checks(cfg, dev):
     heads (rep 7, which does not divide K12's 64-row CTA: its last row is
     unused), against their plain versions per element, in bf16 and f32:
     K12 on the serve phase's mixed batch and at serve_moe's decode step
-    (one token a slot, its keys split 8 ways), K7-K9 at [1, 2049]
-    tokens."""
+    (one token a slot, its keys split 8 ways; :func:`_ragged_at`), K7-K9
+    at [1, 2049] tokens."""
     import torch
-    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     gen = torch.Generator(device=dev).manual_seed(99)
 
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    nh, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
-    B, C, page, mp = 8, 256, 16, 2048 // 16
-    P = B * mp + 1
-    lengths = np.array([0, 1, 1, 17, 256, 256, 1, 100], np.int32)
-    ctx = np.array([0, 1800, 700, 300, 0, 1000, 1200, 33], np.int32)
-    tables = _mixed_tables(B, P, mp, page, ctx, lengths, 8)
-    kp, vp = rand(kvh, P, page, d), rand(kvh, P, page, d)
-    kp[:, 0] = float("nan")
-    vp[:, 0] = float("nan")
-    args = (rand(B, C, nh, d), kp, vp,
-            *(torch.from_numpy(a).to(dev) for a in (tables, ctx, lengths)))
-    out = krpa.ragged_paged_attention(*args)
-    ref = krpa.ragged_paged_attention_reference(*args)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all() or any(
-            out[b, lengths[b]:].any() for b in range(B)):
-        raise AssertionError("ragged attention at rep 7: non-finite output "
-                             "or rows past a slot's length not zero")
-    err, worst, worst1, err32, worst32 = ragged_checks(krpa, args, ref, out)
-    log(f"[moe_kernels] ragged_paged_attention H={nh} KVH={kvh} (rep "
-        f"{nh // kvh}) D={d}: bf16 max abs err {err:.3g} (worst err/limit "
-        f"{worst:.3g}; vs f32 plain {worst1:.3g}); f32 {err32:.3g} (worst "
-        f"{worst32:.3g})")
-    # the decode forward serve_moe runs 7 of every 8 times: one token in
-    # each of 8 slots, contexts 64-2048 (ctx - 1 cached), and its plan
-    ctx1 = np.linspace(64, mp * page, B).astype(np.int32) - 1
-    ones = np.ones(B, np.int32)
-    args = (rand(B, 1, nh, d), kp, vp,
-            *(torch.from_numpy(a).to(dev) for a in (
-                _mixed_tables(B, P, mp, page, ctx1, ones, 9), ctx1, ones)))
-    out = krpa.ragged_paged_attention(*args)
-    ref = krpa.ragged_paged_attention_reference(*args)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise AssertionError("ragged attention at rep 7, lengths 1: "
-                             "non-finite output")
-    err, worst, worst1, err32, worst32 = ragged_checks(krpa, args, ref, out)
-    if not torch.equal(krpa.ragged_paged_attention(*args), out):
-        raise AssertionError("ragged attention at rep 7, lengths 1: a "
-                             "second launch gave other bits")
-    log(f"[moe_kernels] ragged_paged_attention H={nh} KVH={kvh} at lengths "
-        f"1, B={B}, ctx {ctx1.min() + 1}-{ctx1.max() + 1}: split plan "
-        f"{krpa.split_plan(B, 1, kvh, nh // kvh, d, mp * page)}; bf16 max "
-        f"abs err {err:.3g} (worst err/limit {worst:.3g}; vs f32 plain "
-        f"{worst1:.3g}); f32 {err32:.3g} (worst {worst32:.3g}); a second "
-        f"launch repeats it bit for bit")
-    del args, out, ref, kp, vp
-    flash_checks(1, 2049, nh, kvh, d, rand)
+    _ragged_at("qwen2", cfg.num_attention_heads, cfg.num_key_value_heads,
+               cfg.head_dim, dev, seed=99, log_tag="moe_kernels")
+    flash_checks(1, 2049, cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim, rand)
     torch.cuda.empty_cache()
 
 
@@ -4533,6 +4612,832 @@ def phase_legacy(cfg, model, serve, dev="cuda"):
     return dict(launches=total, tok_s=tok_s, streams=streams)
 
 
+# ---- the model families: GPT-2, ERNIE, DeepSeek-V2 and Llama-3-70B --------
+
+def _ragged_at(tag, nh, kvh, d, dev, seed, log_tag="model_kernels"):
+    """K12 at one head layout against its plain version per element
+    (``ragged_checks``; bf16 and f32), on the serve phase's mixed batch
+    (idle, decode and prefill slots in a chunk of 256, pages of 16, the
+    NaN trash page) and at a decode step (one token in each of 8 slots,
+    contexts 64-2048, its split plan), a second launch repeating the
+    bits; each timed beside its bound. Returns {"mixed": ..., "decode":
+    ...}."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    B, page, mp = 8, 16, 2048 // 16
+    P = B * mp + 1
+    kp, vp = rand(kvh, P, page, d), rand(kvh, P, page, d)
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    ones = np.ones(B, np.int32)
+    ctx1 = np.linspace(64, mp * page, B).astype(np.int32) - 1
+    layouts = {
+        "mixed": (256, np.array([0, 1, 1, 17, 256, 256, 1, 100], np.int32),
+                  np.array([0, 1800, 700, 300, 0, 1000, 1200, 33],
+                           np.int32)),
+        "decode": (1, ones, ctx1)}
+    res = {}
+    for name, (C, lengths, ctx) in layouts.items():
+        tables = _mixed_tables(B, P, mp, page, ctx, lengths, seed + C)
+        args = (rand(B, C, nh, d), kp, vp,
+                *(torch.from_numpy(a).to(dev) for a in (tables, ctx,
+                                                         lengths)))
+        out = krpa.ragged_paged_attention(*args)
+        ref = krpa.ragged_paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all() or any(
+                out[b, lengths[b]:].any() for b in range(B)):
+            raise AssertionError(f"ragged attention {tag} {name}: "
+                                 f"non-finite output or rows past a slot's "
+                                 f"length not zero")
+        err, worst, worst1, err32, worst32 = ragged_checks(krpa, args, ref,
+                                                           out)
+        if not torch.equal(krpa.ragged_paged_attention(*args), out):
+            raise AssertionError(f"ragged attention {tag} {name}: a second "
+                                 f"launch gave other bits")
+        ms = time_ms(krpa.ragged_paged_attention, args)
+        plain = time_ms(krpa.ragged_paged_attention_reference, args,
+                        iters=2)
+        kv_keys = int(np.sum((ctx + lengths)[lengths > 0]))
+        n_bytes = (int(lengths.sum()) * nh * d * 2 + B * C * nh * d * 2
+                   + 2 * kv_keys * kvh * d * 2)
+        pairs = sum(int(ctx[b]) * int(lengths[b])
+                    + int(lengths[b]) * (int(lengths[b]) + 1) // 2
+                    for b in range(B))
+        b_ms, b_by = bound(n_bytes, 4 * d * nh * pairs, PEAK_BF16)
+        plan = krpa.split_plan(B, C, kvh, nh // kvh, d, mp * page)
+        shape = (f"q[{B},{C},{nh},{d}] pools[{kvh},{P},{page},{d}] bf16 "
+                 f"(rep {nh // kvh}) {name}")
+        log(f"[{log_tag}] ragged_paged_attention {tag} at {shape}, lengths "
+            f"{lengths.tolist()} ctx {ctx.tolist()}: bf16 max abs err "
+            f"{err:.3g} (worst err/limit {worst:.3g}; vs f32 plain "
+            f"{worst1:.3g}); f32 {err32:.3g} (worst {worst32:.3g}); a "
+            f"second launch repeats it bit for bit; split plan {plan}; "
+            f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by})")
+        res[name] = dict(max_abs_err=err, max_abs_err_f32=err32, ms=ms,
+                         plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by, shape=shape, split_plan=str(plan))
+        del args, out, ref
+    del kp, vp
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_model_kernels(dev="cuda"):
+    """The kernels at the shapes the new model paths give them, each
+    against its plain version per element, bits repeated, timed beside
+    its bound: K7-K9 at ERNIE's [16, 512] non-causal and GPT-2's [8,
+    1024] causal (12 heads, D 64); K12 at GPT-2's 12/12 heads (rep 1, D
+    64) and Llama-3-70B's 64/8 (rep 8, D 128), each in a mixed and a
+    decode step; K1/K2 at DeepSeek's latent widths 512 and 1536 and its
+    hidden 5120, K5/K6 at its widths 1536, 3072 and 12288 ([2, 2048]
+    tokens); K14, K14-T and K15 at DeepSeek's training layout (160
+    experts, top-6 of 4096 tokens, d 5120, h 1536) and K14 both modes at
+    its decode layout (8 tokens). Returns {kernel: {tag: entry}}."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(2024)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+    out = {}
+
+    def put(tag, entries):
+        for name, entry in entries.items():
+            out.setdefault(name, {})[tag] = entry
+    put("ernie", flash_checks(16, 512, 12, 12, 64, rand, causal=False))
+    put("gpt2", flash_checks(8, 1024, 12, 12, 64, rand))
+    for tag, nh, kvh, d in (("gpt2", 12, 12, 64), ("llama70", 64, 8, 128)):
+        for layout, entry in _ragged_at(tag, nh, kvh, d, dev,
+                                        seed=31 + nh).items():
+            out.setdefault("ragged_paged_attention", {})[
+                f"{tag}_{layout}"] = entry
+    for D in (512, 1536, 5120):
+        put(f"deepseek_D{D}", norm_checks(4096, D, 1e-6, rand,
+                                          tag="model_kernels"))
+    for I in (1536, 3072, 12288):
+        put(f"deepseek_I{I}", swiglu_checks(4096, I, rand,
+                                            tag="model_kernels"))
+    errs, entries = _grouped_at("deepseek", 160, 6, 5120, 1536,
+                                (torch.bfloat16,), 4096, dev,
+                                log_tag="model_kernels")
+    put("deepseek", {name: dict(entry, max_abs_err=errs[name][0])
+                     for name, entry in entries.items()})
+    put("deepseek_decode", _grouped_decode(top_k=6, n_experts=160, d=5120,
+                                           h=1536, tag="model_kernels"))
+    return out
+
+
+GPT2_KERNELS = ("flash_attention_fwd", "flash_attention_dkv",
+                "flash_attention_dq", "ragged_paged_attention",
+                "ragged_paged_attention_quant")
+
+
+def phase_gpt2(dev="cuda"):
+    """GPT-2 small (124M: 12 layers, 768 wide, 12 heads, vocab 50257),
+    seeded random weights: (a) examples/train_gpt2.py's flow in f32 with
+    dropout 0.1 (BASELINE config 1): AdamW, decay 0.01, under
+    LinearWarmup(3e-4, 20 steps from 0) with ClipGradByGlobalNorm(1.0),
+    40 steps of [8, 1024] windows of the Markov corpus (the mean of the
+    last 5 losses must be 0.15 below the first 5's), then a save, a load
+    into a fresh model and optimizer and one resumed step that must equal
+    the original's bit for bit; live dropout takes the plain attention,
+    so no kernel runs; (b) one bf16 step at dropout 0 (K7-K9, counted
+    exactly); (c) ``generate``, batch 8, prompts of 128, 64 new, greedy;
+    (d) the engine, 8 slots, page 16: 12 requests (prompts 64-900, 32
+    new) through run() (K12 counted), their agreement with ``generate``'s
+    streams reported; 4 requests over int8 pools (K13), one under
+    weight-only int8."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    cfg = GPT2Config.small()
+    L, batch, seq = cfg.num_hidden_layers, 8, 1024
+    corpus = synthetic_corpus(512, batch * seq * 50)
+
+    def sample_batch(step):
+        rng = np.random.RandomState(step)
+        idx = rng.randint(0, corpus.size - seq, batch)
+        return torch.from_numpy(np.stack(
+            [corpus[i:i + seq] for i in idx])).to(dev)
+
+    def build(seed):
+        model = GPT2ForCausalLM(cfg, device=dev, seed=seed, dropout_seed=1)
+        sched = lr.LinearWarmup(3e-4, warmup_steps=20, start_lr=0.0,
+                                end_lr=3e-4)
+        opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                    weight_decay=0.01,
+                    grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+        return model, opt, sched
+
+    def train_step(model, opt, sched, ids):
+        _, loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.item()
+
+    # (a) the train_gpt2 flow, f32, dropout 0.1
+    model, opt, sched = build(0)
+    n_params = sum(p.numel() for p in model.parameters())
+    wrappers = _counted(GPT2_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for step in range(40):
+        t0 = time.perf_counter()
+        losses.append(train_step(model, opt, sched, sample_batch(step)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches_a = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first - 0.15:
+        raise AssertionError(f"[gpt2] (a) the loss did not drop: {first:.4f}"
+                             f" -> {last:.4f}: {losses}")
+    if any(launches_a.values()):
+        raise AssertionError(f"[gpt2] (a) live dropout takes the plain "
+                             f"attention, yet kernels ran: {launches_a}")
+    t = Timing(walls[2:])
+    log(f"[gpt2] (a) GPT-2 small {n_params / 1e6:.1f} M params f32, dropout "
+        f"0.1, AdamW(LinearWarmup(3e-4, 20), decay 0.01, "
+        f"ClipGradByGlobalNorm(1.0)), 40 steps of [{batch}, {seq}]: step "
+        f"{t:.1f} ms (median [least-greatest] of steps 2-39), "
+        f"{batch * seq / (t / 1e3):.0f} tokens/s, peak memory {peak:.2f} "
+        f"GB; loss {first:.4f} (first 5) -> {last:.4f} (last 5); "
+        f"launches {launches_a} (live dropout: the plain attention)")
+    tmp = tempfile.mkdtemp(prefix="gpt2_")
+    try:
+        ptt.save(model.state_dict(), os.path.join(tmp, "model.pdparams"))
+        ptt.save(opt.state_dict(), os.path.join(tmp, "opt.pdopt"))
+        model2, opt2, sched2 = build(1)
+        model2.load_state_dict(ptt.load(os.path.join(tmp, "model.pdparams"),
+                                        device=dev))
+        opt2.set_state_dict(ptt.load(os.path.join(tmp, "opt.pdopt"),
+                                     device=dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # both continue from the same state: the same dropout draws too
+    model2.dropout_generator.set_state(model.dropout_generator.get_state())
+    ids = sample_batch(0)
+    resumed = [train_step(m, o, s, ids)
+               for m, o, s in ((model, opt, sched), (model2, opt2, sched2))]
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 model2.parameters()))
+    if resumed[0] != resumed[1] or not same or opt.get_lr() != opt2.get_lr():
+        raise AssertionError(f"[gpt2] (a) the resumed step differs: losses "
+                             f"{resumed}, weights equal {same}")
+    log(f"[gpt2] (a) saved, loaded into a fresh model and optimizer: the "
+        f"resumed step's loss {resumed[1]:.6f} and weights equal the "
+        f"original's bit for bit")
+    del model, opt, model2, opt2
+    torch.cuda.empty_cache()
+
+    # (b) one bf16 step at dropout 0: flash attention
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_dropout_prob=0.0)
+    model = GPT2ForCausalLM(cfg0, device=dev, dtype=torch.bfloat16, seed=0)
+    ids = sample_batch(1)
+    model(ids, labels=ids)[1].backward()
+    model.zero_grad(set_to_none=True)
+    wrappers = _counted(GPT2_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = model(ids, labels=ids)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches_b = {k: w.launches for k, w in wrappers.items()}
+    want = {n: 0 for n in GPT2_KERNELS}
+    want.update(flash_attention_fwd=L, flash_attention_dkv=L,
+                flash_attention_dq=L)
+    if launches_b != want or not np.isfinite(loss.item()):
+        raise AssertionError(f"[gpt2] (b) launches {launches_b} != {want} "
+                             f"or loss {loss.item()}")
+    log(f"[gpt2] (b) bf16, dropout 0, [{batch}, {seq}]: loss "
+        f"{loss.item():.4f}, forward+backward {step_ms:.1f} ms (one step, "
+        f"host clock), launches {launches_b}")
+    del model, loss
+    model = GPT2ForCausalLM(cfg0, device=dev, dtype=torch.bfloat16,
+                            seed=0).eval()
+
+    # (c) generate
+    prompts = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (8, 128))).to(dev)
+    _generate(model, prompts, 4)
+    out, _, secs = _generate(model, prompts, 64)
+    log(f"[gpt2] (c) generate batch 8, prompt 128, 64 new, greedy: "
+        f"{secs * 1e3 / 64:.2f} ms a token ({8 * 64 / secs:.0f} tokens/s; "
+        f"no kernel on this path: LayerNorm, GELU and the dense-cache "
+        f"attention are plain)")
+
+    # (d) the engine
+    rng = np.random.RandomState(42)
+    reqs = [rng.randint(0, cfg.vocab_size, int(n)) for n in
+            rng.permutation(np.linspace(64, 900, 12).astype(int))]
+    n_new = 32
+
+    def serve(m, reqs, **kw):
+        eng = ContinuousBatchingEngine(m, num_slots=8, page_size=16,
+                                       max_len=1024, prefill_chunk=256,
+                                       decode_chunk=8, prefix_cache=False,
+                                       device=dev, **kw)
+        eng.add_request(reqs[0][:16], 4)
+        eng.run()
+        fw0 = eng._stats["forwards"]
+        w = _counted(GPT2_KERNELS)
+        for p in reqs:
+            eng.add_request(p, n_new)
+        t0 = time.perf_counter()
+        done = sorted(eng.run(), key=lambda r: r.request_id)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(done) != len(reqs) or any(len(r.tokens) != n_new
+                                         for r in done):
+            raise AssertionError(f"[gpt2] {len(done)} of {len(reqs)} "
+                                 f"requests completed")
+        if len(eng._free_pages) != eng.num_pages - 1:
+            raise AssertionError("[gpt2] pages were not all returned")
+        return ([r.tokens for r in done], {k: v.launches for k, v in
+                                           w.items()},
+                eng._stats["forwards"] - fw0, wall)
+
+    launches_d = {n: 0 for n in GPT2_KERNELS}
+    streams, got, forwards, wall = serve(model, reqs)
+    _launch_only("gpt2 serve", got, forwards, L, "ragged_paged_attention")
+    _add(launches_d, got)
+    gen_streams = [_generate(model, torch.from_numpy(p[None]).to(dev),
+                             n_new)[0][0].tolist() for p in reqs]
+    log(f"[gpt2] (d) engine, 8 slots, page 16, 12 requests (prompts "
+        f"{sorted(len(p) for p in reqs)}), {n_new} new: "
+        f"{12 * n_new / wall:.1f} generated tok/s, {forwards} forwards; "
+        f"bf16 agreement with "
+        f"generate's streams {_agreement(streams, gen_streams):.4f} "
+        f"({sum(a == b for a, b in zip(streams, gen_streams))}/12 "
+        f"identical; K12's layouts part them at near ties, f32 holds them "
+        f"equal in model_parity)")
+    s8, got, forwards, wall = serve(model, reqs[:4], kv_quant="int8")
+    _launch_only("gpt2 int8", got, forwards, L,
+                 "ragged_paged_attention_quant")
+    _add(launches_d, got)
+    log(f"[gpt2] (d) 4 requests over int8 pools: {4 * n_new / wall:.1f} "
+        f"tok/s, agreement with the bf16 pools' streams "
+        f"{_agreement(s8, streams[:4]):.4f}")
+    del model
+    torch.cuda.empty_cache()
+    wq = GPT2ForCausalLM(dataclasses.replace(
+        cfg0, weight_quant="weight_only_int8"), device=dev,
+        dtype=torch.bfloat16, seed=0).eval()
+    sq, got, forwards, wall = serve(wq, reqs[:1])
+    _launch_only("gpt2 weight_only_int8", got, forwards, L,
+                 "ragged_paged_attention")
+    _add(launches_d, got)
+    n_wol = sum(isinstance(m, pnn.quant.WeightOnlyLinear)
+                for m in wq.modules())
+    log(f"[gpt2] (d) 1 request under weight_only_int8 ({n_wol} layers "
+        f"converted): agreement with bf16 "
+        f"{_agreement(sq, streams[:1]):.4f}")
+    del wq
+    torch.cuda.empty_cache()
+    return dict(launches=_add(launches_b, launches_d), step_ms_f32=t,
+                losses=losses)
+
+
+def _add(into, more):
+    """Add launch counts into ``into`` (returned)."""
+    for k, v in more.items():
+        into[k] = into.get(k, 0) + v
+    return into
+
+
+def _launch_only(tag, launches, forwards, n_layers, attn):
+    """A serving forward of a model whose only kernel is its attention
+    (GPT-2: LayerNorm and GELU are plain) launches ``attn`` once a layer."""
+    want = {n: 0 for n in launches}
+    want[attn] = n_layers * forwards
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want} for "
+                             f"{forwards} forwards")
+
+
+def phase_ernie(dev="cuda"):
+    """ERNIE-3.0-base (12 layers, 768 wide, 12 heads, vocab 40000) in bf16,
+    seeded random weights, dropout 0: ErnieForPretraining on [16, 512]
+    with 15% of the positions masked and SOP labels, 10 AdamW steps (the
+    loss must fall; K7-K9 non-causal, counted exactly); a padded batch
+    with ``attention_mask`` (the plain path) whose outputs at the valid
+    positions must equal each row's unpadded run, in bf16 and in f32,
+    where the same batch without its mask must be refused; one step of
+    ErnieForSequenceClassification."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = dataclasses.replace(ErnieConfig.base(), hidden_dropout_prob=0.0,
+                              attention_dropout_prob=0.0)
+    L, B, S = cfg.num_hidden_layers, 16, 512
+    model = ErnieForPretraining(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(3)
+    ids = rng.randint(5, cfg.vocab_size, (B, S))
+    labels = np.full((B, S), -100)
+    masked = rng.rand(B, S) < 0.15
+    masked[:, 0] = False
+    labels[masked] = ids[masked]
+    ids[masked] = 3
+    sop = rng.randint(0, 2, B)
+    ids, labels, sop = (torch.from_numpy(a).to(dev) for a in (ids, labels,
+                                                              sop))
+    opt = AdamW(1e-4, parameters=model.parameters())
+    wrappers = _counted(GPT2_KERNELS[:3])
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        loss = model(ids, masked_lm_labels=labels, sop_labels=sop)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 10 * L for n in GPT2_KERNELS[:3]}
+    if launches != want:
+        raise AssertionError(f"[ernie] launches {launches} != {want}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[ernie] the loss did not fall: {losses}")
+    t = Timing(walls[1:])
+    log(f"[ernie] ERNIE-3.0-base {n_params / 1e6:.1f} M params bf16, "
+        f"pretraining (MLM 15% + SOP) on [{B}, {S}], 10 AdamW steps: step "
+        f"{t:.1f} ms (median [least-greatest] of steps 1-9), "
+        f"{B * S / (t / 1e3):.0f} tokens/s, peak memory {peak:.2f} GB; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} "
+        f"(non-causal flash, 12 heads, D 64)")
+    del opt
+    # the padded batch: the plain path with the mask, against each row's
+    # own unpadded run (flash, no mask), in bf16 and then in f32. In f32
+    # the two differ by summation order only, and the same batch run
+    # without its mask (its rows attending to their padding) must be
+    # refused. At these random weights an ignored mask moves the outputs
+    # by about twice bf16's rounding noise, so the bf16 limit cannot
+    # refuse it: that reading is logged, and the f32 gate decides the mask
+    model.eval()
+    lens = [512, 300, 129, 40]
+    pad = torch.zeros(4, S, dtype=torch.long, device=dev)
+    mask = torch.zeros(4, S, dtype=torch.long, device=dev)
+    for i, n in enumerate(lens):
+        pad[i, :n] = ids[i, :n]
+        mask[i, :n] = 1
+    readings = {}
+    limits = {torch.bfloat16: (ERNIE_PAD_ULPS * BF16_ULP, ERNIE_PAD_ATOL),
+              torch.float32: ERNIE_PAD_F32}
+    for dtype, (rel, atol) in limits.items():
+        model.to(dtype)
+        with torch.no_grad():
+            ones = [model.ernie(ids[i:i + 1, :n])[0][0].float()
+                    for i, n in enumerate(lens)]
+
+            def worst_ratio(seq_pad):
+                return max(((seq_pad[i, :n].float() - one).abs()
+                            / (rel * one.abs() + atol)).max().item()
+                           for i, (n, one) in enumerate(zip(lens, ones)))
+            readings[dtype] = (
+                worst_ratio(model.ernie(pad, attention_mask=mask)[0]),
+                worst_ratio(model.ernie(pad)[0]))
+    (worst, unmasked16), (worst32, unmasked) = readings.values()
+    if max(worst, worst32) > 1.0:
+        raise AssertionError(f"[ernie] padded rows part from their unpadded "
+                             f"runs: worst err/limit {worst:.3g} (bf16), "
+                             f"{worst32:.3g} (f32)")
+    if unmasked <= 1.0:
+        raise AssertionError(f"[ernie] the f32 padded-batch limit does not "
+                             f"refuse a batch run without its mask: worst "
+                             f"err/limit {unmasked:.3g}")
+    log(f"[ernie] padded batch (lengths {lens}, attention_mask: the plain "
+        f"path) against each row's unpadded run (flash): bf16 worst "
+        f"err/limit {worst:.3g} (limit {ERNIE_PAD_ULPS} bf16 ulps of |ref| "
+        f"+ {ERNIE_PAD_ATOL}; without the mask {unmasked16:.3g}, which this "
+        f"limit cannot refuse), f32 worst err/limit {worst32:.3g} (limit "
+        f"{ERNIE_PAD_F32[0]:g} of |ref| + {ERNIE_PAD_F32[1]:g}; without the "
+        f"mask {unmasked:.4g}, refused)")
+    del model, ones
+    torch.cuda.empty_cache()
+    cls = ErnieForSequenceClassification(cfg, num_classes=3, device=dev,
+                                         dtype=torch.bfloat16, seed=1)
+    opt = AdamW(1e-4, parameters=cls.parameters())
+    y = torch.from_numpy(rng.randint(0, 3, B)).to(dev)
+    w = _counted(GPT2_KERNELS[:3])
+    loss = cls(ids, labels=y)
+    loss.backward()
+    grads_ok = all(torch.isfinite(p.grad).all() for p in cls.parameters()
+                   if p.grad is not None)
+    opt.step()
+    got = {k: v.launches for k, v in w.items()}
+    if not (grads_ok and np.isfinite(loss.item())) or got != {
+            n: L for n in GPT2_KERNELS[:3]}:
+        raise AssertionError(f"[ernie] classification step: loss "
+                             f"{loss.item()}, finite grads {grads_ok}, "
+                             f"launches {got}")
+    log(f"[ernie] ErnieForSequenceClassification, 3 classes, [{B}, {S}]: "
+        f"one AdamW step, loss {loss.item():.4f}, launches {got}")
+    del cls, opt
+    torch.cuda.empty_cache()
+    return dict(launches=_add(launches, got), step_ms=t, losses=losses)
+
+
+#: padded vs unpadded ERNIE rows in bf16: the masked plain attention and
+#: flash round their probabilities at other points and the shorter rows'
+#: matmuls sum in other orders; 12 post-norm layers carry that as a few
+#: ulps of each unit-scale output, with an absolute floor for the
+#: entries near 0
+ERNIE_PAD_ULPS = 16
+ERNIE_PAD_ATOL = 0.05
+#: the same in f32 (relative, absolute): the two paths sum in other
+#: orders, a few f32 ulps that 12 layers carry to about 4e-6 at most; an
+#: ignored mask moves the outputs by 2e-2 to 4e-2
+ERNIE_PAD_F32 = (1e-5, 1e-4)
+
+
+def deepseek_config(layers, **kw):
+    """DeepseekV2Config()'s full width (H 5120, 128 heads, q_lora 1536,
+    kv_lora 512, 160 routed experts top-6, 2 shared, vocab 102400) at
+    depth ``layers`` (the first dense, the rest MoE)."""
+    import dataclasses
+    from paddle_tpu_torch.models import DeepseekV2Config
+    return dataclasses.replace(DeepseekV2Config(), num_hidden_layers=layers,
+                               **kw)
+
+
+DS_KERNELS = ("rms_norm", "rms_norm_dx", "rms_norm_residual",
+              "rms_norm_residual_dh", "swiglu", "swiglu_bwd") + MOE_KERNELS
+
+
+def _ds_generate_want(cfg, forwards, dropless):
+    """A DeepSeek cache forward: four RMSNorms a layer (input, q latent,
+    kv latent, post-attention) and the final one, a SwiGLU a layer (the
+    dense MLP or the shared experts), and dropless three grouped matmuls
+    a MoE layer; the MLA core is plain."""
+    L = cfg.num_hidden_layers
+    moe = L - cfg.first_k_dense_replace
+    want = {n: 0 for n in DS_KERNELS}
+    want.update(rms_norm=(4 * L + 1) * forwards, swiglu=L * forwards)
+    if dropless:
+        want["grouped_matmul"] = 3 * moe * forwards
+    return want
+
+
+def _ds_moe_gates(model, dropless):
+    """Switch every routed-expert layer of a built model between the
+    capacity path and the dropless one (the config is read at build)."""
+    for layer in model.layers:
+        if layer.is_moe:
+            layer.mlp.moe.gate.dropless = dropless
+
+
+def phase_deepseek(dev="cuda"):
+    """DeepSeek-V2 at its published width, seeded random weights, bf16:
+    (a) depth 4 (1 dense, 3 MoE): ``generate`` batch 8, prompts of 128,
+    64 new, greedy, on the capacity path and dropless (K14), launches
+    exact, the latent cache's bytes against a per-head cache, ms a token
+    and peak memory; (b) depth 2 (1 dense, 1 MoE), dropless, on [2, 2048]
+    (the chunked MLA core): forward and backward of the labelled loss
+    with the aux loss, grads cleared, no optimizer: step ms, peak memory,
+    exact launches of K1-K6 and K14/K15; (c) bench.py:_moe_decode_bench
+    uncut on the port (its on_tpu config: H 1024, 12 layers, 16 experts,
+    batch 8, prompt 128, 256 new, the long-minus-short protocol)."""
+    import torch
+    from paddle_tpu_torch.models import (DeepseekV2Config,
+                                         DeepseekV2ForCausalLM)
+    launches = {n: 0 for n in DS_KERNELS}
+    # (a) depth 4, generate
+    cfg = deepseek_config(4)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = DeepseekV2ForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                  seed=0).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[deepseek] DeepSeek-V2 width (H {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, q_lora {cfg.q_lora_rank}, "
+        f"kv_lora {cfg.kv_lora_rank}, {cfg.n_routed_experts} experts "
+        f"top-{cfg.num_experts_per_tok}, {cfg.n_shared_experts} shared) at "
+        f"4 layers: {n_params / 1e9:.2f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (8, 128))).to(dev)
+    per_tok = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    per_head = 2 * cfg.num_attention_heads * cfg.v_head_dim
+    caches = model.init_kv_cache(8, 192)
+    cache_bytes = sum(c.numel() * c.element_size() for c in caches)
+    del caches
+    log(f"[deepseek] (a) latent cache: {per_tok} values a token and layer "
+        f"against {per_head} for per-head k/v ({per_head / per_tok:.1f}x); "
+        f"batch 8 x 192 tokens x 4 layers = {cache_bytes / 1e6:.2f} MB bf16 "
+        f"(per-head: {cache_bytes * per_head / per_tok / 1e6:.1f} MB)")
+    gen = {}
+    for dropless in (False, True):
+        _ds_moe_gates(model, dropless)
+        _generate(model, prompts, 2)
+        w = _counted(DS_KERNELS)
+        torch.cuda.reset_peak_memory_stats()
+        out, _, secs = _generate(model, prompts, 64)
+        got = {k: v.launches for k, v in w.items()}
+        want = _ds_generate_want(cfg, 64, dropless)
+        if got != want:
+            raise AssertionError(f"[deepseek] (a) launches {got} != {want}")
+        _add(launches, got)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tag = "dropless" if dropless else "capacity"
+        gen[tag] = out.tolist()
+        log(f"[deepseek] (a) generate {tag}: batch 8, prompt 128, 64 new, "
+            f"greedy: {secs * 1e3 / 64:.2f} ms a token "
+            f"({8 * 64 / secs:.0f} tokens/s), peak memory {peak:.2f} GB, "
+            f"launches {got}")
+    log(f"[deepseek] (a) greedy agreement of the capacity and dropless "
+        f"streams (capacity 1.25 drops tokens at prefill): "
+        f"{_agreement(gen['capacity'], gen['dropless']):.4f}")
+    del model, out
+    torch.cuda.empty_cache()
+
+    # (b) depth 2, training, dropless, the chunked MLA core
+    cfg = deepseek_config(2, moe_dropless=True)
+    model = DeepseekV2ForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                  seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 2049))
+    step_ids = [torch.from_numpy(np.roll(ids, i, axis=1)).to(dev)
+                for i in range(4)]
+
+    def step(t):
+        _, loss = model(t, labels=t)
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+        return loss.item()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(step_ids[0])]
+    w = _counted(DS_KERNELS)
+    times = []
+    for t in step_ids[1:]:
+        t0 = time.perf_counter()
+        losses.append(step(t))
+        times.append((time.perf_counter() - t0) * 1e3)
+    got = {k: v.launches for k, v in w.items()}
+    per_step = {k: v / 3 for k, v in got.items()}
+    want = {"rms_norm": 3 * 2 + 1, "rms_norm_dx": 3 * 2 + 1,
+            "rms_norm_residual": 2, "rms_norm_residual_dh": 2,
+            "swiglu": 2, "swiglu_bwd": 2, "grouped_matmul": 3,
+            "grouped_matmul_t": 3, "grouped_dw": 3}
+    if per_step != want or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"[deepseek] (b) launches per step {per_step} "
+                             f"!= {want}, or losses {losses}")
+    _add(launches, got)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t = Timing(times)
+    log(f"[deepseek] (b) 2 layers (1 dense, 1 MoE), {n_params / 1e9:.2f} B "
+        f"params bf16, dropless, [2, 2049] (the chunked MLA core, chunks "
+        f"of 256), forward + backward with the aux loss: step {t:.1f} ms "
+        f"(median [least-greatest] of 3), {2 * 2048 / (t / 1e3):.0f} "
+        f"tokens/s, peak memory {peak:.2f} GB, losses "
+        f"{[round(x, 4) for x in losses]}; launches per step {per_step}")
+    prof = _profile("deepseek", lambda: step(step_ids[-1]))
+    del model, step_ids
+    torch.cuda.empty_cache()
+
+    # (c) the JAX bench's MLA decode bench, uncut
+    bcfg = DeepseekV2Config(
+        vocab_size=32000, hidden_size=1024, num_hidden_layers=12,
+        num_attention_heads=16, q_lora_rank=384, kv_lora_rank=256,
+        qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64,
+        intermediate_size=2816, moe_intermediate_size=704,
+        n_routed_experts=16, n_shared_experts=2, num_experts_per_tok=2,
+        first_k_dense_replace=1, routed_scaling_factor=1.0,
+        norm_topk_prob=True, max_position_embeddings=2048)
+    model = DeepseekV2ForCausalLM(bcfg, device=dev, dtype=torch.bfloat16,
+                                  seed=0).eval()
+    base = np.random.RandomState(1).randint(0, bcfg.vocab_size, (8, 128))
+    ps = [torch.from_numpy(np.roll(base, i + 1, axis=1)).to(dev)
+          for i in range(5)]
+    ids = torch.from_numpy(base).to(dev)
+    _generate(model, ids, 256)
+    _generate(model, ps[0], 4)
+    w = _counted(DS_KERNELS)
+    long_ = min(_generate(model, ps[1], 256)[2],
+                _generate(model, ps[2], 256)[2])
+    short = min(_generate(model, ps[3], 4)[2], _generate(model, ps[4], 4)[2])
+    got = {k: v.launches for k, v in w.items()}
+    want = _ds_generate_want(bcfg, 2 * 256 + 2 * 4, False)
+    if got != want:
+        raise AssertionError(f"[deepseek] (c) launches {got} != {want}")
+    _add(launches, got)
+    ms_tok = (long_ - short) / (256 - 4) * 1e3
+    log(f"[deepseek] (c) bench.py:_moe_decode_bench on the port (H 1024, 12 "
+        f"layers, 16 experts top-2, capacity path, batch 8, prompt 128, 256 "
+        f"new; long minus short): {ms_tok:.3f} ms/token/batch, "
+        f"{8 / ms_tok * 1e3:.0f} tokens/s; launches {got}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, train_step_ms=t, decode_ms_token=ms_tok,
+                profile=prof)
+
+
+def phase_llama70(dev="cuda"):
+    """Llama-3-70B's width (H 8192, 64/8 heads, I 28672, vocab 128256) at
+    depth 4 through the engine, bf16, seeded random weights: 4 requests
+    of the serve traffic (K12 at rep 8), launches exact."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = dataclasses.replace(LlamaConfig.llama3_70b(), num_hidden_layers=4)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             seed=0).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[llama70] Llama-3-70B width at 4 layers: {n_params / 1e9:.2f} B "
+        f"params bf16, built in {time.perf_counter() - t0:.1f} s")
+    eng = ContinuousBatchingEngine(model, num_slots=8, page_size=16,
+                                   max_len=2048, prefill_chunk=256,
+                                   decode_chunk=8, prefix_cache=False,
+                                   device=dev)
+    warm, prompts = _serve_traffic(cfg.vocab_size)
+    eng.add_request(warm, 4)
+    eng.run()
+    fw0 = eng._stats["forwards"]
+    w = _counted(SERVE_KERNELS)
+    for p in prompts[:4]:
+        eng.add_request(p, 32)
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v.launches for k, v in w.items()}
+    forwards = eng._stats["forwards"] - fw0
+    if len(done) != 4 or any(len(r.tokens) != 32 for r in done):
+        raise AssertionError("[llama70] not every request completed")
+    _launch_check("llama70", got, forwards, cfg.num_hidden_layers)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[llama70] 4 requests (prompts {[len(p) for p in prompts[:4]]}, "
+        f"32 new) through run(): {4 * 32 / wall:.1f} generated tok/s, "
+        f"{forwards} forwards, peak memory {peak:.2f} GB; launches {got} "
+        f"(K12 at 64/8 heads, rep 8, D 128)")
+    del eng, model
+    torch.cuda.empty_cache()
+    return dict(launches=got, tok_s=4 * 32 / wall)
+
+
+def phase_model_parity(dev="cuda"):
+    """GPT-2, ERNIE and DeepSeek-V2 at their tiny widths and depth 2, in
+    f32, on the card against the CPU from the same weights: the labelled
+    loss and every gradient (ERNIE: pretraining with MLM and SOP labels);
+    the greedy ``generate`` stream (GPT-2, DeepSeek); GPT-2's engine
+    stream, which must also equal ``generate``'s on the card; DeepSeek's
+    capacity and dropless losses. Initialiser range 0.2, so the tiny
+    models' greedy streams are not one repeated token; GPT-2 at 2 heads
+    (D 32, which K12 takes)."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import (DeepseekV2Config,
+                                         DeepseekV2ForCausalLM, ErnieConfig,
+                                         ErnieForPretraining, GPT2Config,
+                                         GPT2ForCausalLM)
+    rng = np.random.RandomState(21)
+    families = {
+        # two heads of 32: K12 takes head dims of 32-256, not tiny's 16
+        "gpt2": (GPT2ForCausalLM, dataclasses.replace(
+            GPT2Config.tiny(), initializer_range=0.2,
+            num_attention_heads=2)),
+        "ernie": (ErnieForPretraining, dataclasses.replace(
+            ErnieConfig.tiny(), initializer_range=0.2)),
+        "deepseek": (DeepseekV2ForCausalLM, dataclasses.replace(
+            DeepseekV2Config.tiny(), num_hidden_layers=2,
+            initializer_range=0.2)),
+        "deepseek_dropless": (DeepseekV2ForCausalLM, dataclasses.replace(
+            DeepseekV2Config.tiny(), num_hidden_layers=2,
+            initializer_range=0.2, moe_dropless=True)),
+    }
+    for name, (cls, cfg) in families.items():
+        weights = cls(cfg, device="cpu", seed=3).state_dict()
+        vocab = cfg.vocab_size
+        ids = rng.randint(5, vocab, (2, 48))
+        labels = np.where(rng.rand(2, 48) < 0.2, ids, -100)
+        sop = rng.randint(0, 2, 2)
+        prompts = rng.randint(0, vocab, (2, 9))
+        out = {}
+        for d in ("cpu", dev):
+            m = cls(cfg, device=d)
+            m.load_state_dict(weights)
+            t = torch.from_numpy(ids).to(d)
+            if name == "ernie":
+                loss = m(t, masked_lm_labels=torch.from_numpy(labels).to(d),
+                         sop_labels=torch.from_numpy(sop).to(d))
+            else:
+                _, loss = m(t, labels=t)
+            loss.backward()
+            res = [loss.item(), convert.grads_to_numpy(m)]
+            if name != "ernie":
+                m.eval()
+                res.append(m.generate(torch.from_numpy(prompts).to(d),
+                                      max_new_tokens=12,
+                                      decode_strategy="greedy_search")[
+                                          0].tolist())
+            if name == "gpt2":
+                eng = ContinuousBatchingEngine(m, num_slots=2, page_size=8,
+                                               max_len=64, decode_chunk=4,
+                                               prompt_buckets=(16,),
+                                               device=d)
+                for p in prompts:
+                    eng.add_request(p, 12)
+                res.append([r.tokens for r in sorted(
+                    eng.run(), key=lambda r: r.request_id)])
+            out[d] = res
+            del m
+        (l0, g0, *s0), (l1, g1, *s1) = out["cpu"], out[dev]
+        worst = max(float(np.linalg.norm(g1[k] - g0[k])
+                          / max(np.linalg.norm(g0[k]), 1e-30)) for k in g0)
+        # f32 on both sides, as train_parity: the loss within 1e-5 of
+        # itself, each gradient within 1e-4 (whole-tensor relative)
+        if abs(l1 - l0) > 1e-5 * abs(l0) or worst > 1e-4 or set(g0) != set(
+                g1):
+            raise AssertionError(f"[model_parity] {name}: loss {l1} vs "
+                                 f"{l0}, worst gradient {worst:.3g}")
+        if s1 != s0:
+            raise AssertionError(f"[model_parity] {name}: greedy streams on "
+                                 f"the card {s1} vs the CPU {s0}")
+        if name == "gpt2" and s1[1] != s1[0]:
+            raise AssertionError(f"[model_parity] gpt2: the engine's streams "
+                                 f"{s1[1]} differ from generate's {s1[0]}")
+        log(f"[model_parity] {name} tiny, depth "
+            f"{cfg.num_hidden_layers}, f32: loss card {l1:.6f} vs CPU "
+            f"{l0:.6f}; {len(g0)} grads, worst relative error {worst:.3g} "
+            f"(limit 1e-4)"
+            + ("; greedy generate streams identical" if s0 else "")
+            + ("; the engine's streams identical to generate's on both"
+               if name == "gpt2" else ""))
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4612,6 +5517,18 @@ def main():
     moe_bench = phase_moe_train("moe_bench", moe_bench_config())
     phase_moe_parity(moe_bench_config())
     mark("moe")
+    for name, entries in phase_model_kernels().items():
+        res[name].setdefault("models", {}).update(entries)
+    mark("model_kernels")
+    gpt2 = phase_gpt2()
+    mark("gpt2")
+    ernie = phase_ernie()
+    mark("ernie")
+    deepseek = phase_deepseek()
+    mark("deepseek")
+    llama70 = phase_llama70()
+    phase_model_parity()
+    mark("llama70, model_parity")
     pallas = "paddle_tpu/ops/pallas/"
     gm_cu = "paddle_tpu_torch/csrc/grouped_matmul.cu"
     rms_cu = "paddle_tpu_torch/csrc/rms_norm.cu"
@@ -4656,8 +5573,12 @@ def main():
         # training (14), the full training step (16), fit (17), the
         # train_gpt2 loop's 40 steps (27), MoE
         # serving (20) and the two MoE training steps (21, 22), generate
-        # (25: the decode bench, the 8B runs and the MoE run) and the
-        # legacy engine (26, bf16 and int8 pools); launches is their sum
+        # (25: the decode bench, the 8B runs and the MoE run), the
+        # legacy engine (26, bf16 and int8 pools), GPT-2's training,
+        # generate and engine runs (29), ERNIE's pretraining and
+        # classification steps (30), DeepSeek-V2's generate, training
+        # step and MLA decode bench (31) and Llama-3-70B's serving (32);
+        # launches is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -4677,7 +5598,11 @@ def main():
                   "moe_bench": moe_bench["launches"].get(name, 0),
                   "generate": sum(g["launches"].get(name, 0) for g in (
                       decode_bench, gen8b, serve_moe["generate"])),
-                  "legacy": legacy["launches"].get(name, 0)}
+                  "legacy": legacy["launches"].get(name, 0),
+                  "gpt2": gpt2["launches"].get(name, 0),
+                  "ernie": ernie["launches"].get(name, 0),
+                  "deepseek": deepseek["launches"].get(name, 0),
+                  "llama70": llama70["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),
@@ -4692,7 +5617,7 @@ def main():
                            else {}),
                         **{k: r[k] for k in ("fp8", "b64", "k12_at_decode_ms",
                                              "split_plan", "design", "wide",
-                                             "decode", "verify")
+                                             "decode", "verify", "models")
                            if k in r}})
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was launched on no path")

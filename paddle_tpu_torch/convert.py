@@ -5,7 +5,12 @@
 port's model. Paddle's Linear holds its weight as [in, out] and
 ``torch.nn.Linear`` as [out, in], so every Linear weight (``lm_head``
 included) is transposed; embeddings ([V, H]) and norm weights are taken
-as they are. A missing or unexpected key raises.
+as they are. A missing or unexpected key raises. The keys of every
+family are the JAX package's: GPT-2's head is tied to ``gpt2.wte`` and
+adds no key; ERNIE's ``mlm_bias`` (a bias, not a Linear) and the MoE
+expert stacks (``mlp.moe.w_gate`` [E, d, h], ...: Qwen2-MoE's and
+DeepSeek-V2's) are taken untransposed; ``ErnieForMaskedLM`` holds its
+encoder once, under ``_pre.ernie``.
 
 ``to_numpy_state_dict(model)`` and ``grads_to_numpy(model)`` go the other
 way: the port's weights, or their gradients, as f32 numpy arrays in the

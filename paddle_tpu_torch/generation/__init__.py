@@ -6,7 +6,11 @@ Port of ``paddle_tpu/generation/__init__.py``: ``GenerationConfig``,
 the pick, the logprob and the eos/pad rule) and ``GenerationMixin`` with
 ``generate``. The model implements ``init_kv_cache(batch_size,
 max_length)`` and ``forward(ids, caches=, pos=)`` over those caches
-(``models.llama``, ``models.qwen2``), writing them in place.
+(``models.llama``, ``models.qwen2``, ``models.gpt2``,
+``models.deepseek``), writing them in place. The caches are the model's
+own: the loop only passes the list back, so a layer's two tensors need
+not be k and v of one shape (DeepSeek-V2's are a [B, T, R] latent and a
+[B, T, 1, rope] key).
 
 The JAX package has two drivers and the port keeps both contracts as
 eager loops on the weights' device:

@@ -92,6 +92,7 @@ of ``spec_k``, tracing, the flight recorder and
 from __future__ import annotations
 
 import heapq
+import inspect
 import os
 import time
 from collections import deque
@@ -266,11 +267,16 @@ class ContinuousBatchingEngine:
 
     ``model`` implements ``forward(ids, caches=, pos=, tables=) ->
     (logits, caches)`` and writes the pools in place (``models.llama``,
-    ``models.qwen2``; a MoE model routes every row of the step's input,
-    padding included, as the JAX engine's does). The engine runs on
-    ``device`` (``cuda`` unless given; it raises with no GPU and no
-    device), where the model's weights must already be. Page 0 of the
-    pool is the reserved trash page.
+    ``models.qwen2``, ``models.gpt2``; a MoE model routes every row of the
+    step's input, padding included, as the JAX engine's does). A model
+    whose forward takes no ``tables`` (DeepSeek-V2's latent cache has no
+    paged path) is refused with a ``TypeError`` when the engine is built;
+    the JAX engine fails each of its requests on that ``TypeError``.
+    Pools take ``num_key_value_heads`` and ``head_dim`` from the config,
+    or the attention heads and ``hidden_size / heads`` where it has none
+    (GPT-2). The engine runs on ``device`` (``cuda`` unless given; it
+    raises with no GPU and no device), where the model's weights must
+    already be. Page 0 of the pool is the reserved trash page.
 
     ``prompt_buckets`` is kept for the JAX engine's signature: its
     largest bucket seeds the default ``prefill_chunk``. ``admit_batch``
@@ -306,6 +312,11 @@ class ContinuousBatchingEngine:
         if wrong:
             raise ValueError(f"the model's weights are on {sorted(wrong)}, "
                              f"the engine on {self.device}")
+        if "tables" not in inspect.signature(model.forward).parameters:
+            raise TypeError(
+                f"{type(model).__name__} has no paged serving path (its "
+                "forward takes no 'tables'), so the engine cannot serve "
+                "it; decode it with model.generate()")
         self.model = model
         cfg = model.config
         self.cfg = cfg
@@ -363,9 +374,11 @@ class ContinuousBatchingEngine:
         # pools (key_scales, value_scales), flat; written in place. The
         # geometry is kept so containment can rebuild the pools.
         dtype = next(p.dtype for p in params if p.is_floating_point())
-        kvh = cfg.num_key_value_heads
-        self._pool_shape = (kvh, self.num_pages, self.page_size,
-                            cfg.head_dim)
+        # MHA models (GPT-2) carry no kv-head or head-dim fields
+        kvh = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        d = getattr(cfg, "head_dim",
+                    cfg.hidden_size // cfg.num_attention_heads)
+        self._pool_shape = (kvh, self.num_pages, self.page_size, d)
         self._scale_shape = (kvh, self.num_pages, self.page_size)
         layer = [(self._pool_shape, _KV_QUANT[kv_quant] or dtype)] * 2
         if kv_quant != "none":

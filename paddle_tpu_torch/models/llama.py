@@ -2,9 +2,10 @@
 serving over paged KV pools.
 
 Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` (the ``tiny``,
-``llama_1b`` and ``llama3_8b`` presets, the recompute fields), the dense
-training path and both cache paths of ``LlamaAttention``/``LlamaMLP``/
-``LlamaDecoderLayer``/``LlamaModel``/``LlamaForCausalLM``,
+``llama_1b``, ``llama3_8b`` and ``llama3_70b`` presets, the recompute
+fields), the dense training path and both cache paths of
+``LlamaAttention``/``LlamaMLP``/``LlamaDecoderLayer``/``LlamaModel``/
+``LlamaForCausalLM``,
 ``LlamaPretrainingCriterion``, ``rope_with_offset``,
 ``_alloc_kv_caches``/``init_kv_cache`` and ``_paged_attention_step``
 (bf16/f32 pools, and int8/fp8 pools with their scales).
@@ -107,6 +108,12 @@ class LlamaConfig:
         return cls()
 
     @classmethod
+    def llama3_70b(cls):
+        return cls(hidden_size=8192, num_hidden_layers=80,
+                   num_attention_heads=64, num_key_value_heads=8,
+                   intermediate_size=28672)
+
+    @classmethod
     def llama_1b(cls):
         return cls(vocab_size=32000, hidden_size=2048,
                    num_hidden_layers=16, num_attention_heads=16,
@@ -177,20 +184,25 @@ def _dense_attention_step(attn, q, k, v, cache, pos, rope):
     return attn.o_proj(out.reshape(b, s, attn.num_heads * attn.head_dim))
 
 
-def _paged_attention_step(attn, q, k, v, cache, ctx, tables, rope):
-    """Continuous-batching attention over the paged pools: rotate q/k,
-    write the chunk's k/v into the slot pages at ``ctx .. ctx + valid - 1``
-    (padding and idle slots to trash page 0; in place), then attend
-    through :func:`ops.paged_attention.ragged_paged_attention` (prefill
-    chunk, decode step or idle slot alike). ``cache`` is ``(k_pages,
-    v_pages)``, or ``(k_pages, v_pages, k_scales, v_scales)`` for int8/fp8
-    pools, written quantized (``paged_prefill_write_quant``). ``tables``
-    is ``(block_tables, valid)``, both int32."""
+def _paged_attention_step(attn, q, k, v, cache, ctx, tables, rope,
+                          proj=None):
+    """Continuous-batching attention over the paged pools: rotate q/k
+    (``rope`` the per-token ``(sin, cos)``; None for a model with learned
+    positions, GPT-2), write the chunk's k/v into the slot pages at ``ctx
+    .. ctx + valid - 1`` (padding and idle slots to trash page 0; in
+    place), then attend through
+    :func:`ops.paged_attention.ragged_paged_attention` (prefill chunk,
+    decode step or idle slot alike) and project through ``proj`` (default
+    ``attn.o_proj``). ``cache`` is ``(k_pages, v_pages)``, or ``(k_pages,
+    v_pages, k_scales, v_scales)`` for int8/fp8 pools, written quantized
+    (``paged_prefill_write_quant``). ``tables`` is ``(block_tables,
+    valid)``, both int32."""
     b, s = q.shape[0], q.shape[1]
     tbl, valid = tables
-    sin, cos = rope
-    q = rotate(q, sin, cos)
-    k = rotate(k, sin, cos)
+    if rope is not None:
+        sin, cos = rope
+        q = rotate(q, sin, cos)
+        k = rotate(k, sin, cos)
     scales = {}
     if len(cache) == 4:
         PA.paged_prefill_write_quant(*cache, k, v, tbl, ctx, valid)
@@ -199,7 +211,8 @@ def _paged_attention_step(attn, q, k, v, cache, ctx, tables, rope):
         PA.paged_prefill_write(*cache, k, v, tbl, ctx, valid)
     out = PA.ragged_paged_attention(q, cache[0], cache[1], tbl, ctx, valid,
                                     **scales)
-    return attn.o_proj(out.reshape(b, s, attn.num_heads * attn.head_dim))
+    proj = attn.o_proj if proj is None else proj
+    return proj(out.reshape(b, s, attn.num_heads * attn.head_dim))
 
 
 class LlamaAttention(nn.Module):

@@ -6,13 +6,18 @@ Ports of ``paddle_tpu/nn/functional/norm.py::rms_norm`` and
 the JAX package's non-kernel path), ``attention.py::sdpa_with_cache``
 (the dense KV cache of ``generate``, plain ops as the JAX package's XLA
 ones), ``common.py::linear`` and ``loss.py::cross_entropy`` (hard labels
-and the mean, what the model uses). ``linear`` and
-``scaled_dot_product_attention`` cast their matmul operands under
-``amp.auto_cast``, where the JAX package casts them. Where the JAX
-package chose the Pallas kernel by backend and flags, the port's kernel
-wrappers choose by the device of the tensor: CUDA launches the kernel,
-the CPU takes the plain version. Gradients are torch autograd, through
-the kernels' ``autograd.Function``s.
+and the mean, what the model uses), and the plain ops of GPT-2 and
+ERNIE: ``norm.py::layer_norm``, ``activation.py::gelu`` and ``::tanh``,
+``common.py::dropout``. Dropout (here and in the attention's
+probabilities) draws its mask from an explicit ``torch.Generator``, so
+its streams differ from the JAX package's ``jax.random`` ones by design;
+the kept share and the ``1 / (1 - p)`` scale are the JAX package's.
+``linear`` and ``scaled_dot_product_attention`` cast their matmul
+operands under ``amp.auto_cast``, where the JAX package casts them.
+Where the JAX package chose the Pallas kernel by backend and flags, the
+port's kernel wrappers choose by the device of the tensor: CUDA launches
+the kernel, the CPU takes the plain version. Gradients are torch
+autograd, through the kernels' ``autograd.Function``s.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import swiglu as _sw
 
 __all__ = ["linear", "rms_norm", "fused_rms_norm_residual", "swiglu",
+           "layer_norm", "gelu", "tanh", "dropout",
            "scaled_dot_product_attention", "sdpa_reference",
            "sdpa_with_cache", "cross_entropy"]
 
@@ -66,11 +72,57 @@ def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _sw.SwiGLUFunction.apply(x, y)
 
 
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """The JAX package's rule: mean and variance over the last
+    ``normalized_shape`` dims in f32, the normalised value cast to x's
+    dtype, and only then times ``weight`` and plus ``bias``
+    (``torch.nn.functional.layer_norm`` rounds once, after the affine,
+    which in bf16 gives other bits). Plain PyTorch: the JAX package has
+    no LayerNorm kernel."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dims = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = (xf - mean).square().mean(dims, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU: the exact erf form, or the tanh form with ``approximate``
+    (GPT-2's)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """``x * keep / (1 - p)`` with ``keep`` Bernoulli(1 - p) in x's dtype,
+    drawn from ``generator`` (on x's device; None takes torch's default
+    one); x itself when not training or ``p`` is 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
+
+
 def sdpa_reference(q, k, v, attn_mask=None, dropout_p=0.0,
-                   is_causal=False):
+                   is_causal=False, generator=None):
     """Plain attention on [B, S, H, D]: kv heads repeated, logits in the
     input dtype, softmax in f32, probabilities cast to v's dtype. A bool
-    mask keeps where True; any other mask is added to the logits."""
+    mask keeps where True; any other mask is added to the logits. With
+    ``dropout_p`` the probabilities go through :func:`dropout`, drawing
+    from ``generator``."""
     s = 1.0 / math.sqrt(q.shape[-1])
     if k.shape[2] != q.shape[2]:
         k, v = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
@@ -90,9 +142,7 @@ def sdpa_reference(q, k, v, attn_mask=None, dropout_p=0.0,
         else:
             logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
-    if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
-        probs = probs * keep / (1 - dropout_p)
+    probs = dropout(probs, dropout_p, True, generator)
     return (probs @ vh).transpose(1, 2)
 
 
@@ -134,17 +184,20 @@ def sdpa_with_cache(query, key, value, k_cache, v_cache, pos):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, generator=None):
     """Inputs and output [batch, seq, heads, head_dim]. With no mask, no
     dropout and equal query and key lengths this is flash attention (the
-    kernels); otherwise the plain :func:`sdpa_reference`. Under
-    ``amp.auto_cast`` q, k and v are cast to the AMP dtype first."""
+    kernels, causal or not); otherwise the plain :func:`sdpa_reference`
+    (dropout live only when ``training``, drawing from ``generator``), as
+    the JAX package routes. Under ``amp.auto_cast`` q, k and v are cast
+    to the AMP dtype first."""
     query, key, value = maybe_cast_matmul(query, key, value)
     if (attn_mask is None and dropout_p == 0.0
             and query.shape[1] == key.shape[1]):
         return _fa.flash_attention(query, key, value, causal=is_causal)
     return sdpa_reference(query, key, value, attn_mask,
-                          dropout_p if training else 0.0, is_causal)
+                          dropout_p if training else 0.0, is_causal,
+                          generator)
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor,

@@ -1772,3 +1772,175 @@ def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
             err = (b[k] - a[k].cpu()).abs()
             assert err.max().item() <= 2.01 * rate, k
             assert err.median().item() <= 1e-6, k
+
+
+# ---- the model families: GPT-2, ERNIE, DeepSeek-V2, Llama-3-70B ------------
+
+@pytest.mark.parametrize("case", [(16, 512, 512, 12, 12, 64, False),
+                                  (8, 1024, 1024, 12, 12, 64, True)],
+                         ids=["ernie", "gpt2"])
+def test_flash_attention_at_the_model_shapes(cuda, case):
+    """K7-K9 in bf16 at ERNIE's non-causal [16, 512] and GPT-2's causal
+    [8, 1024] (12 heads, D 64), with the limits of
+    test_flash_attention_kernels, and a second launch's bits."""
+    test_flash_attention_kernels(cuda, torch.bfloat16, case)
+    B, S, _, H, _, D, causal = case
+    q, k, v, go = _attention_inputs(cuda, torch.bfloat16, B, S, S, H, H, D,
+                                    seed=5)
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    delta = kfa._delta(out, go)
+    runs = [(*kfa.flash_attention_fwd(q, k, v, causal),
+             *kfa.flash_attention_dkv(q, k, v, go, lse, delta, causal),
+             kfa.flash_attention_dq(q, k, v, go, lse, delta, causal))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("H,KVH,D", [(12, 12, 64), (64, 8, 128)],
+                         ids=["gpt2_rep1", "llama70_rep8"])
+@pytest.mark.parametrize("C", [24, 1], ids=["mixed", "decode"])
+def test_ragged_paged_attention_at_the_model_heads(cuda, H, KVH, D, C):
+    """K12 at GPT-2's 12/12 heads (rep 1, D 64) and Llama-3-70B's 64/8
+    (rep 8, D 128): a mixed batch in bf16 and f32, and a decode step with
+    its keys split, each held to the kernel's limits."""
+    if C > 1:
+        for dtype in (torch.float32, torch.bfloat16):
+            test_ragged_paged_attention_kernel(cuda, dtype, H, KVH, D, 16)
+        return
+    args, lengths, _ = _split_batch(cuda, H, KVH, D, 16, C)
+    args, out = _check_split(args, lengths)
+    assert torch.equal(krpa.ragged_paged_attention(*args), out)
+
+
+@pytest.mark.parametrize("d", [512, 1536, 5120])
+def test_rms_norm_kernels_at_deepseek_widths(cuda, d):
+    """K1 and K2 at DeepSeek-V2's kv and q latent widths and its hidden."""
+    for dtype in (torch.float32, torch.bfloat16):
+        test_rms_norm_kernel(cuda, dtype, 37, d)
+        test_rms_norm_dx_kernel(cuda, dtype, 37, d)
+
+
+def test_grouped_matmul_at_deepseek_layout(cuda):
+    """K14 (both modes) and K15 in bf16 at DeepSeek-V2's expert layout:
+    160 experts, top-6 of 300 tokens, d 5120, h 1536 (most experts own
+    one or two tiles), against the plain versions per element."""
+    E, d, h = 160, 5120, 1536
+    x, w, dy, gid = _grouped_inputs(cuda, torch.bfloat16, E, d, h, 128,
+                                    T=300, k=6, seed=2)
+    ax, aw, ady = x.float().abs(), w.float().abs(), dy.float().abs()
+    for out, ref, mag in (
+            (kgmm.grouped_matmul(x, w, gid),
+             kgmm.grouped_matmul_reference(x, w, gid),
+             kgmm.grouped_matmul_reference(ax, aw, gid)),
+            (kgmm.grouped_matmul_t(dy, w, gid),
+             kgmm.grouped_matmul_reference(dy, w, gid, True),
+             kgmm.grouped_matmul_reference(ady, aw, gid, True)),
+            (kgmm.grouped_dw(x, dy, gid, E),
+             kgmm.grouped_dw_reference(x, dy, gid, E),
+             kgmm.grouped_dw_reference(ax, ady, gid, E))):
+        _assert_close(out, ref, _grouped_tol(ref, mag, torch.bfloat16))
+
+
+def test_deepseek_latent_norm_takes_a_contiguous_copy(cuda):
+    """K1 refuses the strided slice ``ckv[..., :kv_lora_rank]``; the model
+    normalises a contiguous copy of it (one K1 launch) and gives the
+    plain version's values on the slice itself."""
+    from paddle_tpu_torch.models import (DeepseekV2Config,
+                                         DeepseekV2ForCausalLM)
+    cfg = dataclasses.replace(DeepseekV2Config.tiny(), num_hidden_layers=1)
+    m = DeepseekV2ForCausalLM(cfg, device=cuda, dtype=torch.bfloat16)
+    attn = m.layers[0].self_attn
+    x = torch.randn(2, 9, cfg.hidden_size, device=cuda).bfloat16()
+    ckv = attn.kv_a_proj_with_mqa(x)
+    strided = ckv[..., :cfg.kv_lora_rank]
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        krms.rms_norm(strided, attn.kv_a_layernorm.weight, cfg.rms_norm_eps)
+    rope = (m.rope_sin[None, :9], m.rope_cos[None, :9])
+    before = krms.rms_norm.launches
+    with torch.no_grad():
+        latent, _ = attn._latent(x, rope)
+    assert krms.rms_norm.launches == before + 1
+    ref = krms.rms_norm_reference(strided, attn.kv_a_layernorm.weight,
+                                  cfg.rms_norm_eps)
+    _assert_close(latent, ref, _tol(ref, torch.bfloat16, 3))
+
+
+def test_dropout_on_the_card_keeps_its_share_and_scale(cuda):
+    """Dropout draws from a seeded generator on the card: the same seed
+    repeats its mask, the kept share is 1 - p within 4 standard
+    deviations, the kept values are x / (1 - p)."""
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.ones(2048, 1024, device=cuda)
+    p = 0.1
+    runs = [F.dropout(x, p, generator=torch.Generator(
+        device=cuda).manual_seed(7)) for _ in range(2)]
+    assert torch.equal(*runs)
+    kept = (runs[0] != 0).float().mean().item()
+    assert abs(kept - (1 - p)) < 4 * (p * (1 - p) / x.numel()) ** 0.5
+    vals = runs[0][runs[0] != 0]
+    assert torch.equal(vals, torch.full_like(vals, 1 / (1 - p)))
+
+
+@pytest.mark.parametrize("family", ["gpt2", "ernie", "deepseek",
+                                    "deepseek_dropless"])
+def test_tiny_model_step_on_the_card_matches_the_cpu(cuda, family):
+    """The new families at their tiny widths in f32, card (kernels)
+    against CPU (plain versions) from the same weights: the labelled loss
+    within 1e-5 relative, each gradient within 1e-4 of its norm; greedy
+    ``generate`` streams equal (GPT-2 and DeepSeek), and GPT-2's engine
+    streams equal its ``generate``'s on the card."""
+    from paddle_tpu_torch.models import (DeepseekV2Config,
+                                         DeepseekV2ForCausalLM, ErnieConfig,
+                                         ErnieForPretraining, GPT2Config,
+                                         GPT2ForCausalLM)
+    cls, cfg = {
+        # two heads of 32: K12 takes head dims of 32-256, not tiny's 16
+        "gpt2": (GPT2ForCausalLM, dataclasses.replace(
+            GPT2Config.tiny(), num_attention_heads=2)),
+        "ernie": (ErnieForPretraining, ErnieConfig.tiny()),
+        "deepseek": (DeepseekV2ForCausalLM, DeepseekV2Config.tiny()),
+        "deepseek_dropless": (DeepseekV2ForCausalLM, dataclasses.replace(
+            DeepseekV2Config.tiny(), moe_dropless=True))}[family]
+    cfg = dataclasses.replace(cfg, initializer_range=0.2)
+    weights = cls(cfg, device="cpu", seed=3).state_dict()
+    rng = np.random.RandomState(1)
+    ids = rng.randint(5, cfg.vocab_size, (2, 40))
+    labels = np.where(rng.rand(2, 40) < 0.2, ids, -100)
+    prompts = rng.randint(0, cfg.vocab_size, (2, 7))
+    out = {}
+    for dev in ("cpu", cuda):
+        m = cls(cfg, device=dev)
+        m.load_state_dict(weights)
+        t = torch.from_numpy(ids).to(dev)
+        if family == "ernie":
+            loss = m(t, masked_lm_labels=torch.from_numpy(labels).to(dev),
+                     sop_labels=torch.tensor([0, 1], device=dev))
+        else:
+            loss = m(t, labels=t)[1]
+        loss.backward()
+        streams = []
+        if family != "ernie":
+            m.eval()
+            streams.append(m.generate(prompts, max_new_tokens=10,
+                                      decode_strategy="greedy_search")[
+                                          0].tolist())
+        if family == "gpt2":
+            eng = ContinuousBatchingEngine(m, num_slots=2, page_size=8,
+                                           max_len=32, decode_chunk=4,
+                                           prompt_buckets=(16,), device=dev)
+            for p in prompts:
+                eng.add_request(p, 10)
+            streams.append([r.tokens for r in sorted(
+                eng.run(), key=lambda r: r.request_id)])
+        out[str(dev)] = (loss.item(), convert.grads_to_numpy(m), streams)
+    (l0, g0, s0), (l1, g1, s1) = out["cpu"], out[str(cuda)]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert set(g0) == set(g1)
+    for k in g0:
+        assert np.linalg.norm(g1[k] - g0[k]) <= 1e-4 * max(
+            np.linalg.norm(g0[k]), 1e-30), k
+    assert s1 == s0
+    if family == "gpt2":
+        assert s1[1] == s1[0] and all(len(t) == 10 for t in s1[1])

@@ -173,6 +173,10 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.distributed.checkpoint.metadata\n"
             "import paddle_tpu_torch.hapi.callbacks\n"
             "import paddle_tpu_torch.nn.layer\n"
+            "import paddle_tpu_torch.models.gpt2\n"
+            "import paddle_tpu_torch.models.ernie\n"
+            "import paddle_tpu_torch.models.deepseek\n"
+            "import paddle_tpu_torch.ops.ring_attention\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
@@ -205,3 +209,14 @@ def test_model_without_device_raises_where_there_is_no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaForCausalLM(LlamaConfig.tiny())
+
+
+@pytest.mark.parametrize("preset", ["llama3_8b", "llama3_70b", "llama_1b",
+                                    "tiny"])
+def test_presets_match_jax(preset):
+    """Every preset the port has is the JAX package's, field for field
+    (``llama3_70b``: 8192 wide, 80 layers, 64/8 heads, I 28672)."""
+    import dataclasses
+    port = dataclasses.asdict(getattr(LlamaConfig, preset)())
+    ref = dataclasses.asdict(getattr(JLlamaConfig, preset)())
+    assert port == {k: ref[k] for k in port}

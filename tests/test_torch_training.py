@@ -2,7 +2,10 @@
 LlamaConfig.tiny(), f32, tied and untied: the labeled forward's loss,
 every parameter's gradient, the weights after one and three AdamW steps,
 bf16 parameters with f32 master copies, the pretraining criterion, the
-cross entropy and the attention routing.
+cross entropy and the attention routing; and the plain ops the GPT-2,
+ERNIE and DeepSeek-V2 ports add (``layer_norm`` to the bit in bf16,
+``gelu`` in both forms, ``tanh``, seeded ``dropout``, and
+``ops.ring_attention.chunked_attention`` forward, gradients and memory).
 
 Both sides run the unfused configuration: ``tensor_parallel=False``,
 ``scan_layers=False``, ``train()`` mode and ``FLAGS_fused_rmsnorm_residual``
@@ -240,3 +243,158 @@ def test_attention_routing_matches_jax_functional(mask, sk):
     # f32; the softmax and products sum in another order
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref.numpy()),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---- the plain ops of GPT-2, ERNIE and DeepSeek-V2 ---------------------------
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_layer_norm_matches_jax_to_the_bit_in_bf16(affine):
+    """The JAX rule: f32 statistics, the normalised value rounded to bf16,
+    then the affine (torch's layer_norm rounds once, after it: other
+    bits). Same bf16 inputs give the JAX package's bits; f32 within
+    1e-6."""
+    rng = np.random.RandomState(6)
+    x = (rng.randn(4, 7, 64) * 3 + 1).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(64)).astype(np.float32)
+    b = (0.1 * rng.randn(64)).astype(np.float32)
+    for dt, jdt in ((torch.bfloat16, jnp.bfloat16),
+                    (torch.float32, jnp.float32)):
+        args = [torch.from_numpy(a).to(dt) for a in (x, w, b)]
+        jargs = [paddle.to_tensor(jnp.asarray(a, jdt)) for a in (x, w, b)]
+        if not affine:
+            args[1:] = jargs[1:] = [None, None]
+        got = TF.layer_norm(args[0], 64, args[1], args[2], 1e-5)
+        ref = JF.layer_norm(jargs[0], 64, jargs[1], jargs[2], 1e-5)
+        assert got.dtype == dt
+        ref = np.asarray(ref.numpy(), np.float32)
+        if dt == torch.bfloat16:
+            np.testing.assert_array_equal(got.float().numpy(), ref)
+        else:
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_layer_norm_layer_and_normalised_shape_of_two_dims():
+    from paddle_tpu_torch.nn import LayerNorm
+    x = np.random.RandomState(7).randn(3, 4, 5).astype(np.float32)
+    ln = LayerNorm([4, 5], 1e-5, device="cpu")
+    assert ln.weight.shape == (4, 5) and (ln.bias == 0).all()
+    ref = JF.layer_norm(paddle.to_tensor(x), [4, 5], None, None, 1e-5)
+    np.testing.assert_allclose(ln(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(ref.numpy()), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("approximate", [False, True])
+def test_gelu_and_tanh_match_jax(approximate):
+    """GELU's erf form (ERNIE) and tanh form (GPT-2) and tanh (ERNIE's
+    pooler) in f32 against the JAX functions: within 1e-6 (two
+    libraries' erf and tanh)."""
+    x = np.random.RandomState(8).randn(257).astype(np.float32) * 4
+    got = TF.gelu(torch.from_numpy(x), approximate=approximate).numpy()
+    ref = np.asarray(JF.gelu(paddle.to_tensor(x),
+                             approximate=approximate).numpy())
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(TF.tanh(torch.from_numpy(x)).numpy(),
+                               np.tanh(x), rtol=1e-6, atol=1e-7)
+
+
+def test_dropout_keeps_its_share_scales_and_follows_its_generator():
+    """Dropout draws from the generator it is given (the JAX package's
+    jax.random streams differ by design): a seeded generator repeats
+    its mask; the kept share is 1 - p within 4 standard deviations and
+    the kept values are x / (1 - p); eval mode and p = 0 are the
+    identity."""
+    from paddle_tpu_torch.nn import Dropout
+    x = torch.ones(200, 500)
+    p = 0.1
+    a = TF.dropout(x, p, generator=torch.Generator().manual_seed(3))
+    b = TF.dropout(x, p, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a, b)
+    kept = (a != 0).float().mean().item()
+    sd = (p * (1 - p) / x.numel()) ** 0.5
+    assert abs(kept - (1 - p)) < 4 * sd
+    assert torch.equal(a[a != 0], torch.full_like(a[a != 0], 1 / (1 - p)))
+    layer = Dropout(p, torch.Generator().manual_seed(3))
+    assert torch.equal(layer(x), a)
+    layer.eval()
+    assert layer(x) is x and TF.dropout(x, 0.0) is x
+
+
+def _exact_mla(q, k, v, causal):
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    if causal:
+        mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool).tril()
+        logits = torch.where(mask, logits, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+
+
+@pytest.mark.parametrize("causal,sk", [(True, 64), (True, 96),
+                                       (False, 96), (True, 100),
+                                       (False, 100), (False, 33)])
+def test_chunked_attention_matches_jax_forward_and_grads(causal, sk):
+    """tests/test_deepseek.py:106 on the port: blockwise online-softmax
+    attention on MLA-shaped heads (Dqk 24, Dv 16), chunks of 32 with a
+    ragged tail, against the JAX package's ``chunked_attention`` (f32,
+    2e-5) and the port's own exact einsum; gradients against the JAX
+    package's (2e-4, as the JAX test holds them)."""
+    import jax
+    from paddle_tpu.ops.ring_attention import \
+        chunked_attention as jchunked
+    from paddle_tpu_torch.ops.ring_attention import chunked_attention
+    rng = np.random.RandomState(0)
+    q = rng.randn(2, 64, 2, 24).astype(np.float32)
+    k = rng.randn(2, sk, 2, 24).astype(np.float32)
+    v = rng.randn(2, sk, 2, 16).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = chunked_attention(tq, tk, tv, causal=causal, chunk=32)
+    ref = jchunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, chunk=32)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=2e-5, atol=2e-5)
+    if sk >= 64:       # query i at position i, keys past the queries
+        exact = _exact_mla(*(torch.from_numpy(a) for a in (q, k, v)),
+                           causal)
+        np.testing.assert_allclose(out.detach().numpy(), exact.numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    out.sum().backward()
+    jg = jax.grad(lambda a, b, c: jchunked(a, b, c, causal=causal,
+                                           chunk=32).sum(),
+                  argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_chunked_attention_holds_no_full_score_tensor():
+    """tests/test_deepseek.py:156 on the port: at S = 4096 a forward under
+    no_grad never makes a [B, H, S, S] tensor (every op's output is
+    recorded through a dispatch mode), while the exact einsum does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from paddle_tpu_torch.ops.ring_attention import chunked_attention
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.numel = max(self.numel, t.numel())
+            return out
+
+    S, H = 4096, 2
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, S, H, 24, generator=g)
+    k = torch.randn(1, S, H, 24, generator=g)
+    v = torch.randn(1, S, H, 16, generator=g)
+    with torch.no_grad():
+        with Largest() as chunked:
+            chunked_attention(q, k, v, causal=True, chunk=256)
+        with Largest() as exact:
+            _exact_mla(q[:, :1024], k[:, :1024], v[:, :1024], True)
+    assert exact.numel >= 1024 * 1024 * H
+    assert chunked.numel <= S * 256 * H, chunked.numel
