@@ -29,8 +29,8 @@ non-zero without printing a result:
    registers and spills from ptxas, bits repeated) beside K12 at one
    token a slot (its keys split over CTAs), K12 there held against its
    plain version too;
-3. serve: the serving path at full width: a 32-layer Llama-3-8B with
-   seeded random weights served by the continuous-batching engine (12
+3. serve: the serving path at full width: Llama-3-8B at 16 of its 32
+   layers (the script's time limit) with seeded random weights served by the continuous-batching engine (12
    requests through 8 slots, the prefix cache off) through the pipelined
    ``run()``, with the kernels' launch counters read around it, then two
    more requests under torch.profiler (device time by layer, K12's share
@@ -124,8 +124,8 @@ non-zero without printing a result:
     layout (32 real rows in 7808); K12 and K7-K9 at Qwen2's 28/4 heads,
     K12 also at serve_moe's decode step (one token in each of 8 slots,
     its split plan, bits repeated);
-20. serve_moe: qwen2_moe_a14b at full width and depth (28 layers, 60
-    experts, top-4, dropless) with seeded random weights through the
+20. serve_moe: qwen2_moe_a14b at full width and half its depth (14 of
+    28 layers, 60 experts, top-4, dropless) with seeded random weights through the
     engine, the serve phase's traffic, launch counters read around it;
 21. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
     whole-layer recompute under ``dots_saveable``, the fused carry, aux
@@ -137,7 +137,7 @@ non-zero without printing a result:
 23. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-24. the ``kernels`` JSON line, then the result line (after phase 33).
+24. the ``kernels`` JSON line, then the result line (after phase 37).
 
 Three more paths run between those phases, two of the serving slice
 and the training loop users run:
@@ -161,7 +161,8 @@ and the training loop users run:
     greedy agreement with serve's streams (reported); then 4 requests
     over int8 pools (K13);
 27. train_loop (after fused_parity): examples/train_gpt2.py's flow on
-    the port at Llama-1B's full width and depth in bf16: AdamW (decay off
+    the port at Llama-1B's full width and 8 of its 16 layers in bf16
+    (the script's time limit): AdamW (decay off
     for norms by ``apply_decay_param_fun``) under
     ``LinearWarmup(CosineAnnealingDecay(3e-4, T_max=40), 10 steps from
     0)`` with ``nn.ClipGradByGlobalNorm(1.0)``, 40 steps of ``model(ids,
@@ -187,7 +188,10 @@ The model families, after moe_parity:
     64/8 (rep 8), a mixed and a decode step each; K1/K2 at widths 512,
     1536 and 5120, K5/K6 at 1536, 3072 and 12288; K14, K14-T and K15 at
     DeepSeek-V2's training layout (160 experts, top-6 of 4096 tokens, d
-    5120, h 1536) and K14 both modes at its decode layout;
+    5120, h 1536) and K14 both modes at its decode layout; K1 at [256,
+    2048], K5 at [256, 5632] and K12 at 16/8 heads with pages of 32 (a
+    mixed chunk of 32 and a decode step), as the fleet's and the HTTP
+    phase's Llama-1B engines launch them;
 29. gpt2: GPT-2 small: examples/train_gpt2.py's flow in f32 with dropout
     0.1 (40 AdamW steps on [8, 1024] windows of the Markov corpus, the
     loss 0.15 lower; save, load, a resumed step bit for bit), a bf16 step
@@ -210,6 +214,36 @@ The model families, after moe_parity:
     loss, every gradient, greedy ``generate`` streams, GPT-2's engine
     streams equal to its ``generate``'s.
 
+The serving front door, after the decode bench on its Llama-1B (K1, K5,
+K12):
+
+34. fleet: bench.py:_cb_fleet_bench uncut: 64 requests through one
+    engine, then through a ``ServingFleet`` of 4 replicas (two SLO rules,
+    two tenants) with replica 1 killed for good after 8 steps: every
+    request delivered, the breaker open, the survivors' pages balanced;
+    the bench's ``cb_fleet_*``, ``obs_slo_attainment``, ``slo_alerts``
+    and ``obs_fleet_overhead_frac``, launches a forward (exact), the
+    bf16 streams equal to the single engine's (a differing stream's
+    first differing token and the top-2 gap there), the idle share over
+    a profiled window of the same 64 requests on the 3 survivors;
+35. http: bench.py:_cb_http_bench: an engine-backed ``ApiServer`` driven
+    by tools/load_harness.py as a separate process (64 SSE requests,
+    concurrency 24), one leg of each where the bench takes the best of 2
+    (``HTTP_REPS``: the time limit), beside the direct engine
+    (``cb_http_*``); every request ok, a unary completion equal to the
+    engine's tokens, /v1/models, /healthz and /statusz 200, a 429 with
+    Retry-After when the admission queue is full;
+36. fleet_parity: the fleet's traffic at depth 2 in f32: every stream
+    equal to the single engine's through the kill, then with hedges,
+    then with a ``scale_down`` forced through ``handoff()``;
+37. observability: a 3-replica fleet at depth 2 with the flight recorder
+    and a 2 s watchdog: /metrics and /statusz scraped while it serves
+    (every scrape parses, replica-labelled families, no section error,
+    no dump), two dispatches under ``set_sync_debug_mode("error")`` with
+    the tracer on, ``wedge_replica`` (ejected, its requests delivered by
+    its siblings, a complete post-mortem bundle) and a 3 s hang (one
+    watchdog stall bundle).
+
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
 """
@@ -218,6 +252,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1385,7 +1420,8 @@ def _serve_traffic(vocab):
 
 
 def serve_model(cfg, dev="cuda", dtype=None):
-    """Llama-3-8B at full width and depth, seeded random weights (seed 0)."""
+    """Llama-3-8B at full width and ``cfg``'s depth, seeded random weights
+    (seed 0)."""
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM
     t0 = time.perf_counter()
@@ -1409,7 +1445,7 @@ def _serial(eng):
 
 
 def phase_serve(cfg, model, dev="cuda", kv_quant="none"):
-    """Llama-3-8B at full width and depth through the engine, with
+    """Llama-3-8B at full width (serve's depth) through the engine, with
     bf16 pools (phase serve) or int8/fp8 ones (phase serve_quant), the
     prefix cache off. Serve runs its traffic twice on one engine: through
     the pipelined ``run()`` (launches counted) and through serial
@@ -2062,11 +2098,11 @@ def phase_quant_accuracy(model, n_tokens=1500):
     the top-1 agreement over the positions.
 
     The gate: the RMS difference over the logits' RMS stays under 0.2
-    (int8) and 0.5 (fp8). With seeded random weights the 32 layers
-    amplify the KV codes' rounding (int8 about 0.7% of an element's
-    spread, e4m3 about 2.5% of its size) to about 0.10 and 0.31 of the
-    logits' RMS (this script, measured on one NVIDIA H100 80GB HBM3): the
-    bounds sit at 2x and 1.6x those; logits that share nothing with the
+    (int8) and 0.5 (fp8). With seeded random weights the layers amplify
+    the KV codes' rounding (int8 about 0.7% of an element's spread, e4m3
+    about 2.5% of its size): at 32 layers to about 0.10 and 0.31 of the
+    logits' RMS (this script, measured on one NVIDIA H100 80GB HBM3), the
+    bounds 2x and 1.6x those; logits that share nothing with the
     bf16 pools' (a dropped scale, a wrong page) give about 1.41."""
     import torch
     rng = np.random.RandomState(9)
@@ -2456,6 +2492,634 @@ def _first_diff(a, b):
             for i, (x, y) in enumerate(zip(a, b)) if x != y]
 
 
+#: the fleet's and the HTTP front door's geometry on Llama-1B: the JAX
+#: bench's TPU configuration (bench.py:_cb_fleet_bench, _cb_http_bench)
+FLEET_ENGINE = dict(num_slots=8, page_size=32, max_len=384, decode_chunk=32,
+                    greedy=True, audit=True)
+
+
+def _fleet_specs(vocab, n_req=64, plen=(48, 192), new=(16, 48), seed=44):
+    """The bench's fleet traffic: RandomState(44), prompts of 48-192
+    tokens, 16-48 new each."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, (int(rng.randint(plen[0], plen[1] + 1)),))
+             .astype(np.int32), int(rng.randint(new[0], new[1] + 1)))
+            for _ in range(n_req)]
+
+
+def _fleet_factory(model, dev, engines=None):
+    """The fleet's engine factory; ``engines`` collects every engine it
+    builds (a supervised restart builds more), for their forwards."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    def factory():
+        eng = ContinuousBatchingEngine(model, prefill_chunk=32, device=dev,
+                                       **FLEET_ENGINE)
+        if engines is not None:
+            engines.append(eng)
+        return eng
+    return factory
+
+
+def _delivered(tag, fleet, done, fids):
+    """Every fleet id delivered exactly once and without an error, and
+    the pages of every surviving replica balanced. Returns {fid: req}."""
+    by = {}
+    for r in done:
+        if r.request_id in by:
+            raise AssertionError(f"[{tag}] fleet id {r.request_id} "
+                                 f"delivered twice")
+        by[r.request_id] = r
+    bad = [f for f in fids if f not in by or by[f].error is not None]
+    if sorted(by) != sorted(fids) or bad:
+        raise AssertionError(f"[{tag}] {len(by)}/{len(fids)} delivered; "
+                             f"failed or missing {bad[:8]}")
+    for rep in fleet.replicas.values():
+        if rep.live():
+            _drain_check(f"{tag} replica {rep.id}", rep.engine)
+    return by
+
+
+def phase_fleet(model, dev="cuda"):
+    """The JAX bench's fleet section (bench.py:_cb_fleet_bench) uncut on
+    the port: Llama-1B bf16, engines of 8 slots, page 32, prefill and
+    decode chunk 32, max_len 384; 64 requests (RandomState(44), prompts
+    of 48-192 tokens, 16-48 new) through one engine (the A/B
+    denominator), then through a ``ServingFleet`` of 4 replicas sharing
+    the model (``max_restarts=1``, the bench's two SLO rules, two
+    tenants), each replica warmed outside the timed region, replica 1
+    killed for good after 8 of its steps. Every request must be
+    delivered without an error, replica 1's breaker must be open and
+    every survivor's pages must balance. The bench's keys, the launches
+    per forward (exact), the share of greedy streams equal to the single
+    engine's (a differing stream's first differing position and the
+    top-2 logit gap there), and the idle share over a profiled window of
+    the same 64 requests at the same concurrency."""
+    import torch
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.profiler.slo import SLORule
+    from paddle_tpu_torch.testing import FaultInjector
+    cfg = model.config
+    specs = _fleet_specs(cfg.vocab_size)
+    single = _fleet_factory(model, dev)()
+    single.add_request(*specs[0])
+    single.run()                       # cuBLAS handles, off the clock
+    single.reset_gauges()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [single.add_request(p, n) for p, n in specs]
+    sdone = {r.request_id: r for r in single.run()}
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    single_streams = [sdone[i].tokens for i in ids]
+    single_tps = sum(len(t) for t in single_streams) / single_wall
+    del single
+    engines = []
+    fleet = ServingFleet(
+        _fleet_factory(model, dev, engines), num_replicas=4, max_restarts=1,
+        retry_backoff_s=0.01,
+        slo_rules=[SLORule("ttft", kind="ttft", threshold_ms=60_000,
+                           target=0.9, min_events=5),
+                   SLORule("success", kind="success", target=0.9,
+                           min_events=5)])
+    for rep in fleet.replicas.values():
+        fleet._warm(rep)               # first-use work, off the clock
+    wrappers = _counted(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FaultInjector() as fi:
+        fi.kill_replica(1, times=10_000, after_steps=8)
+        fids = [fleet.submit(p, n, tenant=f"tenant{i % 2}")
+                for i, (p, n) in enumerate(specs)]
+        done = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    forwards = sum(e._stats["forwards"] for e in engines)
+    _launch_check("fleet", launches, forwards, cfg.num_hidden_layers)
+    by = _delivered("fleet", fleet, done, fids)
+    g = fleet.gauges()
+    if g["breaker_open"] != 1 or fleet.replicas[1].eject_kind != "breaker":
+        raise AssertionError(f"[fleet] replica 1's breaker is not open: "
+                             f"{g['replica_states']}, {g['breaker_open']}")
+    streams = [by[f].tokens for f in fids]
+    toks = sum(len(t) for t in streams)
+    ttft = [(by[f].t_first - by[f].t_arrive) * 1e3 for f in fids]
+    slo = fleet.slo.summary()
+    out = {"cb_fleet_tok_s": round(toks / wall, 2),
+           "cb_fleet_p99_ttft_ms": round(_p99(ttft), 2),
+           "cb_fleet_failover_ms": round(g["failover_ms_p99"], 2),
+           "cb_fleet_vs_single": round(toks / wall / single_tps, 4),
+           "obs_slo_attainment": round(slo["worst_attainment"], 4),
+           "slo_alerts": int(slo["alerts_fired"]),
+           "obs_fleet_overhead_frac": round(g["obs_overhead_frac"], 5)}
+    same = sum(a == b for a, b in zip(streams, single_streams))
+    log(f"[fleet] {len(fids)} requests over 4 replicas, replica 1 killed "
+        f"after 8 steps (breaker open, {g['requeued']} requeued, "
+        f"{g['retries']} retries): {toks} tokens in {wall:.2f} s; single "
+        f"engine {single_tps:.1f} tok/s in {single_wall:.2f} s; "
+        f"{json.dumps(out)}")
+    log(f"[fleet] launches {launches} over {forwards} forwards: "
+        f"{launches['rms_norm'] / forwards:g} rms_norm, "
+        f"{launches['swiglu'] / forwards:g} swiglu, "
+        f"{launches['ragged_paged_attention'] / forwards:g} "
+        f"ragged_paged_attention a forward")
+    log(f"[fleet] bf16 greedy streams equal to the single engine's: "
+        f"{same}/{len(fids)}")
+    for i, j in _first_diff(streams, single_streams):
+        gap = _top2_gap(model, list(specs[i][0]) + single_streams[i][:j])
+        log(f"[fleet] stream {i} first differs at token {j}: the single "
+            f"engine's top-2 logit gap there is {gap:.4g}")
+    # the idle share over a window of the phase's own traffic: the 64
+    # requests again through the three survivors (every slot taken, the
+    # rest queued), 2 turns to fill, then 3 turns under the profiler
+    # (device activity only, the least host overhead); the window's
+    # device time a forward, over the timed run's forwards and wall, is
+    # the profiler-free reading. The window's requests are left undone
+    for i, (p, n) in enumerate(specs):
+        fleet.submit(p, n, tenant=f"tenant{i % 2}")
+    for _ in range(2):
+        fleet.step()
+    f0 = sum(e._stats["forwards"] for e in engines)
+    prof = _profile("fleet", lambda: [fleet.step() for _ in range(3)],
+                    cpu=False)
+    fw = sum(e._stats["forwards"] for e in engines) - f0
+    if prof:
+        per_fwd = prof["busy_ms"] / fw
+        log(f"[fleet] profiled window: 3 fleet turns of the 64 requests "
+            f"over 3 replicas, {fw} forwards, {per_fwd:.3f} ms of device "
+            f"time a forward; over the timed run's {forwards} forwards in "
+            f"{wall:.2f} s that is an idle share of "
+            f"{1 - per_fwd * forwards / (wall * 1e3):.3f} (the window's "
+            f"own, profiler on: {1 - prof['busy_ms'] / prof['wall_ms']:.3f})")
+    del fleet, engines
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches)
+
+
+def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
+    """The fleet at Llama-1B's width and depth 2 in f32 (seed 1), the
+    fleet phase's geometry and traffic: every fleet stream must equal
+    the single engine's bit for bit through the kill of replica 1 after
+    8 steps; then again with the
+    kill and hedges (``hedge_factor`` 0.05, so that requests waiting for
+    their first token are copied), and again with the kill and a
+    ``scale_down`` of replica 0 whose deadline has passed (its
+    stragglers go through ``handoff()``). Every fleet id is delivered
+    exactly once in each run."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.testing import FaultInjector
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=1)
+    model.eval()
+    specs = _fleet_specs(cfg.vocab_size)
+    single = _fleet_factory(model, dev)()
+    ids = [single.add_request(p, n) for p, n in specs]
+    sdone = {r.request_id: r for r in single.run()}
+    want = [sdone[i].tokens for i in ids]
+    del single
+    res = {}
+    for mode in ("kill", "hedge", "drain"):
+        fleet = ServingFleet(
+            _fleet_factory(model, dev), num_replicas=4, max_restarts=1,
+            retry_backoff_s=0.01, hedge_factor=0.05, hedge_min_delay_s=0.0,
+            hedge_delay_s=None if mode == "hedge" else 1e9)
+        for rep in fleet.replicas.values():
+            fleet._warm(rep)
+        with FaultInjector() as fi:
+            fi.kill_replica(1, times=10_000, after_steps=8)
+            fids = [fleet.submit(p, n) for p, n in specs]
+            if mode == "drain":
+                for _ in range(3):
+                    fleet.step()
+                fleet.scale_down(0, deadline_s=0.0)
+            fleet.run()
+        # fleet.completed: every delivery, those of the turns before run()
+        by = _delivered(f"fleet_parity {mode}", fleet, fleet.completed,
+                        fids)
+        got = [by[f].tokens for f in fids]
+        if got != want:
+            raise AssertionError(f"[fleet_parity] {mode}: f32 streams "
+                                 f"differ at {_first_diff(got, want)[:4]}")
+        g = fleet.gauges()
+        if g["breaker_open"] != 1:
+            raise AssertionError(f"[fleet_parity] {mode}: breaker {g}")
+        if mode == "hedge" and not g["hedges"]:
+            raise AssertionError("[fleet_parity] no hedge fired")
+        if mode == "drain" and (g["drains"] != 1 or fleet.replicas[0].state
+                                != "retired"):
+            raise AssertionError(f"[fleet_parity] drain: {g}")
+        res[mode] = {k: g[k] for k in ("requeued", "retries", "hedges",
+                                       "hedge_wins", "hedge_cancels",
+                                       "drains")}
+        log(f"[fleet_parity] {mode}: {len(fids)} f32 greedy streams equal "
+            f"to the single engine's bit for bit, each fleet id delivered "
+            f"once; {res[mode]}")
+        del fleet
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the HTTP phase's repetitions: the bench takes the best of 2, but two
+#: legs of each kind (about 190 s on the card) would take the script past
+#: its budget, so it runs one of each
+HTTP_REPS = 1
+
+
+def phase_http(model, reps=HTTP_REPS, dev="cuda"):
+    """The JAX bench's HTTP section (bench.py:_cb_http_bench) on the
+    port: an engine-backed ``ApiServer`` over Llama-1B bf16 (8 slots,
+    page 32, decode chunk 32, max_len 384, prompt buckets (8, 16), SSE
+    chunks of 32 tokens) driven by tools/load_harness.py as a separate
+    process with the bench's flags (64 requests, concurrency 24, closed
+    loop, prompts of 3-5 tokens, 128-192 new, a quarter sharing a
+    4-token prefix, two tenants, seed 44), best of ``reps`` (the bench's
+    2; ``HTTP_REPS``) interleaved with the same requests pushed straight
+    into an identically configured engine. Every request must complete without an error; a
+    unary completion must return the engine's own greedy tokens;
+    /v1/models, /healthz and /statusz must answer 200; a request while
+    the admission queue is full must get 429 with a Retry-After."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from paddle_tpu_torch.inference import (AdmissionController, ApiServer,
+                                            ContinuousBatchingEngine)
+    cfg = model.config
+    n_req, conc, new_lo, new_hi, sse_chunk = 64, 24, 128, 192, 32
+
+    def factory():
+        return ContinuousBatchingEngine(
+            model, num_slots=8, page_size=32, max_len=384, decode_chunk=32,
+            prompt_buckets=(8, 16), greedy=True, device=dev)
+
+    rng = np.random.RandomState(44)
+    specs = [(rng.randint(0, cfg.vocab_size, (int(rng.randint(3, 6)),))
+              .astype(np.int32), int(rng.randint(new_lo, new_hi + 1)))
+             for _ in range(n_req)]
+
+    def warm(eng):
+        for p, n in specs[:8]:
+            eng.add_request(p, n)
+        eng.run()
+
+    direct, served = factory(), factory()
+    warm(direct)
+    warm(served)
+    srv = ApiServer(served, stream_chunk_tokens=sse_chunk).start()
+    harness = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "load_harness.py")
+
+    def direct_once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, n in specs:
+            direct.add_request(p, n)
+        done = direct.run()
+        torch.cuda.synchronize()
+        return sum(len(r.tokens) for r in done) / (time.perf_counter() - t0)
+
+    def http_once():
+        with tempfile.TemporaryDirectory() as tmp:
+            rep_path = os.path.join(tmp, "report.json")
+            proc = subprocess.run(
+                [sys.executable, harness, "--url", srv.url,
+                 "--requests", str(n_req), "--concurrency", str(conc),
+                 "--mode", "closed", "--vocab", str(cfg.vocab_size),
+                 "--prompt-len", "3", "5",
+                 "--max-new", str(new_lo), str(new_hi),
+                 "--prefix-frac", "0.25", "--prefix-len", "4",
+                 "--tenants", "tenant0,tenant1", "--seed", "44",
+                 "--report", rep_path],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"[http] load harness failed "
+                                     f"({proc.returncode}): "
+                                     f"{proc.stderr[-800:]}")
+            with open(rep_path) as f:
+                report = json.load(f)
+        if report["completed_ok"] != report["requests"] or report["errors"]:
+            raise AssertionError(f"[http] {report['completed_ok']}/"
+                                 f"{report['requests']} ok, errors "
+                                 f"{report['errors']}")
+        return report
+
+    if reps != 2:
+        log(f"[http] {reps} rep(s) of each leg, not the bench's 2: the "
+            f"script's time limit forces it")
+    launches = {k: 0 for k in SERVE_KERNELS}
+    forwards = 0
+    try:
+        direct_tps, best, reports = 0.0, None, []
+        for _ in range(reps):
+            direct_tps = max(direct_tps, direct_once())
+            wrappers = _counted(SERVE_KERNELS)
+            f0 = served._stats["forwards"]
+            rep = http_once()
+            torch.cuda.synchronize()
+            forwards += served._stats["forwards"] - f0
+            for k, w in wrappers.items():
+                launches[k] += w.launches
+            reports.append(rep)
+            if best is None or rep["tok_s"] > best["tok_s"]:
+                best = rep
+        _launch_check("http", launches, forwards, cfg.num_hidden_layers)
+        # a unary completion returns the engine's own greedy tokens
+        prompt, n_new = specs[1]
+        direct.add_request(prompt, n_new)
+        want = " ".join(str(t) for t in direct.run()[-1].tokens)
+        req = urllib.request.Request(
+            srv.url + "/v1/completions",
+            data=json.dumps({"prompt": [int(t) for t in prompt],
+                             "max_tokens": n_new}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            doc = json.loads(r.read())
+        if doc["choices"][0]["text"] != want:
+            raise AssertionError(f"[http] unary completion "
+                                 f"{doc['choices'][0]['text']!r} != the "
+                                 f"engine's {want!r}")
+        for path in ("/v1/models", "/healthz", "/statusz"):
+            with urllib.request.urlopen(srv.url + path, timeout=60) as r:
+                if r.status != 200:
+                    raise AssertionError(f"[http] {path} {r.status}")
+    finally:
+        srv.stop()
+    # the admission queue full: 429 with a Retry-After
+    shed = ApiServer(AdmissionController(direct, max_queue=0,
+                                         min_retry_after_s=2.0)).start()
+    try:
+        req = urllib.request.Request(
+            shed.url + "/v1/completions",
+            data=json.dumps({"prompt": [1, 2], "max_tokens": 2}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            raise AssertionError("[http] no 429 with the queue full")
+        except urllib.error.HTTPError as e:
+            retry_after = e.headers.get("Retry-After")
+            if e.code != 429 or not retry_after or int(retry_after) < 2:
+                raise AssertionError(f"[http] {e.code}, Retry-After "
+                                     f"{retry_after}") from None
+    finally:
+        shed.stop()
+    out = {"cb_http_tok_s": round(best["tok_s"], 2),
+           "cb_http_p99_ttft_ms": round(best["ttft_ms_p99"], 2),
+           "cb_http_goodput_frac": round(best["goodput_frac"], 4),
+           "cb_http_vs_engine": round(best["tok_s"] / direct_tps, 4)}
+    log(f"[http] {n_req} SSE streams x{conc} concurrent through the front "
+        f"door, best of {reps} interleaved with the direct engine "
+        f"({direct_tps:.1f} tok/s): {json.dumps(out)}; reps "
+        f"{[round(r['tok_s'], 1) for r in reports]} tok/s; "
+        f"{best['completed_ok']}/{best['requests']} ok, no errors")
+    log(f"[http] the unary completion equals the engine's {n_new} greedy "
+        f"tokens; /v1/models, /healthz, /statusz 200; queue full -> 429 "
+        f"Retry-After {retry_after}; launches {launches} over {forwards} "
+        f"forwards of the served engine")
+    del direct, served
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches)
+
+
+#: a Prometheus sample line: ``name{labels} value``
+PROM_LINE = re.compile(r"^[A-Za-z_:][A-Za-z0-9_:]*(\{[^}]*\})? (\S+)$")
+
+
+def _prom_parses(text):
+    """The Prometheus text exposition parses: every sample line is
+    ``name{labels} value`` with a numeric value, one TYPE a family."""
+    types = []
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            types.append(line.split()[2])
+        elif line and not line.startswith("#"):
+            m = PROM_LINE.match(line)
+            if not m:
+                raise AssertionError(f"[observability] unparseable "
+                                     f"/metrics line {line!r}")
+            float(m.group(2))
+    if not text.endswith("\n") or len(types) != len(set(types)):
+        raise AssertionError("[observability] /metrics: torn text or a "
+                             "family typed twice")
+
+
+def phase_observability(cfg1b, layers=2, dev="cuda"):
+    """The fleet's observability on a fresh fleet of 3 replicas at
+    Llama-1B's width and depth 2 in bf16 (the fleet phase's geometry),
+    warmed, then the flight recorder installed with a 2 s watchdog:
+
+    - 24 requests while /metrics and /statusz are scraped from two
+      threads through ``fleet.observability_server()``: every scrape
+      parses, the text carries the fleet's families and the replicas'
+      with a ``replica`` label, every /statusz section evaluates without
+      an ``error`` stanza, and the watchdog dumps nothing;
+    - a dispatch and its successor with the tracer on and the recorder
+      installed, under ``torch.cuda.set_sync_debug_mode("error")``;
+    - ``wedge_replica(0)``: the no-progress check ejects replica 0 and
+      its requests are delivered by its siblings; the heartbeats went on,
+      so the watchdog dumps nothing, and the post-mortem bundle
+      (``rec.dump``) is complete: the ejection in its ring, every
+      thread's stack, the federated metrics with replica labels;
+    - ``slow_replica(1)`` blocking one step for 3 s: the watchdog dumps
+      one stall bundle naming the fleet's run loop, and every request is
+      delivered."""
+    import dataclasses
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.profiler import flight_recorder as fr
+    from paddle_tpu_torch.profiler.slo import SLORule
+    from paddle_tpu_torch.profiler.trace import get_tracer
+    from paddle_tpu_torch.testing import FaultInjector
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=1)
+    model.eval()
+    factory = _fleet_factory(model, dev)
+    fleet = ServingFleet(factory, num_replicas=3, max_restarts=1,
+                         retry_backoff_s=0.01, slo_rules=[
+                             SLORule("ttft", kind="ttft",
+                                     threshold_ms=60_000, target=0.9,
+                                     min_events=5)])
+    for rep in fleet.replicas.values():
+        fleet._warm(rep)
+    tmp = tempfile.mkdtemp(prefix="flight_")
+    # bundles carry the fleet's federated metrics, in a run or after it
+    rec = fr.install(capacity=4096, bundle_dir=tmp, registry=fleet.metrics,
+                     watchdog_timeout_s=2.0)
+    wd = fr.get_watchdog()
+    rng = np.random.RandomState(46)
+    launches = {k: 0 for k in SERVE_KERNELS}
+    forwards = 0
+
+    def serve(n, tag):
+        nonlocal forwards
+        engines = [r.engine for r in fleet.replicas.values() if r.live()]
+        f0 = sum(e._stats["forwards"] for e in engines)
+        wrappers = _counted(SERVE_KERNELS)
+        fids = [fleet.submit(rng.randint(0, cfg.vocab_size,
+                                         int(rng.randint(48, 193))),
+                             int(rng.randint(16, 49)),
+                             tenant=f"tenant{i % 2}") for i in range(n)]
+        done = fleet.run()
+        torch.cuda.synchronize()
+        for k, w in wrappers.items():
+            launches[k] += w.launches
+        forwards += sum(e._stats["forwards"] for e in engines) - f0
+        return _delivered(f"observability {tag}", fleet, done, fids)
+
+    srv = fleet.observability_server()
+    stop = threading.Event()
+    bodies = {"/metrics": [], "/statusz": []}
+    errors = []
+
+    def scraper(path):
+        while not stop.is_set():
+            try:
+                with urllib.request.urlopen(srv.url + path,
+                                            timeout=30) as r:
+                    bodies[path].append(r.read().decode())
+            except Exception as e:  # noqa: BLE001 — the phase's failure
+                errors.append(repr(e))
+            time.sleep(0.05)
+
+    threads = [threading.Thread(target=scraper, args=(p,), daemon=True)
+               for p in bodies]
+    try:
+        for t in threads:
+            t.start()
+        serve(24, "scraped")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    if errors or not all(bodies.values()):
+        raise AssertionError(f"[observability] scrapes: {errors[:3]}, "
+                             f"{[len(b) for b in bodies.values()]}")
+    final = srv.render_metrics()
+    srv.stop()
+    for text in bodies["/metrics"] + [final]:
+        _prom_parses(text)
+    for family in ("paddle_fleet_completed", "paddle_fleet_submitted",
+                   'paddle_serving_tokens_emitted{replica="0"}',
+                   'paddle_serving_prefix_cache_pages{replica="2"}',
+                   'paddle_serving_ttft_ms{quantile="0.99"}',
+                   'paddle_slo_attainment{rule="ttft",tenant="tenant0"}'):
+        if family not in final:
+            raise AssertionError(f"[observability] /metrics lacks "
+                                 f"{family}")
+    for body in bodies["/statusz"]:
+        doc = json.loads(body)
+        bad = {k: v for k, v in doc.items()
+               if isinstance(v, dict) and set(v) == {"error"}}
+        if bad or not {"fleet", "replicas", "slo", "slowest_traces",
+                       "flight_recorder", "goodput"} <= set(doc):
+            raise AssertionError(f"[observability] /statusz {bad or doc}")
+    if rec.dumps or wd.stall_dumps:
+        raise AssertionError(f"[observability] an uninjected run dumped "
+                             f"{rec.dumps} bundles")
+    log(f"[observability] {len(bodies['/metrics'])} /metrics and "
+        f"{len(bodies['/statusz'])} /statusz scrapes during 24 requests: "
+        f"all parse, replica-labelled families present, every section "
+        f"evaluates; fleet obs overhead "
+        f"{fleet.gauges()['obs_overhead_frac']:.5f}; no bundle dumped")
+    # the dispatch stays sync-free with the tracer on and the recorder in
+    eng = factory()
+    eng.add_request(np.arange(64) % cfg.vocab_size, 4)
+    eng.run()
+    for n in (40, 9):
+        eng.add_request(rng.randint(0, cfg.vocab_size, n), 6)
+    eng._admit()
+    tracer = get_tracer()
+    tracer.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = eng._dispatch_step()
+        second = eng._dispatch_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        tracer.enabled = False
+        tracer.clear()
+    eng._harvest_step(first)
+    eng._harvest_step(second)
+    if sorted(len(r.tokens) for r in eng.run()) != [6, 6]:
+        raise AssertionError("[observability] sync-debug streams")
+    kinds = [e["kind"] for e in rec.events()]
+    if kinds.count("sched_turn") < 2 or "admit" not in kinds or rec.dumps:
+        raise AssertionError(f"[observability] the recorder's ring after "
+                             f"the sync-debug dispatches: {kinds[-8:]}, "
+                             f"{rec.dumps} dumps")
+    del eng
+    log("[observability] two dispatches with the tracer on (trace sample "
+        "rate 0.01) and the recorder installed made no host "
+        "synchronisation under set_sync_debug_mode('error')")
+    # a wedged replica: ejected by the no-progress check
+    with FaultInjector() as fi:
+        fi.wedge_replica(0)
+        by = serve(24, "wedge")
+    g = fleet.gauges()
+    # the requests routed to the wedged replica, each finished elsewhere
+    rescued = [f for f, r in by.items()
+               if any(h["kind"] == "assign" and h.get("replica") == 0
+                      for h in r.hops)]
+    if fleet.replicas[0].eject_kind != "wedge" or g["wedge_ejections"] != 1 \
+            or not rescued or any(
+                [h for h in by[f].hops if h["kind"] == "finish"][-1].get(
+                    "replica") == 0 for f in rescued):
+        raise AssertionError(f"[observability] wedge: {g}, {rescued}")
+    if rec.dumps or wd.stall_dumps:
+        raise AssertionError("[observability] the wedge's heartbeats went "
+                             "on, yet the watchdog dumped")
+    path = rec.dump("post-mortem: replica 0 wedged and ejected")
+    doc = json.load(open(path))
+    kinds = [e["kind"] for e in doc["events"]]
+    if doc["schema"] != fr.BUNDLE_SCHEMA or not any(
+            e["kind"] == "fleet_eject" and e.get("cause") == "wedge"
+            for e in doc["events"]) or "sched_turn" not in kinds \
+            or not doc["threads"] or not any(
+                k.startswith("serving/tokens_emitted{replica=")
+                for k in doc["metrics"]):
+        raise AssertionError(f"[observability] incomplete bundle: "
+                             f"{sorted(doc)}, {kinds[-5:]}")
+    log(f"[observability] wedge_replica(0): ejected by the no-progress "
+        f"check, {len(rescued)} of its requests delivered by its siblings, "
+        f"no liveness dump (heartbeats went on); the post-mortem bundle "
+        f"holds {len(doc['events'])} ring events with the ejection, "
+        f"{len(doc['threads'])} thread stacks and "
+        f"{len(doc['metrics'])} federated metrics")
+    # a hung step: the watchdog dumps one stall bundle
+    with FaultInjector() as fi:
+        fi.slow_replica(1, delay_s=3.0, stride=1, times=1)
+        serve(8, "hang")
+    stalls = rec.incidents()
+    if wd.stall_dumps != 1 or not stalls:
+        raise AssertionError(f"[observability] hang: {wd.stall_dumps} "
+                             f"stall dumps, incidents {stalls}")
+    stall = json.load(open(os.path.join(tmp, stalls[-1])))
+    if "fleet run loop" not in stall["reason"] or not stall["events"] \
+            or not stall["threads"]:
+        raise AssertionError(f"[observability] stall bundle "
+                             f"{stall['reason']}")
+    log(f"[observability] a 3 s hang in replica 1's step: the watchdog "
+        f"dumped one stall bundle ({stall['reason']}); every request "
+        f"delivered; launches {launches} over {forwards} forwards")
+    _launch_check("observability", launches, forwards, layers)
+    fr.uninstall()
+    del fleet, model
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def phase_spec(model, dev="cuda"):
     """Speculative decoding on Llama-1B (bf16, full width and depth) with
     the JAX bench's TPU configuration (bench.py:_cb_spec_bench): page 32,
@@ -2606,7 +3270,8 @@ def phase_spec(model, dev="cuda"):
 
 
 def phase_spec_8b(model, serve_streams, dev="cuda"):
-    """Speculative decoding at Llama-3-8B's full width and depth (rep 4):
+    """Speculative decoding at Llama-3-8B's full width (rep 4), serve's
+    model:
     the first 4 of the serve phase's requests, 32 new tokens each, in the
     serve phase's geometry with decode chunk 1. n-gram and oracle spec
     streams must equal the plain engine's; the share of them equal to
@@ -2668,7 +3333,7 @@ WOL_ALGOS = ("weight_only_int8", "weight_only_int4")
 
 def phase_weight_quant(cfg, serve_streams, dev="cuda", n_tokens=1500):
     """Weight-only quantization of the serve phase's Llama-3-8B (seed 0,
-    bf16, full width and depth), built anew and converted to int8, then
+    bf16, full width, serve's depth), built anew and converted to int8, then
     again to int4 (``quantize_for_serving``): the layers, bytes and bytes
     saved; ``WeightOnlyLinear`` at the down_proj and lm_head shapes
     against its plain version (the same codes and scales in f32) per
@@ -2964,16 +3629,17 @@ def _step_breakdown(model, opt, ids):
     return dict(parts=parts, **_profile("train", step))
 
 
-def _profile(tag, fn, per=1):
+def _profile(tag, fn, per=1, cpu=True):
     """``fn()`` once under torch.profiler: device time by kernel and by
     layer, and the device's idle share of the wall time (``per``: the
-    steps ``fn`` runs, to report per step)."""
+    steps ``fn`` runs, to report per step; ``cpu``: trace the host's
+    operators too)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * cpu) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3435,7 +4101,7 @@ def _warmup_cosine_lr(step, peak=3e-4, warmup=10, t_max=40):
 def phase_train_loop(cfg1b, batch=8, seq=1024, steps=40, save_at=30,
                      dev="cuda"):
     """examples/train_gpt2.py's flow on the port at Llama-1B's full width
-    and depth in bf16 (module docstring, phase 27): AdamW under a
+    in bf16, ``cfg1b``'s depth (module docstring, phase 27): AdamW under a
     warm-up-cosine schedule with global-norm clipping, the checkpoint and
     its resume, save/load, evaluate, fit with resume, AMP and the
     scaler."""
@@ -4055,14 +4721,15 @@ def _moe_launch_counts(cfg, forwards):
 
 
 def phase_serve_moe(cfg, dev="cuda"):
-    """qwen2_moe_a14b at full width and depth, dropless, bf16, through the
-    engine: the Llama serve phase's engine and traffic."""
+    """qwen2_moe_a14b at full width and half its depth (14 of 28 layers),
+    dropless, bf16, through the engine: the Llama serve phase's engine and
+    traffic."""
     import dataclasses
 
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.models import Qwen2MoeForCausalLM
-    cfg = dataclasses.replace(cfg, moe_dropless=True)
+    cfg = dataclasses.replace(cfg, moe_dropless=True, num_hidden_layers=14)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = Qwen2MoeForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
@@ -4426,7 +5093,7 @@ def phase_decode_bench(model, batch=8, prompt=128, n_new=512, dev="cuda"):
 
 
 def phase_generate_8b(model, batch=8, prompt=128, n_new=64, dev="cuda"):
-    """``generate`` on serve's Llama-3-8B (32 layers, bf16): batch 8,
+    """``generate`` on serve's Llama-3-8B (bf16): batch 8,
     prompts of 128 tokens, 64 new: greedy (launches counted), then
     sampling as examples/serve_llama.py samples (top_p 0.9, temperature
     0.8, seed 7) twice, which must give the same ids; then the first
@@ -4614,14 +5281,25 @@ def phase_legacy(cfg, model, serve, dev="cuda"):
 
 # ---- the model families: GPT-2, ERNIE, DeepSeek-V2 and Llama-3-70B --------
 
-def _ragged_at(tag, nh, kvh, d, dev, seed, log_tag="model_kernels"):
+#: K12's mixed batch as the serve phase gives it: (chunk, lengths, ctx)
+#: of 8 slots (idle, decode and prefill) over pages of 16, max_len 2048
+SERVE_MIXED = (256, (0, 1, 1, 17, 256, 256, 1, 100),
+               (0, 1800, 700, 300, 0, 1000, 1200, 33))
+#: ... and as the fleet's and the HTTP phase's engines give it (prefill
+#: chunk 32, pages of 32, max_len 384)
+FLEET_MIXED = (32, (0, 1, 1, 32, 32, 1, 17, 32),
+               (0, 350, 200, 0, 96, 60, 300, 320))
+
+
+def _ragged_at(tag, nh, kvh, d, dev, seed, log_tag="model_kernels",
+               page=16, max_len=2048, mixed=SERVE_MIXED):
     """K12 at one head layout against its plain version per element
-    (``ragged_checks``; bf16 and f32), on the serve phase's mixed batch
-    (idle, decode and prefill slots in a chunk of 256, pages of 16, the
-    NaN trash page) and at a decode step (one token in each of 8 slots,
-    contexts 64-2048, its split plan), a second launch repeating the
-    bits; each timed beside its bound. Returns {"mixed": ..., "decode":
-    ...}."""
+    (``ragged_checks``; bf16 and f32), on a mixed batch (``mixed``: the
+    serve phase's idle, decode and prefill slots in a chunk of 256 by
+    default; the NaN trash page) and at a decode step (one token in each
+    of 8 slots, contexts 64 to ``max_len``, its split plan), a second
+    launch repeating the bits; each timed beside its bound. Returns
+    {"mixed": ..., "decode": ...}."""
     import torch
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as krpa
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4629,18 +5307,17 @@ def _ragged_at(tag, nh, kvh, d, dev, seed, log_tag="model_kernels"):
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    B, page, mp = 8, 16, 2048 // 16
+    B, mp = 8, max_len // page
     P = B * mp + 1
     kp, vp = rand(kvh, P, page, d), rand(kvh, P, page, d)
     kp[:, 0] = float("nan")
     vp[:, 0] = float("nan")
     ones = np.ones(B, np.int32)
     ctx1 = np.linspace(64, mp * page, B).astype(np.int32) - 1
-    layouts = {
-        "mixed": (256, np.array([0, 1, 1, 17, 256, 256, 1, 100], np.int32),
-                  np.array([0, 1800, 700, 300, 0, 1000, 1200, 33],
-                           np.int32)),
-        "decode": (1, ones, ctx1)}
+    C, lengths, ctx = mixed
+    layouts = {"mixed": (C, np.array(lengths, np.int32),
+                         np.array(ctx, np.int32)),
+               "decode": (1, ones, ctx1)}
     res = {}
     for name, (C, lengths, ctx) in layouts.items():
         tables = _mixed_tables(B, P, mp, page, ctx, lengths, seed + C)
@@ -4699,8 +5376,12 @@ def phase_model_kernels(dev="cuda"):
     hidden 5120, K5/K6 at its widths 1536, 3072 and 12288 ([2, 2048]
     tokens); K14, K14-T and K15 at DeepSeek's training layout (160
     experts, top-6 of 4096 tokens, d 5120, h 1536) and K14 both modes at
-    its decode layout (8 tokens). Returns {kernel: {tag: entry}}."""
+    its decode layout (8 tokens); K1 at [256, 2048], K5 at [256, 5632]
+    and K12 (16/8 heads, pages of 32, a mixed chunk of 32 and a decode
+    step) as the fleet's and the HTTP phase's Llama-1B engines run them.
+    Returns {kernel: {tag: entry}}."""
     import torch
+    from paddle_tpu_torch.models import LlamaConfig
     gen = torch.Generator(device=dev).manual_seed(2024)
 
     def rand(*shape, dtype=torch.bfloat16):
@@ -4723,6 +5404,21 @@ def phase_model_kernels(dev="cuda"):
     for I in (1536, 3072, 12288):
         put(f"deepseek_I{I}", swiglu_checks(4096, I, rand,
                                             tag="model_kernels"))
+    # the fleet's and the HTTP phase's Llama-1B engines: 8 slots x chunk
+    # 32 = 256 rows a mixed forward, 16/8 heads, pages of 32, max_len 384
+    cfg1b = LlamaConfig.llama_1b()
+    put("fleet", norm_checks(256, cfg1b.hidden_size, cfg1b.rms_norm_eps,
+                             rand, kernels=("rms_norm",),
+                             tag="model_kernels fleet"))
+    put("fleet", swiglu_checks(256, cfg1b.intermediate_size, rand,
+                               kernels=("swiglu",),
+                               tag="model_kernels fleet"))
+    for layout, entry in _ragged_at(
+            "fleet", cfg1b.num_attention_heads, cfg1b.num_key_value_heads,
+            cfg1b.head_dim, dev, seed=44, page=32, max_len=384,
+            mixed=FLEET_MIXED).items():
+        out.setdefault("ragged_paged_attention", {})[
+            f"fleet_{layout}"] = entry
     errs, entries = _grouped_at("deepseek", 160, 6, 5120, 1536,
                                 (torch.bfloat16,), 4096, dev,
                                 log_tag="model_kernels")
@@ -5450,6 +6146,9 @@ def main():
     from paddle_tpu_torch.models import LlamaConfig, Qwen2MoeConfig
     cfg = LlamaConfig.llama3_8b()
     cfg1b = LlamaConfig.llama_1b()
+    # the serving phases' Llama-3-8B at half its depth (16 of 32 layers)
+    # and train_loop's Llama-1B at 8 of 16: the script's time limit
+    cfg_serve = dataclasses.replace(cfg, num_hidden_layers=16)
     t_start = time.perf_counter()
 
     def mark(tag):
@@ -5464,9 +6163,9 @@ def main():
     res.update(phase_moe_kernels(Qwen2MoeConfig.qwen2_moe_a14b()))
     res.update(phase_quant_kernels(cfg, Qwen2MoeConfig.qwen2_moe_a14b()))
     mark("kernel checks")
-    model = serve_model(cfg)
-    serve = phase_serve(cfg, model)
-    serve_quant = {m: phase_serve(cfg, model, kv_quant=m)
+    model = serve_model(cfg_serve)
+    serve = phase_serve(cfg_serve, model)
+    serve_quant = {m: phase_serve(cfg_serve, model, kv_quant=m)
                    for m in QUANT_MODES}
     for m, r in serve_quant.items():
         log(f"[serve_quant {m}] greedy top-1 agreement with the bf16 pools' "
@@ -5480,10 +6179,10 @@ def main():
     mark("quant_accuracy, capacity")
     phase_spec_8b(model, serve["streams"])
     gen8b = phase_generate_8b(model)
-    legacy = phase_legacy(cfg, model, serve)
+    legacy = phase_legacy(cfg_serve, model, serve)
     del model
     mark("spec_8b, generate 8b, legacy")
-    weight_quant = phase_weight_quant(cfg, serve["streams"])
+    weight_quant = phase_weight_quant(cfg_serve, serve["streams"])
     mark("weight_quant")
     model1b = serve_model_1b(cfg1b)
     prefix = phase_prefix(model1b)
@@ -5491,8 +6190,14 @@ def main():
     mark("prefix, overload")
     spec = phase_spec(model1b)
     decode_bench = phase_decode_bench(model1b)
-    del model1b
     mark("spec, decode bench")
+    fleet = phase_fleet(model1b)
+    http = phase_http(model1b)
+    del model1b
+    mark("fleet, http")
+    phase_fleet_parity(cfg1b)
+    observability = phase_observability(cfg1b)
+    mark("fleet_parity, observability")
     phase_parity(cfg)
     phase_parity(cfg, kv_quant="int8")
     decode = phase_decode(cfg)
@@ -5507,7 +6212,8 @@ def main():
     fit = phase_fit(cfg1b)
     phase_fused_parity(cfg1b)
     mark("training")
-    train_loop = phase_train_loop(cfg1b)
+    train_loop = phase_train_loop(dataclasses.replace(cfg1b,
+                                                      num_hidden_layers=8))
     mark("train_loop")
     a14b = Qwen2MoeConfig.qwen2_moe_a14b()
     serve_moe = phase_serve_moe(a14b)
@@ -5577,8 +6283,9 @@ def main():
         # legacy engine (26, bf16 and int8 pools), GPT-2's training,
         # generate and engine runs (29), ERNIE's pretraining and
         # classification steps (30), DeepSeek-V2's generate, training
-        # step and MLA decode bench (31) and Llama-3-70B's serving (32);
-        # launches is their sum
+        # step and MLA decode bench (31), Llama-3-70B's serving (32), the
+        # fleet's timed run (34), the HTTP legs (35) and the
+        # observability fleet's runs (37); launches is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -5602,7 +6309,10 @@ def main():
                   "gpt2": gpt2["launches"].get(name, 0),
                   "ernie": ernie["launches"].get(name, 0),
                   "deepseek": deepseek["launches"].get(name, 0),
-                  "llama70": llama70["launches"].get(name, 0)}
+                  "llama70": llama70["launches"].get(name, 0),
+                  "fleet": fleet["launches"].get(name, 0),
+                  "http": http["launches"].get(name, 0),
+                  "observability": observability["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

@@ -17,27 +17,39 @@ module stands in front of it and around it:
   request would miss its TTFT deadline anyway.
 - :class:`EngineSupervisor`: when the engine dies anyway (the stall
   ``RuntimeError``, a containment budget spent, a crash below the step
-  boundary) it tears the engine down, requeues every queued and
-  in-flight request into a fresh one (replay from prompt plus the tokens
-  already delivered, the path preemption uses) and retries, a bounded
-  number of times.
+  boundary) it dumps a flight-recorder bundle, tears the engine down,
+  requeues every queued and in-flight request into a fresh one (replay
+  from prompt plus the tokens already delivered, the path preemption
+  uses) and retries, a bounded number of times. Its ``step()`` is the
+  fleet's unit of work: one supervised scheduler turn.
+- :class:`ReplicaFailed`: the fleet's typed error for a request whose
+  replica died and whose retry budget is spent.
 
 Nothing here imports ``serving.py``: the controller and the supervisor
 duck-type the engine (``queue``, ``slot_req``, ``metrics``, ``requeue``
-...). Not ported: ``ReplicaFailed`` and the fleet's hooks (the
-controller's ``admit``, ``retry_after_s`` and ``shed_rate``, the
-supervisor's ``step``), the flight recorder's bundles and the
-process-wide restart counters (the supervisor counts its restarts).
+...).
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
+
+from ..profiler import flight_recorder as _frec
+from ..profiler import metrics as _metrics
 
 __all__ = ["ServingError", "RequestCancelled", "DeadlineExceeded",
-           "RequestQuarantined", "Overloaded", "AdmissionController",
-           "EngineSupervisor", "salvage_unfinished", "record_hop",
-           "MAX_HOPS"]
+           "RequestQuarantined", "Overloaded", "ReplicaFailed",
+           "AdmissionController", "EngineSupervisor",
+           "salvage_unfinished", "record_hop", "MAX_HOPS"]
+
+_metrics.declare("restart/engine_restarts", "counter",
+                 "supervised serving-engine teardown+restart cycles "
+                 "(EngineSupervisor)")
+_metrics.declare("restart/engine_requeued", "counter",
+                 "queued + in-flight requests salvaged into a fresh "
+                 "engine at a supervised restart (idempotent replay "
+                 "from prompt + emitted tokens)")
 
 
 # ---- typed failures --------------------------------------------------------
@@ -86,13 +98,29 @@ class RequestQuarantined(ServingError):
 class Overloaded(ServingError):
     """Admission-control rejection: the system is shedding load.
     ``retry_after_s`` is the controller's estimate of when a retry has a
-    fair chance."""
+    fair chance. The fleet router propagates the largest value across
+    the replicas that shed, and its own retries wait at least that
+    long."""
 
     def __init__(self, reason, retry_after_s):
         super().__init__(
             f"overloaded: {reason} (retry after "
             f"{retry_after_s:.3f}s)")
         self.retry_after_s = float(retry_after_s)
+
+
+class ReplicaFailed(ServingError):
+    """The request's serving replica died (or the whole fleet became
+    unavailable) and the fleet's bounded retry budget was spent. Tokens
+    already emitted stay on the request: a failed stream delivers its
+    partial prefix and this typed error."""
+
+    def __init__(self, request_id, cause=""):
+        super().__init__(
+            f"request {request_id} abandoned after replica failure"
+            + (f": {cause}" if cause else ""))
+        self.request_id = request_id
+        self.cause = cause
 
 
 #: per-request hop bound: a preemption storm replaying one victim many
@@ -128,11 +156,12 @@ def record_hop(req, kind, replica=None, **fields):
 
 
 def salvage_unfinished(engine):
-    """Every queued and in-flight request of an engine being torn down,
-    in id order: the replay set (prompt plus tokens already emitted) a
-    fresh engine requeues through the recompute path. Reads host-side
-    containers only, so it is safe on an engine whose device state is no
-    longer trusted."""
+    """Every queued and in-flight request of an engine being torn down
+    or ejected, in id order: the replay set (prompt plus tokens already
+    emitted) a fresh engine or a sibling replica requeues through the
+    recompute path. Reads host-side containers only, so it is safe on an
+    engine whose device state is no longer trusted. The supervisor's
+    restarts and the fleet's ejections share it."""
     salvage = [r for r in engine.queue if not r.finished]
     salvage += [r for r in engine.slot_req
                 if r is not None and not r.finished]
@@ -157,17 +186,22 @@ class AdmissionController:
        TTFT deadline (or ``default_ttft_slo_s``) is below it is shed.
 
     A cold engine (no completed request yet) admits on the queue bound
-    alone.
+    alone. :meth:`admit` applies the same policy to a request the fleet
+    built (fleet-wide ids, failover replays carrying their tokens).
     """
 
     def __init__(self, target, max_queue=64, default_ttft_slo_s=None,
-                 min_retry_after_s=0.05):
+                 min_retry_after_s=0.05, shed_window_s=10.0):
         self._target = target
         self.max_queue = int(max_queue)
         self.default_ttft_slo_s = default_ttft_slo_s
         self.min_retry_after_s = float(min_retry_after_s)
         self.accepted = 0
         self.shed = 0
+        #: recent shed instants (bounded): the windowed shed rate the
+        #: fleet's gauges read (``shed`` is a lifetime total)
+        self.shed_window_s = float(shed_window_s)
+        self._shed_times = deque(maxlen=1024)
 
     @property
     def engine(self):
@@ -215,6 +249,22 @@ class AdmissionController:
             / max(1, len(eng.queue))) / max(1, eng.num_slots)
         return max(self.min_retry_after_s, excess * per_req)
 
+    def retry_after_s(self):
+        """The current retry-after estimate, shedding nothing: the fleet
+        router's fleet-wide ``Overloaded.retry_after_s`` is the largest
+        of these across the replicas that shed."""
+        return self._retry_after_s(self.engine)
+
+    def shed_rate(self, now=None):
+        """Sheds per second over the trailing ``shed_window_s``. Prunes
+        as it reads, so an idle controller decays to 0.0 with no
+        writer."""
+        now = time.perf_counter() if now is None else now
+        horizon = now - self.shed_window_s
+        while self._shed_times and self._shed_times[0] < horizon:
+            self._shed_times.popleft()
+        return len(self._shed_times) / self.shed_window_s
+
     # -- the door ----------------------------------------------------------
 
     def _shed(self, eng, reason, floor_s=0.0):
@@ -223,8 +273,12 @@ class AdmissionController:
         reads about 0 below half the bound)."""
         retry = max(self._retry_after_s(eng), floor_s)
         self.shed += 1
+        self._shed_times.append(time.perf_counter())
         eng.metrics.counter("serving/shed_rejections").inc()
         eng.metrics.gauge("serving/shed_retry_after_s").set(retry)
+        _frec.record_event("shed", reason=reason,
+                           queued=len(eng.queue),
+                           retry_after_s=round(retry, 4))
         raise Overloaded(reason, retry)
 
     def _gate(self, eng, ttft_deadline_s):
@@ -258,6 +312,17 @@ class AdmissionController:
         self.accepted += 1   # after validation: a rejected oversize
         return rid           # submission does not count as accepted
 
+    def admit(self, req) -> int:
+        """Router-side admission: the policy of :meth:`submit` applied to
+        a pre-built ``ServedRequest`` (the fleet mints fleet-wide ids,
+        and a failover replay arrives carrying its emitted tokens), which
+        the engine adopts through ``requeue()``'s recompute path."""
+        eng = self.engine
+        self._gate(eng, req.ttft_deadline_s)
+        eng.requeue(req)     # validates the fit; raises before counting
+        self.accepted += 1
+        return req.request_id
+
 
 # ---- supervised recovery ---------------------------------------------------
 
@@ -290,6 +355,14 @@ class EngineSupervisor:
         """The live engine's ``add_request``."""
         return self.engine.add_request(*a, **kw)
 
+    def cancel(self, request_id):
+        """The live engine's ``cancel``."""
+        return self.engine.cancel(request_id)
+
+    def request(self, request_id):
+        """The live engine's ``request``."""
+        return self.engine.request(request_id)
+
     #: gauges() keys that are monotonic counters, summable across the
     #: engines a supervised lifetime burns through
     _COUNTER_GAUGES = (
@@ -314,6 +387,33 @@ class EngineSupervisor:
             g["prefix_cache_hit_rate"] = \
                 g.get("prefix_cache_hits", 0) / tot if tot else 0.0
         return g
+
+    def has_work(self):
+        return self.engine.has_work() \
+            or any(r is not None for r in self.engine.slot_req)
+
+    def step(self):
+        """One supervised scheduler turn, the fleet's unit of work: a
+        step failure that escapes the engine's containment tears the
+        engine down, salvages its queue and in-flight requests into a
+        fresh one and returns nothing this turn; past ``max_restarts``
+        the failure propagates (the fleet opens the replica's breaker).
+        Returns the requests completed by this turn, each once across
+        ``step()`` and ``run()``."""
+        try:
+            done = self.engine.step()
+        except (KeyboardInterrupt, SystemExit, AssertionError):
+            raise               # the audit is never laundered
+        except Exception as exc:  # noqa: BLE001 — supervised
+            self._restart(exc)
+            done = []
+        out = []
+        for r in done:
+            if id(r) not in self._returned:
+                self._returned.add(id(r))
+                out.append(r)
+        self.completed.extend(out)
+        return out
 
     def run(self):
         """Drive to completion across restarts; returns every request
@@ -357,11 +457,20 @@ class EngineSupervisor:
             self.completed.extend(done)
 
     def _restart(self, exc):
-        """Tear down and rebuild, or re-raise once the budget is spent
-        (the failing attempt past the budget is not a restart)."""
+        """Dump a flight-recorder bundle, then tear down and rebuild, or
+        re-raise once the budget is spent (the failing attempt past the
+        budget is not a restart)."""
+        rec = _frec.get_recorder()
+        if rec is not None:
+            try:
+                rec.dump(f"engine supervisor restart: {exc!r}")
+            except OSError:
+                pass           # the post-mortem is best-effort
         if self.restarts >= self.max_restarts:
             raise exc
         self.restarts += 1
+        reg = _metrics.get_registry()
+        reg.counter("restart/engine_restarts").inc()
         old = self.engine
         try:
             g = old.gauges()
@@ -372,16 +481,23 @@ class EngineSupervisor:
             pass           # best-effort salvage, never block a restart
         salvage = salvage_unfinished(old)
         for r in salvage:
+            # the hop that tells "my engine was rebuilt under me" from a
+            # scheduler preemption
             record_hop(r, "engine_restart", attempt=self.restarts,
+                       replica=getattr(old, "_fleet_replica_id", None),
                        tokens=len(r.tokens), error=repr(exc)[:80])
+        # the dead engine's pools go before the fresh one allocates its
+        # own (two sets at once may not fit); the engine itself stays in
+        # place until the swap, so a scrape from another thread reads it
+        old.pools = []
+        fresh = self._factory()
         # carry the id counter: a fresh engine must not re-mint an id
         # the old one already completed
-        next_id = old._next_id
-        # drop the dead engine (its pools) before the fresh one
-        # allocates its own
-        del old
-        self.engine = None
-        self.engine = self._factory()
-        self.engine._next_id = max(self.engine._next_id, next_id)
+        fresh._next_id = max(fresh._next_id, old._next_id)
         for r in salvage:
-            self.engine.requeue(r)
+            fresh.requeue(r)
+        self.engine = fresh
+        reg.counter("restart/engine_requeued").inc(len(salvage))
+        _frec.record_event("engine_restart", attempt=self.restarts,
+                           requeued=len(salvage),
+                           error=repr(exc)[:200])

@@ -83,16 +83,30 @@ audit, quantized pools, weight-only projections); speculative decoding
 needs the unified engine. ``compiled_programs`` counts the JAX engine's
 shapes, ``("prefill", C)`` and ``("chunk", n)`` for each ``n`` run.
 
-Not ported yet: disaggregation and KV migration (``handoff``,
-``import_migration``, ``role``), the tuner lookup of the chunk sizes and
-of ``spec_k``, tracing, the flight recorder and
-``request_trace_summary``.
+Observability: every engine owns a private metrics registry behind
+``gauges()`` (the ``serving/*`` and ``spec/*`` vocabulary declared
+below); each completed request's summary (:func:`request_trace_summary`)
+goes to the process-wide trace log (``profiler.trace``), and one request
+in ``1 / trace_sample_rate`` (by id) has its lifecycle rebuilt as spans
+on its own track of the tracer when tracing is on, from host stamps
+only. The flight recorder (``profiler.flight_recorder``) gets the
+admissions, completions, preemptions, containments and one
+``sched_turn`` event a dispatch; ``run()`` arms its watchdog and beats
+once a turn. None of it reads the device. ``handoff()`` evicts every
+unfinished request for recompute on a sibling engine (the fleet's
+scale-down). Requests with negative ids (a fleet's warm-up) are served
+but left out of the trace log.
+
+Not ported yet: disaggregation and KV migration (``import_migration``,
+``take_migrations``, ``release_exported``, ``role``) and the tuner
+lookup of the chunk sizes and of ``spec_k``.
 """
 
 from __future__ import annotations
 
 import heapq
 import inspect
+import math
 import os
 import time
 from collections import deque
@@ -104,12 +118,139 @@ import torch
 from ..device import resolve_device
 from ..nn.quant import quantize_for_serving
 from ..ops.kernels._build import KernelError
-from ..profiler.metrics import MetricsRegistry
+from ..profiler import flight_recorder as _frec
+from ..profiler import metrics as _pmetrics
+from ..profiler.trace import get_trace_log as _get_trace_log
+from ..profiler.trace import get_tracer as _get_tracer
 from .reliability import (DeadlineExceeded, RequestCancelled,
                           RequestQuarantined, record_hop)
 from .spec_decode import get_draft_source, verify_drafts
 
-__all__ = ["ContinuousBatchingEngine", "ServedRequest"]
+__all__ = ["ContinuousBatchingEngine", "ServedRequest", "PRIORITY_RANGE",
+           "record_hop", "request_trace_summary"]
+
+#: the priority band the HTTP front door clamps external requests into
+#: (higher wins admission and may preempt); in-process callers may use
+#: any int
+PRIORITY_RANGE = (0, 15)
+
+# the serving metric vocabulary; each engine owns a private registry of
+# these
+_pmetrics.declare("serving/chunks", "counter",
+                  "batching steps dispatched (unified steps + legacy "
+                  "decode chunks)")
+_pmetrics.declare("serving/chunk_slot_steps", "counter",
+                  "slot-steps dispatched (num_slots x chunk length, "
+                  "active or not)")
+_pmetrics.declare("serving/active_slot_steps", "counter",
+                  "slot-steps belonging to slots that could advance at "
+                  "dispatch")
+_pmetrics.declare("serving/tokens_emitted", "counter",
+                  "generated tokens delivered to requests")
+_pmetrics.declare("serving/prefills", "counter",
+                  "requests admitted into a slot")
+_pmetrics.declare("serving/prefills_overlapped", "counter",
+                  "admissions made while a step was in flight (overlap "
+                  "pipeline)")
+_pmetrics.declare("serving/prefill_waves", "counter",
+                  "steps that carried prompt tokens")
+_pmetrics.declare("serving/chunks_empty", "counter",
+                  "harvested steps that delivered no tokens "
+                  "(unpredictable eos stops)")
+_pmetrics.declare("serving/unified_steps", "counter",
+                  "unified batching steps dispatched (0 in legacy "
+                  "mode)")
+_pmetrics.declare("serving/requests_completed", "counter",
+                  "requests finished (eos or length)")
+_pmetrics.declare("serving/run_seconds", "counter",
+                  "wall seconds spent inside run()")
+_pmetrics.declare("serving/ttft_ms", "histogram",
+                  "request arrival -> first token on host, ms (bounded "
+                  "reservoir; p50/p99 exposed via gauges())")
+_pmetrics.declare("serving/itl_ms", "histogram",
+                  "smoothed inter-token latency per request with >=2 "
+                  "tokens, ms (bounded reservoir)")
+_pmetrics.declare("obs/overhead_frac", "gauge",
+                  "fraction of run() wall time spent inside "
+                  "observability instrumentation, self-measured — "
+                  "per-engine on its private registry, fleet-tier on "
+                  "the federated registry (the <2% pinned contract)")
+_pmetrics.declare("serving/preempt_evictions", "counter",
+                  "active sequences evicted on page exhaustion and "
+                  "requeued for recompute-style re-prefill")
+_pmetrics.declare("serving/preempt_pages_reclaimed", "counter",
+                  "KV pages reclaimed by preemption evictions")
+_pmetrics.declare("serving/preempt_recompute_tokens", "counter",
+                  "previously generated tokens re-prefilled when a "
+                  "preempted request was re-admitted")
+_pmetrics.declare("serving/requests_cancelled", "counter",
+                  "requests completed with RequestCancelled")
+_pmetrics.declare("serving/deadline_ttft_expired", "counter",
+                  "requests that missed their TTFT deadline before "
+                  "producing a first token")
+_pmetrics.declare("serving/deadline_total_expired", "counter",
+                  "requests that exceeded their total deadline "
+                  "(mid-stream or queued)")
+_pmetrics.declare("serving/quarantined", "counter",
+                  "requests completed with RequestQuarantined after "
+                  "repeated step-failure implication")
+_pmetrics.declare("serving/containments", "counter",
+                  "step-level fault containments (a failed batching "
+                  "step converted to slot/page reset + requeue instead "
+                  "of engine death)")
+_pmetrics.declare("serving/shed_rejections", "counter",
+                  "submissions rejected at the admission door "
+                  "(Overloaded, with a computed retry-after)")
+_pmetrics.declare("serving/shed_retry_after_s", "gauge",
+                  "retry-after seconds attached to the most recent "
+                  "Overloaded rejection")
+_pmetrics.declare("serving/queue_depth", "gauge",
+                  "requests currently waiting in the admission queue "
+                  "(not yet in a slot)")
+_pmetrics.declare("serving/shed_rate", "gauge",
+                  "admission sheds per second over the controller's "
+                  "trailing window (AdmissionController.shed_rate)")
+_pmetrics.declare("serving/prefix_cache_hits", "counter",
+                  "admissions that attached >=1 cached prefix page "
+                  "(suffix-only prefill)")
+_pmetrics.declare("serving/prefix_cache_misses", "counter",
+                  "admissions that found no cached prefix page")
+_pmetrics.declare("serving/prefix_cache_tokens_saved", "counter",
+                  "prompt tokens whose prefill was skipped by "
+                  "attaching cached prefix pages")
+_pmetrics.declare("serving/prefix_cache_evictions", "counter",
+                  "unreferenced cache pages reclaimed by the "
+                  "refcount-aware LRU under allocation pressure")
+_pmetrics.declare("serving/prefix_cache_cow_forks", "counter",
+                  "copy-on-write page forks (a sequence had to write "
+                  "into a fully-shared page)")
+_pmetrics.declare("serving/prefix_cache_pages", "gauge",
+                  "physical pages currently owned by the prefix-cache "
+                  "radix index (referenced + evictable)")
+_pmetrics.declare("serving/kv_quant_bits", "gauge",
+                  "bits per stored KV element in the page pools "
+                  "(16 = bf16/f32 full precision, 8 = int8/fp8 "
+                  "quantized)")
+_pmetrics.declare("serving/kv_quant_pool_bytes", "gauge",
+                  "total bytes of the KV DATA page pools across all "
+                  "layers (the capacity denominator quantization "
+                  "shrinks)")
+_pmetrics.declare("serving/kv_quant_scale_pool_bytes", "gauge",
+                  "total bytes of the page-parallel f32 scales pools "
+                  "(0 when kv_quant='none') — the quantization "
+                  "overhead term in the capacity math")
+_pmetrics.declare("spec/steps", "counter",
+                  "speculative unified-step programs dispatched "
+                  "(draft + ragged verify in one step)")
+_pmetrics.declare("spec/tokens_drafted", "counter",
+                  "draft tokens fed into verification chunks")
+_pmetrics.declare("spec/tokens_accepted", "counter",
+                  "draft tokens the target distribution accepted "
+                  "(committed in place, ctx advanced over their KV)")
+_pmetrics.declare("spec/tokens_rejected", "counter",
+                  "draft tokens rejected at verification and rolled "
+                  "back (their in-flight KV writes are left "
+                  "unreachable behind ctx and overwritten in place)")
 
 # kv_quant mode -> pool dtype (None: the model's float dtype)
 _KV_QUANT = {"none": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -227,6 +368,8 @@ class ServedRequest:
     t_prefill_done: float = 0.0        # prompt fully streamed
     t_first: float = 0.0               # first token visible host-side
     t_done: float = 0.0                # finished
+    #: lifecycle-trace sampling decision (engine trace_sample_rate)
+    traced: bool = False
     #: higher wins admission order; a strictly-higher-priority arrival
     #: may preempt running lower-priority sequences for pages or slots
     priority: int = 0
@@ -244,8 +387,13 @@ class ServedRequest:
     #: failed steps this request rode; reaching the engine's
     #: ``max_strikes`` quarantines it
     strikes: int = 0
+    #: one trace id per client request, minted by the fleet router and
+    #: shared by every attempt (hedge copies, failover replays); None
+    #: for a standalone engine (its request_id is the trace)
+    trace_id: int | None = None
     #: lifecycle hops (admit, preempt, evict, finish, ...), bounded by
-    #: ``reliability.MAX_HOPS``
+    #: ``reliability.MAX_HOPS``; a fleet's attempts of one request share
+    #: one list
     hops: list = field(default_factory=list)
     hops_dropped: int = 0
     #: SLO accounting label
@@ -257,6 +405,37 @@ class ServedRequest:
         completes with ``RequestCancelled`` (tokens already emitted are
         kept)."""
         self.cancelled = True
+
+
+def request_trace_summary(req) -> dict:
+    """The condensed end-to-end trace of a finished request: what the
+    trace log keeps and ``/statusz`` renders for the slowest recent
+    requests. One trace id covers every attempt (preemption replays,
+    failover re-admissions, a hedge's winner and its cancelled loser all
+    hop into one list)."""
+    tid = req.trace_id if req.trace_id is not None else req.request_id
+    t0 = req.t_arrive
+    hops = list(req.hops or ())
+    # the overflow is counted in the shared list (a hedge copy may have
+    # been the object that hit the bound)
+    dropped = hops[-1]["dropped"] if hops \
+        and hops[-1].get("kind") == "truncated" else req.hops_dropped
+    return {
+        "trace_id": int(tid),
+        "latency_ms": round((req.t_done - t0) * 1e3, 3)
+        if req.t_done else 0.0,
+        "ttft_ms": round((req.t_first - t0) * 1e3, 3)
+        if req.t_first else None,
+        "tokens": len(req.tokens),
+        "finish_reason": req.finish_reason,
+        "error": type(req.error).__name__
+        if req.error is not None else None,
+        "tenant": req.tenant,
+        "priority": int(req.priority),
+        "preemptions": int(req.preemptions),
+        "hops": [dict(h) for h in hops],
+        "hops_dropped": int(dropped),
+    }
 
 
 class ContinuousBatchingEngine:
@@ -286,6 +465,10 @@ class ContinuousBatchingEngine:
     ladder unless ``adaptive_chunk=False`` fixes them at
     ``decode_chunk``.
 
+    ``trace_sample_rate``: the share of requests (every
+    ``round(1 / rate)``-th id) whose lifecycle spans go to the tracer
+    when it is enabled; 0 samples none.
+
     ``spec_decode`` / ``spec_k`` / ``spec_draft``: speculative decoding
     (any of them turns it on). ``spec_k`` drafts a step (default 4,
     clamped to ``prefill_chunk - 1``; ``prefill_chunk >= 2`` is
@@ -298,7 +481,8 @@ class ContinuousBatchingEngine:
                  prompt_buckets=(32, 64, 128), eos_token_id=None,
                  greedy=True, temperature=1.0, seed=0, prefill_chunk=None,
                  admit_batch=None, adaptive_chunk=True, unified=True,
-                 latency_reservoir=2048, max_strikes=2,
+                 trace_sample_rate=0.01, latency_reservoir=2048,
+                 max_strikes=2,
                  max_containments=8, audit=None, prefix_cache=None,
                  spec_decode=False, spec_k=None, spec_draft=None,
                  kv_quant="none", device=None):
@@ -384,6 +568,13 @@ class ContinuousBatchingEngine:
         if kv_quant != "none":
             layer += [(self._scale_shape, torch.float32)] * 2
         self._pool_layout = layer * cfg.num_hidden_layers
+        # the pools' geometry for gauges(), which never reads the pools
+        # (a scrape may run while a supervisor drops a dead engine's)
+        nbytes = [(math.prod(shape) * dt.itemsize, len(shape))
+                  for shape, dt in self._pool_layout]
+        self._kv_quant_bits = 8 * layer[0][1].itemsize
+        self._kv_pool_bytes = sum(b for b, nd in nbytes if nd == 4)
+        self._kv_scale_pool_bytes = sum(b for b, nd in nbytes if nd == 3)
         self.pools = self._new_pools()
         self._free_pages = deque(range(1, self.num_pages))
 
@@ -488,12 +679,21 @@ class ContinuousBatchingEngine:
         self._compiled = set()         # distinct batching-step shapes
 
         # observability: a private registry behind gauges()
-        self.metrics = MetricsRegistry()
+        self.metrics = _pmetrics.MetricsRegistry()
         self._stats = _StatsView(self.metrics)
         self._h_ttft = self.metrics.histogram(
             "serving/ttft_ms", capacity=int(latency_reservoir))
         self._h_itl = self.metrics.histogram(
             "serving/itl_ms", capacity=int(latency_reservoir))
+        self._g_overhead = self.metrics.gauge("obs/overhead_frac")
+        self._g_pc_pages = self.metrics.gauge(
+            "serving/prefix_cache_pages")
+        self._g_queue_depth = self.metrics.gauge("serving/queue_depth")
+        self._g_kvq_bits = self.metrics.gauge("serving/kv_quant_bits")
+        self._g_kvq_pool_bytes = self.metrics.gauge(
+            "serving/kv_quant_pool_bytes")
+        self._g_kvq_scale_bytes = self.metrics.gauge(
+            "serving/kv_quant_scale_pool_bytes")
         self._c_spec_steps = self.metrics.counter("spec/steps")
         self._c_spec_drafted = self.metrics.counter("spec/tokens_drafted")
         self._c_spec_accepted = self.metrics.counter(
@@ -502,6 +702,10 @@ class ContinuousBatchingEngine:
             "spec/tokens_rejected")
         # seconds spent inside instrumentation (obs_overhead_frac)
         self._obs_s = 0.0
+        # lifecycle tracing: every Nth request (by id) has its spans
+        # rebuilt into the tracer at completion, from host stamps
+        self._trace_every = int(round(1.0 / trace_sample_rate)) \
+            if trace_sample_rate and trace_sample_rate > 0 else 0
         self._overlap_admission = False
 
     def _new_pools(self):
@@ -608,6 +812,29 @@ class ContinuousBatchingEngine:
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any()) \
             or bool(self._prefilling.any())
+
+    def handoff(self):
+        """The drain hook: evict every unfinished occupant for recompute
+        replay and empty the queue; returns the unfinished requests in
+        arrival order (pages reclaimed audit-clean, tokens already
+        emitted kept) for a sibling engine to adopt (the fleet's
+        deadline-bounded scale-down). The engine is left empty and
+        reusable."""
+        out = []
+        for slot in range(self.num_slots):
+            req = self.slot_req[slot]
+            if req is None or req.finished:
+                continue
+            req.preemptions += 1
+            self._evict_slot(slot, requeue=False, reason="handoff")
+            out.append(req)
+        while self.queue:
+            req = self.queue.popleft()
+            if not req.finished:
+                out.append(req)
+        out.sort(key=lambda r: (r.t_arrive, r.request_id))
+        self._audit_pages("handoff")
+        return out
 
     def step(self):
         """Admit what fits, advance every slot one scheduler turn (one
@@ -723,8 +950,12 @@ class ContinuousBatchingEngine:
             return self._contain_step_failure(exc, cohort=cohort)
 
         t_run0 = time.perf_counter()
+        _wd_token = _frec.arm("serving run loop")
         try:
             while True:
+                # watchdog progress mark: a hung fetch or a scheduler
+                # livelock stops the beats and the flight recorder dumps
+                _frec.beat(_wd_token)
                 if inflight is not None:
                     # the successor first: the device never idles while
                     # the host harvests, drains and admits
@@ -796,13 +1027,29 @@ class ContinuousBatchingEngine:
                     self._evict_slot(victim, requeue=True,
                                      reason="deadlock")
                     continue
+                # a pool exhausted with no occupant left to evict: dump
+                # the ring's recent turns and the pool state first
+                rec = _frec.get_recorder()
+                if rec is not None:
+                    _frec.record_event(
+                        "serving_stall", queued=len(self.queue),
+                        free_pages=len(self._free_pages),
+                        occupied=len(occupied))
+                    try:
+                        rec.dump("serving engine stalled: queued "
+                                 "request cannot be admitted")
+                    except OSError:
+                        pass    # the RuntimeError below must not be
+                                # replaced by a failed bundle write
                 raise RuntimeError(
                     f"serving engine stalled: queued request cannot be "
                     f"admitted (page pool exhausted?): {len(self.queue)} "
                     f"queued, {len(self._free_pages)} free pages, "
                     f"{len(occupied)} occupied slots")
         finally:
+            _frec.disarm(_wd_token)
             self._stats["run_seconds"] += time.perf_counter() - t_run0
+            self._emit_gauges()
         return done
 
     # ---- step-failure containment ----------------------------------------
@@ -826,6 +1073,9 @@ class ContinuousBatchingEngine:
         Returns the requests completed (quarantined) here."""
         self._containments_run += 1
         self._stats.inc("containments")
+        _frec.record_event(
+            "containment", error=repr(exc)[:200],
+            occupied=int(sum(r is not None for r in self.slot_req)))
         blame = None if cohort is None else \
             {id(r) for r in cohort if r is not None}
         requeue, quarantine = [], []
@@ -1222,6 +1472,15 @@ class ContinuousBatchingEngine:
         if n_pre:
             self._stats.inc("prefill_waves")
         self._stats.inc("active_slot_steps", n_active * n_steps)
+        _tr = _get_tracer()
+        if _tr.enabled:
+            _tr.counter("serving/active_slots", n_active,
+                        queued=len(self.queue), chunk_len=n_steps,
+                        prefilling=n_pre)
+        _frec.record_event("sched_turn", seq=self._seq,
+                           mode="spec" if self._spec else "unified",
+                           active=n_active, queued=len(self.queue),
+                           prefilling=n_pre, chunk_len=n_steps)
         self._obs_s += time.perf_counter() - _t_obs
 
     def _book_dispatch(self, packed, inputs, n_steps, tail):
@@ -1391,6 +1650,13 @@ class ContinuousBatchingEngine:
         self._stats.inc("chunks")
         self._stats.inc("chunk_slot_steps", self.num_slots * n)
         self._stats.inc("active_slot_steps", n_active * n)
+        _tr = _get_tracer()
+        if _tr.enabled:
+            _tr.counter("serving/active_slots", n_active,
+                        queued=len(self.queue), chunk_len=n)
+        _frec.record_event("sched_turn", seq=self._seq, mode="legacy",
+                           active=n_active, queued=len(self.queue),
+                           chunk_len=n)
         self._obs_s += time.perf_counter() - _t_obs
         inputs, _ = self._stage_inputs(prompts=False)
         packed = self._launch(inputs,
@@ -1481,7 +1747,6 @@ class ContinuousBatchingEngine:
         s = self._stats.as_dict()
         steps = s["chunk_slot_steps"]
         pc = s["prefix_cache_hits"] + s["prefix_cache_misses"]
-        data = [p for p in self.pools if p.dim() == 4]
         return {
             "slot_occupancy": s["tokens_emitted"] / steps if steps
             else 0.0,
@@ -1523,12 +1788,9 @@ class ContinuousBatchingEngine:
             "prefix_cache_evictions": s["prefix_cache_evictions"],
             "prefix_cache_cow_forks": s["prefix_cache_cow_forks"],
             "prefix_cache_pages": len(self._pc_nodes),
-            "kv_quant_bits": 8 * data[0].element_size(),
-            "kv_quant_pool_bytes": sum(p.numel() * p.element_size()
-                                       for p in data),
-            "kv_quant_scale_pool_bytes": sum(
-                p.numel() * p.element_size() for p in self.pools
-                if p.dim() == 3),
+            "kv_quant_bits": self._kv_quant_bits,
+            "kv_quant_pool_bytes": self._kv_pool_bytes,
+            "kv_quant_scale_pool_bytes": self._kv_scale_pool_bytes,
             "spec_steps": self._c_spec_steps.value,
             "spec_tokens_drafted": self._c_spec_drafted.value,
             "spec_tokens_accepted": self._c_spec_accepted.value,
@@ -1549,6 +1811,28 @@ class ContinuousBatchingEngine:
         self._h_ttft.reset()
         self._h_itl.reset()
         self._obs_s = 0.0
+
+    def _emit_gauges(self):
+        """Publish the point-in-time gauges into the registry (end of
+        every run()), and every ``gauges()`` value into the tracer when
+        tracing is on."""
+        _t_obs = time.perf_counter()
+        s = self._stats.as_dict()
+        self._g_overhead.set(
+            (self._obs_s / s["run_seconds"]) if s["run_seconds"]
+            else 0.0)
+        self._g_pc_pages.set(len(self._pc_nodes))
+        self._g_queue_depth.set(len(self.queue))
+        self._g_kvq_bits.set(self._kv_quant_bits)
+        self._g_kvq_pool_bytes.set(self._kv_pool_bytes)
+        self._g_kvq_scale_bytes.set(self._kv_scale_pool_bytes)
+        tr = _get_tracer()
+        if tr.enabled:
+            for name, val in self.gauges().items():
+                tr.counter(f"serving/{name}",
+                           round(val, 6) if isinstance(val, float)
+                           else val)
+        self._obs_s += time.perf_counter() - _t_obs
 
     # ---- pages -----------------------------------------------------------
 
@@ -1818,7 +2102,12 @@ class ContinuousBatchingEngine:
         req.strikes = 0        # innocence proven by completion
         self._record_latency(req)
         self.completed.append(req)
+        _t_obs = time.perf_counter()
         self._stats.inc("requests_completed")
+        _frec.record_event("finish", req=req.request_id,
+                           reason=req.finish_reason,
+                           tokens=len(req.tokens))
+        self._obs_s += time.perf_counter() - _t_obs
 
     def _finish_error(self, req, err):
         """Complete a request with a typed error, keeping the tokens
@@ -1826,6 +2115,7 @@ class ContinuousBatchingEngine:
         req.finished = True
         req.error = err
         req.t_done = time.perf_counter()
+        _t_obs = time.perf_counter()
         if isinstance(err, RequestCancelled):
             req.finish_reason = "cancelled"
             self._stats.inc("requests_cancelled")
@@ -1836,6 +2126,10 @@ class ContinuousBatchingEngine:
         else:
             req.finish_reason = "quarantined"
             self._stats.inc("quarantined")
+        _frec.record_event("finish_error", req=req.request_id,
+                           reason=req.finish_reason,
+                           tokens=len(req.tokens))
+        self._obs_s += time.perf_counter() - _t_obs
         self._record_latency(req)
         self.completed.append(req)
         return req
@@ -1878,8 +2172,11 @@ class ContinuousBatchingEngine:
                             len(self.slot_pages[slot]))
         self._release_pages(self.slot_pages[slot])
         self._clear_slot(slot, device=True)
-        record_hop(req, "preempt" if requeue else "evict", reason=reason,
-                   tokens=len(req.tokens))
+        _frec.record_event("preempt", slot=slot, req=req.request_id,
+                           tokens=len(req.tokens), reason=reason)
+        record_hop(req, "preempt" if requeue else "evict",
+                   replica=getattr(self, "_fleet_replica_id", None),
+                   reason=reason, tokens=len(req.tokens))
         if requeue:
             req.preemptions += 1
             self.queue.appendleft(req)
@@ -2056,11 +2353,24 @@ class ContinuousBatchingEngine:
         row[len(attach):len(attach) + len(pages)] = pages
         self.tables[slot] = row
         req.t_admit = time.perf_counter()
-        record_hop(req, "admit", slot=slot, cached=int(start),
-                   replayed=len(req.tokens))
+        _t_obs = req.t_admit
+        if self._trace_every:
+            req.traced = req.request_id % self._trace_every == 0
+        record_hop(req, "admit",
+                   replica=getattr(self, "_fleet_replica_id", None),
+                   slot=slot, cached=int(start), replayed=len(req.tokens))
         self._stats.inc("prefills")
         if self._overlap_admission:
             self._stats.inc("prefills_overlapped")
+        _tr = _get_tracer()
+        if _tr.enabled:
+            _tr.instant("serving/prefill", slot=slot, prompt_len=tl,
+                        chunk=self.prefill_chunk,
+                        overlapped=self._overlap_admission)
+        _frec.record_event("admit", slot=slot, req=req.request_id,
+                           prompt_len=tl, cached=int(start),
+                           queued=len(self.queue))
+        self._obs_s += time.perf_counter() - _t_obs
         self.slot_req[slot] = req
         self._prefilling[slot] = True
         self._prefill_off[slot] = start
@@ -2080,7 +2390,12 @@ class ContinuousBatchingEngine:
 
     def _record_latency(self, req):
         """Book a finished request's TTFT and inter-token latency into
-        the bounded reservoirs."""
+        the bounded reservoirs, its summary into the trace log (a
+        standalone request; the fleet feeds its own at delivery, where a
+        replica's completion may be a losing hedge copy), and, for a
+        sampled request, its lifecycle spans into the tracer. Negative
+        ids are a fleet's warm-up requests: their latency carries the
+        first-use kernel builds, so the trace log leaves them out."""
         _t_obs = time.perf_counter()
         if req.t_first:
             self._h_ttft.observe((req.t_first - req.t_arrive) * 1e3)
@@ -2088,9 +2403,46 @@ class ContinuousBatchingEngine:
                 self._h_itl.observe(
                     (req.t_done - req.t_first) * 1e3
                     / (len(req.tokens) - 1))
-        record_hop(req, "finish", reason=req.finish_reason,
-                   tokens=len(req.tokens))
+        record_hop(req, "finish",
+                   replica=getattr(self, "_fleet_replica_id", None),
+                   reason=req.finish_reason, tokens=len(req.tokens))
+        if req.trace_id is None and req.request_id >= 0:
+            _get_trace_log().record(request_trace_summary(req))
+        if req.traced:
+            self._emit_request_trace(req)
         self._obs_s += time.perf_counter() - _t_obs
+
+    def _emit_request_trace(self, req):
+        """A sampled request's lifecycle (queued, prefill, first-token
+        wait, decode) as retroactive spans on its own track: the trace
+        id's under a fleet, so every attempt lands on one track."""
+        tr = _get_tracer()
+        if not tr.enabled:
+            return
+        rid = int(req.request_id)
+        tid = int(req.trace_id) if req.trace_id is not None else rid
+        admit = req.t_admit or req.t_arrive
+        tr.complete("req/queued", req.t_arrive, admit,
+                    cat="serving_req", tid=tid, request_id=rid)
+        pre_end = req.t_prefill_done or req.t_first or admit
+        tr.complete("req/prefill", admit, pre_end, cat="serving_req",
+                    tid=tid, prompt_len=int(len(req.prompt)))
+        if req.t_first:
+            tr.complete("req/first_token_wait", pre_end, req.t_first,
+                        cat="serving_req", tid=tid)
+            tr.complete("req/decode", req.t_first, req.t_done,
+                        cat="serving_req", tid=tid,
+                        tokens=len(req.tokens))
+        if req.trace_id is None:
+            # hop markers at their own stamps; a fleet-owned trace gets
+            # its markers from the fleet's delivery-time rebuild
+            for h in req.hops or ():
+                tr.complete("req/hop", h["t"], h["t"],
+                            cat="serving_req", tid=tid,
+                            **{**h, "request_id": rid})
+        tr.instant("req/finished", cat="serving_req",
+                   request_id=rid, reason=req.finish_reason,
+                   tokens=len(req.tokens))
 
     def _drain(self):
         """Reap cancelled and expired requests, then finish every

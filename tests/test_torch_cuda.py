@@ -1944,3 +1944,74 @@ def test_tiny_model_step_on_the_card_matches_the_cpu(cuda, family):
     assert s1 == s0
     if family == "gpt2":
         assert s1[1] == s1[0] and all(len(t) == 10 for t in s1[1])
+
+
+# ---- the serving front door: fleet, API server, tracing ----------------
+
+def test_two_replica_fleet_on_the_card_survives_a_kill(cuda):
+    """Two replicas over card engines (tiny width, f32), replica 1
+    killed past its restart budget: every fleet id is delivered once
+    and its stream equals a single card engine's; the breaker is open
+    and the survivor's pages balance."""
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.testing import FaultInjector
+    eng = _card_engine(cuda, dtype=torch.float32)
+    model = eng.model
+    rng = np.random.RandomState(5)
+    specs = [(rng.randint(0, 256, int(rng.randint(3, 40))),
+              int(rng.randint(2, 12))) for _ in range(10)]
+    want = _storm(eng, specs)
+    fleet = ServingFleet(lambda: ContinuousBatchingEngine(
+        model, num_slots=4, page_size=16, max_len=256, decode_chunk=4,
+        prefill_chunk=32, audit=True, device=cuda), num_replicas=2,
+        max_restarts=1, retry_backoff_s=0.01)
+    fids = [fleet.submit(p, n) for p, n in specs]
+    with FaultInjector() as fi:
+        fi.kill_replica(1, times=10_000, after_steps=1)
+        done = fleet.run()
+    by = {r.request_id: r for r in done}
+    assert sorted(by) == sorted(fids) and len(done) == len(fids)
+    assert [by[f].tokens for f in fids] == want
+    assert all(by[f].error is None for f in fids)
+    g = fleet.gauges()
+    assert g["breaker_open"] == 1 and fleet.replicas[1].state == "ejected"
+    survivor = fleet.replicas[0].engine
+    assert len(survivor._free_pages) + survivor.prefix_cache_pages \
+        == survivor.num_pages - 1
+
+
+def test_api_server_pump_drives_a_card_engine(cuda):
+    """The API server's pump thread drives a card engine: an SSE stream
+    and a unary completion return ``engine.run()``'s greedy tokens for
+    the same request."""
+    import json
+    import urllib.request
+    from paddle_tpu_torch.inference import ApiServer
+    rng = np.random.RandomState(6)
+    prompt = [int(t) for t in rng.randint(0, 256, 11)]
+    ref = _card_engine(cuda)
+    ref.add_request(np.asarray(prompt, np.int32), 12)
+    want = " ".join(str(t) for t in ref.run()[-1].tokens)
+    srv = ApiServer(_card_engine(cuda)).start()
+    try:
+        assert srv._pump_stream is not None
+        got = []
+        for stream in (True, False):
+            req = urllib.request.Request(
+                srv.url + "/v1/completions",
+                data=json.dumps({"prompt": prompt, "max_tokens": 12,
+                                 "stream": stream}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                raw = r.read().decode()
+            if stream:
+                frames = [f for f in raw.split("\n\n") if f]
+                assert frames[-1] == "data: [DONE]"
+                got.append("".join(
+                    json.loads(f[len("data: "):])["choices"][0]["text"]
+                    for f in frames[:-1]))
+            else:
+                got.append(json.loads(raw)["choices"][0]["text"])
+    finally:
+        srv.stop()
+    assert got == [want, want]

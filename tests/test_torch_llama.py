@@ -177,6 +177,16 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.models.ernie\n"
             "import paddle_tpu_torch.models.deepseek\n"
             "import paddle_tpu_torch.ops.ring_attention\n"
+            "import paddle_tpu_torch.profiler.trace\n"
+            "import paddle_tpu_torch.profiler.flight_recorder\n"
+            "import paddle_tpu_torch.profiler.slo\n"
+            "import paddle_tpu_torch.profiler.httpbase\n"
+            "import paddle_tpu_torch.profiler.exposition\n"
+            "import paddle_tpu_torch.profiler.goodput\n"
+            "import paddle_tpu_torch.inference.serving\n"
+            "import paddle_tpu_torch.inference.fleet\n"
+            "import paddle_tpu_torch.inference.api_server\n"
+            "import paddle_tpu_torch.profiler, paddle_tpu_torch.testing\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
