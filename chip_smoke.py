@@ -244,6 +244,28 @@ K12):
     its siblings, a complete post-mortem bundle) and a 3 s hang (one
     watchdog stall bundle).
 
+The preemptible, elastic training path, after train_loop:
+
+38. preempt: ``python -m paddle_tpu_torch.distributed.launch
+    --max_preempt_restarts 1 --max_restarts 0`` runs this script as its
+    worker (``--preempt-worker DIR``): Llama-1B's width at depth 2 in
+    bf16 with AdamW, ``fit`` (the fused linear+CE) over a map-style
+    ``io.Dataset`` of 28 windows of 1025 byte ids of the repository's
+    own .py/.md text, shuffled through 2 loader workers, 2 epochs of 7
+    steps; round 0 sends itself a real SIGTERM after step 10 (step 2 of
+    epoch 1), fit's guard commits the emergency checkpoint and the
+    uncaught ``Preempted`` exits 75; the launcher relaunches once with
+    ``PADDLE_RESUME_CHECKPOINT`` (committed, holding
+    ``mid_epoch_step``) and round 1 finishes. Its losses and final
+    weights must equal an uninterrupted run's in this process bit for
+    bit (and a run with no workers); ``goodput.json`` must hold both
+    rounds, with emergency_save and reshard above 0; launches per step
+    of K1-K11 exact in all four runs. Printed: each round's seconds,
+    ``elastic/emergency_save_ms``, the time to recover (SIGTERM to the
+    first resumed loss), ``goodput_frac`` and its categories, the
+    input wait per epoch with 2 workers and none, ``avg_step_ms`` and
+    peak memory.
+
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
 """
@@ -258,6 +280,13 @@ import sys
 import time
 
 import numpy as np
+
+try:    # the port's Dataset for phase preempt's windows (its loader workers
+    # unpickle them from this module); the script still fails in main()
+    # where the port is missing
+    from paddle_tpu_torch.io import Dataset as _PortDataset
+except ImportError:
+    _PortDataset = object
 
 # bf16 keeps 8 significant bits: one ulp is at most 2**-7 of the value
 BF16_ULP = 2.0 ** -7
@@ -4326,7 +4355,7 @@ def _train_loop_fit(cfg1b, tmp, dev, layers=2, rows=6, seq=257):
           keep_last_n=1, verbose=0)
     names = sorted(os.listdir(save_dir))
     want_names = ["epoch_0.pdopt", "epoch_0.pdparams", "epoch_1.pdopt",
-                  "epoch_1.pdparams", "step_1"]
+                  "epoch_1.pdparams", "goodput.json", "step_1"]
     if names != want_names or not dckpt.is_committed(
             os.path.join(save_dir, "step_1")):
         raise AssertionError(f"[train_loop fit] save_dir holds {names}, "
@@ -4448,6 +4477,297 @@ def _train_loop_amp(cfg1b, dev, layers=2, seq=128):
 # ---- the Qwen2-MoE slice -----------------------------------------------------
 
 # the grouped-matmul kernels and the kernels a MoE path may launch
+PREEMPT_WINDOWS = 28       # 1025-token windows: 7 steps an epoch at batch 4
+PREEMPT_BATCH = 4
+PREEMPT_AT = 10            # the SIGTERM after optimizer step 10: step 2 of
+                           # epoch 1, not an epoch boundary
+PREEMPT_SEQ = 1025
+
+
+def byte_stream(root, n_bytes):
+    """The first ``n_bytes`` of the repository's own ``.py`` and ``.md``
+    files, concatenated in path order, as byte ids (0-255)."""
+    chunks, have = [], 0
+    for dirpath, dirnames, filenames in os.walk(root):
+        # in place, so the walk descends in name order and skips these
+        dirnames[:] = sorted(d for d in dirnames if not d.startswith((
+            ".", "_build", "chiprun_out", "__pycache__")))
+        for name in sorted(filenames):
+            if name.endswith((".py", ".md")):
+                with open(os.path.join(dirpath, name), "rb") as f:
+                    chunks.append(f.read())
+                have += len(chunks[-1])
+        if have >= n_bytes:
+            break
+    data = np.frombuffer(b"".join(chunks), np.uint8)[:n_bytes]
+    if len(data) < n_bytes:
+        raise AssertionError(f"[preempt] {root} holds {len(data)} bytes of "
+                             f".py/.md text, fewer than {n_bytes}")
+    return data.astype(np.int64)
+
+
+class ByteWindows(_PortDataset):
+    """A map-style dataset of the port's ``io``: window ``i`` of ``seq``
+    byte ids, as (input ids, labels)."""
+
+    def __init__(self, stream, seq):
+        self.stream = stream
+        self.seq = seq
+
+    def __len__(self):
+        return len(self.stream) // self.seq
+
+    def __getitem__(self, i):
+        w = self.stream[i * self.seq:(i + 1) * self.seq]
+        return w, w
+
+
+def _cuda_settings():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _preempt_fit(data, out, num_workers=2, save_dir=None, resume=None,
+                 sigterm_after=None):
+    """Llama-1B's width at depth 2 in bf16 with AdamW, fit for 2 epochs
+    over ``data`` (shuffled, ``num_workers`` loader workers, the fused
+    linear+CE); every loss read at its step (``log_freq=1``). Returns
+    the record of the run (written to ``out`` too, also when ``fit``
+    raises): per-step losses with their times, launches of the training
+    kernels, epoch summaries, peak memory, the final weights' digest.
+    ``sigterm_after``: a real SIGTERM to this process right after that
+    optimizer step."""
+    import dataclasses
+    import hashlib
+    import signal
+
+    import torch
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import metrics as pmetrics
+    from paddle_tpu_torch.utils import monitor
+    cfg = dataclasses.replace(LlamaConfig.llama_1b(), num_hidden_layers=2)
+    net = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    m = Model(net)
+    opt = AdamW(1e-4, parameters=net.parameters())
+    m.prepare(opt, LlamaPretrainingCriterion(cfg))
+    rec = {"t_start": time.time(), "losses": [], "loss_t": []}
+    if sigterm_after is not None:
+        real_step = opt.step
+
+        def step():
+            real_step()
+            if opt._step_count == sigterm_after:
+                torch.cuda.synchronize()
+                rec["t_sigterm"] = time.time()
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        opt.step = step
+
+    def hook(r):
+        rec["losses"].append(float(r["loss"]))
+        rec["loss_t"].append(time.time())
+
+    remove = monitor.register_step_metrics_hook(hook)
+    wrappers = _counted(TRAIN_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        m.fit(data, batch_size=PREEMPT_BATCH, epochs=2, shuffle=True,
+              num_workers=num_workers, save_dir=save_dir, resume=resume,
+              log_freq=1, verbose=0)
+        digest = hashlib.sha256()
+        for k, v in sorted(net.state_dict().items()):
+            digest.update(v.detach().contiguous().view(torch.uint8)
+                          .cpu().numpy().tobytes())
+        rec["digest"] = digest.hexdigest()
+    except BaseException as e:
+        rec["raised"] = type(e).__name__
+        for k in ("checkpoint", "epoch", "step"):
+            if hasattr(e, k):
+                rec[k] = getattr(e, k)
+        raise
+    finally:
+        torch.cuda.synchronize()
+        remove()
+        rec.update(
+            t_end=time.time(), steps=len(rec["losses"]),
+            launches={k: w.launches for k, w in wrappers.items()},
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            epochs=[{k: s[k] for k in ("epoch", "steps", "seconds",
+                                       "avg_step_ms", "input_wait_ms")}
+                    for s in m._epoch_summaries],
+            emergency_save_ms=pmetrics.get_registry().gauge(
+                "elastic/emergency_save_ms").value,
+            goodput=m._goodput.summary() if m._goodput else None)
+        with open(out, "w") as f:
+            json.dump(rec, f)
+    return rec
+
+
+def preempt_worker(out_dir):
+    """The worker the launcher runs in phase preempt (``chip_smoke.py
+    --preempt-worker DIR``): round 0 takes a real SIGTERM after optimizer
+    step ``PREEMPT_AT`` and leaves through ``Preempted`` (exit 75); a
+    relaunch resumes from ``PADDLE_RESUME_CHECKPOINT``."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("the preempt worker needs a CUDA device")
+    _cuda_settings()
+    rnd = int(os.environ.get("PADDLE_RESTART_ROUND", "0"))
+    resume = os.environ.get("PADDLE_RESUME_CHECKPOINT")
+    if resume:
+        from paddle_tpu_torch.distributed import checkpoint as dckpt
+        with open(os.path.join(out_dir, f"resume{rnd}.json"), "w") as f:
+            json.dump({"checkpoint": resume,
+                       "committed": dckpt.is_committed(resume),
+                       "values": dckpt.load_values(resume)}, f)
+    data = ByteWindows(np.load(os.path.join(out_dir, "stream.npy")),
+                       PREEMPT_SEQ)
+    _preempt_fit(data, os.path.join(out_dir, f"round{rnd}.json"),
+                 save_dir=os.path.join(out_dir, "ck"), resume=True,
+                 sigterm_after=PREEMPT_AT if rnd == 0 else None)
+    return 0
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _per_step(tag, rec, want):
+    per = {k: v / rec["steps"] for k, v in rec["launches"].items()}
+    if per != want:
+        raise AssertionError(f"[preempt] {tag}: launches per step {per} != "
+                             f"{want}")
+
+
+def phase_preempt(cfg1b):
+    """Phase preempt: the elastic launcher runs a preemptible fit at
+    Llama-1B's width (depth 2) over a map-style dataset of the
+    repository's text through two loader workers; a real SIGTERM mid
+    epoch 1, the emergency checkpoint, exit 75, the relaunch that
+    resumes it; held bit for bit against an uninterrupted run."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    try:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        stream = byte_stream(repo, PREEMPT_WINDOWS * PREEMPT_SEQ)
+        np.save(os.path.join(tmp, "stream.npy"), stream)
+        data = ByteWindows(stream, PREEMPT_SEQ)
+        L = 2
+        chunks = -(-cfg1b.vocab_size // 1024)
+        want = {"rms_norm": 1, "rms_norm_dx": 1,
+                "rms_norm_residual": 2 * L, "rms_norm_residual_dh": 2 * L,
+                "swiglu": L, "swiglu_bwd": L, "flash_attention_fwd": L,
+                "flash_attention_dkv": L, "flash_attention_dq": L,
+                "chunk_stats": chunks, "chunk_dlogits": chunks}
+        # the launcher: round 0 preempted, round 1 resumed
+        t_launch = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--max_preempt_restarts", "1", "--max_restarts", "0",
+             "--elastic_timeout", "0", "--log_dir",
+             os.path.join(tmp, "log"), "--checkpoint_dir",
+             os.path.join(tmp, "ck"), os.path.abspath(__file__),
+             "--preempt-worker", tmp],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [repo] + os.environ.get("PYTHONPATH", "").split(
+                    os.pathsep)).rstrip(os.pathsep)),
+            capture_output=True, text=True, timeout=600)
+        launch_s = time.perf_counter() - t_launch
+        if proc.returncode != 0:
+            logs = ""
+            for name in sorted(os.listdir(os.path.join(tmp, "log"))):
+                with open(os.path.join(tmp, "log", name)) as f:
+                    logs += f.read()[-4000:]
+            raise AssertionError(f"[preempt] the launcher exited "
+                                 f"{proc.returncode}:\n{proc.stderr}\n{logs}")
+        relaunches = proc.stderr.count("relaunching (")
+        if (proc.stderr.count("relaunching (preempt 1/1)") != 1
+                or relaunches != 1 or "exited rc=" in proc.stderr):
+            raise AssertionError(f"[preempt] expected one preemption "
+                                 f"relaunch and no crash:\n{proc.stderr}")
+        r0, r1, resumed = (_read_json(os.path.join(tmp, n)) for n in (
+            "round0.json", "round1.json", "resume1.json"))
+        per_epoch = PREEMPT_WINDOWS // PREEMPT_BATCH
+        if (r0.get("raised") != "Preempted" or r0.get("epoch") != 1
+                or r0.get("step") != PREEMPT_AT - 1 - per_epoch
+                or not resumed["committed"]
+                or resumed["values"].get("mid_epoch_step") != r0["step"]):
+            raise AssertionError(f"[preempt] round 0 ended {r0.get('raised')}"
+                                 f" at epoch {r0.get('epoch')} step "
+                                 f"{r0.get('step')}; the resume checkpoint "
+                                 f"{resumed}")
+        # the uninterrupted run, in this process, with 2 workers and none
+        ref = _preempt_fit(data, os.path.join(tmp, "ref.json"))
+        ref0 = _preempt_fit(data, os.path.join(tmp, "ref0.json"),
+                            num_workers=0)
+        for tag, rec in (("round 0", r0), ("round 1", r1),
+                         ("uninterrupted", ref), ("no workers", ref0)):
+            _per_step(tag, rec, want)
+        steps = 2 * per_epoch
+        if (r0["losses"] + r1["losses"] != ref["losses"]
+                or r1.get("digest") != ref["digest"]
+                or ref0["losses"] != ref["losses"]
+                or ref0["digest"] != ref["digest"]
+                or len(ref["losses"]) != steps):
+            raise AssertionError(
+                f"[preempt] not bit for bit: {r0['steps']} + {r1['steps']} "
+                f"steps, losses {r0['losses'] + r1['losses']} against "
+                f"{ref['losses']}; digests {r1.get('digest')} "
+                f"{ref['digest']} {ref0['digest']}")
+        with open(os.path.join(tmp, "ck", "goodput.json")) as f:
+            ledger = json.load(f)
+        lost0 = ledger["rounds"]["0"]["lost"]
+        lost1 = ledger["rounds"]["1"]["lost"]
+        if (sorted(ledger["rounds"]) != ["0", "1"]
+                or not lost0["emergency_save"] > 0
+                or not lost1["reshard"] > 0):
+            raise AssertionError(f"[preempt] goodput.json {ledger}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recover_s = r1["loss_t"][0] - r0["t_sigterm"]
+    good = r1["goodput"]
+    log(f"[preempt] Llama-1B width, depth 2, bf16, AdamW, {len(data)} "
+        f"windows of {PREEMPT_SEQ} byte ids of the repository's .py/.md "
+        f"text, batch {PREEMPT_BATCH}, shuffled through 2 loader workers; "
+        f"the launcher ran {launch_s:.1f} s: round 0 {r0['t_end'] - r0['t_start']:.1f} s "
+        f"in fit ({r0['steps']} steps, SIGTERM after step {PREEMPT_AT}, "
+        f"Preempted at epoch {r0['epoch']} step {r0['step']}, exit 75), "
+        f"round 1 {r1['t_end'] - r1['t_start']:.1f} s in fit ({r1['steps']} "
+        f"steps after the resume); one preemption relaunch, no crash")
+    log(f"[preempt] elastic/emergency_save_ms {r0['emergency_save_ms']}; "
+        f"time to recover (SIGTERM to the first resumed step's loss) "
+        f"{recover_s:.3f} s; goodput_frac {good['goodput_frac']} over "
+        f"{good['rounds']} rounds, wall {good['wall_s']} s, lost: "
+        + ", ".join(f"{k} {good['lost_' + k + '_s']}" for k in (
+            "input_wait", "checkpoint_save", "emergency_save", "restart",
+            "reshard", "recompile")))
+    for tag, rec in (("2 workers", ref), ("no workers", ref0)):
+        log(f"[preempt] uninterrupted, {tag}: input_wait_ms by epoch "
+            f"{[e['input_wait_ms'] for e in rec['epochs']]}, avg_step_ms "
+            f"{[e['avg_step_ms'] for e in rec['epochs']]}, peak memory "
+            f"{rec['peak_gb']:.2f} GB")
+    log(f"[preempt] resumed losses and final weights equal the "
+        f"uninterrupted run's bit for bit (and the run with no workers); "
+        f"launches per step exact in all four runs; goodput.json holds "
+        f"both rounds ({time.perf_counter() - t0:.1f} s)")
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                + ref["launches"][k] + ref0["launches"][k] for k in want}
+    return dict(launches=launches, recover_s=recover_s,
+                emergency_save_ms=r0["emergency_save_ms"], goodput=good,
+                input_wait_ms={"workers_2": [e["input_wait_ms"]
+                                             for e in ref["epochs"]],
+                               "workers_0": [e["input_wait_ms"]
+                                             for e in ref0["epochs"]]})
+
+
 MOE_KERNELS = ("grouped_matmul", "grouped_matmul_t", "grouped_dw")
 
 
@@ -6135,6 +6455,8 @@ def phase_model_parity(dev="cuda"):
 
 
 def main():
+    if sys.argv[1:2] == ["--preempt-worker"]:
+        return preempt_worker(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
@@ -6215,6 +6537,8 @@ def main():
     train_loop = phase_train_loop(dataclasses.replace(cfg1b,
                                                       num_hidden_layers=8))
     mark("train_loop")
+    preempt = phase_preempt(cfg1b)
+    mark("preempt")
     a14b = Qwen2MoeConfig.qwen2_moe_a14b()
     serve_moe = phase_serve_moe(a14b)
     wide = phase_moe_train("moe_train_wide", dataclasses.replace(
@@ -6277,7 +6601,8 @@ def main():
         # (8, 9), the spec A/B, self-speculative drafts and spec over
         # int8 pools (10), the decode entry point (13), unfused
         # training (14), the full training step (16), fit (17), the
-        # train_gpt2 loop's 40 steps (27), MoE
+        # train_gpt2 loop's 40 steps (27), the preemptible fit's two
+        # rounds and its two uninterrupted runs (38), MoE
         # serving (20) and the two MoE training steps (21, 22), generate
         # (25: the decode bench, the 8B runs and the MoE run), the
         # legacy engine (26, bf16 and int8 pools), GPT-2's training,
@@ -6300,6 +6625,7 @@ def main():
                   "train_full": full["launches"].get(name, 0),
                   "fit": fit["launches"].get(name, 0),
                   "train_loop": train_loop["launches"].get(name, 0),
+                  "preempt": preempt["launches"].get(name, 0),
                   "serve_moe": serve_moe["launches"].get(name, 0),
                   "moe_train_wide": wide["launches"].get(name, 0),
                   "moe_bench": moe_bench["launches"].get(name, 0),

@@ -9,9 +9,22 @@ beside it, which CPU tensors take.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit device they raise.
+
+Importing the package imports nothing heavy: ``resolve_device``, ``save``
+and ``load`` (and so torch) load at first use, so that the elastic
+launcher (``python -m paddle_tpu_torch.distributed.launch``) runs
+without torch.
 """
 
-from .device import resolve_device
-from .framework.io import load, save
+import importlib
 
 __all__ = ["resolve_device", "save", "load"]
+
+_LAZY = {"resolve_device": ".device", "save": ".framework.io",
+         "load": ".framework.io"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

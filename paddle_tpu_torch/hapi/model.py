@@ -17,8 +17,10 @@ at ``log_freq`` and at the end of the epoch, and each loss read is one
 ``utils.monitor.emit_step_metrics(epoch=, loss=)`` record. PyTorch has
 no ``to_static``, so the step runs eagerly. ``fit(compiled=False)`` is
 the eager, unfused ``train_batch`` loop (one host read a step), the
-oracle. After each epoch ``_last_epoch_summary`` holds its ``epoch``,
-``steps``, ``seconds``, ``avg_step_ms`` and ``mean_loss``;
+oracle. After each epoch ``_last_epoch_summary`` holds
+``profiler.trace.epoch_summary``'s record (``epoch``, ``steps``,
+``epoch_s``, ``avg_step_ms``, ``steps_per_s``) with ``seconds``,
+``mean_loss``, ``input_wait_ms`` and ``goodput_frac``;
 ``_epoch_summaries`` keeps every epoch's of the last ``fit``.
 
 AMP: ``amp_configs`` ``"O1"`` runs the forward and the loss under
@@ -26,10 +28,26 @@ AMP: ``amp_configs`` ``"O1"`` runs the forward and the loss under
 ``amp.decorate``. A ``GradScaler`` given to ``prepare`` scales the loss
 and unscales, skips and updates around the optimizer's step.
 
-Not ported yet: preemption and the emergency checkpoint, the goodput
-ledger, the device prefetcher and steps in flight (the JAX package's
-compiled step dispatches ahead; the port's eager step runs in order),
-and workers for the loader (``num_workers`` is accepted and not used).
+Preemption (``fit(preemptible=)``, on by default with ``save_dir``): a
+``PreemptionGuard`` turns SIGTERM into a flag that both epoch loops poll
+at each step boundary; the loop stops, resolves its pending losses, and
+``fit`` commits an emergency ``step_<epoch>`` checkpoint holding the
+``mid_epoch_step``, then raises ``Preempted`` (an uncaught one exits 75,
+which the elastic launcher relaunches). A resume skips the steps the
+checkpoint holds: their batches are fetched and dropped.
+
+Goodput: ``fit`` keeps a ``GoodputLedger`` (``save_dir/goodput.json``,
+loaded on a resume so that restart rounds add up), the process's current
+one for ``/statusz``, booking ``reshard`` (the resume's load),
+``checkpoint_save``, ``emergency_save`` and ``input_wait`` (the time
+``fit`` waits on the loader's ``next()``). The ``hapi/*``, ``elastic/*``
+and ``restart/*`` metrics below go to the default registry.
+
+Not ported yet: the device prefetcher and steps in flight (the JAX
+package's compiled step dispatches ahead; the port's eager step runs in
+order), and the multi-rank parts of a preemption (the commit barrier
+that the grace window bounds, the reshard of a resume onto another
+mesh).
 """
 
 from __future__ import annotations
@@ -37,19 +55,99 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from ..amp import auto_cast, decorate
 from ..distributed import checkpoint as dckpt
+from ..distributed.fleet.elastic import Preempted, PreemptionGuard
 from ..framework import flags
 from ..framework.io import load as load_obj
 from ..framework.io import save as save_obj
 from ..io import DataLoader
+from ..profiler import flight_recorder as _frec
+from ..profiler import goodput as _goodput
+from ..profiler import metrics as _pmetrics
+from ..profiler import trace as _trace
 from ..utils import monitor
 
 __all__ = ["Model"]
+
+_REG = _pmetrics.get_registry()
+
+_pmetrics.declare("hapi/input_wait_ms", "gauge",
+                  "ms the fit loop waited on the loader's next() this "
+                  "epoch")
+_pmetrics.declare("hapi/avg_step_ms", "gauge",
+                  "per-epoch mean train-step wall time (epoch summary)")
+_pmetrics.declare("elastic/preempt_requested", "counter",
+                  "preemption signals that reached the fit loop")
+_pmetrics.declare("elastic/emergency_save_ms", "gauge",
+                  "wall time of the bounded-time emergency checkpoint")
+_pmetrics.declare("elastic/emergency_step", "gauge",
+                  "epoch-relative step the emergency checkpoint "
+                  "captured")
+_pmetrics.declare("restart/round", "gauge",
+                  "the launcher's PADDLE_RESTART_ROUND at resume")
+_pmetrics.declare("restart/resume_epoch", "gauge",
+                  "epoch training resumed at")
+_pmetrics.declare("restart/resume_step", "gauge",
+                  "first step consumed after a mid-epoch resume (0 = "
+                  "epoch start)")
+
+
+def _persist_ledger(ledger):
+    """Persist the goodput ledger, best effort: a full disk on the
+    bookkeeping file must not mask a ``Preempted`` in flight or fail a
+    run that otherwise succeeded."""
+    try:
+        ledger.persist()
+    except OSError as e:
+        warnings.warn(f"goodput ledger persist failed ({e!r}); "
+                      "continuing without on-disk goodput continuity")
+
+
+class _Batches:
+    """One epoch's batches for a fit loop: iterating yields ``(step,
+    batch)`` from ``skip_to`` on (the earlier batches of a mid-epoch
+    resume are fetched and dropped), adds the time each ``next()`` on
+    the loader blocked to ``wait_s``, and stops at the step boundary
+    where ``guard`` reports a preemption (``preempted``). ``last_step``
+    is the last step handed out."""
+
+    def __init__(self, loader, guard, skip_to):
+        self._loader = loader
+        self._guard = guard
+        self._skip_to = skip_to
+        self.wait_s = 0.0
+        self.preempted = False
+        self.last_step = skip_to - 1
+
+    def __iter__(self):
+        it = iter(self._loader)
+        try:
+            step = 0
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    self.wait_s += time.perf_counter() - t0
+                if self._guard is not None and self._guard.requested():
+                    self.preempted = True
+                    return
+                if step >= self._skip_to:
+                    self.last_step = step
+                    yield step, batch
+                step += 1
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()   # a loader's workers stop with its generator
 
 
 class Model:
@@ -63,6 +161,7 @@ class Model:
         self._resume_mid_step = None
         self._last_epoch_summary = None
         self._epoch_summaries = []
+        self._goodput = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, scaler=None):
@@ -178,7 +277,12 @@ class Model:
             return self._compute_loss(self.network(*xs), y)
 
     def _fit_epoch_compiled(self, loader, epoch, log_freq, verbose, device,
-                            skip_to=0):
+                            guard=None, skip_to=0):
+        """One epoch of the compiled step: each step's loss stays on the
+        device until ``log_freq`` or the epoch's end. ``guard`` is polled
+        at each step boundary: on a request the loop stops and resolves
+        its pending losses (its only state in flight) before ``fit``
+        checkpoints. Returns the losses and the epoch's ``_Batches``."""
         losses, pending = [], []
 
         def resolve():
@@ -189,36 +293,42 @@ class Model:
                     monitor.emit_step_metrics(epoch=epoch, loss=v)
                 pending.clear()
 
-        for step, batch in enumerate(loader):
-            if step < skip_to:
-                continue
-            pending.append(self._train_step(*_to(batch, device)))
+        batches = _Batches(loader, guard, skip_to)
+        for step, batch in batches:
+            with _trace.trace_span("hapi/train_batch", cat="train",
+                                   epoch=epoch, step=step, mode="compiled"):
+                pending.append(self._train_step(*_to(batch, device)))
             if step % log_freq == 0:
                 resolve()
                 if verbose:
                     print(f"epoch {epoch} step {step}: loss "
                           f"{losses[-1]:.5f}")
         resolve()
-        return losses
+        return losses, batches
 
     def _fit_epoch_eager(self, loader, epoch, log_freq, verbose, device,
-                         skip_to=0):
+                         guard=None, skip_to=0):
+        """The eager oracle loop (a host read a step), with the compiled
+        loop's preemption and skip contract."""
         losses = []
-        for step, batch in enumerate(loader):
-            if step < skip_to:
-                continue
+        batches = _Batches(loader, guard, skip_to)
+        for step, batch in batches:
             *xs, y = _to(batch, device)
-            losses.append(self.train_batch(xs, y)[0])
+            with _trace.trace_span("hapi/train_batch", cat="train",
+                                   epoch=epoch, step=step):
+                losses.append(self.train_batch(xs, y)[0])
             monitor.emit_step_metrics(epoch=epoch, loss=losses[-1])
             if verbose and step % log_freq == 0:
                 print(f"epoch {epoch} step {step}: loss {losses[-1]:.5f}")
-        return losses
+        return losses, batches
 
-    def _resume_point(self, resume, save_dir, verbose):
+    def _resume_point(self, resume, save_dir, verbose, ledger):
         """(first epoch, steps of it already done) after loading the
         checkpoint ``resume`` names: a path; ``True`` takes
         ``PADDLE_RESUME_CHECKPOINT``, else the newest valid ``step_N``
-        under ``save_dir``. (0, 0) when there is none."""
+        under ``save_dir``. (0, 0) when there is none. The load is booked
+        as ``reshard``; the ``restart/*`` gauges and a ``resume``
+        flight-recorder event record the point."""
         path = resume if isinstance(resume, (str, os.PathLike)) else None
         if path is None:
             path = os.environ.get("PADDLE_RESUME_CHECKPOINT")
@@ -226,12 +336,19 @@ class Model:
             path = dckpt.latest_valid_checkpoint(save_dir)
         if not path:
             return 0, 0
-        epoch_done = self.load_checkpoint(path)
+        with ledger.measure("reshard"):
+            epoch_done = self.load_checkpoint(path)
         mid = self._resume_mid_step
         # a checkpoint taken inside an epoch redoes that epoch from the
         # step after the last one it holds
         start, skip = (epoch_done + 1, 0) if mid is None \
             else (epoch_done, int(mid) + 1)
+        _REG.gauge("restart/round").set(
+            int(os.environ.get("PADDLE_RESTART_ROUND", "0")))
+        _REG.gauge("restart/resume_epoch").set(start)
+        _REG.gauge("restart/resume_step").set(skip)
+        _frec.record_event("resume", epoch=start, step=skip,
+                           checkpoint=str(path))
         if verbose:
             print(f"resuming from {path} (epoch {start}"
                   f"{f' step {skip}' if skip else ''})")
@@ -241,36 +358,71 @@ class Model:
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1,
             verbose=2, drop_last=False, shuffle=True, num_workers=0,
             callbacks=None, resume=None, keep_last_n=None,
-            legacy_save=True, compiled=True):
-        """Train for ``epochs`` over ``train_data`` (a ``TensorDataset``,
-        batched here, or a ``DataLoader``); batches move to the device of
-        the network's parameters.
+            legacy_save=True, compiled=True, preemptible=None):
+        """Train for ``epochs`` over ``train_data`` (a ``Dataset``,
+        batched here by a ``DataLoader`` with ``num_workers``, or a
+        ``DataLoader``); batches move to the device of the network's
+        parameters.
 
         ``save_dir``: after every ``save_freq``-th epoch a committed
         ``step_<epoch>`` checkpoint (``keep_last_n`` bounds how many
         stay) and, unless ``legacy_save=False``, ``epoch_<epoch>.pdparams``
-        / ``.pdopt``. ``eval_data``: ``evaluate`` after every
-        ``eval_freq``-th epoch. ``resume=True`` restarts from the newest
-        committed checkpoint (``PADDLE_RESUME_CHECKPOINT``, else the
-        newest valid ``step_N`` under ``save_dir``), ``resume=<path>``
-        from that one; the epochs it holds are skipped. A loader fit
-        builds seeds its shuffle with the epoch number, so a resumed run
-        sees the batches an uninterrupted one would. ``callbacks`` is
-        accepted and not run, as in the JAX package: drive them by
-        hand."""
+        / ``.pdopt``; and ``goodput.json``. ``eval_data``: ``evaluate``
+        after every ``eval_freq``-th epoch. ``resume=True`` restarts from
+        the newest committed checkpoint (``PADDLE_RESUME_CHECKPOINT``,
+        else the newest valid ``step_N`` under ``save_dir``),
+        ``resume=<path>`` from that one; the epochs it holds are skipped,
+        and after an emergency checkpoint the steps of its epoch too. A
+        loader fit builds seeds its shuffle with the epoch number, so a
+        resumed run sees the batches an uninterrupted one would.
+
+        ``preemptible``: ``None`` (the default) guards the run whenever
+        ``save_dir`` is set, ``True`` too (and raises ``ValueError``
+        without ``save_dir``: an emergency checkpoint needs somewhere to
+        commit), ``False`` never, and a ``PreemptionGuard`` instance is
+        used as given (shared across loops). On a request the loop
+        stops at the next step boundary, commits ``step_<epoch>`` with
+        its ``mid_epoch_step`` and raises ``Preempted(checkpoint=,
+        epoch=, step=)``, the step relative to the epoch.
+
+        ``callbacks`` is accepted and not run, as in the JAX package:
+        drive them by hand."""
+        if preemptible is True and save_dir is None:
+            raise ValueError(
+                "fit(preemptible=True) needs save_dir=: an emergency "
+                "checkpoint has nowhere to commit")
         own_loader = not isinstance(train_data, DataLoader)
         loader = DataLoader(train_data, batch_size=batch_size,
-                            shuffle=shuffle, drop_last=drop_last) \
+                            shuffle=shuffle, drop_last=drop_last,
+                            num_workers=num_workers) \
             if own_loader else train_data
         device = self._device()
-        start_epoch, skip = (0, 0) if not resume else \
-            self._resume_point(resume, save_dir, verbose)
-        if own_loader:
-            loader._epoch = start_epoch
+        # restart rounds accumulate into one ledger beside the
+        # checkpoints; a fresh fit into a reused save_dir starts anew
+        ledger = _goodput.GoodputLedger(
+            path=f"{save_dir}/goodput.json" if save_dir else None,
+            load=bool(resume))
+        self._goodput = ledger
+        _goodput.set_current(ledger)
+        guard, own_guard = None, False
         run_epoch = self._fit_epoch_compiled if compiled \
             else self._fit_epoch_eager
         self._epoch_summaries = []
         with contextlib.ExitStack() as scope:
+            scope.callback(_persist_ledger, ledger)
+            # frozen at the end: a later read must not book idle time
+            scope.callback(ledger.close)
+            start_epoch, skip = (0, 0) if not resume else \
+                self._resume_point(resume, save_dir, verbose, ledger)
+            if own_loader:
+                loader._seed_epochs_from(start_epoch)
+            if preemptible is not None and not isinstance(preemptible,
+                                                          bool):
+                guard = preemptible.install()
+            elif preemptible is not False and save_dir is not None:
+                guard, own_guard = PreemptionGuard().install(), True
+            if own_guard:
+                scope.callback(guard.uninstall)
             if compiled:
                 # restored on exit, so eager code outside fit stays the
                 # unfused oracle; an explicit env/set_flags value wins
@@ -278,28 +430,67 @@ class Model:
                     "FLAGS_fused_linear_cross_entropy", True))
             for epoch in range(start_epoch, epochs):
                 t0 = time.perf_counter()
-                losses = run_epoch(loader, epoch, log_freq, verbose, device,
-                                   skip if epoch == start_epoch else 0)
+                losses, batches = run_epoch(
+                    loader, epoch, log_freq, verbose, device, guard,
+                    skip if epoch == start_epoch else 0)
                 seconds = time.perf_counter() - t0
-                summary = {
-                    "epoch": epoch, "steps": len(losses), "seconds": seconds,
-                    "avg_step_ms": seconds / max(len(losses), 1) * 1e3,
-                    "mean_loss": float(np.mean(losses)) if losses else None}
+                wait_s = batches.wait_s
+                ledger.add("input_wait", wait_s)
+                _REG.gauge("hapi/input_wait_ms").set(
+                    round(wait_s * 1e3, 3), epoch=epoch)
+                summary = _trace.epoch_summary(
+                    epoch, steps=len(losses), seconds=seconds,
+                    mean_loss=float(np.mean(losses)) if losses else None,
+                    input_wait_ms=round(wait_s * 1e3, 3),
+                    goodput_frac=ledger.summary()["goodput_frac"])
+                summary["seconds"] = seconds
                 self._last_epoch_summary = summary
                 self._epoch_summaries.append(summary)
+                if batches.preempted:
+                    step = batches.last_step
+                    ck = self._emergency_checkpoint(save_dir, epoch, step,
+                                                    keep_last_n)
+                    _persist_ledger(ledger)
+                    raise Preempted(
+                        f"preempted at epoch {epoch} step {step}; "
+                        f"emergency checkpoint committed at {ck}",
+                        checkpoint=ck, epoch=epoch, step=step)
                 if verbose:
                     print(f"epoch {epoch} done: {summary['steps']} steps in "
                           f"{seconds:.2f}s (avg {summary['avg_step_ms']:.1f} "
                           f"ms/step)")
                 if save_dir is not None and epoch % save_freq == 0:
-                    if legacy_save:
-                        self.save(f"{save_dir}/epoch_{epoch}")
-                    self.save_checkpoint(f"{save_dir}/step_{epoch}",
-                                         epoch=epoch,
-                                         keep_last_n=keep_last_n)
+                    with ledger.measure("checkpoint_save"):
+                        if legacy_save:
+                            self.save(f"{save_dir}/epoch_{epoch}")
+                        self.save_checkpoint(f"{save_dir}/step_{epoch}",
+                                             epoch=epoch,
+                                             keep_last_n=keep_last_n)
+                    _persist_ledger(ledger)
                 if eval_data is not None and epoch % eval_freq == 0:
                     self.evaluate(eval_data, batch_size=batch_size,
                                   verbose=verbose, compiled=compiled)
+
+    def _emergency_checkpoint(self, save_dir, epoch, step, keep_last_n):
+        """The preemption checkpoint at a step boundary: the loop's
+        pending losses are resolved, so the state is exactly that after
+        step ``step`` of ``epoch``. Returns the committed path (None
+        without ``save_dir``). One rank commits with no barrier, so the
+        grace window bounds nothing here yet."""
+        _REG.counter("elastic/preempt_requested").inc()
+        _frec.record_event("preempt_requested", epoch=epoch, step=step)
+        if save_dir is None:
+            return None
+        t0 = time.perf_counter()
+        path = f"{save_dir}/step_{epoch}"
+        self.save_checkpoint(path, epoch=epoch, keep_last_n=keep_last_n,
+                             mid_epoch_step=step)
+        elapsed = time.perf_counter() - t0
+        if self._goodput is not None:
+            self._goodput.add("emergency_save", elapsed)
+        _REG.gauge("elastic/emergency_save_ms").set(round(elapsed * 1e3, 3))
+        _REG.gauge("elastic/emergency_step").set(int(step), epoch=epoch)
+        return path
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None, compiled=True):
@@ -309,7 +500,8 @@ class Model:
         ``compiled=False``: ``eval_batch`` per batch. As in the JAX
         package, the prepared metrics are not computed here."""
         loader = eval_data if isinstance(eval_data, DataLoader) else \
-            DataLoader(eval_data, batch_size=batch_size)
+            DataLoader(eval_data, batch_size=batch_size,
+                       num_workers=num_workers)
         device = self._device()
         if compiled:
             pending = [self._eval_step(*_to(b, device)) for b in loader]
@@ -328,7 +520,8 @@ class Model:
                 stack_outputs=False, verbose=1, callbacks=None):
         """The network's outputs, one entry a batch."""
         loader = test_data if isinstance(test_data, DataLoader) else \
-            DataLoader(test_data, batch_size=batch_size)
+            DataLoader(test_data, batch_size=batch_size,
+                       num_workers=num_workers)
         device = self._device()
         return [self.predict_batch(_to(b, device)) for b in loader]
 
@@ -409,5 +602,19 @@ class Model:
 
 
 def _to(batch, device):
+    """A batch as a list of its parts, each moved to ``device``: tensors
+    inside dicts, lists and tuples too (a collate's nested output)."""
     batch = batch if isinstance(batch, (list, tuple)) else [batch]
-    return [t.to(device, non_blocking=True) for t in batch]
+    return [_move(b, device) for b in batch]
+
+
+def _move(obj, device):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device, non_blocking=True)
+    if isinstance(obj, dict):
+        return {k: _move(v, device) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_move(v, device) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_move(v, device) for v in obj)
+    return obj

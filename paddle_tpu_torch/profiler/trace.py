@@ -34,7 +34,7 @@ from dataclasses import dataclass, field
 
 __all__ = ["TraceEvent", "Tracer", "get_tracer", "trace_span",
            "block_on", "log_perf_event", "perf_logger",
-           "RequestTraceLog", "get_trace_log"]
+           "RequestTraceLog", "get_trace_log", "epoch_summary"]
 
 perf_logger = logging.getLogger("paddle_tpu_torch.perf")
 
@@ -414,3 +414,21 @@ def log_perf_event(event: str, message: str, *, level=logging.INFO,
     perf_logger.log(level, "[%s] %s", event, message)
     _tracer.instant(event, cat="perf_event", message=message, **args)
     return True
+
+
+def epoch_summary(epoch, steps, seconds, **metrics) -> dict:
+    """A training epoch's summary (``hapi.Model.fit`` reports through
+    it): one INFO line on ``perf_logger``, the ``hapi/avg_step_ms``
+    gauge, and the returned dict (``epoch``, ``steps``, ``epoch_s``,
+    ``avg_step_ms``, ``steps_per_s`` and ``metrics``)."""
+    avg_ms = seconds / max(steps, 1) * 1e3
+    summary = {"epoch": int(epoch), "steps": int(steps),
+               "epoch_s": round(seconds, 4),
+               "avg_step_ms": round(avg_ms, 3),
+               "steps_per_s": round(steps / seconds, 3) if seconds else 0.0}
+    summary.update(metrics)
+    perf_logger.info("[hapi/epoch] %s", json.dumps(summary, sort_keys=True))
+    from .metrics import get_registry
+    get_registry().gauge("hapi/avg_step_ms").set(
+        summary["avg_step_ms"], epoch=int(epoch))
+    return summary

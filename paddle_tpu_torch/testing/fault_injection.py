@@ -1,5 +1,31 @@
-"""Deterministic fault injection into the port's serving engine: the
+"""Deterministic fault injection: the file-operation, call-site and
 serving plans of ``paddle_tpu/testing/fault_injection.py``.
+
+**File plans.** While installed, the injector patches ``builtins.open``
+(which numpy's ``np.save``/``np.load`` go through) and ``os.replace`` /
+``os.rename``, and fires a :class:`FaultPlan` when its ``op`` (``open``,
+``write``, ``read``, ``rename``) touches a path containing its
+``match``:
+
+- ``action="raise"``: ``OSError(errno_)`` (ENOSPC, EIO, ...), after
+  ``after_bytes`` of a write landed (the torn write);
+- ``action="truncate"``: only ``after_bytes`` land and success is
+  reported (the short write only checksums catch);
+- ``action="crash"``: ``os._exit(41)`` at that operation (no atexit, no
+  flush: SIGKILL as an observer sees it);
+- ``action="pause"``: touch ``marker``, then sleep forever, so a parent
+  process can SIGKILL at a known point;
+- ``action="sigterm"``: a real SIGTERM to this process, after which the
+  operation proceeds (preemption is asynchronous: an installed
+  ``PreemptionGuard`` records it and the loop drains at its next step
+  boundary). :meth:`FaultInjector.preempt` arms it.
+
+**Call plans** (:meth:`FaultInjector.fail_call`, :meth:`crash_call`)
+patch a dotted callable, such as an optimizer's ``step``, and fire once
+more than ``after_calls`` calls went by.
+
+**Serving plans** patch methods of ``ContinuousBatchingEngine`` and fire
+only when the chosen request, slot or replica is involved:
 
 - :meth:`FaultInjector.poison_request`: harvesting a step (or a legacy
   decode chunk) raises ``FloatingPointError`` (the shape of a NaN
@@ -24,21 +50,26 @@ rebuild), so one plan targets one replica of the shared engine class:
 - :meth:`FaultInjector.slow_replica`: ``step()`` burns ``delay_s`` and
   only every ``stride``-th one advances (a straggler: hedging).
 
-Each plan patches methods of ``ContinuousBatchingEngine`` while the
-injector is installed, fires at most ``times`` times, and only when the
-chosen request, slot or replica is involved. Use it as a context manager so the
-engine class is always restored::
+Each plan fires at most ``times`` times, in registration order. Use the
+injector as a context manager so that everything it patched is
+restored::
 
     with FaultInjector() as fi:
-        fi.poison_request(rid, times=2)
-        eng.run()
-    assert fi.fires() == 2
+        fi.fail("w.r0.s0.npy", op="write", errno_=errno.ENOSPC)
+        save_state_dict(sd, path)     # first write ENOSPCs, retry wins
+    assert fi.fires() == 1
 
-Not ported: the filesystem, call-site and process plans.
+Not ported: the worker-process plans (``kill_worker``,
+``pause_worker``) and the wire-frame plans.
 """
 
 from __future__ import annotations
 
+import builtins
+import errno as _errno
+import importlib
+import os
+import signal as _signal
 import threading
 import time
 
@@ -48,29 +79,161 @@ __all__ = ["FaultInjector", "FaultPlan"]
 
 
 class FaultPlan:
-    """One armed serving fault, fired at most ``times`` times, and only
-    after ``after_calls`` matching calls have gone by."""
+    """One armed fault: fires when ``op`` touches a path (or, for
+    ``op="call"``, a target) containing ``match``, at most ``times``
+    times, and only after ``after_calls`` matching calls went by."""
 
-    def __init__(self, match, times=1, after_calls=0):
+    def __init__(self, match, op="write", errno_=_errno.EIO, times=1,
+                 after_bytes=0, action="raise", marker=None,
+                 after_calls=0):
+        if op not in ("open", "write", "read", "rename", "call"):
+            raise ValueError(f"unknown fault op {op!r}")
+        if action not in ("raise", "truncate", "crash", "pause",
+                          "sigterm"):
+            raise ValueError(f"unknown fault action {action!r}")
         self.match = match
+        self.op = op
+        self.errno = errno_
         self.times = int(times)
+        self.after_bytes = int(after_bytes)
         self.after_calls = int(after_calls)
+        self.action = action
+        self.marker = marker
         self.fired = 0
         self.calls = 0
 
     def __repr__(self):
-        return f"FaultPlan({self.match!r}, fired={self.fired}/{self.times})"
+        return (f"FaultPlan({self.match!r}, op={self.op}, "
+                f"action={self.action}, fired={self.fired}/{self.times})")
+
+
+class _FaultFile:
+    """A file proxy that asks the injector on ``write()`` and ``read()``."""
+
+    def __init__(self, f, path, injector):
+        self._f = f
+        self._path = path
+        self._inj = injector
+        self._written = 0
+        self._truncated = False
+
+    def write(self, data):
+        if self._truncated:
+            return len(data)  # the dropped tail of a short write
+        plan = self._inj._take(self._path, "write",
+                               pending=self._written + len(data))
+        if plan is not None:
+            if plan.action == "sigterm":
+                # the signal is asynchronous: the write proceeds
+                self._inj._act(plan, self._path)
+            else:
+                keep = max(0, plan.after_bytes - self._written)
+                if keep:
+                    self._f.write(data[:keep])
+                    self._written += keep
+                if plan.action == "truncate":
+                    self._truncated = True
+                    return len(data)  # report full success
+                self._inj._act(plan, self._path)  # raise/crash/pause
+        n = self._f.write(data)
+        self._written += len(data)
+        return n
+
+    def read(self, *args):
+        plan = self._inj._take(self._path, "read")
+        if plan is not None:
+            self._inj._act(plan, self._path)
+        return self._f.read(*args)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._f.close()
+        return False
+
+    def __iter__(self):
+        return iter(self._f)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
 
 
 class FaultInjector:
-    """Installable registry of serving fault plans."""
+    """Installable registry of fault plans (see the module docstring)."""
 
     def __init__(self):
         self.plans = []
         self._lock = threading.Lock()
         self._installed = False
+        self._real_open = None
+        self._real_replace = None
+        self._real_rename = None
+        self._call_targets = []   # (dotted name, plan)
         self._targets = []    # (method name, plan, make_patched)
-        self._patched = []    # (method name, original)
+        self._patched = []    # (owner, attr, original)
+
+    # -- file and call plans ----------------------------------------------
+
+    def fail(self, match, op="write", errno_=_errno.EIO, times=1,
+             after_bytes=0, action="raise", marker=None):
+        plan = FaultPlan(match, op=op, errno_=errno_, times=times,
+                         after_bytes=after_bytes, action=action,
+                         marker=marker)
+        self.plans.append(plan)
+        return plan
+
+    def fail_write(self, match, errno_=_errno.ENOSPC, times=1,
+                   after_bytes=0):
+        """A write to a matching path raises ``OSError(errno_)`` after
+        ``after_bytes`` bytes landed (a partial write)."""
+        return self.fail(match, op="write", errno_=errno_, times=times,
+                         after_bytes=after_bytes)
+
+    def fail_read(self, match, errno_=_errno.EIO, times=1):
+        return self.fail(match, op="read", errno_=errno_, times=times)
+
+    def truncate_write(self, match, after_bytes):
+        """A silent short write: ``after_bytes`` land, success is
+        reported."""
+        return self.fail(match, op="write", after_bytes=after_bytes,
+                         action="truncate")
+
+    def crash(self, match, op="open", after_bytes=0):
+        """``os._exit(41)`` when ``op`` touches a matching path."""
+        return self.fail(match, op=op, action="crash",
+                         after_bytes=after_bytes)
+
+    def pause(self, match, op="open", marker=None):
+        """Touch ``marker``, then sleep forever at the matching
+        operation, so the test can SIGKILL this process there."""
+        return self.fail(match, op=op, action="pause", marker=marker)
+
+    def preempt(self, match, op="open", times=1):
+        """A real SIGTERM to this process when ``op`` touches a matching
+        path; the operation then proceeds (see the module docstring)."""
+        return self.fail(match, op=op, action="sigterm", times=times)
+
+    def fail_call(self, target, action="raise", errno_=_errno.EIO,
+                  times=1, after_calls=0):
+        """Arm a fault on a dotted callable (a module function or a
+        ``Class.method``, e.g. ``"paddle_tpu_torch.optimizer.optimizer.
+        Optimizer.step"``): once more than ``after_calls`` calls went
+        by, ``action`` runs before the original (``"crash"``: the
+        process dies inside it; ``"raise"``: ``OSError``;
+        ``"sigterm"``: a preemption notice lands inside it)."""
+        plan = FaultPlan(target, op="call", errno_=errno_, times=times,
+                         action=action, after_calls=after_calls)
+        self.plans.append(plan)
+        self._call_targets.append((target, plan))
+        if self._installed:
+            self._patch_call(target, plan)
+        return plan
+
+    def crash_call(self, target, after_calls=0, times=1):
+        """``os._exit(41)`` inside the named callable."""
+        return self.fail_call(target, action="crash", times=times,
+                              after_calls=after_calls)
 
     def fires(self):
         """Total number of times any plan fired."""
@@ -99,15 +262,88 @@ class FaultInjector:
         for method in methods:
             self._targets.append((method, plan, make_patched))
             if self._installed:
-                self._patch(method, plan, make_patched)
+                self._patch(ContinuousBatchingEngine, method, plan,
+                            make_patched)
         return plan
 
-    def _patch(self, method, plan, make_patched):
-        original = getattr(ContinuousBatchingEngine, method)
+    def _patch(self, owner, attr, plan, make_patched):
+        """The patch every call plan rides; :meth:`uninstall` restores
+        it."""
+        original = getattr(owner, attr)
         patched = make_patched(original, plan)
-        patched.__name__ = method
-        setattr(ContinuousBatchingEngine, method, patched)
-        self._patched.append((method, original))
+        patched.__name__ = getattr(original, "__name__", attr)
+        setattr(owner, attr, patched)
+        self._patched.append((owner, attr, original))
+
+    def _patch_call(self, target, plan):
+        injector = self
+
+        def make(original, plan_):
+            def patched(*a, **kw):
+                if injector._take_call(plan_):
+                    injector._act(plan_, target)
+                return original(*a, **kw)
+            return patched
+
+        self._patch(*_resolve_owner(target), plan, make)
+
+    # -- file plans: matching and actions ---------------------------------
+
+    def _take(self, path, op, pending=None):
+        """Claim the first live plan matching ``(path, op)``; a write
+        plan only once its byte threshold is reached."""
+        with self._lock:
+            for plan in self.plans:
+                if plan.fired >= plan.times or plan.op != op:
+                    continue
+                if plan.match not in path:
+                    continue
+                if (op == "write" and pending is not None
+                        and pending <= plan.after_bytes):
+                    continue
+                plan.fired += 1
+                return plan
+        return None
+
+    def _act(self, plan, path):
+        if plan.action == "crash":
+            os._exit(41)
+        if plan.action == "sigterm":
+            os.kill(os.getpid(), _signal.SIGTERM)
+            return
+        if plan.action == "pause":
+            if plan.marker:
+                with self._real_open(plan.marker, "w") as m:
+                    m.write(path)
+            while True:
+                time.sleep(60)
+        raise OSError(plan.errno,
+                      f"fault injected ({plan.op} -> {plan.action})", path)
+
+    def _open(self, file, mode="r", *args, **kwargs):
+        path = None
+        if isinstance(file, (str, bytes, os.PathLike)):
+            path = os.fsdecode(os.fspath(file))
+        if path is not None:
+            plan = self._take(path, "open")
+            if plan is not None:
+                self._act(plan, path)
+        f = self._real_open(file, mode, *args, **kwargs)
+        if path is not None and any(
+                p.op in ("write", "read") and p.fired < p.times
+                and p.match in path for p in self.plans):
+            return _FaultFile(f, path, self)
+        return f
+
+    def _rename_like(self, real):
+        def patched(src, dst, **kwargs):
+            for p in (src, dst):
+                sp = os.fsdecode(os.fspath(p))
+                plan = self._take(sp, "rename")
+                if plan is not None:
+                    self._act(plan, sp)
+            return real(src, dst, **kwargs)
+        return patched
 
     def poison_request(self, request_id, times=1):
         """Harvesting a step or a legacy chunk raises
@@ -127,7 +363,8 @@ class FaultInjector:
             return patched
 
         return self._arm(("_harvest_step", "_harvest_chunk"),
-                         FaultPlan(f"poison_request:{rid}", times), make)
+                         FaultPlan(f"poison_request:{rid}", op="call",
+                                   times=times), make)
 
     def wedge_slot(self, slot, times=1):
         """The drain skips slot ``slot`` for ``times`` passes while it is
@@ -152,7 +389,8 @@ class FaultInjector:
             return patched
 
         return self._arm(("_drain",),
-                         FaultPlan(f"wedge_slot:{slot_i}", times), make)
+                         FaultPlan(f"wedge_slot:{slot_i}", op="call",
+                                   times=times), make)
 
     def leak_pages(self, n=1, times=1):
         """The page release silently drops the first ``n`` pages it
@@ -168,7 +406,8 @@ class FaultInjector:
             return patched
 
         return self._arm(("_release_pages",),
-                         FaultPlan("leak_pages", times), make)
+                         FaultPlan("leak_pages", op="call", times=times),
+                         make)
 
     # -- replica plans: match the engine's ``_fleet_replica_id`` ----------
 
@@ -190,7 +429,8 @@ class FaultInjector:
                 return original(eng, *a, **kw)
             return patched
 
-        return self._arm(("step",), FaultPlan(f"kill_replica:{rid}", times,
+        return self._arm(("step",), FaultPlan(f"kill_replica:{rid}",
+                                              op="call", times=times,
                                               after_calls=after_steps),
                          make)
 
@@ -211,7 +451,8 @@ class FaultInjector:
             return patched
 
         return self._arm(("step",), FaultPlan(f"wedge_replica:{rid}",
-                                              times), make)
+                                              op="call", times=times),
+                         make)
 
     def slow_replica(self, replica_id, delay_s=0.05, stride=4,
                      times=10_000):
@@ -235,22 +476,34 @@ class FaultInjector:
             return patched
 
         return self._arm(("step",), FaultPlan(f"slow_replica:{rid}",
-                                              times), make)
+                                              op="call", times=times),
+                         make)
 
     def install(self):
         if self._installed:
             return self
+        self._real_open = builtins.open
+        self._real_replace = os.replace
+        self._real_rename = os.rename
+        builtins.open = self._open
+        os.replace = self._rename_like(self._real_replace)
+        os.rename = self._rename_like(self._real_rename)
         self._installed = True
+        for target, plan in self._call_targets:
+            self._patch_call(target, plan)
         for method, plan, make in self._targets:
-            self._patch(method, plan, make)
+            self._patch(ContinuousBatchingEngine, method, plan, make)
         return self
 
     def uninstall(self):
         if not self._installed:
             return
+        builtins.open = self._real_open
+        os.replace = self._real_replace
+        os.rename = self._real_rename
         while self._patched:
-            method, original = self._patched.pop()
-            setattr(ContinuousBatchingEngine, method, original)
+            owner, attr, original = self._patched.pop()
+            setattr(owner, attr, original)
         self._installed = False
 
     def __enter__(self):
@@ -259,3 +512,26 @@ class FaultInjector:
     def __exit__(self, *exc):
         self.uninstall()
         return False
+
+
+def _resolve_owner(dotted):
+    """``(owner, attr)`` of a dotted target: the longest importable module
+    prefix, then attributes (``Class.method`` works)."""
+    parts = dotted.split(".")
+    mod = rest = None
+    for i in range(len(parts) - 1, 0, -1):
+        try:
+            mod = importlib.import_module(".".join(parts[:i]))
+            rest = parts[i:]
+            break
+        except ImportError:
+            continue
+    if mod is None or not rest:
+        raise ValueError(f"cannot resolve fault target {dotted!r}")
+    owner = mod
+    for p in rest[:-1]:
+        owner = getattr(owner, p)
+    if not hasattr(owner, rest[-1]):
+        raise ValueError(f"fault target {dotted!r}: {owner!r} has no "
+                         f"attribute {rest[-1]!r}")
+    return owner, rest[-1]

@@ -420,3 +420,18 @@ def test_prepare_keeps_the_metrics():
     acc = tmetric.Accuracy()
     m.prepare(metrics=acc)
     assert m._metrics == [acc]
+
+
+def test_to_moves_nested_collate_outputs():
+    """fit/evaluate/predict move a batch's tensors to the network's
+    device inside dicts, lists and tuples too (a collate's output)."""
+    from paddle_tpu_torch.hapi.model import _to
+    t = torch.ones(2)
+    moved = _to({"x": t, "pair": (t, [t, "name"]), "n": 3}, "cpu")
+    assert isinstance(moved, list) and len(moved) == 1
+    got = moved[0]
+    assert set(got) == {"x", "pair", "n"} and got["n"] == 3
+    assert isinstance(got["pair"], tuple) and got["pair"][1][1] == "name"
+    assert torch.equal(got["pair"][1][0], t)
+    assert [x.shape for x in _to([t, t], "cpu")] == [(2,), (2,)]
+

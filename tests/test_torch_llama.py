@@ -187,6 +187,10 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.inference.fleet\n"
             "import paddle_tpu_torch.inference.api_server\n"
             "import paddle_tpu_torch.profiler, paddle_tpu_torch.testing\n"
+            "import paddle_tpu_torch.distributed\n"
+            "import paddle_tpu_torch.distributed.fleet.elastic.preempt\n"
+            "import paddle_tpu_torch.distributed.fleet.elastic.manager\n"
+            "import paddle_tpu_torch.distributed.launch.main\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

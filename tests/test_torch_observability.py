@@ -5,8 +5,9 @@ against the JAX package's.
 
 The cases of tests/test_exposition.py, tests/test_trace.py (spans, the
 chrome export, the request-trace log), tests/test_flight_recorder.py,
-tests/test_slo.py (its SLO half) and tests/test_goodput.py (without the
-fit case) run on the port's modules. The parity cases run the same
+tests/test_slo.py (its SLO half) and tests/test_goodput.py (with fit's
+ledger, and two rounds of it through a preemption) run on the port's
+modules. The parity cases run the same
 operations through both packages' modules and require the same
 Prometheus text and snapshots, the same SLO burn rates and alert
 states, and the same goodput partitions (exactly; the clocks are
@@ -1385,3 +1386,111 @@ def test_goodput_section_in_statusz(model):
         assert fleet.statusz()["goodput"]["lost_input_wait_s"] == 1.0
     finally:
         tgoodput.set_current(None)
+
+def test_persist_fault_keeps_previous_ledger_port_injector(tmp_path):
+    """The same fault through the port's own file plans."""
+    path = tmp_path / "goodput.json"
+    led = GoodputLedger(path=path, round_=0)
+    led.add("input_wait", 0.5)
+    led.persist()
+    with FaultInjector() as fi:
+        fi.fail_write("goodput.json", errno_=errno.ENOSPC)
+        with pytest.raises(OSError):
+            led.persist()
+    assert fi.fires() == 1
+    assert json.loads(path.read_text())["rounds"]["0"]["lost"][
+        "input_wait"] == 0.5
+
+
+def test_fit_maintains_ledger_and_persists(tmp_path):
+    """tests/test_goodput.py's fit case: fit books the input wait and the
+    checkpoint saves into its ledger, reports goodput_frac in the epoch
+    summary, persists goodput.json beside the checkpoints and makes the
+    ledger the current one (what /statusz reads). The port has no
+    compiled step, so nothing is booked as ``recompile``."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import SGD
+    cfg = dataclasses.replace(LlamaConfig.tiny(), num_hidden_layers=1)
+    net = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    m = Model(net)
+    m.prepare(SGD(1e-3, parameters=net.parameters()),
+              LlamaPretrainingCriterion(cfg))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 17)).astype(np.int64))
+    save_dir = tmp_path / "ckpt"
+    try:
+        m.fit(TensorDataset([ids, ids]), batch_size=2, epochs=2, verbose=0,
+              shuffle=False, save_dir=str(save_dir), legacy_save=False)
+        assert tgoodput.get_current() is m._goodput
+    finally:
+        tgoodput.set_current(None)
+    summary = m._last_epoch_summary
+    assert 0.0 <= summary["goodput_frac"] <= 1.0
+    assert summary["input_wait_ms"] >= 0.0
+    doc = json.loads((save_dir / "goodput.json").read_text())
+    assert doc["schema"] == LEDGER_SCHEMA
+    lost = doc["rounds"]["0"]["lost"]
+    assert lost["checkpoint_save"] > 0.0           # epoch saves booked
+    assert lost["input_wait"] > 0.0
+    assert lost["recompile"] == 0.0 and lost["emergency_save"] == 0.0
+    keys = m._goodput.bench_keys()
+    assert 0.0 <= keys["obs_goodput_frac"] <= 1.0
+    assert tmetrics.get_registry().gauge("hapi/avg_step_ms").value == \
+        summary["avg_step_ms"]
+
+
+def test_fit_ledger_spans_a_preemption_and_its_resume(tmp_path, monkeypatch):
+    """Two rounds through one ledger: round 0 books the emergency save
+    of a preemption, round 1 (the launcher's PADDLE_RESTART_ROUND=1)
+    books the resume's load as reshard, and the summary books the gap
+    between the rounds as restart."""
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        Preempted, PreemptionGuard)
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def make():
+        net = torch.nn.Linear(4, 2)
+        m = Model(net)
+        m.prepare(Momentum(0.05, parameters=net.parameters()),
+                  torch.nn.MSELoss())
+        return m
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(12, 4).astype(
+        np.float32))
+    data = TensorDataset([x, x[:, :2]])
+    m0 = make()
+    guard = PreemptionGuard()
+    real_step = m0._optimizer.step
+
+    def step():
+        real_step()
+        if m0._optimizer._step_count == 4:     # step 0 of epoch 1
+            guard.request()
+
+    m0._optimizer.step = step
+    monkeypatch.setenv("PADDLE_RESTART_ROUND", "0")
+    with pytest.raises(Preempted):
+        m0.fit(data, batch_size=4, epochs=2, verbose=0,
+               save_dir=str(tmp_path), preemptible=guard)
+    time.sleep(0.05)
+    monkeypatch.setenv("PADDLE_RESTART_ROUND", "1")
+    m1 = make()
+    try:
+        m1.fit(data, batch_size=4, epochs=2, verbose=0,
+               save_dir=str(tmp_path), resume=True)
+    finally:
+        tgoodput.set_current(None)
+    doc = json.loads((tmp_path / "goodput.json").read_text())
+    assert sorted(doc["rounds"]) == ["0", "1"]
+    r0, r1 = doc["rounds"]["0"]["lost"], doc["rounds"]["1"]["lost"]
+    assert r0["emergency_save"] > 0.0 and r0["reshard"] == 0.0
+    assert r1["reshard"] > 0.0 and r1["emergency_save"] == 0.0
+    s = m1._goodput.summary()
+    assert s["rounds"] == 2 and 0.0 < s["goodput_frac"] < 1.0
+    # the gap between the rounds, from the persisted timestamps
+    assert s["lost_restart_s"] >= 0.04
+
