@@ -107,6 +107,22 @@ non-zero without printing a result:
    over full logits, forward and backward with the grads cleared and no
    optimizer; 2 warm-up and 5 timed steps, launches per step, one step
    profiled;
+16b. train_2_4b: the JAX bench's other headline training configuration,
+   ``LlamaConfig.llama_2_4b()`` (2560 wide, 32 layers, 20 heads over 4 KV
+   heads, FFN 6912) at full width and depth in bf16 on [2, 2049] token
+   ids, built after ``paddle_tpu_torch.seed(0)`` (its K1-K9 checked at
+   these shapes among the kernel checks, phase 2): (a) the preset as
+   written (core_attn on every second layer, the unrolled fused stack),
+   5 timed steps: step time, MFU from ``profiler.cost``, peak memory,
+   exact launches a step; (b) the five recompute policies at ``full``
+   granularity: step time and peak memory each, losses equal bit for
+   bit, sampled gradients within one bf16 ulp; (c) ``scan_layers=True``
+   with core_attn: the granularity warning and the unrolled loss bit for
+   bit; (d) ``profiler.Profiler(targets=[GPU], scheduler=(1, 3),
+   with_flops=True)``: its chrome trace names K1-K9; (e)
+   ``amp.debugging``: ``check_numerics`` over the gradients,
+   ``collect_operator_stats`` over a step, ``enable_check_nan_inf``
+   quiet on a clean forward and raising on an injected inf;
 17. fit: bench.py's fit bench on the port: Llama-1B at full depth in bf16
    through ``hapi.Model(net).prepare(SGD(1e-4), criterion).fit`` over 12
    batches of [8, 1025] for 2 epochs (the fused linear+CE on), epoch 1
@@ -290,8 +306,11 @@ except ImportError:
 
 # bf16 keeps 8 significant bits: one ulp is at most 2**-7 of the value
 BF16_ULP = 2.0 ** -7
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
-PEAK_BF16 = 989e12               # dense tensor-core bf16
+# the card's HBM rate and dense tensor-core bf16 peak: set by phase_setup
+# from paddle_tpu_torch.profiler.cost.device_peaks (the H100 SXM's spec
+# sheet figures, 3.35 TB/s and 989.4 TFLOP/s)
+HBM_BYTES_PER_S = None
+PEAK_BF16 = None
 PEAK_F32_CORES = 67e12           # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
 # the design of K7-K9 at D 64 and 128 and of K14 and K15 in bf16
@@ -522,8 +541,16 @@ def _ptxas_summary(build_log):
 
 
 def phase_setup():
+    global HBM_BYTES_PER_S, PEAK_BF16
     import torch
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.profiler import cost
+    peaks = cost.device_peaks()
+    if peaks.kind == "unknown":
+        raise AssertionError(f"profiler.cost has no peaks for "
+                             f"{torch.cuda.get_device_name(0)!r}: the "
+                             f"bounds need the card's")
+    HBM_BYTES_PER_S, PEAK_BF16 = peaks.hbm_bw, peaks.flops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products accumulate in f32 throughout, as the tolerances of
@@ -539,7 +566,9 @@ def phase_setup():
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}; peaks from "
+        f"profiler.cost ({peaks.kind}): {PEAK_BF16 / 1e12:.1f} TFLOP/s "
+        f"bf16, {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     return card
 
 
@@ -3906,6 +3935,329 @@ def phase_train_full(cfg, batch=4, seq=2048, warmup=2, steps=5, dev="cuda"):
                 losses=losses, launches=launches, parts=parts, profile=prof)
 
 
+def phase_2_4b_kernels(batch=2, seq=2049, dev="cuda"):
+    """K1-K9 at the shapes of phase train_2_4b (llama_2_4b: [2, 2049]
+    tokens of width 2560, FFN 6912, 20 query heads over 4 KV heads of 128,
+    the first path with 5 query heads to a KV head) against their plain
+    versions per element, bits repeated, timed beside their bounds (K3/K4
+    through phase_fused_kernels, whose K10/K11 checks run again at a
+    small block). Returns {kernel: {"llama_2_4b": entry}}."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig.llama_2_4b()
+    gen = torch.Generator(device=dev).manual_seed(2404)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+    n = batch * seq
+    entries = {}
+    entries.update(norm_checks(n, cfg.hidden_size, cfg.rms_norm_eps, rand,
+                               tag="train_2_4b kernels"))
+    entries.update(swiglu_checks(n, cfg.intermediate_size, rand,
+                                 tag="train_2_4b kernels"))
+    torch.cuda.empty_cache()
+    entries.update(flash_checks(batch, seq, cfg.num_attention_heads,
+                                cfg.num_key_value_heads, cfg.head_dim, rand))
+    fused = phase_fused_kernels(cfg, n_res=n, n_ce=1024, vc=1024)
+    for name in ("rms_norm_residual", "rms_norm_residual_dh"):
+        entries[name] = fused[name]
+    torch.cuda.empty_cache()
+    return {name: {"llama_2_4b": e} for name, e in entries.items()}
+
+
+POLICIES = ("dots_saveable", "nothing_saveable",
+            "dots_with_no_batch_dims_saveable", "everything_saveable",
+            "dots_and_flash_saveable")
+# the parameters whose gradients the policies must agree on
+GRAD_SAMPLE = ("llama.embed_tokens.weight",
+               "llama.layers.0.self_attn.q_proj.weight",
+               "llama.layers.15.mlp.down_proj.weight",
+               "llama.layers.31.post_attention_layernorm.weight",
+               "llama.norm.weight", "lm_head.weight")
+K_OF = {"rms_norm": "K1", "rms_norm_dx": "K2", "rms_norm_residual": "K3",
+        "rms_norm_residual_dh": "K4", "swiglu": "K5", "swiglu_bwd": "K6",
+        "flash_attention_fwd": "K7", "flash_attention_dkv": "K8",
+        "flash_attention_dq": "K9"}
+
+
+def _k_label(symbol):
+    """K1-K9 for a device symbol of csrc/rms_norm.cu, swiglu.cu or
+    flash_attention.cu (the rms_norm kernels' last template argument is
+    the residual variant), else None."""
+    base, _, args = symbol.partition("<")
+    res = args.rstrip(">").split(",")[-1].strip() == "true"
+    return {"rms_norm_kernel": "K3" if res else "K1",
+            "rms_norm_dx_kernel": "K4" if res else "K2",
+            "swiglu_kernel": "K5", "swiglu_bwd_kernel": "K6"}.get(base) or \
+        next((k for pre, k in (("flash_fwd", "K7"), ("flash_dkv", "K8"),
+                               ("flash_dq", "K9")) if base.startswith(pre)),
+             None)
+
+
+def phase_train_2_4b(batch=2, seq=2048, dev="cuda"):
+    """The JAX bench's other headline training configuration
+    (bench.py:_train_bench's llama_2_4b branch) at full width and depth:
+    bf16, [2, 2049] token ids from RandomState(0) rolled per step, built
+    after paddle_tpu_torch.seed(0), forward and backward with the grads
+    cleared. (a) the preset as written (core_attn on every second layer,
+    the unrolled fused stack): 2 warm-up and 5 timed steps, MFU from
+    profiler.cost, peak memory, exact launches a step; (b) each recompute
+    policy at ``full`` granularity: losses equal bit for bit, sampled
+    gradients within a stated bound; (c) scan_layers=True with core_attn:
+    the warning, and the loss of the unrolled full run; (d) one run under
+    Profiler(targets=[GPU], scheduler=(1, 3), with_flops=True): its chrome
+    export names K1-K9; (e) amp.debugging: check_numerics over the
+    gradients, collect_operator_stats over a step, enable_check_nan_inf
+    quiet over a clean forward and raising, naming the op, on an inf
+    added to one layer's MLP output."""
+    import contextlib
+    import io as _io
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget, cost,
+                                           export_chrome_tracing,
+                                           get_tracer, trace_span)
+    want_flags = {"FLAGS_fused_rmsnorm_residual": True,
+                  "FLAGS_fused_linear_cross_entropy": False,
+                  "FLAGS_recompute_policy": "dots_saveable"}
+    got = flags.get_flags(list(want_flags))
+    if got != want_flags:
+        raise AssertionError(f"train_2_4b needs {want_flags}, not {got}")
+    cfg = LlamaConfig.llama_2_4b()
+    paddle_tpu_torch.seed(0)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L, interval = cfg.num_hidden_layers, cfg.core_attn_interval
+    peaks = cost.device_peaks()
+    log(f"[train_2_4b] llama_2_4b: {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, FFN "
+        f"{cfg.intermediate_size}, {n_params / 1e9:.3f} B params bf16, "
+        f"core_attn every {interval}nd layer, unrolled fused stack; built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    step_ids = [torch.from_numpy(np.roll(ids, i, axis=1)).to(dev)
+                for i in range(7)]
+    params = dict(model.named_parameters())
+
+    def step(t, keep=()):
+        _, loss = model(t, labels=t)
+        loss.backward()
+        kept = {n: params[n].grad.clone() for n in keep}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), kept
+
+    tokens = batch * seq
+    flops = cost.transformer_step_flops(n_params, tokens, L, batch, seq,
+                                        cfg.hidden_size)
+
+    # (a) the preset as written
+    losses = [step(step_ids[i])[0] for i in range(2)]
+    wrappers = _counted(TRAIN_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2, 7):
+        t0 = time.perf_counter()
+        losses.append(step(step_ids[i])[0])
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    expect = _init_loss(cfg)
+    if abs(losses[0] - expect) > 0.5:
+        raise AssertionError(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
+                             f"of ln(vocab) + s2/2 = {expect:.4f}")
+    # as train_full's count, with core_attn on the even layers only: the
+    # odd layers recompute whole (forward_fused), flash attention
+    # included, so K7 runs again for each of them
+    n_whole = sum(1 for i in range(L) if i % interval)
+    want = {"rms_norm": 2, "rms_norm_dx": 1, "rms_norm_residual": 4 * L - 1,
+            "rms_norm_residual_dh": 2 * L, "swiglu": 2 * L, "swiglu_bwd": L,
+            "flash_attention_fwd": L + n_whole, "flash_attention_dkv": L,
+            "flash_attention_dq": L, "chunk_stats": 0, "chunk_dlogits": 0}
+    per_step = {k: v / 5 for k, v in launches.items()}
+    log(f"[train_2_4b] launches per step " + ", ".join(
+        f"{K_OF.get(k, k)} {v:g}" for k, v in per_step.items()))
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step} != {want}")
+    t = Timing(times)
+    mfu = cost.mfu(flops, t / 1e3, peak=peaks.flops)
+    log(f"[train_2_4b] (a) 5 steps of [{batch}, {seq + 1}] tokens: step "
+        f"{t:.1f} ms (median [least-greatest]), {tokens / (t / 1e3):.0f} "
+        f"tokens/s, model FLOPs {flops / 1e12:.2f} TFLOP a step "
+        f"(profiler.cost.transformer_step_flops) = MFU {100 * mfu:.1f}% of "
+        f"{peaks.flops / 1e12:.1f} TFLOP/s ({peaks.kind}), peak memory "
+        f"{peak:.2f} GB; losses {[round(x, 4) for x in losses]} (init "
+        f"predicts {expect:.4f})")
+
+    # (b) the five policies at full granularity
+    model.config.recompute_granularity = "full"
+    pol = {}
+    try:
+        for name in POLICIES:
+            flags.set_flags({"FLAGS_recompute_policy": name})
+            ls = [step(step_ids[0])[0]]
+            torch.cuda.reset_peak_memory_stats()
+            tt = []
+            for i in (1, 2, 3):
+                t0 = time.perf_counter()
+                loss, kept = step(step_ids[i],
+                                  GRAD_SAMPLE if i == 3 else ())
+                tt.append((time.perf_counter() - t0) * 1e3)
+                ls.append(loss)
+            pol[name] = dict(losses=ls, grads=kept, step_ms=Timing(tt),
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            log(f"[train_2_4b] (b) {name}: step {pol[name]['step_ms']:.1f} "
+                f"ms, peak memory {pol[name]['peak_gb']:.2f} GB, losses "
+                f"{[round(x, 5) for x in ls]}")
+    finally:
+        flags.set_flags({"FLAGS_recompute_policy": "dots_saveable"})
+    ref = pol["dots_saveable"]
+    for name, r in pol.items():
+        if r["losses"] != ref["losses"]:
+            raise AssertionError(f"{name}: losses {r['losses']} are not "
+                                 f"dots_saveable's {ref['losses']}")
+        # a recompute replays the same kernels on the same inputs, whose
+        # bits repeat: the gradients should be equal; the bound is one
+        # bf16 ulp of each parameter's largest |g|
+        for pname, g in r["grads"].items():
+            g0 = ref["grads"][pname]
+            err = (g.float() - g0.float()).abs().max().item()
+            lim = BF16_ULP * g0.float().abs().max().item()
+            if err > lim:
+                raise AssertionError(
+                    f"{name}: grad of {pname} differs from dots_saveable's "
+                    f"by {err:.3g} > {lim:.3g}")
+        same = all(torch.equal(g, ref["grads"][n])
+                   for n, g in r["grads"].items())
+        grads = "bit-equal" if same else "within one bf16 ulp of max|g|"
+        log(f"[train_2_4b] (b) {name}: losses equal to dots_saveable's bit "
+            f"for bit; sampled gradients {grads}")
+
+    # (c) scan_layers=True with core_attn: the warning and the full loss
+    model.config.scan_layers = True
+    model.config.recompute_granularity = "core_attn"
+    try:
+        wrappers = _counted(TRAIN_KERNELS)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            scan_loss = step(step_ids[0])[0]
+        scan_launches = {K_OF.get(k, k): w.launches
+                         for k, w in wrappers.items()}
+    finally:
+        model.config.scan_layers = False
+    if not any("recompute_granularity is ignored" in str(w.message)
+               for w in caught):
+        raise AssertionError("train_2_4b: scan_layers=True with core_attn "
+                             "gave no granularity warning")
+    if scan_loss != ref["losses"][0]:
+        raise AssertionError(f"scanned loss {scan_loss} != the unrolled "
+                             f"full run's {ref['losses'][0]}")
+    if scan_launches["K3"] or not scan_launches["K1"]:
+        raise AssertionError(f"the scanned stack's launches {scan_launches}"
+                             f" are not the single-tensor carry's")
+    log(f"[train_2_4b] (c) scan_layers=True, core_attn: the granularity "
+        f"warning fired; loss {scan_loss!r} equals the unrolled full run's "
+        f"bit for bit; launches of the step {scan_launches}")
+
+    # (d) Profiler with the GPU target over steps 1 and 2
+    log_dir = tempfile.mkdtemp(prefix="train_2_4b_prof_")
+    try:
+        get_tracer().clear()
+        with Profiler(targets=[ProfilerTarget.GPU], scheduler=(1, 3),
+                      with_flops=True,
+                      on_trace_ready=export_chrome_tracing(log_dir)) as prof:
+            for i in range(4):
+                with trace_span("train_2_4b/step", flops=flops):
+                    step(step_ids[i])
+                prof.step()
+        if len(prof.trace_paths) != 1:
+            raise AssertionError(f"Profiler wrote {prof.trace_paths}")
+        with open(prof.trace_paths[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                k = _k_label(_symbol(e["name"]))
+                if k:
+                    kernels.setdefault(k, set()).add(_symbol(e["name"]))
+        size_mb = os.path.getsize(prof.trace_paths[0]) / 2 ** 20
+        sec = get_tracer().section_summary(
+            peak_flops=peaks.flops)["train_2_4b/step"]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    missing = sorted(set(K_OF.values()) - set(kernels))
+    if missing:
+        raise AssertionError(f"the Profiler's trace lacks {missing}")
+    log(f"[train_2_4b] (d) Profiler chrome trace ({size_mb:.1f} MiB, steps "
+        f"1-2) names " + ", ".join(f"{k} {sorted(v)}" for k, v in
+                                   sorted(kernels.items())))
+    log(f"[train_2_4b] (d) trace.section_summary: {sec['count']} steps, mean "
+        f"{sec['mean_ms']:.1f} ms, MFU {100 * sec['mfu']:.1f}% (host spans, "
+        f"the profiled steps included)")
+
+    # (e) amp.debugging
+    _, kept = step(step_ids[0], tuple(params))
+    for name, g in kept.items():
+        amp.debugging.check_numerics(g, "grad", name)
+    del kept
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        with amp.debugging.collect_operator_stats():
+            step(step_ids[1])
+    stats = [ln.strip() for ln in buf.getvalue().splitlines()[1:]]
+    top = sorted(stats, key=lambda x: -int(x.rsplit(": ", 1)[1]))[:6]
+    log(f"[train_2_4b] (e) check_numerics over {len(params)} gradients: "
+        f"finite; collect_operator_stats over one step: {len(stats)} "
+        f"(op, dtype) entries, most called {top}")
+    model.eval()
+    try:
+        amp.debugging.enable_check_nan_inf()
+        try:
+            with torch.no_grad():
+                model(step_ids[0])
+        finally:
+            amp.debugging.disable_check_nan_inf()
+        bump = torch.full((), float("inf"), dtype=torch.bfloat16,
+                          device=dev)
+        hook = model.llama.layers[3].mlp.register_forward_hook(
+            lambda mod, args, out: out + bump)
+        raised = None
+        amp.debugging.enable_check_nan_inf()
+        try:
+            with torch.no_grad():
+                model(step_ids[0])
+        except FloatingPointError as e:
+            raised = str(e)
+        finally:
+            amp.debugging.disable_check_nan_inf()
+            hook.remove()
+    finally:
+        model.train()
+    if raised is None or "aten.add" not in raised:
+        raise AssertionError(f"check_nan_inf did not name the op: {raised}")
+    log(f"[train_2_4b] (e) enable_check_nan_inf: a clean forward passes; an "
+        f"inf added to layer 3's MLP output raises {raised!r}")
+    del model, step_ids, params
+    torch.cuda.empty_cache()
+    return dict(step_ms=t, mfu=mfu, peak_gb=peak, losses=losses,
+                launches=launches,
+                policies={n: dict(step_ms=r["step_ms"], peak_gb=r["peak_gb"])
+                          for n, r in pol.items()},
+                scan_loss=scan_loss, trace_kernels=sorted(kernels))
+
+
 def phase_fit(cfg1b, batch=8, seq=1024, n_batches=12, dev="cuda"):
     """bench.py's _fit_e2e_bench on the port: Llama-1B at full depth in
     bf16, ``Model(net).prepare(SGD(1e-4), LlamaPretrainingCriterion)``,
@@ -4550,7 +4902,8 @@ def _preempt_fit(data, out, num_workers=2, save_dir=None, resume=None,
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.profiler import metrics as pmetrics
     from paddle_tpu_torch.utils import monitor
-    cfg = dataclasses.replace(LlamaConfig.llama_1b(), num_hidden_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama_1b(), num_hidden_layers=2,
+                              scan_layers=False)
     net = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     m = Model(net)
     opt = AdamW(1e-4, parameters=net.parameters())
@@ -5122,7 +5475,7 @@ def moe_bench_config():
         rope_theta=10000.0, num_experts=16, num_experts_per_tok=2,
         moe_intermediate_size=1408, shared_expert_intermediate_size=2816,
         capacity_factor=2.0, moe_dropless=True, use_recompute=True,
-        full_save_interval=2, router_aux_loss_coef=0.0)
+        full_save_interval=2, router_aux_loss_coef=0.0, scan_layers=False)
 
 
 def _moe_train_want(cfg):
@@ -6321,7 +6674,8 @@ def phase_llama70(dev="cuda"):
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    cfg = dataclasses.replace(LlamaConfig.llama3_70b(), num_hidden_layers=4)
+    cfg = dataclasses.replace(LlamaConfig.llama3_70b(), num_hidden_layers=4,
+                              scan_layers=False)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
@@ -6466,8 +6820,10 @@ def main():
 
     from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.models import LlamaConfig, Qwen2MoeConfig
-    cfg = LlamaConfig.llama3_8b()
-    cfg1b = LlamaConfig.llama_1b()
+    # unrolled stacks, as every section of the JAX bench sets them
+    # (scan_layers=False): the fused carry and selective recompute
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), scan_layers=False)
+    cfg1b = dataclasses.replace(LlamaConfig.llama_1b(), scan_layers=False)
     # the serving phases' Llama-3-8B at half its depth (16 of 32 layers)
     # and train_loop's Llama-1B at 8 of 16: the script's time limit
     cfg_serve = dataclasses.replace(cfg, num_hidden_layers=16)
@@ -6484,6 +6840,8 @@ def main():
     res.update(phase_fused_kernels(cfg))
     res.update(phase_moe_kernels(Qwen2MoeConfig.qwen2_moe_a14b()))
     res.update(phase_quant_kernels(cfg, Qwen2MoeConfig.qwen2_moe_a14b()))
+    for name, entries in phase_2_4b_kernels().items():
+        res[name].setdefault("models", {}).update(entries)
     mark("kernel checks")
     model = serve_model(cfg_serve)
     serve = phase_serve(cfg_serve, model)
@@ -6531,6 +6889,8 @@ def main():
         flags.set_flags({"FLAGS_fused_rmsnorm_residual": True})
     phase_train_parity(cfg1b)
     full = phase_train_full(cfg)
+    train_2_4b = phase_train_2_4b()
+    mark("train_full, train_2_4b")
     fit = phase_fit(cfg1b)
     phase_fused_parity(cfg1b)
     mark("training")
@@ -6600,7 +6960,8 @@ def main():
         # weight-only int8 and int4 (7), the prefix and overload storms
         # (8, 9), the spec A/B, self-speculative drafts and spec over
         # int8 pools (10), the decode entry point (13), unfused
-        # training (14), the full training step (16), fit (17), the
+        # training (14), the full training step (16), llama_2_4b's
+        # preset step (16b), fit (17), the
         # train_gpt2 loop's 40 steps (27), the preemptible fit's two
         # rounds and its two uninterrupted runs (38), MoE
         # serving (20) and the two MoE training steps (21, 22), generate
@@ -6623,6 +6984,7 @@ def main():
                   "decode": decode["launches"].get(name, 0),
                   "train": train["launches"].get(name, 0),
                   "train_full": full["launches"].get(name, 0),
+                  "train_2_4b": train_2_4b["launches"].get(name, 0),
                   "fit": fit["launches"].get(name, 0),
                   "train_loop": train_loop["launches"].get(name, 0),
                   "preempt": preempt["launches"].get(name, 0),

@@ -10,18 +10,21 @@ beside it, which CPU tensors take.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit device they raise.
 
-Importing the package imports nothing heavy: ``resolve_device``, ``save``
-and ``load`` (and so torch) load at first use, so that the elastic
-launcher (``python -m paddle_tpu_torch.distributed.launch``) runs
-without torch.
+Importing the package imports nothing heavy: ``resolve_device``, ``save``,
+``load``, ``seed``, ``get_rng_state``, ``set_rng_state`` and ``summary``
+(and so torch) load at first use, so that the elastic launcher
+(``python -m paddle_tpu_torch.distributed.launch``) runs without torch.
 """
 
 import importlib
 
-__all__ = ["resolve_device", "save", "load"]
+__all__ = ["resolve_device", "save", "load", "seed", "get_rng_state",
+           "set_rng_state", "summary"]
 
 _LAZY = {"resolve_device": ".device", "save": ".framework.io",
-         "load": ".framework.io"}
+         "load": ".framework.io", "seed": ".framework.random",
+         "get_rng_state": ".framework.random",
+         "set_rng_state": ".framework.random", "summary": ".hapi.summary"}
 
 
 def __getattr__(name):

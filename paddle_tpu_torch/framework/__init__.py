@@ -1,6 +1,6 @@
-"""``framework`` of the port: the runtime flags and ``save``/``load``
-(``io``)."""
+"""``framework`` of the port: the runtime flags, ``save``/``load``
+(``io``) and the global RNG state (``random``)."""
 
-from . import flags, io
+from . import flags, io, random
 
-__all__ = ["flags", "io"]
+__all__ = ["flags", "io", "random"]

@@ -2,16 +2,17 @@
 
 ``Callback``, ``ProgBarLogger``, ``ModelCheckpoint`` (a committed
 ``step_{epoch}`` checkpoint by default), ``EarlyStopping``,
-``LRScheduler`` and ``ReduceLROnPlateau``. As in the JAX package,
-``Model.fit`` accepts ``callbacks`` and does not run them: a caller
-drives them (``set_model``, then the ``on_*`` hooks). ``VisualDL`` and
-``WandbCallback`` are not ported yet.
+``LRScheduler``, ``ReduceLROnPlateau``, ``VisualDL`` (scalars through
+``utils.monitor.ScalarWriter``, the JAX callback's tags and steps) and
+``WandbCallback`` (a no-op with one warning where ``wandb`` is missing).
+As in the JAX package, ``Model.fit`` accepts ``callbacks`` and does not
+run them: a caller drives them (``set_model``, then the ``on_*`` hooks).
 """
 
 from __future__ import annotations
 
 __all__ = ["Callback", "ProgBarLogger", "ModelCheckpoint", "EarlyStopping",
-           "LRScheduler", "ReduceLROnPlateau"]
+           "LRScheduler", "ReduceLROnPlateau", "VisualDL", "WandbCallback"]
 
 
 class Callback:
@@ -184,3 +185,63 @@ class ReduceLROnPlateau(Callback):
                     opt.set_lr(new)
             self._bad = 0
             self._cool = self.cooldown
+
+
+class VisualDL(Callback):
+    """Scalar logging (hapi's VisualDL): the ``visualdl`` package is not
+    used; scalars go through ``utils.monitor.ScalarWriter`` (JSONL,
+    ``train/<key>`` and ``eval/<key>`` tags, the train batch count as the
+    step), as the JAX callback writes them."""
+
+    def __init__(self, log_dir="vdl_log"):
+        super().__init__()
+        from ..utils.monitor import ScalarWriter
+        self._writer = ScalarWriter(log_dir)
+        self._step = 0
+
+    def _add(self, prefix, logs):
+        for k, v in (logs or {}).items():
+            try:
+                self._writer.add_scalar(f"{prefix}/{k}", float(v),
+                                        self._step)
+            except (TypeError, ValueError):
+                pass
+
+    def on_train_batch_end(self, step, logs=None):
+        self._step += 1
+        self._add("train", logs)
+
+    def on_eval_end(self, logs=None):
+        self._add("eval", logs)
+
+
+class WandbCallback(Callback):
+    """Weights & Biases logging (hapi's). Where ``wandb`` cannot be
+    imported or its run cannot start, the callback warns once and does
+    nothing."""
+
+    def __init__(self, project=None, **kwargs):
+        super().__init__()
+        try:
+            import wandb
+            self._wandb = wandb
+            self._run = wandb.init(project=project, **kwargs)
+        except Exception as e:  # noqa: BLE001 - missing package, no key,
+            import warnings     # no network: each is a no-op
+            warnings.warn(f"wandb unavailable ({type(e).__name__}: {e}); "
+                          "WandbCallback is a no-op", UserWarning)
+            self._wandb = None
+
+    def on_train_batch_end(self, step, logs=None):
+        if self._wandb is not None:
+            self._wandb.log({f"train/{k}": v
+                             for k, v in (logs or {}).items()})
+
+    def on_eval_end(self, logs=None):
+        if self._wandb is not None:
+            self._wandb.log({f"eval/{k}": v
+                             for k, v in (logs or {}).items()})
+
+    def on_train_end(self, logs=None):
+        if self._wandb is not None:
+            self._run.finish()

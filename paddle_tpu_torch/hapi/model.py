@@ -43,11 +43,14 @@ one for ``/statusz``, booking ``reshard`` (the resume's load),
 ``fit`` waits on the loader's ``next()``). The ``hapi/*``, ``elastic/*``
 and ``restart/*`` metrics below go to the default registry.
 
-Not ported yet: the device prefetcher and steps in flight (the JAX
-package's compiled step dispatches ahead; the port's eager step runs in
-order), and the multi-rank parts of a preemption (the commit barrier
-that the grace window bounds, the reshard of a resume onto another
-mesh).
+``load`` reads the JAX package's ``.pdparams``/``.pdopt`` too
+(``framework.io``), through ``convert``'s layout changes.
+
+Not ported yet: the device prefetcher and steps in flight (ROADMAP A.4;
+the JAX package's compiled step dispatches ahead, the port's eager step
+runs in order), and the multi-rank parts of a preemption (ROADMAP A.7:
+the commit barrier that the grace window bounds, the reshard of a resume
+onto another mesh).
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ from ..amp import auto_cast, decorate
 from ..distributed import checkpoint as dckpt
 from ..distributed.fleet.elastic import Preempted, PreemptionGuard
 from ..framework import flags
-from ..framework.io import load as load_obj
+from .. import convert
+from ..framework.io import read as read_obj
 from ..framework.io import save as save_obj
 from ..io import DataLoader
 from ..profiler import flight_recorder as _frec
@@ -533,13 +537,25 @@ class Model:
             save_obj(self._optimizer.state_dict(), path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
+        """The network's and optimizer's state from ``<path>.pdparams``/
+        ``.pdopt``, written by this program or by the JAX package: a JAX
+        file goes through ``convert.from_numpy_state_dict``/
+        ``from_numpy_optimizer_state``, which turn Paddle's [in, out]
+        Linear weights (and their slots) into torch's [out, in]."""
         device = self._device()
-        self.network.load_state_dict(load_obj(path + ".pdparams",
-                                              device=device))
+        state, origin = read_obj(path + ".pdparams",
+                                 return_numpy=None, device=device)
+        if origin == "jax":
+            convert.from_numpy_state_dict(self.network, state)
+        else:
+            self.network.load_state_dict(state)
         if not reset_optimizer and self._optimizer is not None and \
                 os.path.exists(path + ".pdopt"):
-            self._optimizer.set_state_dict(load_obj(path + ".pdopt",
-                                                    device=device))
+            opt, origin = read_obj(path + ".pdopt", return_numpy=None,
+                                   device=device)
+            if origin == "jax":
+                opt = convert.from_numpy_optimizer_state(self.network, opt)
+            self._optimizer.set_state_dict(opt)
 
     def _checkpoint_state(self, epoch=None, mid_epoch_step=None):
         """Everything a resume needs: the network, the optimizer (slots,

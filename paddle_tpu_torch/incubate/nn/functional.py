@@ -3,15 +3,16 @@ cache.
 
 Port of ``paddle_tpu/incubate/nn/functional.py``: ``paged_attention``
 and its alias ``block_multihead_attention``, through
-``ops.kernels.paged_attention`` (K16 on a CUDA tensor, its plain version
-on a CPU tensor).
+``ops.paged_attention.paged_attention`` (K16 on a CUDA tensor, its plain
+version on a CPU tensor or with ``FLAGS_use_pallas_paged_attention`` at
+0).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops.kernels import paged_attention as _kpa
+from ...ops import paged_attention as _pa
 
 __all__ = ["paged_attention", "block_multihead_attention"]
 
@@ -23,7 +24,7 @@ def paged_attention(q, key_pages, value_pages, block_tables, context_lens,
     context_lens [B] (tokens in the cache: positions below it attend).
     Int64 tables and lengths (Paddle's default int dtype) are cast to
     int32. Returns [B, H, D] in q's dtype."""
-    return _kpa.paged_attention(q, key_pages, value_pages,
+    return _pa.paged_attention(q, key_pages, value_pages,
                                 block_tables.to(torch.int32).contiguous(),
                                 context_lens.to(torch.int32).contiguous(),
                                 scale)

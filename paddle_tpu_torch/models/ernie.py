@@ -15,8 +15,10 @@ the non-causal flash kernels (K7-K9); a padding mask (additive -1e30 over
 [B, 1, 1, S]) or live attention dropout takes the plain path, as the JAX
 package routes. LayerNorm and GELU (the exact form) are plain PyTorch.
 Dropout draws from the model's ``torch.Generator`` (``dropout_seed``),
-so its masks differ from the JAX package's by design. The stack is
-unrolled (the JAX package's ``scan_layers`` gives the same numbers).
+so its masks differ from the JAX package's by design. With dropout not
+live the encoder goes through ``nn.scan.can_scan``/``scan_layers`` (the
+mask as its extra input), as the JAX package scans it: the same loop
+over the same layers here, the decline events included.
 
 The state-dict keys are the JAX package's: ``ErnieForPretraining`` lists
 ``mlm_bias`` first, and ``ErnieForMaskedLM`` holds its encoder once,
@@ -33,7 +35,8 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import Dropout, LayerNorm, Linear
 from ..nn import functional as F
-from .gpt2 import reset_dense_parameters, split_heads
+from ..nn.scan import can_scan, scan_layers
+from .gpt2 import dropout_live, reset_dense_parameters, split_heads
 
 __all__ = ["ErnieConfig", "ErnieModel", "ErnieForPretraining",
            "ErnieForSequenceClassification", "ErnieForMaskedLM"]
@@ -184,8 +187,13 @@ class ErnieModel(nn.Module):
             mask = neg.reshape(neg.shape[0], 1, 1, neg.shape[1])
         x = self.embeddings(input_ids, token_type_ids, position_ids,
                             task_type_ids)
-        for layer in self.encoder:
-            x = layer(x, mask)
+        if not dropout_live(self.config, self.training) \
+                and can_scan(self.encoder):
+            x = scan_layers(self.encoder, x,
+                            extra_inputs=() if mask is None else (mask,))
+        else:
+            for layer in self.encoder:
+                x = layer(x, mask)
         return x, F.tanh(self.pooler(x[:, 0]))
 
 

@@ -13,8 +13,10 @@ kernel for it), attention through ``nn.functional.
 scaled_dot_product_attention``: flash attention (K7-K9) at dropout 0,
 the plain path with live attention dropout, as the JAX package routes.
 Dropout draws from the model's ``torch.Generator`` (``dropout_seed``),
-so its masks differ from the JAX package's by design. The stack is
-unrolled (the JAX package's ``scan_layers`` gives the same numbers).
+so its masks differ from the JAX package's by design. With dropout not
+live the stack goes through ``nn.scan.can_scan``/``scan_layers``, as the
+JAX package scans it (the same loop over the same blocks here, the
+decline events included); with live dropout it is the plain loop.
 
 Caches without ``tables``: ``generate``'s dense [B, max_len, H, D]
 caches through ``nn.functional.sdpa_with_cache``. With ``tables``: the
@@ -39,6 +41,7 @@ from ..device import resolve_device
 from ..generation import GenerationMixin
 from ..nn import Dropout, LayerNorm, Linear
 from ..nn import functional as F
+from ..nn.scan import can_scan, scan_layers
 from .llama import (_paged_attention_step, check_weight_quant,
                     kv_cache_dtype)
 
@@ -141,6 +144,13 @@ class GPT2Block(nn.Module):
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
+def dropout_live(cfg, training):
+    """Whether a training forward draws dropout masks (then the JAX
+    package unrolls the stack: per-layer RNG)."""
+    return training and (cfg.hidden_dropout_prob > 0
+                         or cfg.attention_dropout_prob > 0)
+
+
 class GPT2Model(nn.Module):
     def __init__(self, config: GPT2Config, device=None, dtype=None,
                  generator=None):
@@ -169,8 +179,12 @@ class GPT2Model(nn.Module):
         positions = torch.arange(s, device=dev)
         if caches is None:
             x = self.drop(self.wte(input_ids) + self.wpe(positions))
-            for block in self.h:
-                x = block(x)
+            if not dropout_live(self.config, self.training) \
+                    and can_scan(self.h):
+                x = scan_layers(self.h, x)
+            else:
+                for block in self.h:
+                    x = block(x)
             return self.ln_f(x)
         if tables is None:
             ctx = pos

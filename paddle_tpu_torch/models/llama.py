@@ -2,11 +2,11 @@
 serving over paged KV pools.
 
 Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` (the ``tiny``,
-``llama_1b``, ``llama3_8b`` and ``llama3_70b`` presets, the recompute
-fields), the dense training path and both cache paths of
-``LlamaAttention``/``LlamaMLP``/``LlamaDecoderLayer``/``LlamaModel``/
-``LlamaForCausalLM``,
-``LlamaPretrainingCriterion``, ``rope_with_offset``,
+``llama_1b``, ``llama_2_4b``, ``llama3_8b`` and ``llama3_70b`` presets,
+the recompute fields, ``scan_layers``), the dense training path and both
+cache paths of ``LlamaAttention``/``LlamaMLP``/``LlamaDecoderLayer``/
+``LlamaModel``/``LlamaForCausalLM``, ``LlamaPretrainingCriterion``,
+``rope_with_offset``,
 ``_alloc_kv_caches``/``init_kv_cache`` and ``_paged_attention_step``
 (bf16/f32 pools, and int8/fp8 pools with their scales).
 
@@ -17,8 +17,16 @@ batch. Caches with ``tables`` are the engine's paged pools.
 
 Training (no caches): ``model(ids, labels=ids)`` returns ``(logits,
 loss)``, the shifted next-token cross entropy, and ``loss.backward()``
-runs torch autograd through the kernels' ``autograd.Function``s. The
-stack is always the unrolled one (the port has no ``scan_layers``):
+runs torch autograd through the kernels' autograd formulas.
+
+With ``scan_layers`` (on by default, as in the JAX package) the stack
+runs through ``nn.scan.scan_layers``: each layer's unfused forward over a
+single tensor (RMSNorm K1/K2, no fused residual), and with
+``use_recompute`` whole layers recomputed, every ``full_save_interval``-
+th one saved whole; ``recompute_granularity`` other than ``full`` is
+ignored there, with the JAX package's warning. The JAX bench's sections
+set ``scan_layers=False``, and so does ``llama_2_4b``. The unrolled stack
+(``scan_layers=False``):
 
 - ``FLAGS_fused_rmsnorm_residual`` (on by default) carries the un-added
   ``(hidden, residual)`` pair between layers, so each residual add and
@@ -48,6 +56,7 @@ holds its weight as [out, in] where Paddle holds [in, out], which
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import torch
@@ -59,6 +68,7 @@ from ..generation import GenerationMixin
 from ..incubate.recompute import recompute
 from ..nn import Linear, RMSNorm
 from ..nn import functional as F
+from ..nn.scan import can_scan, scan_layers
 from ..ops import paged_attention as PA
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rope import build_sin_cos, rotate
@@ -89,6 +99,17 @@ class LlamaConfig:
     core_attn_interval: int = 1
     # every k-th layer is not recomputed at all; 0 = off
     full_save_interval: int = 0
+    # the JAX package's tensor-parallel layers, which without a mesh are
+    # the plain ones: either value runs the plain layers here
+    tensor_parallel: bool = True
+    # context and sequence parallelism go with ROADMAP A.7: anything but
+    # None / False raises (check_parallel)
+    sep_parallel: str | None = None
+    sequence_parallel: bool = False
+    # the training stack through nn.scan.scan_layers: the single-tensor
+    # carry (K1/K2), whole layers recomputed in full_save_interval groups;
+    # False unrolls it (the fused carry, selective recompute)
+    scan_layers: bool = True
     # weight-only serving quantization: None keeps full precision;
     # "weight_only_int8" / "weight_only_int4" turn the projections and
     # the lm_head into nn.quant.WeightOnlyLinear when the serving engine
@@ -102,6 +123,7 @@ class LlamaConfig:
                 f"recompute_granularity={self.recompute_granularity!r} "
                 "is not one of 'full' | 'core_attn' | 'full_attn'")
         check_weight_quant(self.weight_quant)
+        check_parallel(self)
 
     @classmethod
     def llama3_8b(cls):
@@ -121,6 +143,19 @@ class LlamaConfig:
                    max_position_embeddings=4096, rope_theta=10000.0)
 
     @classmethod
+    def llama_2_4b(cls):
+        """The JAX bench's other headline training configuration (2.4B
+        parameters: hidden 2560, 32 layers, 20 heads over 4 KV heads, FFN
+        6912), with ``core_attn`` recompute on every second layer and the
+        unrolled stack."""
+        return cls(vocab_size=32000, hidden_size=2560,
+                   num_hidden_layers=32, num_attention_heads=20,
+                   num_key_value_heads=4, intermediate_size=6912,
+                   max_position_embeddings=4096, rope_theta=10000.0,
+                   use_recompute=True, recompute_granularity="core_attn",
+                   core_attn_interval=2, scan_layers=False)
+
+    @classmethod
     def tiny(cls):
         return cls(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                    num_attention_heads=4, num_key_value_heads=2,
@@ -130,6 +165,20 @@ class LlamaConfig:
     @property
     def head_dim(self):
         return self.hidden_size // self.num_attention_heads
+
+
+def check_parallel(cfg):
+    """The parallel fields of the JAX configs are accepted at their no-op
+    values; the parallel layers, context and sequence parallelism are
+    ROADMAP A.7's."""
+    if getattr(cfg, "sep_parallel", None) is not None:
+        raise NotImplementedError(
+            f"sep_parallel={cfg.sep_parallel!r} is not ported (ROADMAP "
+            "A.7, context parallelism); build with sep_parallel=None")
+    if getattr(cfg, "sequence_parallel", False):
+        raise NotImplementedError(
+            "sequence_parallel=True is not ported (ROADMAP A.7, the "
+            "parallel layers); build with sequence_parallel=False")
 
 
 def check_weight_quant(mode):
@@ -430,10 +479,21 @@ class LlamaModel(nn.Module):
         return self.norm(x), caches
 
     def _train_stack(self, x, rope):
-        """The decoder stack and the final norm without caches: fused
-        carry or not, recomputed or not (module docstring)."""
+        """The decoder stack and the final norm without caches: scanned,
+        or unrolled with the fused carry or not, recomputed or not (module
+        docstring)."""
         cfg = self.config
         remat = cfg.use_recompute and self.training
+        if cfg.scan_layers and can_scan(self.layers):
+            if cfg.recompute_granularity != "full" and remat:
+                warnings.warn(
+                    "recompute_granularity is ignored under "
+                    "scan_layers=True (the scan body remats whole "
+                    "layers); set scan_layers=False for selective remat",
+                    stacklevel=2)
+            return self.norm(scan_layers(
+                self.layers, x, (rope,), remat=remat,
+                full_save_interval=cfg.full_save_interval))
         selective = cfg.recompute_granularity in ("core_attn", "full_attn")
         interval = max(int(cfg.core_attn_interval), 1)
         fs = max(int(cfg.full_save_interval), 0)
@@ -484,6 +544,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                  dtype=torch.float32, seed=0):
         super().__init__()
         device = resolve_device(device)
+        check_parallel(config)
         self.config = config
         # built on the meta device, then materialised once: no throwaway
         # default initialisation of billions of weights

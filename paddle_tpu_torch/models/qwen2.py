@@ -16,10 +16,13 @@ input norm is RMSNorm (K1/K2); under ``FLAGS_fused_rmsnorm_residual``
 (on by default) only the attention residual add and the post-attention
 norm are one ``fused_rms_norm_residual`` (K3/K4), as in the JAX layer.
 The MoE block runs ``MoELayer`` (dropless over the grouped-matmul kernels
-K14/K15 when ``moe_dropless``), the MLPs SwiGLU (K5/K6). The stack is
-unrolled (the JAX dense stack's ``scan_layers`` gives the same numbers);
-``use_recompute`` recomputes whole layers, every ``full_save_interval``-th
-one excepted. The loss is over the full shifted logits, plus
+K14/K15 when ``moe_dropless``), the MLPs SwiGLU (K5/K6). A dense stack
+with ``scan_layers`` (on by default) runs through ``nn.scan.scan_layers``
+over the same layers, as the JAX package scans it; a MoE stack, or
+``scan_layers=False``, is the plain loop. Either way ``use_recompute``
+recomputes whole layers, every ``full_save_interval``-th one excepted
+(under the scan only where it tiles the depth, else with the JAX
+package's warning). The loss is over the full shifted logits, plus
 ``router_aux_loss_coef`` times each MoE layer's aux loss.
 
 Serving (caches, ``tables``): the paged step of ``models.llama`` (K12,
@@ -46,11 +49,12 @@ from ..incubate.distributed.models.moe.moe_layer import xavier_normal_std
 from ..incubate.recompute import recompute
 from ..nn import Linear, RMSNorm
 from ..nn import functional as F
+from ..nn.scan import can_scan, scan_layers
 from ..ops.rope import build_sin_cos, rotate
 from .llama import (LlamaAttention, LlamaMLP, LlamaPretrainingCriterion,
                     _alloc_kv_caches, _shifted_cross_entropy,
-                    check_weight_quant, kv_cache_dtype, rope_with_offset,
-                    slot_positions)
+                    check_parallel, check_weight_quant, kv_cache_dtype,
+                    rope_with_offset, slot_positions)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
            "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion"]
@@ -70,6 +74,13 @@ class Qwen2Config:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     use_recompute: bool = False
+    # the parallel layers and context parallelism go with ROADMAP A.7:
+    # anything but False / None raises (check_qwen2_parallel)
+    tensor_parallel: bool = False
+    sep_parallel: str | None = None
+    # the dense training stack through nn.scan.scan_layers (MoE stacks
+    # never scan); the same layers either way here (module docstring)
+    scan_layers: bool = True
     # every k-th layer is not recomputed at all; 0 = off
     full_save_interval: int = 0
     # weight-only serving quantization: see LlamaConfig
@@ -77,6 +88,7 @@ class Qwen2Config:
 
     def __post_init__(self):
         check_weight_quant(self.weight_quant)
+        check_qwen2_parallel(self)
 
     @classmethod
     def qwen2_7b(cls):
@@ -120,6 +132,17 @@ class Qwen2MoeConfig(Qwen2Config):
                    rope_theta=10000.0, num_experts=8,
                    num_experts_per_tok=2, moe_intermediate_size=32,
                    shared_expert_intermediate_size=64)
+
+
+def check_qwen2_parallel(cfg):
+    """``tensor_parallel`` and ``sep_parallel`` at their no-op values, or
+    a refusal naming ROADMAP A.7."""
+    if cfg.tensor_parallel:
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: tensor_parallel=True is not ported "
+            "(ROADMAP A.7, the parallel layers); build with "
+            "tensor_parallel=False")
+    check_parallel(cfg)
 
 
 class Qwen2Attention(LlamaAttention):
@@ -207,6 +230,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
                  seed=0):
         super().__init__()
         device = resolve_device(device)
+        check_qwen2_parallel(config)
         self.config = config
         self._moe = moe
         cfg, meta = config, "meta"
@@ -312,13 +336,19 @@ class _Qwen2Base(nn.Module, GenerationMixin):
                 return self._logits(self.norm(x)), caches
         x = self.embed_tokens(input_ids)
         rope = (self.rope_sin[None, :s], self.rope_cos[None, :s])
-        fs = max(int(cfg.full_save_interval), 0)
-        for i, layer in enumerate(self.layers):
-            if cfg.use_recompute and self.training \
-                    and not (fs and i % fs == fs - 1):
-                x = recompute(layer, x, rope)
-            else:
-                x = layer(x, rope)
+        remat = cfg.use_recompute and self.training
+        # MoE stacks never scan: each layer's aux loss is read after the
+        # stack, as in the JAX package
+        if cfg.scan_layers and not self._moe and can_scan(self.layers):
+            x = scan_layers(self.layers, x, (rope,), remat=remat,
+                            full_save_interval=cfg.full_save_interval)
+        else:
+            fs = max(int(cfg.full_save_interval), 0)
+            for i, layer in enumerate(self.layers):
+                if remat and not (fs and i % fs == fs - 1):
+                    x = recompute(layer, x, rope)
+                else:
+                    x = layer(x, rope)
         logits = self._logits(self.norm(x))
         if labels is None:
             return logits

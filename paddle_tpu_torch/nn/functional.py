@@ -16,8 +16,11 @@ the kept share and the ``1 / (1 - p)`` scale are the JAX package's.
 operands under ``amp.auto_cast``, where the JAX package casts them.
 Where the JAX package chose the Pallas kernel by backend and flags, the
 port's kernel wrappers choose by the device of the tensor: CUDA launches
-the kernel, the CPU takes the plain version. Gradients are torch
-autograd, through the kernels' ``autograd.Function``s.
+the kernel, the CPU takes the plain version. The JAX package's flags
+still choose first: with ``FLAGS_enable_pallas_kernels`` off, RMSNorm,
+SwiGLU and attention take their plain versions on any device, and with
+``FLAGS_fused_swiglu`` off SwiGLU does. Gradients are torch
+autograd, through the kernels' autograd formulas.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import math
 import torch
 
 from ..amp.auto_cast import maybe_cast_matmul
+from ..framework import flags
+from ..framework import random as _random
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import swiglu as _sw
@@ -51,6 +56,8 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              epsilon: float = 1e-6) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps)).to(x.dtype) * weight``."""
+    if not flags.flag("FLAGS_enable_pallas_kernels"):
+        return _rms.rms_norm_reference(x, weight, epsilon)
     return _rms.RMSNormFunction.apply(x, weight, epsilon)
 
 
@@ -64,11 +71,16 @@ def fused_rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
     if x.dtype != residual.dtype:
         dt = torch.promote_types(x.dtype, residual.dtype)
         x, residual = x.to(dt), residual.to(dt)
+    if not flags.flag("FLAGS_enable_pallas_kernels"):
+        return _rms.rms_norm_residual_reference(x, residual, weight, epsilon)
     return _rms.RMSNormResidualFunction.apply(x, residual, weight, epsilon)
 
 
 def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``silu(x) * y``."""
+    if not (flags.flag("FLAGS_fused_swiglu")
+            and flags.flag("FLAGS_enable_pallas_kernels")):
+        return _sw.swiglu_reference(x, y)
     return _sw.SwiGLUFunction.apply(x, y)
 
 
@@ -108,10 +120,13 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
 def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """``x * keep / (1 - p)`` with ``keep`` Bernoulli(1 - p) in x's dtype,
-    drawn from ``generator`` (on x's device; None takes torch's default
-    one); x itself when not training or ``p`` is 0."""
+    drawn from ``generator`` (on x's device; None takes the port's default
+    generator, ``framework.random``, whose state ``seed`` and the tracker's
+    ``rng_state`` set); x itself when not training or ``p`` is 0."""
     if not training or p == 0.0:
         return x
+    if generator is None:
+        generator = _random.default_generator.generator(x.device)
     keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
     return x * keep / (1.0 - p)
 
@@ -186,14 +201,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
     """Inputs and output [batch, seq, heads, head_dim]. With no mask, no
-    dropout and equal query and key lengths this is flash attention (the
-    kernels, causal or not); otherwise the plain :func:`sdpa_reference`
+    dropout, equal query and key lengths and ``FLAGS_enable_pallas_kernels``
+    on this is flash attention (the kernels, causal or not); otherwise the plain :func:`sdpa_reference`
     (dropout live only when ``training``, drawing from ``generator``), as
     the JAX package routes. Under ``amp.auto_cast`` q, k and v are cast
     to the AMP dtype first."""
     query, key, value = maybe_cast_matmul(query, key, value)
     if (attn_mask is None and dropout_p == 0.0
-            and query.shape[1] == key.shape[1]):
+            and query.shape[1] == key.shape[1]
+            and flags.flag("FLAGS_enable_pallas_kernels")):
         return _fa.flash_attention(query, key, value, causal=is_causal)
     return sdpa_reference(query, key, value, attn_mask,
                           dropout_p if training else 0.0, is_causal,

@@ -7,7 +7,8 @@ and the target logit over the chunks, as [N] vectors; the backward
 recomputes each chunk's logits and accumulates ``dh`` in f32 while each
 chunk writes its own columns of ``dw``. Per chunk, the elementwise work
 is the kernels of :mod:`ops.kernels.ce_chunk` (K10 in the forward, K11 in
-the backward); the matmuls are ``torch.matmul``, as the JAX package
+the backward; their plain versions with ``FLAGS_fused_ce_pallas_inner``
+off); the matmuls are ``torch.matmul``, as the JAX package
 leaves them to XLA, and keep its rounding: ``h @ wc`` comes out in h's
 dtype and is widened inside K10/K11 (exactly, as the JAX op's f32 copy
 is), ``dlogits @ wc.T`` is rounded to h's dtype before it joins the f32
@@ -72,6 +73,21 @@ def _resolve_chunk_v() -> int:
     return _CHUNK_V
 
 
+def _stats():
+    """K10, or its plain version with ``FLAGS_fused_ce_pallas_inner`` off
+    (the JAX package's jnp scan body)."""
+    return ce_chunk.chunk_stats if flags.flag("FLAGS_fused_ce_pallas_inner") \
+        else ce_chunk.chunk_stats_reference
+
+
+def _dlogits():
+    """K11, or its plain version with ``FLAGS_fused_ce_pallas_inner``
+    off."""
+    return ce_chunk.chunk_dlogits \
+        if flags.flag("FLAGS_fused_ce_pallas_inner") \
+        else ce_chunk.chunk_dlogits_reference
+
+
 def _chunk_grid(v, chunk_v):
     """``(cv, c)``: the chunk width (at most the vocab) and the chunk
     count. Chunk ``ci`` covers columns ``[start, start + cv)`` with
@@ -103,7 +119,7 @@ class _FusedLinearCE(torch.autograd.Function):
         tgt = torch.zeros(n, **f32)
         for start, lo in _chunks(v, cv, c):
             logits = h @ w[:, start:start + cv]
-            m_c, s_c, t_c = ce_chunk.chunk_stats(logits, safe - start, lo)
+            m_c, s_c, t_c = _stats()(logits, safe - start, lo)
             m_new = torch.maximum(m, m_c)
             s = s * torch.exp(m - m_new) + s_c * torch.exp(m_c - m_new)
             tgt = tgt + t_c
@@ -129,7 +145,7 @@ class _FusedLinearCE(torch.autograd.Function):
         for start, lo in _chunks(v, cv, c):
             wc = w[:, start:start + cv]
             logits = h @ wc
-            dlogits = ce_chunk.chunk_dlogits(logits, lse, safe - start,
+            dlogits = _dlogits()(logits, lse, safe - start,
                                              vmask, lo)
             dh += dlogits @ wc.t()
             if need_w:

@@ -1,6 +1,6 @@
 """Flash attention, forward and backward: the CUDA kernels
 ``csrc/flash_attention.cu`` and their plain PyTorch versions, with the
-autograd Function that joins them.
+operator that joins them (``flash_fwd_op``, with its autograd formula).
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 (``flash_attention_reference``, ``_fwd_kernel``/``_flash_fwd``) returns
@@ -24,7 +24,7 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "FlashAttentionFunction",
+__all__ = ["flash_attention", "flash_fwd_op",
            "flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_dkv", "flash_attention_dkv_reference",
            "flash_attention_dq", "flash_attention_dq_reference",
@@ -255,27 +255,51 @@ flash_attention_dkv.launches = 0
 flash_attention_dq.launches = 0
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention with its backward kernels; saves q, k, v, the
-    output and lse (O(S*D) memory, no S x S matrix)."""
+# The forward is one operator of its own (``paddle_tpu_torch::flash_fwd``),
+# so that selective checkpointing can name it: ``dots_and_flash_saveable``
+# keeps its outputs, and a recompute then replays them instead of
+# launching K7 again. The op returns the tensors the kernel wrote (no
+# copy); its autograd formula is the backward kernels'.
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of :func:`flash_attention_fwd` as one operator."""
+    return flash_attention_fwd(q, k, v, causal, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, grad):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         grad.contiguous(), ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_backward(ctx, grad, _grad_lse):
+    """dq, dk, dv through K8/K9, or through their plain versions with
+    ``FLAGS_flash_attn_pallas_bwd`` off (the JAX package's scan
+    fallback)."""
+    from ...framework import flags
+    q, k, v, out, lse = ctx.saved_tensors
+    bwd = flash_attention_bwd if flags.flag("FLAGS_flash_attn_pallas_bwd") \
+        else flash_attention_bwd_reference
+    dq, dk, dv = bwd(q, k, v, out, lse, grad.contiguous(), ctx.causal,
+                     ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """Attention over [B, S, H, D] q and [B, S, KVH, D] k/v, differentiable
-    through :class:`FlashAttentionFunction`."""
-    return FlashAttentionFunction.apply(q, k, v, causal, scale)
+    through :func:`flash_fwd_op` (forward K7, backward K8/K9): it saves q,
+    k, v, the output and lse (O(S*D) memory, no S x S matrix)."""
+    return flash_fwd_op(q, k, v, causal, scale)[0]

@@ -28,10 +28,11 @@ from __future__ import annotations
 
 import torch
 
-from .kernels.paged_attention import (paged_attention,
-                                     paged_attention_reference)
-from .kernels.ragged_paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_reference)
+from ..framework import flags
+from .kernels import paged_attention as _kpa
+from .kernels import ragged_paged_attention as _krpa
+from .kernels.paged_attention import paged_attention_reference
+from .kernels.ragged_paged_attention import ragged_paged_attention_reference
 
 __all__ = ["paged_prefill_write", "paged_prefill_write_quant",
            "paged_verify_write", "paged_verify_write_quant",
@@ -39,6 +40,35 @@ __all__ = ["paged_prefill_write", "paged_prefill_write_quant",
            "quantize_kv", "dequantize_pages", "paged_attention",
            "paged_attention_reference", "ragged_paged_attention",
            "ragged_paged_attention_reference"]
+
+
+def paged_attention(q, key_pages, value_pages, block_tables, context_lens,
+                    scale=None):
+    """The decode-step op: K16 (``kernels.paged_attention``: a CUDA
+    tensor launches it, a CPU one takes the plain version); with
+    ``FLAGS_use_pallas_paged_attention`` at 0, the plain version on any
+    device, as the JAX package takes its jnp oracle."""
+    if not int(flags.flag("FLAGS_use_pallas_paged_attention")):
+        return paged_attention_reference(q, key_pages, value_pages,
+                                         block_tables, context_lens, scale)
+    return _kpa.paged_attention(q, key_pages, value_pages, block_tables,
+                                context_lens, scale)
+
+
+def ragged_paged_attention(q, key_pages, value_pages, block_tables,
+                           ctx_lens, lengths, scale=None, k_scales=None,
+                           v_scales=None):
+    """The serving step's attention: K12, or K13 over quantized pools
+    (``kernels.ragged_paged_attention``); with
+    ``FLAGS_use_pallas_ragged_attention`` at 0, the plain version on any
+    device."""
+    if not int(flags.flag("FLAGS_use_pallas_ragged_attention")):
+        return ragged_paged_attention_reference(
+            q, key_pages, value_pages, block_tables, ctx_lens, lengths,
+            scale, k_scales=k_scales, v_scales=v_scales)
+    return _krpa.ragged_paged_attention(q, key_pages, value_pages,
+                                        block_tables, ctx_lens, lengths,
+                                        scale, k_scales, v_scales)
 
 
 def kv_quant_range(dtype) -> float:

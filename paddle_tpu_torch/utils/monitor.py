@@ -1,6 +1,5 @@
-"""Step-metrics hooks and a scalar log writer: a copy of the first part of
-``paddle_tpu/utils/monitor.py`` (the operator statistics of
-``amp.debugging`` are not ported yet).
+"""Step-metrics hooks, a scalar log writer and operator statistics: a
+port of ``paddle_tpu/utils/monitor.py``.
 
 A process-wide hook registry that training loops (``hapi.Model.fit``,
 user code) emit into, and a dependency-free JSONL scalar writer a
@@ -13,6 +12,13 @@ dashboard can tail:
     ...
     monitor.emit_step_metrics(step=i, loss=float(loss), lr=lr)
     remove(); writer.close()
+
+The operator statistics (``enable_op_stats``, ``op_stats_summary``; the
+``amp.debugging`` operator stats) count the ops a block runs by ``(name,
+dtype)`` through a ``TorchDispatchMode``, so the names are aten's
+(``aten.mm.default``), where the JAX package counts its own ``apply``
+names; the dtype is that of the op's first tensor input. They count in
+the thread that enabled them.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import time
 from typing import Callable
 
 __all__ = ["register_step_metrics_hook", "emit_step_metrics",
-           "ScalarWriter", "global_step"]
+           "ScalarWriter", "global_step", "enable_op_stats",
+           "disable_op_stats", "op_stats_summary", "op_stats"]
 
 _lock = threading.Lock()
 _hooks: dict[int, Callable] = {}
@@ -102,3 +109,60 @@ class ScalarWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+# ---- operator-call statistics (the amp.debugging operator stats) ----------
+
+op_stats: dict = {}
+_op_mode = None
+
+
+def _dtype_name(args, kwargs):
+    import torch
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            return str(a.dtype).replace("torch.", "")
+        if isinstance(a, (list, tuple)):
+            for t in a:
+                if isinstance(t, torch.Tensor):
+                    return str(t.dtype).replace("torch.", "")
+    return "none"
+
+
+def _record_op(name: str, dtype: str) -> None:
+    key = (name or "op", dtype)
+    op_stats[key] = op_stats.get(key, 0) + 1
+
+
+def enable_op_stats() -> None:
+    """Count every op dispatched from here on by ``(aten name, dtype of
+    the first tensor input)`` until :func:`disable_op_stats`."""
+    global _op_mode
+    if _op_mode is not None:
+        return
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _OpStats(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            _record_op(str(func), _dtype_name(args, kwargs))
+            return func(*args, **kwargs)
+
+    _op_mode = _OpStats()
+    _op_mode.__enter__()
+
+
+def disable_op_stats() -> None:
+    global _op_mode
+    if _op_mode is not None:
+        mode, _op_mode = _op_mode, None
+        mode.__exit__(None, None, None)
+
+
+def op_stats_summary(reset=True) -> dict:
+    """``{"name[dtype]": count}`` in sorted order (the JAX summary's key
+    format); clears the counts unless ``reset`` is False."""
+    out = {f"{n}[{d}]": c for (n, d), c in sorted(op_stats.items())}
+    if reset:
+        op_stats.clear()
+    return out

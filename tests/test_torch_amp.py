@@ -57,6 +57,7 @@ def _models(tie=False):
     jm.train()
     arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tcfg = LlamaConfig.tiny()
+    tcfg.scan_layers = False
     tcfg.tie_word_embeddings = tie
     tm = convert.from_numpy_state_dict(LlamaForCausalLM(tcfg, device="cpu"),
                                        arrays)

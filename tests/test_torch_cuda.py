@@ -2064,3 +2064,144 @@ def test_api_server_pump_drives_a_card_engine(cuda):
     finally:
         srv.stop()
     assert got == [want, want]
+
+
+# ---- the recompute policies, check_numerics and the kernel-route flags -------
+
+def _flash_block(lin, heads, d):
+    def block(x):
+        b, s, _ = x.shape
+        q = lin(x).view(b, s, heads, d)
+        return kfa.flash_attention(q, q, q, causal=True).float().square()
+    return block
+
+
+@pytest.mark.parametrize("policy,reruns", [("dots_saveable", 1),
+                                           ("dots_and_flash_saveable", 0)])
+def test_dots_and_flash_saveable_keeps_the_k7_output(cuda, policy, reruns):
+    """Under ``dots_and_flash_saveable`` the recompute replays K7's saved
+    output: no K7 launch in the backward (``dots_saveable`` launches it
+    again); the gradients are the same bits either way."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.incubate.recompute import recompute
+    g = torch.Generator(device=cuda).manual_seed(17)
+    lin = torch.nn.Linear(256, 256, bias=False, device=cuda,
+                          dtype=torch.bfloat16)
+    x = torch.randn(2, 129, 256, device=cuda, generator=g).to(
+        torch.bfloat16).requires_grad_()
+    block = _flash_block(lin, 4, 64)
+    ref = block(x).sum()
+    gref = torch.autograd.grad(ref, (x, lin.weight))
+    flags.set_flags({"FLAGS_recompute_policy": policy})
+    try:
+        before = kfa.flash_attention_fwd.launches
+        loss = recompute(block, x).sum()
+        assert kfa.flash_attention_fwd.launches == before + 1
+        grads = torch.autograd.grad(loss, (x, lin.weight))
+        assert kfa.flash_attention_fwd.launches == before + 1 + reruns
+    finally:
+        flags.set_flags({"FLAGS_recompute_policy": "dots_saveable"})
+    assert torch.equal(loss, ref)
+    assert all(torch.equal(a, b) for a, b in zip(grads, gref))
+
+
+def test_check_numerics_costs_one_host_read(cuda):
+    """``amp.debugging.check_numerics`` reduces on the card and reads one
+    count: one synchronising call (sync debug mode's warnings)."""
+    import warnings
+    from paddle_tpu_torch.amp import debugging
+    t = torch.randn(1024, 1024, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert debugging.check_numerics(t, "mm", "out") is t
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+    t[3, 5] = float("nan")
+    with pytest.raises(RuntimeError, match="1 non-finite element"):
+        debugging.check_numerics(t, "mm", "out")
+
+
+def _route_calls(cuda):
+    """Each flag-routed op on CUDA tensors: name -> (call, its kernels)."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device=cuda).manual_seed(23)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    x, w = rand(64, 256), 1 + 0.1 * rand(256)
+    gate, up = rand(64, 512), rand(64, 512)
+    q, k = rand(2, 64, 4, 64), rand(2, 64, 2, 64)
+    h, wv = rand(48, 64), rand(64, 300)
+    labels = torch.randint(0, 300, (48,), device=cuda, generator=g)
+    pools = [rand(2, 9, 16, 64), rand(2, 9, 16, 64)]
+    tables = torch.arange(1, 9, dtype=torch.int32, device=cuda).view(2, 4)
+    ctx = torch.tensor([40, 17], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([8, 3], dtype=torch.int32, device=cuda)
+
+    def with_grad(fn, *ts):
+        ts = [t.detach().requires_grad_() for t in ts]
+        out = fn(*ts)
+        out = out[0] if isinstance(out, tuple) else out
+        out.float().sum().backward()
+        return [out] + [t.grad for t in ts]
+    return {
+        "FLAGS_enable_pallas_kernels": [
+            (lambda: with_grad(lambda a: F.rms_norm(a, w), x),
+             (krms.rms_norm, krms.rms_norm_dx)),
+            (lambda: with_grad(lambda a, b: F.fused_rms_norm_residual(
+                a, b, w), x, x.flip(0)),
+             (krms.rms_norm_residual, krms.rms_norm_residual_dh)),
+            (lambda: with_grad(lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True), q, k, k),
+             (kfa.flash_attention_fwd, kfa.flash_attention_dkv,
+              kfa.flash_attention_dq))],
+        "FLAGS_fused_swiglu": [
+            (lambda: with_grad(F.swiglu, gate, up),
+             (ksw.swiglu, ksw.swiglu_bwd))],
+        "FLAGS_flash_attn_pallas_bwd": [
+            (lambda: with_grad(lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True), q, k, k),
+             (kfa.flash_attention_dkv, kfa.flash_attention_dq))],
+        "FLAGS_fused_ce_pallas_inner": [
+            (lambda: with_grad(lambda a: fused_ce.fused_linear_cross_entropy(
+                a, wv, labels), h), (kce.chunk_stats, kce.chunk_dlogits))],
+        "FLAGS_use_pallas_paged_attention": [
+            (lambda: [PA.paged_attention(q[:, 0].contiguous(), *pools, tables,
+                                         ctx)],
+             (kpa.paged_attention,))],
+        "FLAGS_use_pallas_ragged_attention": [
+            (lambda: [PA.ragged_paged_attention(
+                q[:, :8].contiguous(), *pools, tables, ctx, lengths)],
+             (krpa.ragged_paged_attention,))],
+    }
+
+
+@pytest.mark.parametrize("flag", [
+    "FLAGS_enable_pallas_kernels", "FLAGS_fused_swiglu",
+    "FLAGS_flash_attn_pallas_bwd", "FLAGS_fused_ce_pallas_inner",
+    "FLAGS_use_pallas_paged_attention", "FLAGS_use_pallas_ragged_attention"])
+def test_kernel_route_flags(cuda, flag):
+    """At its default (on) each route flag's op launches its kernels on
+    CUDA tensors; set off, the same op takes the plain version (no
+    launch) and gives the kernels' results within bf16 rounding."""
+    from paddle_tpu_torch.framework import flags
+    assert flags.flag(flag)
+    for call, kernels in _route_calls(cuda)[flag]:
+        before = [kern.launches for kern in kernels]
+        on = call()
+        assert all(kern.launches > b for kern, b in zip(kernels, before))
+        flags.set_flags({flag: False})
+        try:
+            before = [kern.launches for kern in kernels]
+            off = call()
+            assert [kern.launches for kern in kernels] == before
+        finally:
+            flags.set_flags({flag: True})
+        for a, b in zip(on, off):
+            _assert_close(a, b, 4 * BF16_ULP * b.float().abs()
+                          + 4 * BF16_ULP * b.float().abs().max() + 1e-6)

@@ -402,7 +402,9 @@ def test_launcher_dumps_failed_worker_log(tmp_path):
 
 def test_launcher_process_imports_neither_torch_nor_jax(tmp_path):
     """The launcher, through a round with a checkpoint lookup and the
-    heartbeat watchdog, loads no torch, jax or numpy."""
+    heartbeat watchdog, loads no torch, jax or numpy; nor do the
+    package's lazy names (``seed``, the RNG state, ``summary``) and the
+    profiler package when imported."""
     root = tmp_path / "ckpts"
     _two_checkpoints(root)
     script = tmp_path / "beat.py"
@@ -420,6 +422,9 @@ def test_launcher_process_imports_neither_torch_nor_jax(tmp_path):
         "run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
+        "import paddle_tpu_torch, paddle_tpu_torch.profiler\n"
+        "lazy = {'seed', 'get_rng_state', 'set_rng_state', 'summary'}\n"
+        "assert lazy <= set(paddle_tpu_torch._LAZY), paddle_tpu_torch._LAZY\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'numpy', 'paddle_tpu'))\n"
         "print('LOADED', bad)\n")

@@ -6,8 +6,9 @@ port's SGD and DataLoader, and the flags they read.
 
 Both sides run ``LlamaConfig.tiny()`` in f32 with the same weights
 (bridged with ``convert.from_numpy_state_dict``) on numpy inputs from a
-seed. The JAX side runs ``tensor_parallel=False``, ``scan_layers=False``
-(the port's stack is always unrolled), ``train()`` mode, with
+seed. Both sides run ``scan_layers=False`` (the unrolled stack, which
+the fused carry and selective recompute need), the JAX side
+``tensor_parallel=False``, ``train()`` mode, with
 ``FLAGS_fused_rmsnorm_residual`` on, its default. Each test that sets a
 flag on either side restores it.
 """
@@ -72,6 +73,7 @@ def _models(tie=False, **cfg_kw):
     jm.train()
     arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tcfg = LlamaConfig.tiny()
+    tcfg.scan_layers = False
     tcfg.tie_word_embeddings = tie
     for k, v in cfg_kw.items():
         setattr(tcfg, k, v)
@@ -166,21 +168,27 @@ class _CountMatmuls(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.flash = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                     torch.ops.aten.addmm.default):
             self.n += 1
+        if func is torch.ops.paddle_tpu_torch.flash_fwd.default:
+            self.flash += 1
         return func(*args, **(kwargs or {}))
 
 
-def _backward_matmuls(tm, ids):
+def _backward_matmuls(tm, ids, flash=False):
+    """The products the backward runs (and with ``flash``, also the flash
+    forwards it runs: one operator, whose plain version's products on the
+    CPU this mode does not see)."""
     t = torch.from_numpy(ids)
     _, loss = tm(t, labels=t)
     with _CountMatmuls() as mode:
         loss.backward()
     tm.zero_grad(set_to_none=True)
-    return mode.n
+    return (mode.n, mode.flash) if flash else mode.n
 
 
 @pytest.mark.parametrize("gran", ["full", "core_attn"])
@@ -190,21 +198,20 @@ def test_dots_saveable_reruns_no_forward_matmul(gran, flag_guard):
     projections of each recomputed layer: six of its seven, since torch's
     checkpoint stops a recompute once the last saved tensor is packed,
     and autograd packs the down projection's inputs before the product
-    runs (with ``full``, the attention's products too, which on the CPU
-    are its plain version's)."""
+    runs; with ``full``, the attention's forward too (the flash operator,
+    once a layer), which ``core_attn`` keeps outside its regions."""
     _, tm = _models()
     ids = _ids(4)
-    base = _backward_matmuls(tm, ids)
+    base, base_flash = _backward_matmuls(tm, ids, flash=True)
+    assert base_flash == 0
     tm.config.use_recompute = True
     tm.config.recompute_granularity = gran
     assert _backward_matmuls(tm, ids) == base
     tflags.set_flags({"FLAGS_recompute_policy": "nothing_saveable"})
-    rerun = _backward_matmuls(tm, ids) - base
+    n, flash = _backward_matmuls(tm, ids, flash=True)
     layers = tm.config.num_hidden_layers
-    if gran == "core_attn":
-        assert rerun == 6 * layers
-    else:
-        assert rerun > 6 * layers
+    assert n - base == 6 * layers
+    assert flash == (0 if gran == "core_attn" else layers)
 
 
 def test_unknown_policy_and_granularity_raise(flag_guard):

@@ -9,6 +9,7 @@ equal bit for bit to an uninterrupted one. The metrics see the same
 numpy inputs and must give the JAX package's numbers (to 1e-7).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -56,7 +57,9 @@ def _llamas():
     jm = JLlamaForCausalLM(cfg)
     arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tm = convert.from_numpy_state_dict(
-        LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"), arrays)
+        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(),
+                                             scan_layers=False),
+                         device="cpu"), arrays)
     jmodel = paddle.Model(jm)
     jmodel.prepare(None, JCriterion(jm.config))
     tmodel = Model(tm)

@@ -191,6 +191,12 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.distributed.fleet.elastic.preempt\n"
             "import paddle_tpu_torch.distributed.fleet.elastic.manager\n"
             "import paddle_tpu_torch.distributed.launch.main\n"
+            "import paddle_tpu_torch.framework.random\n"
+            "import paddle_tpu_torch.profiler.cost\n"
+            "import paddle_tpu_torch.nn.scan\n"
+            "import paddle_tpu_torch.amp.debugging\n"
+            "import paddle_tpu_torch.hapi.summary\n"
+            "from paddle_tpu_torch import seed, summary\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

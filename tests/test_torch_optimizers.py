@@ -10,6 +10,7 @@ parameter groups, ``set_state_dict`` before the first step, and a run
 that JAX starts and both packages continue through ``convert``.
 """
 
+import dataclasses
 import numpy as np
 import pytest
 import torch
@@ -327,7 +328,9 @@ def test_llama_state_dict_keys_equal_jax(unfused):
     jm = _jax_llama()
     arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tm = convert.from_numpy_state_dict(
-        LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"), arrays)
+        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(),
+                                             scan_layers=False),
+                         device="cpu"), arrays)
     jopt, jsched = _jax_opt(jm)
     tpt, tsched = _port_opt(tm)
     _jax_step(jm, jopt, jsched, _ids(0))
@@ -353,7 +356,9 @@ def test_cross_package_resume_through_convert(unfused):
                   else np.asarray(v.numpy()))
               for k, v in jopt.state_dict().items()}
     tm = convert.from_numpy_state_dict(
-        LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"), arrays)
+        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(),
+                                             scan_layers=False),
+                         device="cpu"), arrays)
     tm.train()
     tpt, tsched = _port_opt(tm)
     state = convert.from_numpy_optimizer_state(tm, jstate)
