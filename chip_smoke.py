@@ -6,8 +6,9 @@
 Phases, each printing its lines; any failure raises and the script exits
 non-zero without printing a result:
 
-1. set-up: TF32 off, the kernels built from paddle_tpu_torch/csrc with
-   nvcc, the card's name and power limit;
+1. set-up: every kernel-route flag at its default (on), TF32 off, the
+   kernels built from paddle_tpu_torch/csrc with nvcc, the card's name
+   and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version, with
    per-element limits, at the shapes of its path: the serving kernels at
    Llama-3-8B's (bf16, seeded inputs, trash page 0 filled with NaN), the
@@ -118,7 +119,8 @@ non-zero without printing a result:
    granularity: step time and peak memory each, losses equal bit for
    bit, sampled gradients within one bf16 ulp; (c) ``scan_layers=True``
    with core_attn: the granularity warning and the unrolled loss bit for
-   bit; (d) ``profiler.Profiler(targets=[GPU], scheduler=(1, 3),
+   bit, then its step time and peak memory at ``full`` beside (b)'s
+   unrolled dots_saveable; (d) ``profiler.Profiler(targets=[GPU], scheduler=(1, 3),
    with_flops=True)``: its chrome trace names K1-K9; (e)
    ``amp.debugging``: ``check_numerics`` over the gradients,
    ``collect_operator_stats`` over a step, ``enable_check_nan_inf``
@@ -540,10 +542,24 @@ def _ptxas_summary(build_log):
             for x in lines]
 
 
+def check_kernel_routes():
+    """Every kernel-route flag on at its define_flag default: a FLAGS_*
+    environment variable or a set_flags call that moved an op onto its
+    plain version fails the run before anything is measured."""
+    from paddle_tpu_torch.framework import flags
+    moved = [f"{name}={flags.flag(name)!r} ({flags.flag_source(name)})"
+             for name in flags.KERNEL_ROUTES
+             if not flags.flag(name) or flags.flag_source(name) != "default"]
+    if moved:
+        raise AssertionError("kernel-route flags not at their default (on): "
+                             + ", ".join(moved))
+
+
 def phase_setup():
     global HBM_BYTES_PER_S, PEAK_BF16
     import torch
     from paddle_tpu_torch.ops.kernels import _build
+    check_kernel_routes()
     from paddle_tpu_torch.profiler import cost
     peaks = cost.device_peaks()
     if peaks.kind == "unknown":
@@ -4004,7 +4020,8 @@ def phase_train_2_4b(batch=2, seq=2048, dev="cuda"):
     profiler.cost, peak memory, exact launches a step; (b) each recompute
     policy at ``full`` granularity: losses equal bit for bit, sampled
     gradients within a stated bound; (c) scan_layers=True with core_attn:
-    the warning, and the loss of the unrolled full run; (d) one run under
+    the warning, and the loss of the unrolled full run; then 3 timed steps
+    at full, beside (b)'s unrolled dots_saveable; (d) one run under
     Profiler(targets=[GPU], scheduler=(1, 3), with_flops=True): its chrome
     export names K1-K9; (e) amp.debugging: check_numerics over the
     gradients, collect_operator_stats over a step, enable_check_nan_inf
@@ -4155,6 +4172,17 @@ def phase_train_2_4b(batch=2, seq=2048, dev="cuda"):
             scan_loss = step(step_ids[0])[0]
         scan_launches = {K_OF.get(k, k): w.launches
                          for k, w in wrappers.items()}
+        # the default stack's cost: full recompute under dots_saveable,
+        # as (b)'s unrolled dots_saveable run
+        model.config.recompute_granularity = "full"
+        torch.cuda.reset_peak_memory_stats()
+        tt = []
+        for i in (1, 2, 3):
+            t0 = time.perf_counter()
+            step(step_ids[i])
+            tt.append((time.perf_counter() - t0) * 1e3)
+        scan_ms = Timing(tt)
+        scan_peak = torch.cuda.max_memory_allocated() / 1e9
     finally:
         model.config.scan_layers = False
     if not any("recompute_granularity is ignored" in str(w.message)
@@ -4170,6 +4198,9 @@ def phase_train_2_4b(batch=2, seq=2048, dev="cuda"):
     log(f"[train_2_4b] (c) scan_layers=True, core_attn: the granularity "
         f"warning fired; loss {scan_loss!r} equals the unrolled full run's "
         f"bit for bit; launches of the step {scan_launches}")
+    log(f"[train_2_4b] (c) scanned, full: step {scan_ms:.1f} ms, peak memory "
+        f"{scan_peak:.2f} GB; the unrolled stack's (b) dots_saveable "
+        f"{ref['step_ms']:.1f} ms, {ref['peak_gb']:.2f} GB")
 
     # (d) Profiler with the GPU target over steps 1 and 2
     log_dir = tempfile.mkdtemp(prefix="train_2_4b_prof_")

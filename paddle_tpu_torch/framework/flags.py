@@ -229,3 +229,9 @@ define_flag("FLAGS_fused_rmsnorm_residual", True,
 define_flag("FLAGS_fused_swiglu", True,
             "MLP: silu(gate) * up through the SwiGLU kernels K5/K6 (with "
             "FLAGS_enable_pallas_kernels); off, the plain composition.")
+
+# the flags that choose between a kernel and its plain version
+KERNEL_ROUTES = ("FLAGS_enable_pallas_kernels", "FLAGS_fused_swiglu",
+                 "FLAGS_flash_attn_pallas_bwd", "FLAGS_fused_ce_pallas_inner",
+                 "FLAGS_use_pallas_paged_attention",
+                 "FLAGS_use_pallas_ragged_attention")

@@ -369,7 +369,7 @@ def test_flash_attention_fully_masked_rows_have_zero_grads(cuda):
 
 
 def test_tiny_training_step_on_the_card_matches_the_cpu(cuda):
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (2, 77)))
     lr, results = 1e-3, []
@@ -395,33 +395,55 @@ def test_tiny_training_step_on_the_card_matches_the_cpu(cuda):
         assert (np.abs(w1[key] - w0[key]) <= lim).all(), key
 
 
-@pytest.mark.parametrize("gran", ["full", "core_attn"])
-def test_fused_recompute_step_on_the_card_matches_the_cpu(cuda, gran):
-    """The fused residual carry (the default) with recompute: loss and
-    every gradient, card against CPU."""
-    cfg = dataclasses.replace(LlamaConfig.tiny(), use_recompute=True,
-                              recompute_granularity=gran)
+def _recompute_step_card_and_cpu(cuda, cfg, seed):
+    """Loss and every gradient of one labelled step, card against CPU
+    (f32 on both sides; kernels and cuBLAS sum in another order), and the
+    card run's launches of K1 and K3."""
     ids = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (2, 77)))
-    weights = LlamaForCausalLM(cfg, device="cpu", seed=6).state_dict()
+    weights = LlamaForCausalLM(cfg, device="cpu", seed=seed).state_dict()
     results = []
     for dev in ("cpu", cuda):
         model = LlamaForCausalLM(cfg, device=dev)
         model.load_state_dict(weights)
+        before = (krms.rms_norm.launches, krms.rms_norm_residual.launches)
         _, loss = model(ids.to(dev), labels=ids.to(dev))
         loss.backward()
+        launches = (krms.rms_norm.launches - before[0],
+                    krms.rms_norm_residual.launches - before[1])
         results.append((loss.item(), convert.grads_to_numpy(model)))
     (l0, g0), (l1, g1) = results
-    # f32 on both sides; kernels and cuBLAS sum in another order
     assert abs(l0 - l1) <= 1e-5 * abs(l0)
     for key in g0:
         err = np.linalg.norm(g1[key] - g0[key]) / np.linalg.norm(g0[key])
         assert err <= 1e-4, (key, err)
+    return launches
+
+
+@pytest.mark.parametrize("gran", ["full", "core_attn"])
+def test_fused_recompute_step_on_the_card_matches_the_cpu(cuda, gran):
+    """The unrolled stack's fused residual carry (K3/K4) with selective
+    recompute: loss and every gradient, card against CPU."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False,
+                              use_recompute=True,
+                              recompute_granularity=gran)
+    _, k3 = _recompute_step_card_and_cpu(cuda, cfg, seed=6)
+    assert k3 > 0
+
+
+def test_scanned_recompute_step_on_the_card_matches_the_cpu(cuda):
+    """The scanned stack (the single-tensor carry, K1/K2) with whole
+    layers recomputed in full_save_interval groups: loss and every
+    gradient, card against CPU; no fused carry launched."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), num_hidden_layers=4,
+                              use_recompute=True, full_save_interval=2)
+    k1, k3 = _recompute_step_card_and_cpu(cuda, cfg, seed=6)
+    assert k1 > 0 and k3 == 0
 
 
 def test_compiled_fit_on_the_card_matches_the_cpu(cuda):
     """hapi fit(compiled=True): the fused linear+CE (K10/K11) and SGD."""
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     ids = torch.from_numpy(np.random.RandomState(3).randint(
         0, cfg.vocab_size, (8, 65)))
     weights = LlamaForCausalLM(cfg, device="cpu", seed=8).state_dict()
@@ -459,7 +481,7 @@ def test_preempted_fit_with_workers_resumes_bit_for_bit(cuda, tmp_path):
         Preempted, PreemptionGuard)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from torch_io_data import ArrayDataset
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     ids = np.random.RandomState(5).randint(
         0, cfg.vocab_size, (16, 65)).astype(np.int64)
     data = ArrayDataset(ids, ids)
@@ -1669,7 +1691,7 @@ def test_adamw_clip_schedule_on_the_card_match_the_cpu(cuda):
     the Adam first-step limit, the losses within 1e-4 of each other
     (Adam carries the grads' f32 noise into the later steps)."""
     from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, lr
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     weights = LlamaForCausalLM(cfg, device="cpu", seed=5).state_dict()
     rows = [torch.from_numpy(np.random.RandomState(20 + i).randint(
         0, cfg.vocab_size, (2, 65))) for i in range(3)]
@@ -1711,7 +1733,7 @@ def test_adamw_clip_schedule_on_the_card_match_the_cpu(cuda):
 
 def test_grad_scaler_skip_on_the_card(cuda):
     from paddle_tpu_torch.amp import GradScaler
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     model = LlamaForCausalLM(cfg, device=cuda, seed=6)
     opt = AdamW(1e-3, parameters=model.parameters())
     scaler = GradScaler(init_loss_scaling=256.0)
@@ -1739,7 +1761,7 @@ def test_amp_train_batch_on_the_card_matches_the_cpu(cuda, level):
     """bf16 matmuls on both sides (and bf16 parameters at O2): the loss
     within 2e-3 of itself, each gradient within 5e-2 of its norm."""
     from paddle_tpu_torch.hapi import Model
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     weights = LlamaForCausalLM(cfg, device="cpu", seed=7).state_dict()
     ids = torch.from_numpy(np.random.RandomState(5).randint(
         0, cfg.vocab_size, (2, 65)))
@@ -1769,7 +1791,7 @@ def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
     tensor equal bit for bit, and the next step equal within f32 noise."""
     from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.optimizer import lr
-    cfg = LlamaConfig.tiny()
+    cfg = dataclasses.replace(LlamaConfig.tiny(), scan_layers=False)
     ids = torch.from_numpy(np.random.RandomState(9).randint(
         0, cfg.vocab_size, (2, 33)))
 

@@ -56,10 +56,13 @@ def flag_guard():
 # ---- the registry -----------------------------------------------------------
 
 def test_every_jax_flag_with_its_default_and_type():
-    assert len(jflags._registry) == 24
-    assert set(tflags._registry) == set(jflags._registry)
-    for name, ent in jflags._registry.items():
-        port = tflags._registry[name]
+    # the names the JAX module defines, from a fresh process: a test file
+    # run earlier in this one may have defined flags of its own
+    names = set(_flags_in_a_process("paddle_tpu.framework"))
+    assert len(names) == 24
+    assert set(tflags._registry) == names
+    for name in names:
+        ent, port = jflags._registry[name], tflags._registry[name]
         assert port["default"] == ent["default"], name
         assert port["type"] is ent["type"], name
         assert (port["on_change"] is None) == (ent["on_change"] is None), name
@@ -208,6 +211,27 @@ def test_route_flag_takes_the_plain_path_only_when_off(case, flag_guard,
     assert "kernel" not in calls and "plain" in calls, calls
     for a, b in zip(on, off):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_chip_smoke_refuses_a_moved_kernel_route(flag_guard):
+    """KERNEL_ROUTES names every route flag; chip_smoke's set-up check
+    passes at their defaults and fails on one set off, on one set back on
+    (an explicit choice), and on one from the environment."""
+    from chip_smoke import check_kernel_routes
+    assert set(tflags.KERNEL_ROUTES) == {case[0] for case in _cases()}
+    check_kernel_routes()
+    tflags.set_flags({"FLAGS_fused_swiglu": False})
+    with pytest.raises(AssertionError, match="FLAGS_fused_swiglu=False"):
+        check_kernel_routes()
+    tflags.set_flags({"FLAGS_fused_swiglu": True})
+    with pytest.raises(AssertionError, match=r"swiglu=True \(set\)"):
+        check_kernel_routes()
+    code = "import chip_smoke\nchip_smoke.check_kernel_routes()\n"
+    env = dict(os.environ, FLAGS_use_pallas_ragged_attention="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode != 0
+    assert "FLAGS_use_pallas_ragged_attention=1 (env)" in out.stderr
 
 
 # ---- seed, the RNG state, the tracker ---------------------------------------
