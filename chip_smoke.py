@@ -30,9 +30,9 @@ non-zero without printing a result:
    registers and spills from ptxas, bits repeated) beside K12 at one
    token a slot (its keys split over CTAs), K12 there held against its
    plain version too;
-3. serve: the serving path at full width: Llama-3-8B at 16 of its 32
-   layers (the script's time limit) with seeded random weights served by the continuous-batching engine (12
-   requests through 8 slots, the prefix cache off) through the pipelined
+3. serve: the serving path at full width: Llama-3-8B at 8 of its 32
+   layers (the script's time limit) with seeded random weights served by
+   the continuous-batching engine (12 requests through 8 slots, the prefix cache off) through the pipelined
    ``run()``, with the kernels' launch counters read around it, then two
    more requests under torch.profiler (device time by layer, K12's share
    of it, the attention kernels' device symbols, the idle share); then
@@ -47,9 +47,9 @@ non-zero without printing a result:
 5. capacity: the JAX bench's equal-byte A/B at that width: a bf16
    engine of 16 slots with 256 usable pages against an int8 engine with
    the same bytes of pools, each built as the bench builds it (prefix
-   cache on, warm-up, cache reset), 24 requests of 1024-1500 prompt
-   tokens; the int8 engine must hold 1.7x the requests at once; the
-   prefix cache's residency after the storm;
+   cache on, warm-up, cache reset), 12 requests (the bench's 24) of
+   1024-1500 prompt tokens; the int8 engine must hold 1.7x the requests
+   at once; the prefix cache's residency after the storm;
 6. spec_8b: speculative decoding on that model, the first 4 of serve's
    requests (32 new each) at decode chunk 1: n-gram and oracle drafts'
    greedy streams must equal the plain engine's; the share equal to
@@ -60,15 +60,15 @@ non-zero without printing a result:
    shapes against its plain version per element, a 1500-token prefill's
    logits distance from bf16 and serve's traffic (launches counted,
    greedy agreement with serve's streams; reported, not gated);
-8. prefix: the JAX bench's shared-prefix storm uncut: Llama-1B (16
-   layers, bf16, seeded random weights), 8 slots, page 32, 64 requests
-   sharing a 512-token prefix with tails of 0-63 tokens, 32 new; one
-   engine cold then warm, one with the cache off: identical greedy
+8. prefix: the JAX bench's shared-prefix storm: Llama-1B (8 of its 16
+   layers, bf16, seeded random weights), 8 slots, page 32, 32 requests (the
+   bench's 64) sharing a 512-token prefix with tails of 0-63 tokens, 32
+   new; one engine cold then warm, one with the cache off: identical greedy
    streams, a positive warm hit rate, a balanced page audit (hit rate,
    prefill tokens saved, COW forks, p99 TTFT of each);
-9. overload: the JAX bench's overload section uncut on that model: 96
-   requests (48-192 prompt tokens, 32-96 new, priorities 0-2) through an
-   AdmissionController (queue 48, TTFT SLO 30 s) over an
+9. overload: the JAX bench's overload section on that model: 48
+   requests (the bench's 96; 48-192 prompt tokens, 32-96 new, priorities
+   0-2) through an AdmissionController (queue 24, TTFT SLO 30 s) over an
    EngineSupervisor, a total SLO of 120 s: every accepted request
    completes or ends with a typed error, no page leaks (tok/s, p99 TTFT,
    shed share, preemption rate, goodput, restarts); then a poisoned
@@ -77,11 +77,12 @@ non-zero without printing a result:
 10. spec: the JAX bench's spec section (bench.py:_cb_spec_bench) with its
    TPU configuration on that model: page 32, max_len 384, prefill chunk
    64, decode chunk 1, spec_k 4, n-gram drafts, prompts of 16 random
-   tokens tiled 3 times, 96 new; batches of 1, 4 and 8, a warm-up and 2
-   timed runs a leg: spec and plain tok/s, accept rate, ITL p99, greedy
-   streams identical (launches counted); then self-speculative drafts,
-   oracle drafts (accept rate 1.0) and adversarial ones (0.0) at batch 1
-   and int8 pools at batch 4, each with the plain streams;
+   tokens tiled 3 times, 48 new (the bench's 96); batches of 1, 4 and 8,
+   a warm-up and 2 timed runs a leg: spec and plain tok/s, accept rate,
+   ITL p99, greedy streams identical (launches counted); then
+   self-speculative drafts, oracle drafts (accept rate 1.0) and
+   adversarial ones (0.0) at batch 1 and int8 pools at batch 4, each
+   with the plain streams;
 11. parity: the Llama-3-8B width at depth 2 in f32, greedy streams on the
    GPU against the CPU (plain versions), token for token (a divergence
    only on a near tie), through the unified engine, the legacy engine
@@ -165,10 +166,10 @@ and the training loop users run:
     prompts of 128, 64 new, greedy (launches), sampling with
     examples/serve_llama.py's settings twice (the same ids), and an eos
     run of one prompt that stops at its greedy stream's token; after
-    spec, bench.py:_decode_bench uncut on the prefix phase's Llama-1B
-    (batch 8, prompt 128, 512 new, greedy, the long-minus-short
-    protocol: ms/token/batch, tokens/s, launches per token, peak
-    memory), then 32 tokens under ``torch.cuda.set_sync_debug_mode
+    spec, bench.py:_decode_bench on the prefix phase's Llama-1B
+    (batch 8, prompt 128, 128 new where the bench takes 512, greedy, the
+    long-minus-short protocol: ms/token/batch, tokens/s, launches per
+    token, peak memory), then 32 tokens under ``torch.cuda.set_sync_debug_mode
     ("error")``; after serve_moe, qwen2_moe_a14b at batch 4, prompt
     64, 16 new (K14 launches);
 26. legacy (after generate on the 8B model): the legacy engine
@@ -179,7 +180,7 @@ and the training loop users run:
     greedy agreement with serve's streams (reported); then 4 requests
     over int8 pools (K13);
 27. train_loop (after fused_parity): examples/train_gpt2.py's flow on
-    the port at Llama-1B's full width and 8 of its 16 layers in bf16
+    the port at Llama-1B's full width and 4 of its 16 layers in bf16
     (the script's time limit): AdamW (decay off
     for norms by ``apply_decay_param_fun``) under
     ``LinearWarmup(CosineAnnealingDecay(3e-4, T_max=40), 10 steps from
@@ -224,7 +225,8 @@ The model families, after moe_parity:
     the capacity path and dropless (K14), the latent cache's bytes; at
     depth 2 a dropless training step on [2, 2049] (the chunked MLA
     core), launches of K1-K6 and K14/K15 exact, profiled;
-    bench.py:_moe_decode_bench uncut (long minus short);
+    bench.py:_moe_decode_bench at 128 new (the bench's 256; long minus
+    short);
 32. llama70: Llama-3-70B's width at depth 4 through the engine, 4 of
     serve's requests (K12 at rep 8);
 33. model_parity: GPT-2 (2 heads), ERNIE and DeepSeek-V2 (capacity and
@@ -235,19 +237,20 @@ The model families, after moe_parity:
 The serving front door, after the decode bench on its Llama-1B (K1, K5,
 K12):
 
-34. fleet: bench.py:_cb_fleet_bench uncut: 64 requests through one
-    engine, then through a ``ServingFleet`` of 4 replicas (two SLO rules,
-    two tenants) with replica 1 killed for good after 8 steps: every
-    request delivered, the breaker open, the survivors' pages balanced;
+34. fleet: bench.py:_cb_fleet_bench: 32 requests (the bench's 64)
+    through one engine, then through a ``ServingFleet`` of 4 replicas
+    (two SLO rules, two tenants) with replica 1 killed for good after 4
+    steps (the bench's 8): every request delivered, the breaker open,
+    the survivors' pages balanced;
     the bench's ``cb_fleet_*``, ``obs_slo_attainment``, ``slo_alerts``
     and ``obs_fleet_overhead_frac``, launches a forward (exact), the
     bf16 streams equal to the single engine's (a differing stream's
     first differing token and the top-2 gap there), the idle share over
-    a profiled window of the same 64 requests on the 3 survivors;
+    a profiled window of the same requests on the 3 survivors;
 35. http: bench.py:_cb_http_bench: an engine-backed ``ApiServer`` driven
-    by tools/load_harness.py as a separate process (64 SSE requests,
-    concurrency 24), one leg of each where the bench takes the best of 2
-    (``HTTP_REPS``: the time limit), beside the direct engine
+    by tools/load_harness.py as a separate process (24 SSE requests, the
+    bench's 64; concurrency 24), one leg of each where the bench takes
+    the best of 2 (``HTTP_REPS``: the time limit), beside the direct engine
     (``cb_http_*``); every request ok, a unary completion equal to the
     engine's tokens, /v1/models, /healthz and /statusz 200, a 429 with
     Retry-After when the admission queue is full;
@@ -1731,13 +1734,15 @@ def _hold_streams(tag, what, gpu, cpu, cpu_model, prompts, kv_quant):
     return same
 
 
-def phase_parity(cfg, dev="cuda", kv_quant="none"):
+def phase_parity(cfg, dev="cuda", kv_quant="none", models=None):
     """Depth 2, f32: greedy streams on the GPU and on the CPU, with f32
     pools (phase parity) or int8/fp8 ones (phase quant_parity), through
     the unified engine and the legacy one (``unified=False``); with f32
     pools also ``generate`` of each prompt alone (tokens, and scores
     within ``GEN_SCORE_TOL``), and, on the card, whether both engines'
-    streams equal ``generate``'s."""
+    streams equal ``generate``'s. ``models``: the (cpu, card) pair an
+    earlier call returned, so that quant_parity need not build its own;
+    returns the pair."""
     import dataclasses
 
     import torch
@@ -1746,12 +1751,15 @@ def phase_parity(cfg, dev="cuda", kv_quant="none"):
     tag = "parity" if kv_quant == "none" else f"quant_parity {kv_quant}"
     torch.set_num_threads(os.cpu_count() or 1)
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
-    t0 = time.perf_counter()
-    cpu_model = LlamaForCausalLM(cfg2, device="cpu", seed=5)
-    gpu_model = LlamaForCausalLM(cfg2, device=dev, seed=5)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    log(f"[{tag}] depth-2 f32 models built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if models is None:
+        t0 = time.perf_counter()
+        cpu_model = LlamaForCausalLM(cfg2, device="cpu", seed=5)
+        gpu_model = LlamaForCausalLM(cfg2, device=dev, seed=5)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        log(f"[{tag}] depth-2 f32 models built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        cpu_model, gpu_model = models
     rng = np.random.RandomState(3)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (128, 77, 31, 100)]
     streams = {}
@@ -1797,8 +1805,7 @@ def phase_parity(cfg, dev="cuda", kv_quant="none"):
             f"identical streams (limit {GEN_SCORE_TOL}); on the card, engine "
             f"streams equal to generate's: unified {eq['unified']}/4, "
             f"legacy {eq['legacy']}/4")
-    del gpu_model
-    torch.cuda.empty_cache()
+    return cpu_model, gpu_model
 
 
 QUANT_MODES = ("int8", "fp8")
@@ -2207,7 +2214,7 @@ def phase_quant_accuracy(model, n_tokens=1500):
     return res
 
 
-def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=24,
+def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=12,
                    n_new=32):
     """The JAX bench's equal-byte capacity A/B (bench.py:_cb_quant_bench)
     at full width: a bf16 engine whose page budget binds (256 usable
@@ -2216,7 +2223,9 @@ def phase_capacity(model, dev="cuda", slots=16, base_pages=257, n_req=24,
     each engine built as the bench builds it (prefix cache on, a warm-up
     request, then ``reset_prefix_cache`` and ``reset_gauges``); the peak
     number of occupied slots after each step (bar: int8 holds 1.7x), and
-    the prefix cache's resident pages after the storm."""
+    the prefix cache's resident pages after the storm. ``n_req``: the
+    bench's 24 cut to 12 for the script's time limit, still twice what
+    the int8 pools hold at once."""
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
 
@@ -2299,8 +2308,9 @@ SERVE_KERNELS = ("rms_norm", "swiglu", "ragged_paged_attention")
 
 
 def serve_model_1b(cfg1b, dev="cuda"):
-    """Llama-1B at full width and depth in bf16, seeded random weights
-    (seed 1): the model of the JAX bench's prefix and overload sections."""
+    """Llama-1B at full width and ``cfg1b``'s depth in bf16, seeded random
+    weights (seed 1): the model of the JAX bench's prefix and overload
+    sections."""
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM
     t0 = time.perf_counter()
@@ -2339,18 +2349,19 @@ def _launch_check(tag, launches, forwards, n_layers, attn=None,
 
 
 def phase_prefix(model, dev="cuda"):
-    """The JAX bench's shared-prefix storm (bench.py:_cb_prefix_bench)
-    with its TPU configuration uncut: Llama-1B bf16, 8 slots, page 32,
-    decode chunk 32, prefill chunk 256, max_len 768; 64 requests sharing
-    one 512-token prefix, each with a tail of 0-63 tokens, 32 new. One
-    engine runs the storm cold (after ``reset_prefix_cache``), then warm;
-    an engine with the cache off runs it too. The three must give the
-    same greedy streams, the warm hit rate must be positive and the page
-    audit must balance. Launches are counted over the three storms."""
+    """The JAX bench's shared-prefix storm (bench.py:_cb_prefix_bench) with its
+    TPU configuration: Llama-1B bf16, 8 slots, page 32, decode chunk 32,
+    prefill chunk 256, max_len 768; 32 requests (the bench's 64, cut for the
+    script's time limit) sharing one 512-token prefix, each with a tail of
+    0-63 tokens, 32 new. One engine runs the storm cold (after
+    ``reset_prefix_cache``), then warm; an engine with the cache off runs it
+    too. The three must give the same greedy streams, the warm hit rate must
+    be positive and the page audit must balance. Launches are counted over
+    the three storms."""
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     cfg = model.config
-    n_req, prefix_len, tail_hi, n_new = 64, 512, 64, 32
+    n_req, prefix_len, tail_hi, n_new = 32, 512, 64, 32
     rng = np.random.RandomState(55)
     prefix = rng.randint(0, cfg.vocab_size, (prefix_len,)).astype(np.int32)
     specs = [(np.concatenate([prefix, rng.randint(
@@ -2435,16 +2446,16 @@ def phase_prefix(model, dev="cuda"):
 
 
 def phase_overload(model, dev="cuda"):
-    """The JAX bench's overload section (bench.py:_cb_overload_bench)
-    with its TPU configuration uncut: Llama-1B bf16, 8 slots, page 32,
-    decode chunk 32, max_len 384; 96 requests of 48-192 prompt tokens
-    and 32-96 new, priorities 0-2, seed 33, a TTFT SLO of 30 s and a
-    total one of 120 s, through an ``AdmissionController`` (max_queue
-    48) over an ``EngineSupervisor`` (two restarts). Every accepted
-    request must complete or end with a typed error, and no page may
-    leak. Then a poison request (``poison_request``, twice) and an
-    innocent one: the poison is quarantined and the innocent's stream
-    equals its solo run."""
+    """The JAX bench's overload section (bench.py:_cb_overload_bench) with its
+    TPU configuration: Llama-1B bf16, 8 slots, page 32, decode chunk 32,
+    max_len 384; 48 requests (the bench's 96, cut for the script's time
+    limit) of 48-192 prompt tokens and 32-96 new, priorities 0-2, seed 33, a
+    TTFT SLO of 30 s and a total one of 120 s, through an
+    ``AdmissionController`` (max_queue half the requests) over an
+    ``EngineSupervisor`` (two restarts). Every accepted request must
+    complete or end with a typed error, and no page may leak. Then a poison
+    request (``poison_request``, twice) and an innocent one: the poison is
+    quarantined and the innocent's stream equals its solo run."""
     import torch
     from paddle_tpu_torch.inference import (AdmissionController,
                                             EngineSupervisor, Overloaded,
@@ -2453,7 +2464,7 @@ def phase_overload(model, dev="cuda"):
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.testing import FaultInjector
     cfg = model.config
-    n_req, plen_lo, plen_hi, new_lo, new_hi = 96, 48, 192, 32, 96
+    n_req, plen_lo, plen_hi, new_lo, new_hi = 48, 48, 192, 32, 96
     ttft_slo_s, total_slo_s = 30.0, 120.0
 
     def factory():
@@ -2570,11 +2581,17 @@ def _first_diff(a, b):
 #: bench's TPU configuration (bench.py:_cb_fleet_bench, _cb_http_bench)
 FLEET_ENGINE = dict(num_slots=8, page_size=32, max_len=384, decode_chunk=32,
                     greedy=True, audit=True)
+#: the fleet's traffic cut to half the bench's 64 requests, and replica 1
+#: killed after 4 of its steps (the bench: 8), for the script's time
+#: limit: at 32 requests replica 1 takes fewer than 8 steps
+FLEET_REQUESTS = 32
+FLEET_KILL_AFTER = 4
 
 
-def _fleet_specs(vocab, n_req=64, plen=(48, 192), new=(16, 48), seed=44):
+def _fleet_specs(vocab, n_req=FLEET_REQUESTS, plen=(48, 192), new=(16, 48),
+                 seed=44):
     """The bench's fleet traffic: RandomState(44), prompts of 48-192
-    tokens, 16-48 new each."""
+    tokens, 16-48 new each; ``FLEET_REQUESTS`` of them."""
     rng = np.random.RandomState(seed)
     return [(rng.randint(0, vocab, (int(rng.randint(plen[0], plen[1] + 1)),))
              .astype(np.int32), int(rng.randint(new[0], new[1] + 1)))
@@ -2615,20 +2632,22 @@ def _delivered(tag, fleet, done, fids):
 
 
 def phase_fleet(model, dev="cuda"):
-    """The JAX bench's fleet section (bench.py:_cb_fleet_bench) uncut on
-    the port: Llama-1B bf16, engines of 8 slots, page 32, prefill and
-    decode chunk 32, max_len 384; 64 requests (RandomState(44), prompts
-    of 48-192 tokens, 16-48 new) through one engine (the A/B
+    """The JAX bench's fleet section (bench.py:_cb_fleet_bench) on the
+    port: Llama-1B bf16, engines of 8 slots, page 32, prefill and
+    decode chunk 32, max_len 384; ``FLEET_REQUESTS`` requests (the
+    bench's 64; RandomState(44), prompts of 48-192 tokens, 16-48 new)
+    through one engine (the A/B
     denominator), then through a ``ServingFleet`` of 4 replicas sharing
     the model (``max_restarts=1``, the bench's two SLO rules, two
     tenants), each replica warmed outside the timed region, replica 1
-    killed for good after 8 of its steps. Every request must be
+    killed for good after ``FLEET_KILL_AFTER`` of its steps. Every
+    request must be
     delivered without an error, replica 1's breaker must be open and
     every survivor's pages must balance. The bench's keys, the launches
     per forward (exact), the share of greedy streams equal to the single
     engine's (a differing stream's first differing position and the
     top-2 logit gap there), and the idle share over a profiled window of
-    the same 64 requests at the same concurrency."""
+    the same requests at the same concurrency."""
     import torch
     from paddle_tpu_torch.inference import ServingFleet
     from paddle_tpu_torch.profiler.slo import SLORule
@@ -2662,7 +2681,7 @@ def phase_fleet(model, dev="cuda"):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with FaultInjector() as fi:
-        fi.kill_replica(1, times=10_000, after_steps=8)
+        fi.kill_replica(1, times=10_000, after_steps=FLEET_KILL_AFTER)
         fids = [fleet.submit(p, n, tenant=f"tenant{i % 2}")
                 for i, (p, n) in enumerate(specs)]
         done = fleet.run()
@@ -2689,7 +2708,8 @@ def phase_fleet(model, dev="cuda"):
            "obs_fleet_overhead_frac": round(g["obs_overhead_frac"], 5)}
     same = sum(a == b for a, b in zip(streams, single_streams))
     log(f"[fleet] {len(fids)} requests over 4 replicas, replica 1 killed "
-        f"after 8 steps (breaker open, {g['requeued']} requeued, "
+        f"after {FLEET_KILL_AFTER} steps (breaker open, {g['requeued']} "
+        f"requeued, "
         f"{g['retries']} retries): {toks} tokens in {wall:.2f} s; single "
         f"engine {single_tps:.1f} tok/s in {single_wall:.2f} s; "
         f"{json.dumps(out)}")
@@ -2704,7 +2724,7 @@ def phase_fleet(model, dev="cuda"):
         gap = _top2_gap(model, list(specs[i][0]) + single_streams[i][:j])
         log(f"[fleet] stream {i} first differs at token {j}: the single "
             f"engine's top-2 logit gap there is {gap:.4g}")
-    # the idle share over a window of the phase's own traffic: the 64
+    # the idle share over a window of the phase's own traffic: the
     # requests again through the three survivors (every slot taken, the
     # rest queued), 2 turns to fill, then 3 turns under the profiler
     # (device activity only, the least host overhead); the window's
@@ -2720,7 +2740,8 @@ def phase_fleet(model, dev="cuda"):
     fw = sum(e._stats["forwards"] for e in engines) - f0
     if prof:
         per_fwd = prof["busy_ms"] / fw
-        log(f"[fleet] profiled window: 3 fleet turns of the 64 requests "
+        log(f"[fleet] profiled window: 3 fleet turns of the {len(specs)} "
+            f"requests "
             f"over 3 replicas, {fw} forwards, {per_fwd:.3f} ms of device "
             f"time a forward; over the timed run's {forwards} forwards in "
             f"{wall:.2f} s that is an idle share of "
@@ -2735,7 +2756,7 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
     """The fleet at Llama-1B's width and depth 2 in f32 (seed 1), the
     fleet phase's geometry and traffic: every fleet stream must equal
     the single engine's bit for bit through the kill of replica 1 after
-    8 steps; then again with the
+    ``FLEET_KILL_AFTER`` steps; then again with the
     kill and hedges (``hedge_factor`` 0.05, so that requests waiting for
     their first token are copied), and again with the kill and a
     ``scale_down`` of replica 0 whose deadline has passed (its
@@ -2765,7 +2786,7 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
         for rep in fleet.replicas.values():
             fleet._warm(rep)
         with FaultInjector() as fi:
-            fi.kill_replica(1, times=10_000, after_steps=8)
+            fi.kill_replica(1, times=10_000, after_steps=FLEET_KILL_AFTER)
             fids = [fleet.submit(p, n) for p, n in specs]
             if mode == "drain":
                 for _ in range(3):
@@ -2803,6 +2824,9 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
 #: legs of each kind (about 190 s on the card) would take the script past
 #: its budget, so it runs one of each
 HTTP_REPS = 1
+#: the HTTP phase's requests: the bench's 64 at concurrency 24 took about
+#: 90 s of the script's time limit; 24 fill the concurrency once
+HTTP_REQUESTS = 24
 
 
 def phase_http(model, reps=HTTP_REPS, dev="cuda"):
@@ -2810,7 +2834,8 @@ def phase_http(model, reps=HTTP_REPS, dev="cuda"):
     port: an engine-backed ``ApiServer`` over Llama-1B bf16 (8 slots,
     page 32, decode chunk 32, max_len 384, prompt buckets (8, 16), SSE
     chunks of 32 tokens) driven by tools/load_harness.py as a separate
-    process with the bench's flags (64 requests, concurrency 24, closed
+    process with the bench's flags but ``HTTP_REQUESTS`` requests (its
+    64; concurrency 24, closed
     loop, prompts of 3-5 tokens, 128-192 new, a quarter sharing a
     4-token prefix, two tenants, seed 44), best of ``reps`` (the bench's
     2; ``HTTP_REPS``) interleaved with the same requests pushed straight
@@ -2826,7 +2851,7 @@ def phase_http(model, reps=HTTP_REPS, dev="cuda"):
     from paddle_tpu_torch.inference import (AdmissionController, ApiServer,
                                             ContinuousBatchingEngine)
     cfg = model.config
-    n_req, conc, new_lo, new_hi, sse_chunk = 64, 24, 128, 192, 32
+    n_req, conc, new_lo, new_hi, sse_chunk = HTTP_REQUESTS, 24, 128, 192, 32
 
     def factory():
         return ContinuousBatchingEngine(
@@ -3195,11 +3220,12 @@ def phase_observability(cfg1b, layers=2, dev="cuda"):
 
 
 def phase_spec(model, dev="cuda"):
-    """Speculative decoding on Llama-1B (bf16, full width and depth) with
+    """Speculative decoding on Llama-1B (bf16, full width, 8 layers) with
     the JAX bench's TPU configuration (bench.py:_cb_spec_bench): page 32,
     max_len 384, prefill chunk 64, decode chunk 1 for both legs, spec_k
     4, n-gram drafts; prompts of 16 seeded random tokens tiled 3 times,
-    96 new tokens each; batches of 1, 4 and 8 slots (as many requests),
+    48 new tokens each (the bench's 96, cut for the script's time
+    limit); batches of 1, 4 and 8 slots (as many requests),
     one warm-up run then 2 timed ones for each leg. The greedy spec
     streams must equal the plain engine's (both legs run [B, 64]
     forwards only, so K12 sums every row in one order). Launches are
@@ -3214,7 +3240,7 @@ def phase_spec(model, dev="cuda"):
     cfg = model.config
     vocab = cfg.vocab_size
     page, max_len, chunk, k = 32, 384, 64, 4
-    base_len, tile, n_new, reps = 16, 3, 96, 2
+    base_len, tile, n_new, reps = 16, 3, 48, 2
 
     def make(slots, spec, **kw):
         if spec:
@@ -5746,11 +5772,12 @@ def _gen_launch_check(tag, launches, forwards, cfg, moe=False):
                              f"{forwards} forwards")
 
 
-def phase_decode_bench(model, batch=8, prompt=128, n_new=512, dev="cuda"):
-    """bench.py:_decode_bench uncut on the port: Llama-1B (16 layers,
-    bf16, seeded random weights), batch 8, prompts of 128 tokens, 512 new,
-    greedy, no eos. Per token: the long run's time minus a 4-token run's
-    over the 508 tokens between them (the minimum of two runs each, on
+def phase_decode_bench(model, batch=8, prompt=128, n_new=128, dev="cuda"):
+    """bench.py:_decode_bench on the port: Llama-1B (8 layers, bf16,
+    seeded random weights), batch 8, prompts of 128 tokens, 128 new (the
+    bench's 512, cut for the script's time limit), greedy, no eos. Per
+    token: the long run's time minus a 4-token run's over the tokens
+    between them (the minimum of two runs each, on
     distinct prompts; both lengths warmed up first). Launches are counted
     over the four timed runs; then one run under sync debug mode 'error'
     holds the eos-less loop to no host synchronisation."""
@@ -6505,6 +6532,9 @@ def phase_ernie(dev="cuda"):
 #: matmuls sum in other orders; 12 post-norm layers carry that as a few
 #: ulps of each unit-scale output, with an absolute floor for the
 #: entries near 0
+#: the MLA decode bench's new tokens: the bench's 256 cut for the
+#: script's time limit
+DS_DECODE_NEW = 128
 ERNIE_PAD_ULPS = 16
 ERNIE_PAD_ATOL = 0.05
 #: the same in f32 (relative, absolute): the two paths sum in other
@@ -6558,8 +6588,9 @@ def phase_deepseek(dev="cuda"):
     (the chunked MLA core): forward and backward of the labelled loss
     with the aux loss, grads cleared, no optimizer: step ms, peak memory,
     exact launches of K1-K6 and K14/K15; (c) bench.py:_moe_decode_bench
-    uncut on the port (its on_tpu config: H 1024, 12 layers, 16 experts,
-    batch 8, prompt 128, 256 new, the long-minus-short protocol)."""
+    on the port (its on_tpu config: H 1024, 12 layers, 16 experts, batch
+    8, prompt 128, the long-minus-short protocol) at ``DS_DECODE_NEW``
+    new tokens, where the bench takes 256."""
     import torch
     from paddle_tpu_torch.models import (DeepseekV2Config,
                                          DeepseekV2ForCausalLM)
@@ -6659,7 +6690,8 @@ def phase_deepseek(dev="cuda"):
     del model, step_ids
     torch.cuda.empty_cache()
 
-    # (c) the JAX bench's MLA decode bench, uncut
+    # (c) the JAX bench's MLA decode bench, its 256 new tokens cut to
+    # DS_DECODE_NEW for the script's time limit
     bcfg = DeepseekV2Config(
         vocab_size=32000, hidden_size=1024, num_hidden_layers=12,
         num_attention_heads=16, q_lora_rank=384, kv_lora_rank=256,
@@ -6674,21 +6706,22 @@ def phase_deepseek(dev="cuda"):
     ps = [torch.from_numpy(np.roll(base, i + 1, axis=1)).to(dev)
           for i in range(5)]
     ids = torch.from_numpy(base).to(dev)
-    _generate(model, ids, 256)
+    n_new = DS_DECODE_NEW
+    _generate(model, ids, n_new)
     _generate(model, ps[0], 4)
     w = _counted(DS_KERNELS)
-    long_ = min(_generate(model, ps[1], 256)[2],
-                _generate(model, ps[2], 256)[2])
+    long_ = min(_generate(model, ps[1], n_new)[2],
+                _generate(model, ps[2], n_new)[2])
     short = min(_generate(model, ps[3], 4)[2], _generate(model, ps[4], 4)[2])
     got = {k: v.launches for k, v in w.items()}
-    want = _ds_generate_want(bcfg, 2 * 256 + 2 * 4, False)
+    want = _ds_generate_want(bcfg, 2 * n_new + 2 * 4, False)
     if got != want:
         raise AssertionError(f"[deepseek] (c) launches {got} != {want}")
     _add(launches, got)
-    ms_tok = (long_ - short) / (256 - 4) * 1e3
+    ms_tok = (long_ - short) / (n_new - 4) * 1e3
     log(f"[deepseek] (c) bench.py:_moe_decode_bench on the port (H 1024, 12 "
-        f"layers, 16 experts top-2, capacity path, batch 8, prompt 128, 256 "
-        f"new; long minus short): {ms_tok:.3f} ms/token/batch, "
+        f"layers, 16 experts top-2, capacity path, batch 8, prompt 128, "
+        f"{n_new} new; long minus short): {ms_tok:.3f} ms/token/batch, "
         f"{8 / ms_tok * 1e3:.0f} tokens/s; launches {got}")
     del model
     torch.cuda.empty_cache()
@@ -6855,9 +6888,12 @@ def main():
     # (scan_layers=False): the fused carry and selective recompute
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), scan_layers=False)
     cfg1b = dataclasses.replace(LlamaConfig.llama_1b(), scan_layers=False)
-    # the serving phases' Llama-3-8B at half its depth (16 of 32 layers)
-    # and train_loop's Llama-1B at 8 of 16: the script's time limit
-    cfg_serve = dataclasses.replace(cfg, num_hidden_layers=16)
+    # the serving phases' Llama-3-8B at a quarter of its depth (8 of 32
+    # layers), the Llama-1B they serve (prefix to http) at 8 of 16, and
+    # train_loop's at 4 of 16: the script's time limit, which a slow host
+    # nearly reaches at twice these depths
+    cfg_serve = dataclasses.replace(cfg, num_hidden_layers=8)
+    cfg1b_serve = dataclasses.replace(cfg1b, num_hidden_layers=8)
     t_start = time.perf_counter()
 
     def mark(tag):
@@ -6895,7 +6931,7 @@ def main():
     mark("spec_8b, generate 8b, legacy")
     weight_quant = phase_weight_quant(cfg_serve, serve["streams"])
     mark("weight_quant")
-    model1b = serve_model_1b(cfg1b)
+    model1b = serve_model_1b(cfg1b_serve)
     prefix = phase_prefix(model1b)
     overload = phase_overload(model1b)
     mark("prefix, overload")
@@ -6909,8 +6945,10 @@ def main():
     phase_fleet_parity(cfg1b)
     observability = phase_observability(cfg1b)
     mark("fleet_parity, observability")
-    phase_parity(cfg)
-    phase_parity(cfg, kv_quant="int8")
+    models = phase_parity(cfg)
+    phase_parity(cfg, kv_quant="int8", models=models)
+    del models
+    torch.cuda.empty_cache()
     decode = phase_decode(cfg)
     mark("parity, decode")
     flags.set_flags({"FLAGS_fused_rmsnorm_residual": False})
@@ -6926,7 +6964,7 @@ def main():
     phase_fused_parity(cfg1b)
     mark("training")
     train_loop = phase_train_loop(dataclasses.replace(cfg1b,
-                                                      num_hidden_layers=8))
+                                                      num_hidden_layers=4))
     mark("train_loop")
     preempt = phase_preempt(cfg1b)
     mark("preempt")
