@@ -77,7 +77,7 @@ non-zero without printing a result:
 10. spec: the JAX bench's spec section (bench.py:_cb_spec_bench) with its
    TPU configuration on that model: page 32, max_len 384, prefill chunk
    64, decode chunk 1, spec_k 4, n-gram drafts, prompts of 16 random
-   tokens tiled 3 times, 48 new (the bench's 96); batches of 1, 4 and 8,
+   tokens tiled 3 times, 32 new (the bench's 96); batches of 1, 4 and 8,
    a warm-up and 2 timed runs a leg: spec and plain tok/s, accept rate,
    ITL p99, greedy streams identical (launches counted); then
    self-speculative drafts, oracle drafts (accept rate 1.0) and
@@ -156,7 +156,7 @@ non-zero without printing a result:
 23. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-24. the ``kernels`` JSON line, then the result line (after phase 37).
+24. the ``kernels`` JSON line, then the result line (after phase 42).
 
 Three more paths run between those phases, two of the serving slice
 and the training loop users run:
@@ -249,7 +249,7 @@ K12):
     a profiled window of the same requests on the 3 survivors;
 35. http: bench.py:_cb_http_bench: an engine-backed ``ApiServer`` driven
     by tools/load_harness.py as a separate process (24 SSE requests, the
-    bench's 64; concurrency 24), one leg of each where the bench takes
+    bench's 64; concurrency 24; the engines warmed on 8 others), one leg of each where the bench takes
     the best of 2 (``HTTP_REPS``: the time limit), beside the direct engine
     (``cb_http_*``); every request ok, a unary completion equal to the
     engine's tokens, /v1/models, /healthz and /statusz 200, a 429 with
@@ -271,9 +271,9 @@ The preemptible, elastic training path, after train_loop:
     --max_preempt_restarts 1 --max_restarts 0`` runs this script as its
     worker (``--preempt-worker DIR``): Llama-1B's width at depth 2 in
     bf16 with AdamW, ``fit`` (the fused linear+CE) over a map-style
-    ``io.Dataset`` of 28 windows of 1025 byte ids of the repository's
-    own .py/.md text, shuffled through 2 loader workers, 2 epochs of 7
-    steps; round 0 sends itself a real SIGTERM after step 10 (step 2 of
+    ``io.Dataset`` of 16 windows of 1025 byte ids of the repository's
+    own .py/.md text, shuffled through 2 loader workers, 2 epochs of 4
+    steps; round 0 sends itself a real SIGTERM after step 7 (step 2 of
     epoch 1), fit's guard commits the emergency checkpoint and the
     uncaught ``Preempted`` exits 75; the launcher relaunches once with
     ``PADDLE_RESUME_CHECKPOINT`` (committed, holding
@@ -286,6 +286,41 @@ The preemptible, elastic training path, after train_loop:
     first resumed loss), ``goodput_frac`` and its categories, the
     input wait per epoch with 2 workers and none, ``avg_step_ms`` and
     peak memory.
+
+The process half of serving, after observability (each phase frees the
+cached CUDA blocks before it spawns worker processes; the kernels were
+built in the set-up, so a worker loads them; a worker's engine factory
+is ``card_llama_engine``, the set-up's matmul settings, then
+``inference.worker.llama_engine``):
+
+39. procfleet: bench.py:_cb_procfleet_bench on the card: 4 ProcReplica
+    worker processes, each a Llama-1B of 8 layers in bf16 (seed 0) with
+    the fleet geometry, the fleet's 32 requests, replica 1's worker
+    SIGKILLed 3 times (2 respawns, then its breaker); against the same
+    requests and kills through the in-process fleet. Every fleet id
+    delivered once, each survivor's audit balanced, each worker's init
+    naming the card, launches a forward exact in each worker; tok/s,
+    p99 TTFT, failover ms, respawns, spawn-to-ready seconds, the ratio
+    to the in-process fleet and the share of streams equal to the
+    single engine's; then 12 requests at concurrency 4 through an
+    ``ApiServer`` on the survivors (tools/load_harness.py);
+40. proc_parity: 2 workers at depth 2 in f32 (seed 1): a SIGKILL, two
+    dropped and two corrupted frames, then a SIGSTOP (hung, ejected as
+    wedged): every stream equal to the single engine's bit for bit;
+41. disagg: bench.py:_cb_disagg_bench's 128 long_prompt_flood requests
+    and role geometry at Llama-1B width, 8 layers, bf16: 1 prefill + 1
+    decode worker against 2 colocated (migrations, pages and bytes
+    moved, p99 migration ms, short-chat p99 TTFT of both legs, tok/s
+    ratio, streams equal); a 224-token prompt's pages chunked through
+    the wire past its 8 MiB frame cap and landed bit for bit; at depth 2
+    in f32 the in-process disaggregated fleet's streams equal to the
+    colocated engine's with f32 and int8 pools (K13);
+42. autoscale: bench.py:_cb_autoscale_bench's flash_crowd leg at
+    Llama-1B width, 8 layers: a FleetAutoscaler over 1-3 in-process
+    replicas on the harness's TickClock against 3 fixed replicas: the
+    scenario's attainment bar, nothing lost, a scale-up within 7 ticks
+    of onset, fewer chip-seconds, every action in /statusz, launches
+    exact.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -338,7 +373,7 @@ DECODE_DESIGN = ("keys split over the CTAs of a thread-block cluster by a "
                  "launch); whole pages by 1-D bulk copies into a "
                  "three-stage mbarrier ring; f32 products on the CUDA "
                  "cores, each key's score folded over the lanes of its row")
-WINDOWS = 5                      # timed windows per measurement
+WINDOWS = 3                      # timed windows per measurement
 
 
 def log(msg):
@@ -570,11 +605,11 @@ def phase_setup():
                              f"{torch.cuda.get_device_name(0)!r}: the "
                              f"bounds need the card's")
     HBM_BYTES_PER_S, PEAK_BF16 = peaks.hbm_bw, peaks.flops
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # bf16 products accumulate in f32 throughout, as the tolerances of
     # phase 2 assume for the plain versions
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _matmul_settings()
+    # built here, before any phase spawns a worker process: each worker
+    # loads this library instead of running nvcc on every source at once
     _build.build()
     log(f"[setup] kernels built in {_build.build_seconds():.1f} s")
     for line in _ptxas_summary(_build.build_log()):
@@ -1711,6 +1746,9 @@ def _top2_gap(model, tokens, kv_quant="none"):
 #: |GPU - CPU| of a ``generate`` score (the mean f32 logprob of 16
 #: tokens, about -12 at the init's logits) at depth 2 in f32
 GEN_SCORE_TOL = 1e-3
+#: phase parity's new tokens a request, cut for the script's time limit
+#: (the CPU legs take most of the phase's time)
+PARITY_NEW = 8
 
 
 def _hold_streams(tag, what, gpu, cpu, cpu_model, prompts, kv_quant):
@@ -1753,9 +1791,8 @@ def phase_parity(cfg, dev="cuda", kv_quant="none", models=None):
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
     if models is None:
         t0 = time.perf_counter()
-        cpu_model = LlamaForCausalLM(cfg2, device="cpu", seed=5)
         gpu_model = LlamaForCausalLM(cfg2, device=dev, seed=5)
-        gpu_model.load_state_dict(cpu_model.state_dict())
+        cpu_model = _twin(gpu_model, "cpu")
         log(f"[{tag}] depth-2 f32 models built in "
             f"{time.perf_counter() - t0:.1f} s")
     else:
@@ -1770,7 +1807,7 @@ def phase_parity(cfg, dev="cuda", kv_quant="none", models=None):
                 prefill_chunk=128, decode_chunk=4, kv_quant=kv_quant,
                 unified=engine == "unified", device=name)
             for p in prompts:
-                eng.add_request(p, 16)
+                eng.add_request(p, PARITY_NEW)
             t0 = time.perf_counter()
             done = sorted(eng.run(), key=lambda r: r.request_id)
             streams[engine, name] = [r.tokens for r in done]
@@ -1783,7 +1820,7 @@ def phase_parity(cfg, dev="cuda", kv_quant="none", models=None):
         for name, model in ((dev, gpu_model), ("cpu", cpu_model)):
             t0 = time.perf_counter()
             outs = [model.generate(torch.tensor(p[None], device=name),
-                                   max_new_tokens=16,
+                                   max_new_tokens=PARITY_NEW,
                                    decode_strategy="greedy_search")
                     for p in prompts]
             streams["generate", name] = [o[0].tolist() for o, _ in outs]
@@ -2586,6 +2623,11 @@ FLEET_ENGINE = dict(num_slots=8, page_size=32, max_len=384, decode_chunk=32,
 #: limit: at 32 requests replica 1 takes fewer than 8 steps
 FLEET_REQUESTS = 32
 FLEET_KILL_AFTER = 4
+#: fleet_parity's requests, and its kill after 2 of replica 1's steps
+#: (every request of 48-192 prompt tokens at chunk 32 still runs at its
+#: third), cut for the script's time limit
+FLEET_PARITY_REQUESTS = 16
+FLEET_PARITY_KILL_AFTER = 2
 
 
 def _fleet_specs(vocab, n_req=FLEET_REQUESTS, plen=(48, 192), new=(16, 48),
@@ -2614,7 +2656,9 @@ def _fleet_factory(model, dev, engines=None):
 
 def _delivered(tag, fleet, done, fids):
     """Every fleet id delivered exactly once and without an error, and
-    the pages of every surviving replica balanced. Returns {fid: req}."""
+    the pages of every surviving in-process replica balanced (a worker
+    process's pages: ``_worker_launches``'s audit). Returns {fid: req}."""
+    from paddle_tpu_torch.inference import ProcReplica
     by = {}
     for r in done:
         if r.request_id in by:
@@ -2626,7 +2670,7 @@ def _delivered(tag, fleet, done, fids):
         raise AssertionError(f"[{tag}] {len(by)}/{len(fids)} delivered; "
                              f"failed or missing {bad[:8]}")
     for rep in fleet.replicas.values():
-        if rep.live():
+        if rep.live() and not isinstance(rep, ProcReplica):
             _drain_check(f"{tag} replica {rep.id}", rep.engine)
     return by
 
@@ -2754,9 +2798,10 @@ def phase_fleet(model, dev="cuda"):
 
 def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
     """The fleet at Llama-1B's width and depth 2 in f32 (seed 1), the
-    fleet phase's geometry and traffic: every fleet stream must equal
+    fleet phase's geometry and the first ``FLEET_PARITY_REQUESTS`` of its
+    requests: every fleet stream must equal
     the single engine's bit for bit through the kill of replica 1 after
-    ``FLEET_KILL_AFTER`` steps; then again with the
+    ``FLEET_PARITY_KILL_AFTER`` steps; then again with the
     kill and hedges (``hedge_factor`` 0.05, so that requests waiting for
     their first token are copied), and again with the kill and a
     ``scale_down`` of replica 0 whose deadline has passed (its
@@ -2771,7 +2816,7 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
     cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=1)
     model.eval()
-    specs = _fleet_specs(cfg.vocab_size)
+    specs = _fleet_specs(cfg.vocab_size, n_req=FLEET_PARITY_REQUESTS)
     single = _fleet_factory(model, dev)()
     ids = [single.add_request(p, n) for p, n in specs]
     sdone = {r.request_id: r for r in single.run()}
@@ -2786,7 +2831,8 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
         for rep in fleet.replicas.values():
             fleet._warm(rep)
         with FaultInjector() as fi:
-            fi.kill_replica(1, times=10_000, after_steps=FLEET_KILL_AFTER)
+            fi.kill_replica(1, times=10_000,
+                            after_steps=FLEET_PARITY_KILL_AFTER)
             fids = [fleet.submit(p, n) for p, n in specs]
             if mode == "drain":
                 for _ in range(3):
@@ -2820,20 +2866,733 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
     return res
 
 
+# ---- the process half of serving: worker processes, disaggregation, the
+# autoscaler --------------------------------------------------------------
+
+#: the process-backed fleet (bench.py:_cb_procfleet_bench) on the card: 4
+#: worker processes, each a Llama-1B at 8 of its 16 layers (the depth the
+#: script serves Llama-1B at) with FLEET_ENGINE's geometry; replica 1's
+#: worker SIGKILLed before its 2nd, 3rd and 4th step RPCs, which spends
+#: its 2 respawns and opens its breaker (bench: the tiny CPU model)
+PROC_WORKERS = 4
+PROC_MODEL = "llama_1b"          # the workers' LlamaConfig preset
+PROC_LAYERS = 8
+PROC_MAX_RESTARTS = 2
+PROC_KILLS = 3
+#: the front-door leg on the survivors (the bench's)
+PROC_HTTP_REQUESTS = 12
+PROC_HTTP_CONCURRENCY = 4
+#: a worker's deadlines on the card: spawn to ready (import torch, the
+#: CUDA context, the model) within init_deadline_s; heartbeats every 0.2
+#: s, hung after hb_timeout_s of silence
+PROC_REPLICA = dict(init_deadline_s=300.0, hb_timeout_s=10.0,
+                    respawn_backoff_s=0.01)
+#: disagg (bench.py:_cb_disagg_bench): its traffic uncut, its role
+#: geometry (bench.py:1335-1337, 1385-1395) at Llama-1B width, 8 layers;
+#: 1 prefill + 1 decode worker against 2 colocated (the bench's 2 + 2
+#: against 4, cut for the script's time limit)
+DISAGG_REQUESTS = 128
+DISAGG_ENGINE = dict(num_slots=2, page_size=8, max_len=64, num_pages=48,
+                     decode_chunk=4, prompt_buckets=(8, 40), greedy=True)
+DISAGG_PREFILL = dict(role="prefill", decode_chunk=2, num_slots=6,
+                      num_pages=96)
+#: the depth-2 f32/int8 identity check's requests: the mix's first 48
+DISAGG_PARITY_REQUESTS = 48
+DISAGG_DECODE = dict(role="decode", prompt_buckets=(8,))
+#: the chunked-wire check's prompt: 7 pages of 32 at 8 layers is 7.3 MB
+#: of bf16 KV, 9.8 MB in base64, past the wire's 8 MiB frame cap
+DISAGG_CHUNKED_PROMPT = 224
+#: autoscale (bench.py:_cb_autoscale_bench's flash_crowd leg): its engine
+#: geometry, controller and seed at Llama-1B width, 8 layers
+AUTOSCALE_ENGINE = dict(num_slots=2, page_size=8, max_len=48, decode_chunk=4,
+                        prompt_buckets=(8, 16), greedy=True)
+AUTOSCALE_CTL = dict(min_replicas=1, max_replicas=3, up_cooldown_s=2.0,
+                     down_cooldown_s=3.0, queue_high=3.0, queue_low=0.5,
+                     down_stable_ticks=3)
+AUTOSCALE_STEPS_PER_TICK = 2
+AUTOSCALE_SEED = 23
+#: the JAX scenario test's window: a scale-up within 7 ticks of onset
+AUTOSCALE_ONSET_TICKS = 7
+
+
+def _matmul_settings():
+    """TF32 off and bf16 products reduced in f32, in this process (the
+    set-up) and in a worker (``card_llama_engine``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def card_llama_engine(**kw):
+    """A worker's engine factory on the card (``chip_smoke:card_llama_
+    engine``): the set-up's matmul settings, then the port's
+    ``inference.worker.llama_engine``, so a worker's forward is the
+    parent's bit for bit."""
+    from paddle_tpu_torch.inference.worker import llama_engine
+    _matmul_settings()
+    return llama_engine(**kw)
+
+
+def _proc_spec(layers, dtype, seed, dev, **engine):
+    return {"factory": "chip_smoke:card_llama_engine",
+            "kwargs": dict(model=PROC_MODEL, num_hidden_layers=layers,
+                           seed=seed, dtype=dtype, device=dev, **engine)}
+
+
+def _load_harness():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    try:
+        import load_harness
+    finally:
+        sys.path.pop(0)
+    return load_harness
+
+
+def _worker_launches(tag, fleet, n_layers, attn=None):
+    """Each live worker's audit: pages balanced, no exported prefix left
+    pinned, its kernels loaded from the set-up's build (not compiled
+    again), its device the card's, and its kernels' launches a forward
+    exact. Returns the launches summed over the workers."""
+    import torch
+    card = torch.cuda.get_device_name(0)
+    total = {}
+    for rep in fleet.replicas.values():
+        if not rep.live():
+            continue
+        a = rep.audit()
+        if not a["clean"] or a["pins"] or a["kernels_compiled"]:
+            raise AssertionError(f"[{tag}] worker {rep.id} audit {a}")
+        if rep.worker_device != card:
+            raise AssertionError(f"[{tag}] worker {rep.id} runs on "
+                                 f"{rep.worker_device!r}, not {card!r}")
+        _launch_check(f"{tag} worker {rep.id}", a["launches"],
+                      a["forwards"], n_layers, attn=attn)
+        for k, v in a["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _streams_vs(tag, model, specs, got, want):
+    """Log the share of ``got`` streams equal to ``want`` and, for each
+    that differs, the first differing position and ``want``'s top-2
+    logit gap there."""
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"[{tag}] bf16 greedy streams equal to the single engine's: "
+        f"{same}/{len(want)}")
+    for i, j in _first_diff(got, want)[:4]:
+        gap = _top2_gap(model, list(specs[i][0]) + want[i][:j])
+        log(f"[{tag}] stream {i} first differs at token {j}: the single "
+            f"engine's top-2 logit gap there is {gap:.4g}")
+    return same
+
+
+def phase_procfleet(cfg1b, layers=PROC_LAYERS, dev="cuda"):
+    """bench.py:_cb_procfleet_bench on the card at full width: a
+    ``ServingFleet`` of ``PROC_WORKERS`` ``ProcReplica`` worker processes
+    (``python -m paddle_tpu_torch.inference.worker``, Popen, each with
+    its own CUDA context), each a Llama-1B of ``layers`` layers in bf16
+    from seed 0 with FLEET_ENGINE's geometry and prefill chunk 32, the
+    fleet's traffic (``_fleet_specs``); replica 1's worker SIGKILLed by
+    ``kill_worker(1, times=3, after_steps=1)`` spends its 2 respawns and
+    opens its breaker. The same requests and kill (``kill_replica``) go
+    through the in-process fleet over a model from the same seed. Every
+    fleet id must be delivered once without an error, replica 1's breaker
+    open, each survivor's audit balanced, each worker's ``init`` naming
+    the card and its launches a forward exact. Then the survivors serve
+    ``PROC_HTTP_REQUESTS`` requests at concurrency
+    ``PROC_HTTP_CONCURRENCY`` through an ``ApiServer`` mounted on the
+    process-backed fleet (tools/load_harness.py as a process). The
+    workers boot while this process runs the single engine."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.inference import (ApiServer, ProcReplica,
+                                            ServingFleet)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.testing import FaultInjector
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    specs = _fleet_specs(cfg.vocab_size)
+    torch.cuda.empty_cache()
+    fleet = ServingFleet(
+        _proc_spec(layers, "bfloat16", 0, dev, prefill_chunk=32,
+                   **FLEET_ENGINE),
+        num_replicas=PROC_WORKERS, max_restarts=PROC_MAX_RESTARTS,
+        retry_backoff_s=0.01, replica_cls=ProcReplica,
+        replica_kwargs=PROC_REPLICA)
+    srv = None
+    try:
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=0)
+        model.eval()
+        single = _fleet_factory(model, dev)()
+        ids = [single.add_request(p, n) for p, n in specs]
+        sdone = {r.request_id: r for r in single.run()}
+        want = [sdone[i].tokens for i in ids]
+        del single
+        for rep in fleet.replicas.values():
+            rep._ensure_ready()
+        ready_all = time.perf_counter() - t_phase
+        spawn_s = [rep.spawn_ready_s[0] for rep in fleet.replicas.values()]
+        factory_s = [rep.factory_s[0] for rep in fleet.replicas.values()]
+
+        def leg(tag, fl, plant):
+            for rep in fl.replicas.values():
+                fl._warm(rep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with FaultInjector() as fi:
+                plant(fi)
+                fids = [fl.submit(p, n) for p, n in specs]
+                done = fl.run()
+            wall = time.perf_counter() - t0
+            by = _delivered(tag, fl, done, fids)
+            if fl.replicas[1].eject_kind != "breaker" \
+                    or fl.gauges()["breaker_open"] != 1:
+                raise AssertionError(f"[{tag}] replica 1's breaker is not "
+                                     f"open: {fl.gauges()['replica_states']}")
+            streams = [by[f].tokens for f in fids]
+            ttft = [(by[f].t_first - by[f].t_arrive) * 1e3 for f in fids]
+            return (streams, sum(map(len, streams)) / wall, _p99(ttft),
+                    wall, fi)
+
+        inproc = ServingFleet(_fleet_factory(model, dev),
+                              num_replicas=PROC_WORKERS,
+                              max_restarts=PROC_MAX_RESTARTS,
+                              retry_backoff_s=0.01)
+        in_streams, in_tps, in_p99, in_wall, _ = leg(
+            "procfleet in-process", inproc,
+            lambda fi: fi.kill_replica(1, times=PROC_KILLS, after_steps=1))
+        del inproc
+        torch.cuda.empty_cache()          # the respawns' room
+        streams, tps, p99, wall, fi = leg(
+            "procfleet", fleet, lambda fi: fi.kill_worker(
+                1, times=PROC_KILLS, after_steps=1))
+        g = fleet.gauges()
+        rep1 = fleet.replicas[1]
+        if fi.fires() != PROC_KILLS or rep1.respawns != PROC_MAX_RESTARTS:
+            raise AssertionError(f"[procfleet] {fi.fires()} kills, "
+                                 f"{rep1.respawns} respawns")
+        _worker_launches("procfleet", fleet, layers)
+        harness = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tools", "load_harness.py")
+        srv = ApiServer(fleet).start()
+        with tempfile.TemporaryDirectory() as tmp:
+            rep_path = os.path.join(tmp, "report.json")
+            proc = subprocess.run(
+                [sys.executable, harness, "--url", srv.url,
+                 "--requests", str(PROC_HTTP_REQUESTS),
+                 "--concurrency", str(PROC_HTTP_CONCURRENCY),
+                 "--mode", "closed", "--vocab", str(cfg.vocab_size),
+                 "--prompt-len", "3", "5", "--max-new", "2", "6",
+                 "--seed", "44", "--report", rep_path],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"[procfleet] load harness failed "
+                                     f"({proc.returncode}): "
+                                     f"{proc.stderr[-800:]}")
+            with open(rep_path) as f:
+                report = json.load(f)
+        if report["completed_ok"] != report["requests"] or report["errors"]:
+            raise AssertionError(f"[procfleet] http {report['completed_ok']}"
+                                 f"/{report['requests']} ok, errors "
+                                 f"{report['errors']}")
+        srv.stop()
+        srv = None
+        # the survivors' counts since their warm-up: the timed run and
+        # the front door's requests
+        launches = _worker_launches("procfleet http", fleet, layers)
+    finally:
+        if srv is not None:
+            srv.stop()
+        fleet.close()
+    out = {"cb_procfleet_tok_s": round(tps, 2),
+           "cb_procfleet_p99_ttft_ms": round(p99, 2),
+           "cb_procfleet_failover_ms": round(g["failover_ms_p99"], 2),
+           "cb_procfleet_vs_inproc": round(tps / in_tps, 4),
+           "cb_procfleet_http_goodput_frac": round(report["goodput_frac"],
+                                                   4)}
+    log(f"[procfleet] {len(specs)} requests over {PROC_WORKERS} worker "
+        f"processes on the card ({layers} layers bf16 each), worker 1 "
+        f"SIGKILLed {PROC_KILLS} times ({rep1.respawns} respawns, breaker "
+        f"open, {g['requeued']} requeued, {g['retries']} retries, "
+        f"{g['hedges']} hedges): {sum(map(len, streams))} tokens in "
+        f"{wall:.2f} s; in-process fleet {in_tps:.1f} tok/s in "
+        f"{in_wall:.2f} s (p99 TTFT {in_p99:.1f} ms); {json.dumps(out)}")
+    log(f"[procfleet] spawn to ready {', '.join(f'{s:.1f}' for s in spawn_s)}"
+        f" s (the engine factory {', '.join(f'{s:.1f}' for s in factory_s)}"
+        f" of them; all {PROC_WORKERS} ready {ready_all:.1f} s after the "
+        f"spawn, the single engine's run beside it), respawns "
+        f"{', '.join(f'{s:.1f}' for s in rep1.spawn_ready_s[1:])} s "
+        f"(factory {', '.join(f'{s:.1f}' for s in rep1.factory_s[1:])}); "
+        f"every worker's init names {rep1.worker_device}")
+    log(f"[procfleet] survivors' launches over the timed run and the "
+        f"front door: {launches} (17/8/8 a forward, exact); http "
+        f"{report['completed_ok']}/{report['requests']} ok at "
+        f"concurrency {PROC_HTTP_CONCURRENCY}, {report['tok_s']:.1f} tok/s")
+    _streams_vs("procfleet", model, specs, streams, want)
+    log(f"[procfleet] in-process fleet's streams equal to the single "
+        f"engine's: {sum(a == b for a, b in zip(in_streams, want))}/"
+        f"{len(want)}; phase {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches)
+
+
+def phase_proc_parity(cfg1b, layers=2, dev="cuda"):
+    """Two worker processes at Llama-1B width and depth ``layers`` in f32
+    (seed 1) with the fleet geometry, the fleet's traffic: one run takes
+    ``kill_worker(1)`` (salvaged from the parent's shadow: with no
+    respawn budget its breaker opens and replica 0 replays its
+    requests), two dropped frames (tx) and two corrupted ones (rx) on
+    replica 0; a second a ``pause_worker(1)`` (SIGSTOP: classified as
+    hung by its heartbeats, SIGTERM then SIGKILL, ejected as wedged,
+    never through the breaker). In both every fleet id is delivered once
+    and every stream equals the single engine's bit for bit. Both runs'
+    workers boot together, while this process runs the single engine."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import ProcReplica, ServingFleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.testing import FaultInjector
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    specs = _fleet_specs(cfg.vocab_size)
+    spec = _proc_spec(layers, "float32", 1, dev, prefill_chunk=32,
+                      **FLEET_ENGINE)
+    plans = {
+        "kill": (dict(PROC_REPLICA, rpc_deadline_s=0.5), lambda fi: (
+            fi.kill_worker(1, after_steps=2),
+            fi.drop_frame(0, times=2, direction="tx", after_frames=6),
+            fi.corrupt_frame(0, times=2, direction="rx", after_frames=12))),
+        "pause": (dict(PROC_REPLICA, hb_timeout_s=3.0, term_grace_s=0.5),
+                  lambda fi: fi.pause_worker(1, after_steps=2))}
+    torch.cuda.empty_cache()
+    fleets = {mode: ServingFleet(spec, num_replicas=2, max_restarts=0,
+                                 retry_backoff_s=0.01, hedge_delay_s=1e9,
+                                 replica_cls=ProcReplica, replica_kwargs=rkw)
+              for mode, (rkw, _) in plans.items()}
+    res = {}
+    try:
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                                 seed=1)
+        model.eval()
+        single = _fleet_factory(model, dev)()
+        ids = [single.add_request(p, n) for p, n in specs]
+        sdone = {r.request_id: r for r in single.run()}
+        want = [sdone[i].tokens for i in ids]
+        del single, model
+        for mode, (_, plant) in plans.items():
+            fleet = fleets[mode]
+            for rep in fleet.replicas.values():
+                fleet._warm(rep)
+            with FaultInjector() as fi:
+                plant(fi)
+                fids = [fleet.submit(p, n) for p, n in specs]
+                done = fleet.run()
+            by = _delivered(f"proc_parity {mode}", fleet, done, fids)
+            got = [by[f].tokens for f in fids]
+            if got != want:
+                raise AssertionError(f"[proc_parity] {mode}: f32 streams "
+                                     f"differ at {_first_diff(got, want)[:4]}")
+            if any(p.fired != p.times for p in fi.plans):
+                raise AssertionError(f"[proc_parity] {mode}: {fi.plans}")
+            g = fleet.gauges()
+            rep0, rep1 = fleet.replicas[0], fleet.replicas[1]
+            reg0 = rep0.engine.metrics
+            want_kind = "breaker" if mode == "kill" else "wedge"
+            if rep1.eject_kind != want_kind or rep0.respawns or rep0._hung \
+                    or (mode == "kill"
+                        and not reg0.counter("wire/errors").value) \
+                    or (mode == "pause" and (g["breaker_open"]
+                                             or rep1._proc.poll() is None)):
+                raise AssertionError(f"[proc_parity] {mode}: {g}")
+            _worker_launches(f"proc_parity {mode}", fleet, layers)
+            res[mode] = {
+                "eject": rep1.eject_kind,
+                "wire_errors": reg0.counter("wire/errors").value,
+                "rpc_retries": reg0.counter("proc/rpc_retries").value,
+                "heartbeat_misses": rep1.engine.metrics.counter(
+                    "proc/heartbeat_misses").value,
+                "requeued": g["requeued"]}
+            log(f"[proc_parity] {mode}: {len(fids)} f32 greedy streams "
+                f"equal to the single engine's bit for bit, each fleet id "
+                f"delivered once; {res[mode]}")
+    finally:
+        for fleet in fleets.values():
+            fleet.close()
+    log(f"[proc_parity] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _disagg_chunked(cfg, dev):
+    """A 224-token prompt's pages from a prefill-role engine (bf16,
+    FLEET_ENGINE's pages of 32) through a wire transport at the wire's
+    8 MiB frame cap (``wire.MAX_FRAME``): the payload must go chunked,
+    import whole into a decode-role engine and land there bit for bit;
+    whether the decode engine's stream equals a colocated engine's is
+    printed (bf16: they may part at a near tie)."""
+    import threading
+
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine, wire
+    from paddle_tpu_torch.inference.disagg import (kv_payload_from_wire,
+                                                   kv_payload_nbytes,
+                                                   kv_payload_to_wire)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.eval()
+    prompt = np.random.RandomState(45).randint(
+        0, cfg.vocab_size, (DISAGG_CHUNKED_PROMPT,)).astype(np.int32)
+
+    def eng(**kw):
+        return ContinuousBatchingEngine(model, prefill_chunk=32, device=dev,
+                                        **FLEET_ENGINE, **kw)
+    colo = eng()
+    colo.add_request(prompt, 16)
+    want = colo.run()[-1].tokens
+    pre, dec = eng(role="prefill"), eng(role="decode")
+    pre.add_request(prompt, 16)
+    for _ in range(64):
+        pre.step()
+        if pre.migrations_out:
+            break
+    (req, payload), = pre.take_migrations()
+    a, b = wire.socketpair()
+    ta = wire.WireTransport(a, side="worker", max_frame=wire.MAX_FRAME)
+    tb = wire.WireTransport(b, side="worker", max_frame=wire.MAX_FRAME)
+    t0 = time.perf_counter()
+    try:
+        sender = threading.Thread(
+            target=ta.send, args=({"op": "kv_import",
+                                   "payload": kv_payload_to_wire(payload)},))
+        sender.start()
+        got = tb.recv(120.0)
+        sender.join()
+    finally:
+        ta.close()
+        tb.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    frames = got["seq"] + 1
+    res = dec.import_migration(req, kv_payload_from_wire(got["payload"]))
+    n = DISAGG_CHUNKED_PROMPT // FLEET_ENGINE["page_size"]
+    if frames < 2 or res != {"imported": n, "dedup": 0, "rejected": 0}:
+        raise AssertionError(f"[disagg] chunked payload: {frames} frames, "
+                             f"{res}")
+    node = dec._pc_root            # the seeded chain, root to leaf
+    for lvl, blk in enumerate(payload["blocks"]):
+        node = node.children[blk["tokens"].tobytes()]
+        landed = dec._export_pages([node.page])[0]
+        if any(x.tobytes() != y.tobytes()
+               for x, y in zip(landed, blk["data"])):
+            raise AssertionError(f"[disagg] chunked payload page {lvl} "
+                                 f"landed with other bits")
+    dec_stream = dec.run()[-1].tokens
+    torch.cuda.synchronize()
+    log(f"[disagg] a {DISAGG_CHUNKED_PROMPT}-token prompt's {n} pages "
+        f"({kv_payload_nbytes(payload) / 1e6:.2f} MB of bf16 KV) went "
+        f"through the wire in {frames} chunk frames in {ms:.1f} ms and "
+        f"landed bit for bit; the decode engine's stream equals the "
+        f"colocated engine's: {dec_stream == want}")
+    del colo, pre, dec, model
+    return {"frames": frames, "ms": ms, "equal": dec_stream == want}
+
+
+def phase_disagg(cfg1b, layers=PROC_LAYERS, dev="cuda"):
+    """bench.py:_cb_disagg_bench on the card: its traffic uncut
+    (``build_trace_mix("long_prompt_flood", 128, seed=17)``) and role
+    geometry at Llama-1B width, ``layers`` layers, bf16, seed 0: a
+    ``DisaggServingFleet`` of 1 prefill and 1 decode worker process
+    against 2 colocated workers (the bench's 2 + 2 against 4, cut for the
+    time limit), each leg warmed as the bench warms it. Every request
+    delivered, migrations above 0, no block rejected, no pin left on the
+    source after the acks, launches a forward exact in every worker.
+    While the workers boot: the chunked-wire check (``_disagg_chunked``),
+    and at depth 2 in f32 the in-process disaggregated fleet's streams
+    equal to the colocated engine's bit for bit, with f32 pools and with
+    ``kv_quant="int8"`` (K13)."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import DisaggServingFleet, ProcReplica
+    from paddle_tpu_torch.inference import ServingFleet
+    t_phase = time.perf_counter()
+    lh = _load_harness()
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    mix = lh.build_trace_mix("long_prompt_flood", DISAGG_REQUESTS,
+                             vocab=cfg.vocab_size, seed=17)
+    # the whole mix is submitted at once: a replica's queue holds it (the
+    # default bound of 64 held it over the bench's 4 colocated replicas)
+    repl_kw = dict(replica_cls=ProcReplica, replica_kwargs=dict(
+        PROC_REPLICA, max_queue=DISAGG_REQUESTS))
+    torch.cuda.empty_cache()
+    colo = ServingFleet(_proc_spec(layers, "bfloat16", 0, dev,
+                                   **DISAGG_ENGINE),
+                        num_replicas=2, **repl_kw)
+    fleet = DisaggServingFleet(
+        _proc_spec(layers, "bfloat16", 0, dev,
+                   **dict(DISAGG_ENGINE, **DISAGG_PREFILL)),
+        num_prefill=1, num_decode=0, **repl_kw)
+    try:
+        fleet.scale_up(engine_factory=_proc_spec(
+            layers, "bfloat16", 0, dev,
+            **dict(DISAGG_ENGINE, **DISAGG_DECODE)),
+            warm=False, role="decode")
+        chunked = _disagg_chunked(cfg, dev)
+        launches = _disagg_parity(cfg1b, mix[:DISAGG_PARITY_REQUESTS], dev)
+
+        def run_leg(fl):
+            for rep in fl.replicas.values():
+                fl._warm(rep)
+            for i in range(8):    # the bench's warm wave of long prompts
+                fl.submit(((np.arange(40) + 97 * i)
+                           % cfg.vocab_size).astype(np.int32), 12)
+            fl.run()
+            h = getattr(fl, "_h_migration", None)
+            if h is not None:
+                h.reset()
+            g0 = fl.gauges()
+            t0 = time.perf_counter()
+            fids = [fl.submit(np.asarray(it["prompt"], np.int32),
+                              int(it["max_new"])) for it in mix]
+            done = fl.run()
+            wall = time.perf_counter() - t0
+            by = _delivered("disagg", fl, done, fids)
+            streams = [by[f].tokens for f in fids]
+            short = [(by[f].t_first - by[f].t_arrive) * 1e3
+                     for f, it in zip(fids, mix) if it["kind"] == "short"]
+            return streams, sum(map(len, streams)) / wall, _p99(short), g0
+
+        colo_streams, colo_tps, colo_p99, _ = run_leg(colo)
+        for k, v in _worker_launches("disagg colocated", colo,
+                                     layers).items():
+            launches[k] = launches.get(k, 0) + v
+        colo.close()
+        streams, tps, p99, g0 = run_leg(fleet)
+        g = fleet.gauges()
+        moved = g["migrations"] - g0["migrations"]
+        pre, dec = fleet.replicas[0], fleet.replicas[1]
+        pages = pre.engine.metrics.counter("disagg/kv_pages_exported").value
+        rejects = dec.engine.metrics.counter(
+            "disagg/kv_import_crc_rejects").value
+        if moved <= 0 or rejects or g["migration_failures"]:
+            raise AssertionError(f"[disagg] {moved} migrations, {rejects} "
+                                 f"blocks rejected, "
+                                 f"{g['migration_failures']} failures")
+        for k, v in _worker_launches("disagg", fleet, layers).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        colo.close()
+        fleet.close()
+    same = sum(a == b for a, b in zip(streams, colo_streams))
+    out = {"cb_disagg_tok_s": round(tps, 2),
+           "cb_disagg_p99_ttft_ms": round(p99, 2),
+           "cb_disagg_colocated_p99_ttft_ms": round(colo_p99, 2),
+           "cb_disagg_migration_ms_p99": round(g["migration_ms_p99"], 2),
+           "cb_disagg_vs_colocated": round(tps / colo_tps, 4)}
+    log(f"[disagg] {len(mix)} long_prompt_flood requests, 1 prefill + 1 "
+        f"decode worker ({layers} layers bf16) against 2 colocated: "
+        f"{moved} migrations, {pages} pages and "
+        f"{g['kv_bytes_moved'] / 1e6:.2f} MB of KV moved (the warm wave's "
+        f"included), no block rejected, no pin left; colocated "
+        f"{colo_tps:.1f} tok/s; {json.dumps(out)}")
+    log(f"[disagg] launches {launches} (17/8/8 a forward, exact in each "
+        f"worker and each in-process fleet); bf16 streams equal to the "
+        f"colocated fleet's: {same}/{len(mix)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches, chunked=chunked)
+
+
+def _disagg_parity(cfg1b, mix, dev, layers=2):
+    """At depth ``layers`` in f32 (seed 1), in process: the disaggregated
+    fleet's streams of ``mix`` equal the colocated engine's bit for bit
+    with f32 pools and with int8 pools (K13); launches a forward exact.
+    Returns the launches."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            DisaggServingFleet)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    model = LlamaForCausalLM(dataclasses.replace(
+        cfg1b, num_hidden_layers=layers), device=dev, dtype=torch.float32,
+        seed=1)
+    model.eval()
+    launches, moved = {}, {}
+    for kvq in ("none", "int8"):
+        def make(role="both", kvq=kvq):
+            return ContinuousBatchingEngine(model, device=dev, kv_quant=kvq,
+                                            audit=True, role=role,
+                                            **DISAGG_ENGINE)
+        ref = make()
+        ids = [ref.add_request(np.asarray(it["prompt"], np.int32),
+                               int(it["max_new"])) for it in mix]
+        rby = {r.request_id: r for r in ref.run()}
+        want = [rby[i].tokens for i in ids]
+        wrappers = _counted(SERVE_KERNELS + ("ragged_paged_attention_quant",))
+        engines = []
+
+        def counted(role="both", make=make):
+            eng = make(role)
+            engines.append(eng)
+            return eng
+        # no hedges: a copy's race would make the replicas' work depend
+        # on the host's timing
+        fleet = DisaggServingFleet(counted, num_prefill=1, num_decode=1,
+                                   hedge_delay_s=1e9,
+                                   max_queue=DISAGG_REQUESTS)
+        fids = [fleet.submit(np.asarray(it["prompt"], np.int32),
+                             int(it["max_new"])) for it in mix]
+        by = _delivered(f"disagg {kvq}", fleet, fleet.run(), fids)
+        got = [by[f].tokens for f in fids]
+        if got != want:
+            raise AssertionError(f"[disagg] f32 {kvq} pools: streams differ "
+                                 f"at {_first_diff(got, want)[:4]}")
+        if any(eng._exported_pins for eng in engines):
+            raise AssertionError(f"[disagg] {kvq}: exported pins left")
+        torch.cuda.synchronize()
+        n = {k: w.launches for k, w in wrappers.items()}
+        _launch_check(f"disagg {kvq}", n,
+                      sum(e._stats["forwards"] for e in engines), layers,
+                      attn="ragged_paged_attention" if kvq == "none"
+                      else "ragged_paged_attention_quant")
+        moved[kvq] = fleet.gauges()["migrations"]
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[disagg] depth {layers} f32: the disaggregated fleet's "
+        f"{len(mix)} streams equal the colocated engine's bit for bit with "
+        f"f32 pools ({moved['none']} migrations) and int8 pools "
+        f"({moved['int8']}; K13 {launches['ragged_paged_attention_quant']}"
+        f" launches)")
+    return launches
+
+
+def phase_autoscale(cfg1b, layers=PROC_LAYERS, dev="cuda"):
+    """bench.py:_cb_autoscale_bench's flash_crowd leg on the card: an
+    in-process fleet of Llama-1B engines (``layers`` layers, bf16, one
+    shared model, seed 0) with a ``FleetAutoscaler`` for 1 to 3 replicas
+    over the load harness's ``flash_crowd`` schedule (seed 23, 2 fleet
+    turns a tick, hysteresis on its ``TickClock``), against 3 fixed
+    replicas. The scenario's attainment bar, no request lost, a scale-up
+    within ``AUTOSCALE_ONSET_TICKS`` of onset, fewer chip-seconds than
+    the fixed fleet, every applied action in /statusz, launches a
+    forward exact."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            FleetAutoscaler, Overloaded,
+                                            ServingFleet)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.profiler.slo import SLORule
+    t_phase = time.perf_counter()
+    lh = _load_harness()
+    cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.eval()
+    sc = lh.SCENARIOS["flash_crowd"]
+    schedule = lh.build_scenario("flash_crowd", vocab=cfg.vocab_size,
+                                 seed=AUTOSCALE_SEED)
+    engines = []
+
+    def factory():
+        eng = ContinuousBatchingEngine(model, device=dev, audit=True,
+                                       **AUTOSCALE_ENGINE)
+        engines.append(eng)
+        return eng
+
+    def leg(n, ctl_kw):
+        fleet = ServingFleet(factory, n, slo_rules=[
+            SLORule(**d) for d in sc["slo_rules"]], hedge_delay_s=None,
+            seed=0)
+        clock = lh.TickClock()
+        ctl = FleetAutoscaler(fleet, now_fn=clock, **ctl_kw) \
+            if ctl_kw else None
+        t0 = time.perf_counter()
+        report = lh.run_fleet_scenario(
+            fleet, schedule, autoscaler=ctl, clock=clock,
+            shed_exc=Overloaded, steps_per_tick=AUTOSCALE_STEPS_PER_TICK)
+        report["seconds"] = time.perf_counter() - t0
+        fleet.close()
+        lost = report["accepted"] - report["completed_ok"]
+        if report["failed"] or lost:
+            raise AssertionError(f"[autoscale] {lost} lost, "
+                                 f"{report['failed']} failed: {report}")
+        return fleet, ctl, clock, report
+
+    _, _, fclock, fixed = leg(AUTOSCALE_CTL["max_replicas"], None)
+    fixed_chip_s = AUTOSCALE_CTL["max_replicas"] * fclock.t
+    engines.clear()
+    wrappers = _counted(SERVE_KERNELS)
+    fleet, ctl, clock, rep = leg(1, AUTOSCALE_CTL)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    # the scale-ups' warm-up forwards, which their gauge resets zero in
+    # the engines, stand in the fleet's own count
+    _launch_check("autoscale", launches, fleet.metrics.counter(
+        "fleet/warmup_forwards").value + sum(e._stats["forwards"]
+                                             for e in engines), layers)
+    attain = rep["slo"]["worst_attainment"]
+    ups = [a for a in ctl.actions() if a["action"] == "scale_up"]
+    downs = [a for a in ctl.actions() if a["action"] == "scale_down"]
+    logged = {(d["tick"], d["action"])
+              for d in fleet.statusz()["autoscaler"]["decisions"]}
+    if attain < sc["attainment_bar"] or not ups \
+            or ups[0]["tick"] > sc["window"][0] + AUTOSCALE_ONSET_TICKS \
+            or rep["chip_seconds"] >= fixed_chip_s \
+            or any((a["tick"], a["action"]) not in logged
+                   for a in ctl.actions()):
+        raise AssertionError(f"[autoscale] attainment {attain} (bar "
+                             f"{sc['attainment_bar']}), ups {ups[:2]}, "
+                             f"chip-s {rep['chip_seconds']} against "
+                             f"{fixed_chip_s}")
+    out = {"autoscale_goodput_frac": rep["goodput_frac"],
+           "autoscale_slo_attainment": round(attain, 4),
+           "autoscale_chip_seconds": rep["chip_seconds"],
+           "autoscale_decisions": int(
+               fleet.metrics.counter("autoscale/decisions").value),
+           "autoscale_vs_fixed_chips": round(rep["chip_seconds"]
+                                             / fixed_chip_s, 4)}
+    log(f"[autoscale] flash_crowd ({rep['submitted']} requests, "
+        f"{rep['ticks']} ticks, {rep['seconds']:.1f} s): first scale-up "
+        f"at tick {ups[0]['tick']} (onset {sc['window'][0]}), "
+        f"{len(ups)} up / {len(downs)} down, peak {rep['peak_ready']} "
+        f"ready, p99 TTFT {rep['ttft_ms_p99']} ms; fixed 3 replicas: "
+        f"goodput {fixed['goodput_frac']}, attainment "
+        f"{fixed['slo']['worst_attainment']:.4f}, {fixed_chip_s:.1f} "
+        f"chip-s in {fixed['seconds']:.1f} s; {json.dumps(out)}")
+    log(f"[autoscale] launches {launches} (17/8/8 a forward, exact); every "
+        f"applied action in /statusz; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del fleet, engines, model
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches)
+
+
 #: the HTTP phase's repetitions: the bench takes the best of 2, but two
 #: legs of each kind (about 190 s on the card) would take the script past
 #: its budget, so it runs one of each
 HTTP_REPS = 1
 #: the HTTP phase's requests: the bench's 64 at concurrency 24 took about
-#: 90 s of the script's time limit; 24 fill the concurrency once
+#: 90 s of the script's time limit; 24 still fill the harness's
+#: concurrency, three times the engine's 8 slots
 HTTP_REQUESTS = 24
+#: the warm-up's requests, drawn apart from the timed ones
+HTTP_WARM_REQUESTS = 8
 
 
 def phase_http(model, reps=HTTP_REPS, dev="cuda"):
     """The JAX bench's HTTP section (bench.py:_cb_http_bench) on the
     port: an engine-backed ``ApiServer`` over Llama-1B bf16 (8 slots,
     page 32, decode chunk 32, max_len 384, prompt buckets (8, 16), SSE
-    chunks of 32 tokens) driven by tools/load_harness.py as a separate
+    chunks of 32 tokens), warmed on ``HTTP_WARM_REQUESTS`` requests of
+    their own, driven by tools/load_harness.py as a separate
     process with the bench's flags but ``HTTP_REQUESTS`` requests (its
     64; concurrency 24, closed
     loop, prompts of 3-5 tokens, 128-192 new, a quarter sharing a
@@ -2858,13 +3617,17 @@ def phase_http(model, reps=HTTP_REPS, dev="cuda"):
             model, num_slots=8, page_size=32, max_len=384, decode_chunk=32,
             prompt_buckets=(8, 16), greedy=True, device=dev)
 
-    rng = np.random.RandomState(44)
-    specs = [(rng.randint(0, cfg.vocab_size, (int(rng.randint(3, 6)),))
-              .astype(np.int32), int(rng.randint(new_lo, new_hi + 1)))
-             for _ in range(n_req)]
+    def draw(seed, n):
+        rng = np.random.RandomState(seed)
+        return [(rng.randint(0, cfg.vocab_size, (int(rng.randint(3, 6)),))
+                 .astype(np.int32), int(rng.randint(new_lo, new_hi + 1)))
+                for _ in range(n)]
+
+    specs = draw(44, n_req)
+    warm_specs = draw(45, HTTP_WARM_REQUESTS)  # not the timed requests
 
     def warm(eng):
-        for p, n in specs[:8]:
+        for p, n in warm_specs:
             eng.add_request(p, n)
         eng.run()
 
@@ -3219,13 +3982,18 @@ def phase_observability(cfg1b, layers=2, dev="cuda"):
     return dict(launches=launches)
 
 
+#: phase spec's new tokens a request (the bench's 96, cut for the
+#: script's time limit)
+SPEC_NEW = 32
+
+
 def phase_spec(model, dev="cuda"):
     """Speculative decoding on Llama-1B (bf16, full width, 8 layers) with
     the JAX bench's TPU configuration (bench.py:_cb_spec_bench): page 32,
     max_len 384, prefill chunk 64, decode chunk 1 for both legs, spec_k
     4, n-gram drafts; prompts of 16 seeded random tokens tiled 3 times,
-    48 new tokens each (the bench's 96, cut for the script's time
-    limit); batches of 1, 4 and 8 slots (as many requests),
+    ``SPEC_NEW`` new tokens each (the bench's 96, cut for the script's
+    time limit); batches of 1, 4 and 8 slots (as many requests),
     one warm-up run then 2 timed ones for each leg. The greedy spec
     streams must equal the plain engine's (both legs run [B, 64]
     forwards only, so K12 sums every row in one order). Launches are
@@ -3240,7 +4008,7 @@ def phase_spec(model, dev="cuda"):
     cfg = model.config
     vocab = cfg.vocab_size
     page, max_len, chunk, k = 32, 384, 64, 4
-    base_len, tile, n_new, reps = 16, 3, 48, 2
+    base_len, tile, n_new, reps = 16, 3, SPEC_NEW, 2
 
     def make(slots, spec, **kw):
         if spec:
@@ -3793,6 +4561,15 @@ def _symbol(name):
     return name[5:] if name.startswith("void ") else name
 
 
+def _twin(template, name):
+    """A copy of the model ``template`` on device ``name``, weights and
+    buffers bit for bit. The parity phases build their seeded template
+    on the card and copy it to the CPU: a seeded initialisation of every
+    weight on the host takes seconds at Llama-1B's width."""
+    import copy
+    return copy.deepcopy(template).to(name)
+
+
 def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
     """One forward + backward + AdamW step at Llama-1B width (depth
     ``layers``, f32, batch 1, ``seq`` tokens, not a tile multiple) from
@@ -3808,12 +4585,11 @@ def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
     cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
     ids = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (1, seq)))
-    weights = LlamaForCausalLM(cfg, device="cpu", seed=7).state_dict()
+    template = LlamaForCausalLM(cfg, device=dev, seed=7)
     out = {}
     for name in ("cpu", dev):
         t0 = time.perf_counter()
-        model = LlamaForCausalLM(cfg, device=name)
-        model.load_state_dict(weights)
+        model = _twin(template, name)
         opt = AdamW(learning_rate=lr, parameters=model.parameters())
         t = ids.to(name)
         _, loss = model(t, labels=t)
@@ -4438,13 +5214,13 @@ def phase_fused_parity(cfg1b, layers=2, seq=300, dev="cuda"):
     cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers,
                               use_recompute=True,
                               recompute_granularity="core_attn")
-    weights = LlamaForCausalLM(cfg, device="cpu", seed=9).state_dict()
+    template = LlamaForCausalLM(cfg, device=dev, seed=9)
+    weights = template.state_dict()
     ids = torch.from_numpy(np.random.RandomState(4).randint(
         0, cfg.vocab_size, (1, seq)))
     out = {}
     for name in ("cpu", dev):
-        model = LlamaForCausalLM(cfg, device=name)
-        model.load_state_dict(weights)
+        model = _twin(template, name)
         t = ids.to(name)
         _, loss = model(t, labels=t)
         loss.backward()
@@ -4466,9 +5242,8 @@ def phase_fused_parity(cfg1b, layers=2, seq=300, dev="cuda"):
         f"{l0:.6f}; {len(g0)} grads, worst relative error {worst_g:.3g} "
         f"(limit 1e-4)")
     cfg = dataclasses.replace(cfg, use_recompute=False)
-    model = LlamaForCausalLM(cfg, device="cpu")
-    model.load_state_dict(weights)
-    w_init = convert.to_numpy_state_dict(model)
+    w_init = convert.to_numpy_state_dict(template)
+    del template
     rows = torch.from_numpy(np.random.RandomState(5).randint(
         0, cfg.vocab_size, (4, 129)))
     lr, out = 1e-2, {}
@@ -4729,9 +5504,9 @@ def phase_train_loop(cfg1b, batch=8, seq=1024, steps=40, save_at=30,
 
 
 def _train_loop_fit(cfg1b, tmp, dev, layers=2, rows=6, seq=257):
-    """fit at Llama-1B width and depth ``layers`` in bf16 with SGD: two
-    epochs with ``save_dir``, then a new Model resumes to three; its
-    weights must equal an uninterrupted three-epoch fit's (shuffled
+    """fit at Llama-1B width and depth ``layers`` in bf16 with SGD: one
+    epoch with ``save_dir``, then a new Model resumes to two; its
+    weights must equal an uninterrupted two-epoch fit's (shuffled
     batches: a loader fit builds seeds an epoch's order with its
     number)."""
     import dataclasses
@@ -4760,33 +5535,34 @@ def _train_loop_fit(cfg1b, tmp, dev, layers=2, rows=6, seq=257):
     save_dir = os.path.join(tmp, "fit")
     t0 = time.perf_counter()
     net, m = make(0)
-    m.fit(train, held, batch_size=2, epochs=2, save_dir=save_dir,
+    m.fit(train, held, batch_size=2, epochs=1, save_dir=save_dir,
           keep_last_n=1, verbose=0)
     names = sorted(os.listdir(save_dir))
-    want_names = ["epoch_0.pdopt", "epoch_0.pdparams", "epoch_1.pdopt",
-                  "epoch_1.pdparams", "goodput.json", "step_1"]
+    want_names = ["epoch_0.pdopt", "epoch_0.pdparams", "goodput.json",
+                  "step_0"]
     if names != want_names or not dckpt.is_committed(
-            os.path.join(save_dir, "step_1")):
+            os.path.join(save_dir, "step_0")):
         raise AssertionError(f"[train_loop fit] save_dir holds {names}, "
-                             f"not {want_names} with step_1 committed")
+                             f"not {want_names} with step_0 committed")
     del net, m
     net, m = make(1)
-    m.fit(train, held, batch_size=2, epochs=3, save_dir=save_dir,
+    m.fit(train, held, batch_size=2, epochs=2, save_dir=save_dir,
           keep_last_n=1, resume=True, verbose=0)
     resumed = [s["epoch"] for s in m._epoch_summaries]
     got = {k: v.clone() for k, v in net.state_dict().items()}
     del net, m
     net, m = make(0)
-    m.fit(train, held, batch_size=2, epochs=3, verbose=0)
+    m.fit(train, held, batch_size=2, epochs=2, verbose=0)
     same = all(torch.equal(got[k], v) for k, v in net.state_dict().items())
     steps = sorted(n for n in os.listdir(save_dir) if n.startswith("step_"))
-    if resumed != [2] or not same or steps != ["step_2"]:
+    # keep_last_n=1: the resumed fit's step_1 replaced step_0
+    if resumed != [1] or not same or steps != ["step_1"]:
         raise AssertionError(f"[train_loop fit] resumed epochs {resumed}, "
                              f"weights equal {same}, steps kept {steps}")
-    log(f"[train_loop] fit at depth {layers}: 2 epochs with save_dir "
+    log(f"[train_loop] fit at depth {layers}: 1 epoch with save_dir "
         f"(committed step_N, epoch_N.pdparams/.pdopt, keep_last_n=1), then "
-        f"fit(epochs=3, resume=True) ran epoch 2 only and its weights equal "
-        f"an uninterrupted 3-epoch fit's bit for bit "
+        f"fit(epochs=2, resume=True) ran epoch 1 only and its weights equal "
+        f"an uninterrupted 2-epoch fit's bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
     del net, m, ids
     torch.cuda.empty_cache()
@@ -4810,14 +5586,13 @@ def _train_loop_amp(cfg1b, dev, layers=2, seq=128):
     from paddle_tpu_torch.optimizer import SGD
     torch.set_num_threads(os.cpu_count() or 1)
     cfg = dataclasses.replace(cfg1b, num_hidden_layers=layers)
-    weights = LlamaForCausalLM(cfg, device="cpu", seed=11).state_dict()
+    template = LlamaForCausalLM(cfg, device=dev, seed=11)
     ids = torch.from_numpy(np.random.RandomState(8).randint(
         0, cfg.vocab_size, (1, seq)))
     out = {}
     for level in ("O1", "O2"):
         for name in ("cpu", dev):
-            net = LlamaForCausalLM(cfg, device=name)
-            net.load_state_dict(weights)
+            net = _twin(template, name)
             m = Model(net)
             m.prepare(SGD(1e-3, parameters=net.parameters()),
                       LlamaPretrainingCriterion(cfg), amp_configs=level)
@@ -4849,8 +5624,8 @@ def _train_loop_amp(cfg1b, dev, layers=2, seq=128):
         lines.append(f"{level} loss card {l1:.5f} vs CPU {l0:.5f}, worst "
                      f"grad error {worst:.3g}")
     # the scaler on the card: an inf in one gradient skips the step
-    net = LlamaForCausalLM(cfg, device=dev)
-    net.load_state_dict(weights)
+    net = _twin(template, dev)
+    del template
     opt = SGD(1e-3, parameters=net.parameters())
     scaler = GradScaler(init_loss_scaling=2.0 ** 10, incr_every_n_steps=1)
     t = ids.to(dev)
@@ -4886,9 +5661,9 @@ def _train_loop_amp(cfg1b, dev, layers=2, seq=128):
 # ---- the Qwen2-MoE slice -----------------------------------------------------
 
 # the grouped-matmul kernels and the kernels a MoE path may launch
-PREEMPT_WINDOWS = 28       # 1025-token windows: 7 steps an epoch at batch 4
+PREEMPT_WINDOWS = 16       # 1025-token windows: 4 steps an epoch at batch 4
 PREEMPT_BATCH = 4
-PREEMPT_AT = 10            # the SIGTERM after optimizer step 10: step 2 of
+PREEMPT_AT = 7             # the SIGTERM after optimizer step 7: step 2 of
                            # epoch 1, not an epoch boundary
 PREEMPT_SEQ = 1025
 
@@ -6945,6 +7720,14 @@ def main():
     phase_fleet_parity(cfg1b)
     observability = phase_observability(cfg1b)
     mark("fleet_parity, observability")
+    procfleet = phase_procfleet(cfg1b)
+    mark("procfleet")
+    phase_proc_parity(cfg1b)
+    mark("proc_parity")
+    disagg = phase_disagg(cfg1b)
+    mark("disagg")
+    autoscale = phase_autoscale(cfg1b)
+    mark("autoscale")
     models = phase_parity(cfg)
     phase_parity(cfg, kv_quant="int8", models=models)
     del models
@@ -7039,8 +7822,11 @@ def main():
         # generate and engine runs (29), ERNIE's pretraining and
         # classification steps (30), DeepSeek-V2's generate, training
         # step and MLA decode bench (31), Llama-3-70B's serving (32), the
-        # fleet's timed run (34), the HTTP legs (35) and the
-        # observability fleet's runs (37); launches is their sum
+        # fleet's timed run (34), the HTTP legs (35), the
+        # observability fleet's runs (37), the surviving workers of the
+        # process-backed fleet (39), the disaggregated and colocated
+        # workers with the f32/int8 in-process fleets (41) and the
+        # autoscaled fleet (42); launches is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -7069,7 +7855,10 @@ def main():
                   "llama70": llama70["launches"].get(name, 0),
                   "fleet": fleet["launches"].get(name, 0),
                   "http": http["launches"].get(name, 0),
-                  "observability": observability["launches"].get(name, 0)}
+                  "observability": observability["launches"].get(name, 0),
+                  "procfleet": procfleet["launches"].get(name, 0),
+                  "disagg": disagg["launches"].get(name, 0),
+                  "autoscale": autoscale["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

@@ -1,20 +1,48 @@
 """Serving of the port: the continuous-batching engine, its reliability
-layer, the fault-tolerant fleet and the OpenAI-compatible HTTP front
-door."""
+layer, the fault-tolerant fleet, process-backed replicas and their wire
+protocol, disaggregated prefill/decode, the SLO-driven autoscaler and
+the OpenAI-compatible HTTP front door.
 
-from .api_server import ApiServer
-from .fleet import FleetReplica, ServingFleet
-from .reliability import (AdmissionController, DeadlineExceeded,
-                          EngineSupervisor, Overloaded, ReplicaFailed,
-                          RequestCancelled, RequestQuarantined,
-                          ServingError)
-from .serving import ContinuousBatchingEngine, ServedRequest
-from .spec_decode import (DraftSource, NGramDraftSource,
-                          SelfSpecDraftSource, get_draft_source)
+Names and submodules load at first use, so a replica worker process
+(``python -m paddle_tpu_torch.inference.worker``) starts its heartbeat
+before torch is imported."""
 
-__all__ = ["AdmissionController", "ApiServer", "ContinuousBatchingEngine",
-           "DeadlineExceeded", "DraftSource", "EngineSupervisor",
-           "FleetReplica", "NGramDraftSource", "Overloaded",
-           "ReplicaFailed", "RequestCancelled", "RequestQuarantined",
-           "SelfSpecDraftSource", "ServedRequest", "ServingError",
-           "ServingFleet", "get_draft_source"]
+import importlib
+
+_LAZY = {
+    "ApiServer": ".api_server",
+    "FleetAutoscaler": ".autoscaler",
+    "DisaggServingFleet": ".disagg",
+    "FleetReplica": ".fleet", "ServingFleet": ".fleet",
+    "ProcReplica": ".proc_replica",
+    "AdmissionController": ".reliability",
+    "DeadlineExceeded": ".reliability",
+    "EngineSupervisor": ".reliability", "Overloaded": ".reliability",
+    "ReplicaFailed": ".reliability", "RequestCancelled": ".reliability",
+    "RequestQuarantined": ".reliability", "ServingError": ".reliability",
+    "ContinuousBatchingEngine": ".serving", "ServedRequest": ".serving",
+    "DraftSource": ".spec_decode", "NGramDraftSource": ".spec_decode",
+    "SelfSpecDraftSource": ".spec_decode",
+    "get_draft_source": ".spec_decode",
+    "FrameCorrupt": ".wire", "FrameOutOfOrder": ".wire",
+    "FrameTooLarge": ".wire", "WireClosed": ".wire", "WireError": ".wire",
+    "WireTimeout": ".wire",
+}
+
+_SUBMODULES = ("api_server", "autoscaler", "disagg", "fleet",
+               "proc_replica", "reliability", "serving", "spec_decode",
+               "wire", "worker")
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY) | set(_SUBMODULES))

@@ -49,8 +49,14 @@ The fleet is driven cooperatively: each fleet turn gives every live
 replica one serial supervised ``step()``, on one host thread, which
 keeps every chaos scenario deterministic. The engines run where
 ``engine_factory`` builds them (``cuda`` unless it passes another
-device). Not ported yet: the process-backed replica, disaggregation
-with its migration verbs, and the autoscaler.
+device). :class:`FleetReplica` is the seam the router talks through
+(``admit``/``step``/``salvage``/``load``/``health``, the migration
+verbs, ``on_eject``/``close``): ``replica_cls=ProcReplica``
+(``proc_replica.py``) puts each engine in a worker process behind the
+same surface, ``disagg.DisaggServingFleet`` adds roles and KV-page
+migration, and ``autoscaler.FleetAutoscaler`` drives ``scale_up`` /
+``scale_down`` from the pressure signals (its decision log is the
+``autoscaler`` section of ``/statusz``).
 """
 
 from __future__ import annotations
@@ -253,6 +259,32 @@ class FleetReplica:
         return self.has_work() and self._stale_turns >= int(
             no_progress_turns)
 
+    # -- disaggregation seam: the migration verbs a role-aware fleet
+    # drives. In-process they reach the engine directly; ProcReplica
+    # overrides them with RPCs over the wire.
+
+    def take_migrations(self):
+        """Drain the replica's outbound (request, kv payload) pairs."""
+        return self.engine.take_migrations()
+
+    def import_migration(self, req, payload):
+        """Adopt a migrated request + its KV pages on this replica."""
+        return self.engine.import_migration(req, payload)
+
+    def release_exported(self, request_id):
+        """Ack a completed transfer back to this (source) replica so
+        its pinned exported pages become ordinary evictable cache."""
+        return self.engine.release_exported(request_id)
+
+    def on_eject(self, kind):
+        """Ejection hook for replica subclasses holding external
+        resources (a process-backed replica reaps its worker here);
+        no-op for the in-process replica."""
+
+    def close(self):
+        """Teardown hook (scale-down retire / fleet close); no-op for
+        the in-process replica."""
+
 
 @dataclass(eq=False)
 class _Tracked:
@@ -310,12 +342,18 @@ class ServingFleet:
                  retry_jitter=0.25, hedge_delay_s=None,
                  hedge_factor=3.0, hedge_min_delay_s=0.05,
                  no_progress_turns=25, drain_deadline_s=30.0,
-                 all_open_retry_after_s=1.0, seed=0, slo_rules=None):
+                 all_open_retry_after_s=1.0, seed=0, slo_rules=None,
+                 replica_cls=None, replica_kwargs=None):
         self._factory = engine_factory
+        #: a FleetReplica subclass (ProcReplica, whose "factory" is a
+        #: worker spec dict) slots in here; the router never knows
+        self._replica_cls = replica_cls or FleetReplica
         self._rep_kw = dict(max_restarts=int(max_restarts),
                             max_queue=int(max_queue),
                             default_ttft_slo_s=default_ttft_slo_s,
                             min_retry_after_s=float(min_retry_after_s))
+        if replica_kwargs:
+            self._rep_kw.update(replica_kwargs)
         self.max_retries = int(max_retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self.retry_backoff_cap_s = float(retry_backoff_cap_s)
@@ -367,7 +405,7 @@ class ServingFleet:
     def _add_replica(self, factory, federate=True):
         rid = self._next_replica_id
         self._next_replica_id += 1
-        rep = FleetReplica(rid, factory, **self._rep_kw)
+        rep = self._replica_cls(rid, factory, **self._rep_kw)
         self.replicas[rid] = rep
         if federate:
             self._federate(rep)
@@ -724,7 +762,9 @@ class ServingFleet:
             self.metrics.counter("fleet/breaker_open").inc()
         _frec.record_event("fleet_eject", replica=rep.id, cause=kind,
                            error=repr(exc)[:200])
-        return self._reroute(salvage_unfinished(rep.engine), rep, exc,
+        salvage = salvage_unfinished(rep.engine)
+        rep.on_eject(kind)   # after salvage: the shadow was the source
+        return self._reroute(salvage, rep, exc,
                              count_retry=kind != "operator")
 
     def _reroute(self, reqs, rep, cause, count_retry=True):
@@ -932,6 +972,7 @@ class ServingFleet:
             self.metrics.counter("fleet/drains").inc()
             _frec.record_event("fleet_drain_done", replica=rep.id,
                                evicted=0)
+            rep.close()
         elif rep.drain_deadline is not None \
                 and time.perf_counter() >= rep.drain_deadline:
             stragglers = rep.engine.handoff()
@@ -939,6 +980,7 @@ class ServingFleet:
             self.metrics.counter("fleet/drains").inc()
             _frec.record_event("fleet_drain_done", replica=rep.id,
                                evicted=len(stragglers))
+            rep.close()
             done.extend(self._reroute(
                 stragglers, rep,
                 RuntimeError("drain deadline"), count_retry=False))
@@ -985,7 +1027,18 @@ class ServingFleet:
             if not rep.has_work():
                 break
             rep.step()
+        # the warm-up's model forwards outlive the reset: a count of
+        # kernel launches over the fleet's life is held against them
+        self.metrics.counter("fleet/warmup_forwards").inc(
+            eng._stats["forwards"])
         eng.reset_gauges()
+
+    def close(self):
+        """Release every replica's external resources (a process-
+        backed replica reaps its worker here); results and gauges
+        remain readable — only the replicas' backends are gone."""
+        for rep in self.replicas.values():
+            rep.close()
 
     def eject(self, replica_id, reason="operator"):
         """Operator-initiated immediate ejection (no drain): the
@@ -1117,6 +1170,13 @@ class ServingFleet:
             ledger = _goodput.get_current()
             return ledger.summary() if ledger is not None else None
 
+        def _autoscaler():
+            # attached by FleetAutoscaler's constructor: the decision
+            # log (signals in, rule fired, action out); None for an
+            # operator-scaled fleet
+            ctl = getattr(self, "autoscaler", None)
+            return ctl.statusz() if ctl is not None else None
+
         def _flight():
             rec = _frec.get_recorder()
             if rec is None:
@@ -1129,6 +1189,7 @@ class ServingFleet:
             "fleet": self.gauges,
             "replicas": self._statusz_replicas,
             "slo": _slo,
+            "autoscaler": _autoscaler,
             "slowest_traces": self._statusz_traces,
             "flight_recorder": _flight,
             "goodput": _goodput_section,

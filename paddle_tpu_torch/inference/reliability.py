@@ -165,6 +165,12 @@ def salvage_unfinished(engine):
     salvage = [r for r in engine.queue if not r.finished]
     salvage += [r for r in engine.slot_req
                 if r is not None and not r.finished]
+    # requests a prefill-role engine migrated out of a slot but the
+    # router has not picked up live in neither container: an engine
+    # dying mid-transfer salvages them too (the KV payload dies with it;
+    # prompt replay is the fallback, as for any preemption)
+    salvage += [req for req, _ in getattr(engine, "migrations_out", ())
+                if not req.finished]
     salvage.sort(key=lambda r: r.request_id)
     return salvage
 

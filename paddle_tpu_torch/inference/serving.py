@@ -97,9 +97,22 @@ unfinished request for recompute on a sibling engine (the fleet's
 scale-down). Requests with negative ids (a fleet's warm-up) are served
 but left out of the trace log.
 
-Not ported yet: disaggregation and KV migration (``import_migration``,
-``take_migrations``, ``release_exported``, ``role``) and the tuner
-lookup of the chunk sizes and of ``spec_k``.
+Disaggregated prefill/decode (``role="prefill"|"decode"|"both"``): a
+prefill-role engine streams a prompt, samples its first token and never
+activates decode; the drain exports the request's full prompt pages
+(``_migrate_out``: one gather per pool, one device-to-host copy, a crc32
+per pool and page over the page's C-order bytes) into
+``migrations_out`` and pins the published prefix until the destination
+acks (``release_exported``). ``import_migration`` checks each block,
+writes the accepted pages with one indexed copy per pool, seeds them
+into the radix index and requeues the request, so admission attaches
+them like a prefix-cache hit and re-prefills only the suffix. The
+payload is the JAX engine's (version 1, the same keys, JAX dtype names):
+a payload one package exports, the other imports. bf16 and fp8 pages,
+which numpy has no dtype for, travel as their raw bits (``uint16`` /
+``uint8``).
+
+Not ported yet: the tuner lookup of the chunk sizes and of ``spec_k``.
 """
 
 from __future__ import annotations
@@ -109,6 +122,7 @@ import inspect
 import math
 import os
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -252,8 +266,50 @@ _pmetrics.declare("spec/tokens_rejected", "counter",
                   "back (their in-flight KV writes are left "
                   "unreachable behind ctx and overwritten in place)")
 
+# -- disaggregated prefill/decode: engine-side migration counters
+_pmetrics.declare("disagg/migrated_out", "counter",
+                  "requests a prefill-role engine exported to a decode "
+                  "replica after sampling their first token")
+_pmetrics.declare("disagg/kv_pages_exported", "counter",
+                  "full prompt-KV pages serialized into migration "
+                  "payloads (per-pool crc32-checksummed)")
+_pmetrics.declare("disagg/kv_imported_pages", "counter",
+                  "migrated KV pages written into the destination "
+                  "engine's pools and seeded into its prefix-cache "
+                  "radix index")
+_pmetrics.declare("disagg/kv_import_dedup_pages", "counter",
+                  "migrated KV pages already resident at the "
+                  "destination (idempotent re-delivery or shared "
+                  "prefix) — skipped, not rewritten")
+_pmetrics.declare("disagg/kv_import_crc_rejects", "counter",
+                  "migrated KV page blocks rejected at import "
+                  "(checksum mismatch or malformed payload); the "
+                  "request still replays correctly from its prompt")
+
 # kv_quant mode -> pool dtype (None: the model's float dtype)
 _KV_QUANT = {"none": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+#: pool dtypes numpy has no type for: a migration payload carries their
+#: pages as raw bits in these carriers (the bytes, so the crc32s, are
+#: the JAX engine's)
+_NP_CARRIER = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8}
+
+
+def _dtype_name(dt):
+    """The JAX name of a torch dtype (``"bfloat16"``, ``"float32"``)."""
+    return str(dt).rsplit(".", 1)[-1]
+
+
+def _np_dtype(dt):
+    """The numpy dtype a pool's page travels in."""
+    return np.dtype(_NP_CARRIER.get(dt) or _dtype_name(dt))
+
+
+def _bits(pool):
+    """An fp8 pool as its uint8 bits (the gathers and indexed copies of
+    a page move bits); any other pool as it is."""
+    return pool.view(torch.uint8) if pool.dtype == torch.float8_e4m3fn \
+        else pool
 
 #: failures the containment boundary never absorbs: the audit, and a
 #: kernel that could not be built or launched (a CUDA error is sticky,
@@ -484,12 +540,22 @@ class ContinuousBatchingEngine:
                  trace_sample_rate=0.01, latency_reservoir=2048,
                  max_strikes=2,
                  max_containments=8, audit=None, prefix_cache=None,
-                 spec_decode=False, spec_k=None, spec_draft=None,
-                 kv_quant="none", device=None):
+                 role="both", spec_decode=False, spec_k=None,
+                 spec_draft=None, kv_quant="none", device=None):
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"unknown engine role {role!r}")
         if kv_quant not in _KV_QUANT:
             raise ValueError(f"unknown kv_quant {kv_quant!r} "
                              "(expected 'none', 'int8' or 'fp8')")
         self.kv_quant = kv_quant
+        # a "prefill" engine runs chunked prefill to completion, samples
+        # the first token, then exports the request's full KV pages into
+        # ``migrations_out`` instead of decoding; the router moves it to
+        # a decode-capable engine (import_migration). "decode" and "both"
+        # behave alike here (a decode engine can still prefill: the
+        # cross-role failover path); the role changes routing preference
+        # and the prefill engine's drain
+        self.role = role
         self.device = resolve_device(device)
         wrong = {str(p.device) for p in model.parameters()
                  if p.device.type != self.device.type}
@@ -568,6 +634,8 @@ class ContinuousBatchingEngine:
         if kv_quant != "none":
             layer += [(self._scale_shape, torch.float32)] * 2
         self._pool_layout = layer * cfg.num_hidden_layers
+        self._n_pools = len(self._pool_layout)
+        self._pool_dtype = _dtype_name(layer[0][1])
         # the pools' geometry for gauges(), which never reads the pools
         # (a scrape may run while a supervisor drops a dead engine's)
         nbytes = [(math.prod(shape) * dt.itemsize, len(shape))
@@ -641,6 +709,12 @@ class ContinuousBatchingEngine:
 
         self.queue: deque[ServedRequest] = deque()
         self.completed: list[ServedRequest] = []
+        # disaggregation: exported (request, kv payload) records awaiting
+        # router pickup, and per exported request the prefix-cache chain
+        # pinned against eviction until the destination acks the import;
+        # the page audit counts these pins as live attachments
+        self.migrations_out: deque = deque()
+        self._exported_pins: dict[int, list] = {}
         self._next_id = 0
         # ---- reliability state ---------------------------------------
         # pages reclaimed from an EVICTED (still device-active) slot wait
@@ -694,6 +768,16 @@ class ContinuousBatchingEngine:
             "serving/kv_quant_pool_bytes")
         self._g_kvq_scale_bytes = self.metrics.gauge(
             "serving/kv_quant_scale_pool_bytes")
+        self._c_migrated_out = self.metrics.counter(
+            "disagg/migrated_out")
+        self._c_kv_exported = self.metrics.counter(
+            "disagg/kv_pages_exported")
+        self._c_kv_imported = self.metrics.counter(
+            "disagg/kv_imported_pages")
+        self._c_kv_dedup = self.metrics.counter(
+            "disagg/kv_import_dedup_pages")
+        self._c_kv_rejects = self.metrics.counter(
+            "disagg/kv_import_crc_rejects")
         self._c_spec_steps = self.metrics.counter("spec/steps")
         self._c_spec_drafted = self.metrics.counter("spec/tokens_drafted")
         self._c_spec_accepted = self.metrics.counter(
@@ -835,6 +919,208 @@ class ContinuousBatchingEngine:
         out.sort(key=lambda r: (r.t_arrive, r.request_id))
         self._audit_pages("handoff")
         return out
+
+    # ---- disaggregated prefill/decode: KV-page migration -----------------
+
+    def _should_migrate(self, req):
+        """True when a drained slot's request should leave this engine
+        for a decode replica instead of completing here: prefill role,
+        decode budget left, stream not already over (an instant eos or a
+        one-token request completes locally), and not ``no_migrate``
+        (the fleet found no decode replica: complete it colocated)."""
+        if self.role != "prefill" or req.finished or req.cancelled:
+            return False
+        if getattr(req, "no_migrate", False):
+            return False
+        if len(req.tokens) >= req.max_new_tokens:
+            return False
+        eos = req.eos_token_id
+        return not (eos is not None and req.tokens
+                    and req.tokens[-1] == eos)
+
+    def _export_pages(self, pages):
+        """The content of ``pages`` in every pool, as numpy arrays
+        ``[n][pool] -> [KVH, page(, D)]``: one gather per pool, then one
+        device-to-host copy of all of them. The copy goes to the current
+        stream behind every dispatched step; a drained slot is inactive
+        in each of them (its writes go to the trash page), so it reads
+        the final prefill output."""
+        idx = torch.as_tensor(pages, dtype=torch.long).to(self.device)
+        flat = torch.cat([_bits(p).index_select(1, idx).movedim(1, 0)
+                          .contiguous().reshape(-1).view(torch.uint8)
+                          for p in self.pools])
+        host = flat.cpu().numpy()
+        out = [[] for _ in pages]
+        off = 0
+        for shape, dt in self._pool_layout:
+            page_shape = (shape[0],) + tuple(shape[2:])
+            n = len(pages) * math.prod(page_shape) * dt.itemsize
+            arr = host[off:off + n].view(_np_dtype(dt)).reshape(
+                (len(pages),) + page_shape)
+            off += n
+            for j in range(len(pages)):
+                out[j].append(arr[j])
+        return out
+
+    def _migrate_out(self, slot, req):
+        """Export a prefill-complete slot: its full prompt-KV pages (a
+        crc32 per pool and page), the published prefix pinned against
+        eviction until the destination acks, the slot freed, and
+        (request, payload) parked for the router. The request does not
+        complete here: it leaves the engine still live."""
+        eff = self._slot_prompt[slot]
+        ps = self.page_size
+        n = len(eff) // ps
+        data = self._export_pages([int(p) for p in self.tables[slot][:n]]) \
+            if n else []
+        blocks = [{"tokens": np.asarray(eff[lvl * ps:(lvl + 1) * ps],
+                                        np.int32),
+                   "data": data[lvl],
+                   "crc": [zlib.crc32(d.tobytes()) for d in data[lvl]]}
+                  for lvl in range(n)]
+        payload = {"version": 1, "rid": int(req.request_id),
+                   "eff_len": int(len(eff)), "page_size": ps,
+                   "n_pools": self._n_pools, "dtype": self._pool_dtype,
+                   "kv_quant": self.kv_quant, "blocks": blocks}
+        # the source's published prefix stays pinned until
+        # release_exported: a transfer that dies mid-flight replays
+        # against warm source pages
+        chain = self._pc_match(eff)
+        if chain:
+            self._pc_pin(chain)
+            self._exported_pins[int(req.request_id)] = chain
+        record_hop(req, "migrate_out",
+                   replica=getattr(self, "_fleet_replica_id", None),
+                   pages=len(blocks), tokens=len(req.tokens))
+        _t_obs = time.perf_counter()
+        self._c_migrated_out.inc()
+        self._c_kv_exported.inc(len(blocks))
+        _frec.record_event("migrate_out", req=req.request_id, slot=slot,
+                           pages=len(blocks))
+        self._obs_s += time.perf_counter() - _t_obs
+        self._release_pages(self.slot_pages[slot], safe=True)
+        self._clear_slot(slot)
+        self.migrations_out.append((req, payload))
+
+    def take_migrations(self):
+        """Drain the outbound migration queue: (request, payload) pairs
+        in export order, for the router (or the worker's RPC) to deliver
+        to a decode replica."""
+        out = []
+        while self.migrations_out:
+            out.append(self.migrations_out.popleft())
+        return out
+
+    def release_exported(self, request_id):
+        """Destination ack: unpin a migrated request's exported prefix on
+        the source (its pages stay resident as ordinary evictable cache,
+        the warm-prefix win for a repeated prompt). Idempotent; returns
+        whether a pin existed."""
+        chain = self._exported_pins.pop(int(request_id), None)
+        if chain is None:
+            return False
+        self._pc_unpin(chain)
+        self._audit_pages("release_exported")
+        return True
+
+    def _page_bytes(self, d, i):
+        """Block ``d``'s page of pool ``i`` as contiguous bytes, or None
+        when its size is not the pool's page size."""
+        shape, dt = self._pool_layout[i]
+        raw = np.ascontiguousarray(d).reshape(-1).view(np.uint8)
+        want = shape[0] * math.prod(shape[2:]) * dt.itemsize
+        return raw if raw.size == want else None
+
+    def import_migration(self, req, payload):
+        """Adopt a migrated request with its shipped KV: check each
+        block's checksums, write the accepted pages into the pools (one
+        indexed copy per pool for the whole request, on the current
+        stream behind any dispatched step), seed them into the radix
+        index as evictable residents, then requeue the request.
+        Admission attaches the seeded chain like any prefix-cache hit.
+        Idempotent: blocks already resident dedup; any malformed or
+        damaged block stops seeding (the chain must stay root-contiguous)
+        and the request still replays correctly from whatever prefix
+        landed. Returns the import counts."""
+        imported = dedup = rejected = 0
+        pending = []          # (page, [per-pool page bytes])
+        ok = (self._prefix_cache and isinstance(payload, dict)
+              and payload.get("version") == 1
+              and payload.get("page_size") == self.page_size
+              and payload.get("n_pools") == self._n_pools
+              and payload.get("dtype") == self._pool_dtype
+              # quantized pages only land in a same-kv_quant pool (a
+              # mixed pair falls back to the tokens-only recompute)
+              and payload.get("kv_quant", "none") == self.kv_quant)
+        if ok:
+            self._pc_clock += 1
+            cur = self._pc_root
+            for blk in payload.get("blocks") or []:
+                toks = np.asarray(blk["tokens"], np.int32).reshape(-1)
+                if toks.size != self.page_size:
+                    rejected += 1
+                    break
+                key = toks.tobytes()
+                child = cur.children.get(key)
+                if child is not None:
+                    child.stamp = self._pc_clock
+                    cur = child
+                    dedup += 1
+                    continue
+                data = blk.get("data") or []
+                crcs = blk.get("crc")
+                raw = [self._page_bytes(d, i)
+                       for i, d in enumerate(data)] \
+                    if len(data) == self._n_pools else None
+                if raw is None or any(r is None for r in raw) or (
+                        crcs is not None
+                        and [zlib.crc32(r.tobytes()) for r in raw]
+                        != [int(c) for c in crcs]):
+                    rejected += 1
+                    break
+                alloc = self._alloc_pages(1)
+                if alloc is None:
+                    break        # pool pressure: a partial seed is fine
+                page = alloc[0]
+                pending.append((page, raw))
+                node = _PrefixCacheNode(key, page, cur)
+                node.stamp = self._pc_clock
+                cur.children[key] = node
+                self._pc_nodes[page] = node
+                cur = node
+                imported += 1
+        if pending:
+            # every block was checked and allocated before the first
+            # write; nothing dispatches between, so a node briefly
+            # pointing at an unwritten page is unobservable
+            dst = torch.as_tensor([p for p, _ in pending],
+                                  dtype=torch.long).to(self.device)
+            for i, (pool, (shape, _)) in enumerate(
+                    zip(self.pools, self._pool_layout)):
+                pool = _bits(pool)
+                host = np.stack([raw[i] for _, raw in pending])
+                data = torch.from_numpy(host).to(self.device).view(
+                    pool.dtype).reshape(
+                        (len(pending), shape[0]) + tuple(shape[2:]))
+                pool.index_copy_(1, dst, data.movedim(0, 1))
+        _t_obs = time.perf_counter()
+        if imported:
+            self._c_kv_imported.inc(imported)
+        if dedup:
+            self._c_kv_dedup.inc(dedup)
+        if rejected:
+            self._c_kv_rejects.inc(rejected)
+        _frec.record_event("migrate_in", req=req.request_id,
+                           imported=imported, dedup=dedup,
+                           rejected=rejected)
+        self._obs_s += time.perf_counter() - _t_obs
+        record_hop(req, "migrate_in",
+                   replica=getattr(self, "_fleet_replica_id", None),
+                   imported=imported, dedup=dedup, rejected=rejected)
+        self.requeue(req)
+        self._audit_pages("kv_import")
+        return {"imported": imported, "dedup": dedup,
+                "rejected": rejected}
 
     def step(self):
         """Admit what fits, advance every slot one scheduler turn (one
@@ -1121,6 +1407,10 @@ class ContinuousBatchingEngine:
         self.slot_shared = [[] for _ in range(B)]
         self._pc_root = _PrefixCacheNode(None, 0, None)
         self._pc_nodes = {}
+        # exported-prefix pins die with the index they pointed into; the
+        # parked migration payloads are host copies and survive (the
+        # router still delivers them)
+        self._exported_pins = {}
         self._slot_prompt = [None] * B
         self._prefilling[:] = False
         self._prefill_off[:] = 0
@@ -1905,6 +2195,11 @@ class ContinuousBatchingEngine:
         for nodes in self.slot_shared:
             for node in nodes:
                 refs[node.page] = refs.get(node.page, 0) + 1
+        # a migrated-out request's exported prefix stays pinned until the
+        # destination acks: each pin is a live attachment like a slot's
+        for nodes in self._exported_pins.values():
+            for node in nodes:
+                refs[node.page] = refs.get(node.page, 0) + 1
         for node in self._pc_nodes.values():
             expect = refs.get(node.page, 0)
             if node.ref != expect or node.ref < 0:
@@ -2375,7 +2670,13 @@ class ContinuousBatchingEngine:
         self._prefilling[slot] = True
         self._prefill_off[slot] = start
         self._emits_inflight[slot] = 0
-        self._act_target[slot] = remaining > 1
+        # a prefill-role engine never activates decode: the slot finishes
+        # its prompt, samples the first token on the device and goes
+        # inactive; the drain exports it for migration. A no_migrate
+        # request (the fleet found no decode capacity) decodes here
+        self._act_target[slot] = remaining > 1 \
+            and (self.role != "prefill"
+                 or getattr(req, "no_migrate", False))
         self._pred_ctx[slot] = start
         self._reset[slot] = True
         self._reset_ctx[slot] = start
@@ -2468,6 +2769,9 @@ class ContinuousBatchingEngine:
                 req.tokens.append(int(self._dev_tok[slot]))
                 self._stats.inc("tokens_emitted")
                 self._pending_first[slot] = False
+            if self._should_migrate(req):
+                self._migrate_out(slot, req)
+                continue
             finished_now = not req.finished
             self._release_pages(self.slot_pages[slot], safe=True)
             self._clear_slot(slot)

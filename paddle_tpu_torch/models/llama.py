@@ -61,6 +61,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 from ..device import resolve_device
 from ..framework import flags
@@ -533,6 +534,31 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
+class _NoMetaInit(TorchFunctionMode):
+    """Building on the meta device and materialising, without torch's
+    Python meta decompositions: the modules' default initialisers do
+    nothing to meta tensors (they hold no values), and ``empty_like`` of
+    one (``to_empty``, the RoPE buffers) is a plain ``empty``. The
+    decompositions' first call imports ``torch._dynamo`` and sympy:
+    seconds in every fresh process that builds a model (a serving
+    worker, a relaunched trainer)."""
+
+    _INITS = frozenset(("normal_", "uniform_", "kaiming_uniform_"))
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        t = args[0] if args else kwargs.get("tensor", kwargs.get("input"))
+        if isinstance(t, torch.Tensor) and t.is_meta:
+            if getattr(func, "__name__", "") in self._INITS:
+                return t
+            if func is torch.empty_like:
+                return torch.empty(
+                    t.shape, dtype=kwargs.get("dtype") or t.dtype,
+                    device=kwargs.get("device") or t.device,
+                    requires_grad=kwargs.get("requires_grad", False))
+        return func(*args, **kwargs)
+
+
 class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Causal LM. Built on ``device`` (``cuda`` unless given; raises with
     no GPU and no device) in ``dtype``, with weights drawn from
@@ -548,11 +574,12 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.config = config
         # built on the meta device, then materialised once: no throwaway
         # default initialisation of billions of weights
-        self.llama = LlamaModel(config, device="meta", dtype=dtype)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, bias=False,
-            device="meta", dtype=dtype)
-        self.to_empty(device=device)
+        with _NoMetaInit():
+            self.llama = LlamaModel(config, device="meta", dtype=dtype)
+            self.lm_head = None if config.tie_word_embeddings else Linear(
+                config.hidden_size, config.vocab_size, bias=False,
+                device="meta", dtype=dtype)
+            self.to_empty(device=device)
         self.reset_parameters(seed)
 
     @torch.no_grad()

@@ -50,6 +50,19 @@ rebuild), so one plan targets one replica of the shared engine class:
 - :meth:`FaultInjector.slow_replica`: ``step()`` burns ``delay_s`` and
   only every ``stride``-th one advances (a straggler: hedging).
 
+**Worker-process plans** patch ``inference.proc_replica.ProcReplica.
+_step_rpc`` and the wire's fault hooks, matched by replica id:
+
+- :meth:`FaultInjector.kill_worker`: a real SIGKILL to the replica's
+  worker right before a step RPC (the parent salvages from its shadow
+  and respawns under the budget; past it the breaker opens);
+- :meth:`FaultInjector.pause_worker`: a real SIGSTOP (heartbeats stop,
+  the process lives: the parent must classify it as hung); every pid
+  still stopped gets a SIGCONT at :meth:`FaultInjector.uninstall`;
+- :meth:`FaultInjector.drop_frame`, :meth:`delay_frame`,
+  :meth:`corrupt_frame`: a lost, late or bit-flipped chunk on the
+  parent's side of the wire (``direction="rx"`` or ``"tx"``).
+
 Each plan fires at most ``times`` times, in registration order. Use the
 injector as a context manager so that everything it patched is
 restored::
@@ -58,9 +71,6 @@ restored::
         fi.fail("w.r0.s0.npy", op="write", errno_=errno.ENOSPC)
         save_state_dict(sd, path)     # first write ENOSPCs, retry wins
     assert fi.fires() == 1
-
-Not ported: the worker-process plans (``kill_worker``,
-``pause_worker``) and the wire-frame plans.
 """
 
 from __future__ import annotations
@@ -172,6 +182,10 @@ class FaultInjector:
         self._call_targets = []   # (dotted name, plan)
         self._targets = []    # (method name, plan, make_patched)
         self._patched = []    # (owner, attr, original)
+        self._proc_targets = []       # (plan, make_patched)
+        self._wire_hooks = []         # hooks awaiting install
+        self._active_wire_hooks = []  # hooks currently registered
+        self._paused_pids = set()     # SIGSTOPped workers owed a SIGCONT
 
     # -- file and call plans ----------------------------------------------
 
@@ -479,6 +493,120 @@ class FaultInjector:
                                               op="call", times=times),
                          make)
 
+    # -- worker-process plans: real signals and a lossy wire ------------
+
+    def _arm_proc(self, plan, make_patched):
+        self.plans.append(plan)
+        self._proc_targets.append((plan, make_patched))
+        if self._installed:
+            self._patch(_proc_replica_cls(), "_step_rpc", plan,
+                        make_patched)
+        return plan
+
+    def _signal_worker(self, replica_id, times, after_steps, sig, kind):
+        rid = int(replica_id)
+        injector = self
+
+        def make(original, plan):
+            def patched(rep, *a, **kw):
+                if rep.id == rid and injector._take_call(plan) \
+                        and rep.worker_pid:
+                    try:
+                        os.kill(rep.worker_pid, sig)
+                        if sig == _signal.SIGSTOP:
+                            injector._paused_pids.add(rep.worker_pid)
+                    except (ProcessLookupError, OSError):
+                        pass
+                return original(rep, *a, **kw)
+            return patched
+
+        return self._arm_proc(FaultPlan(f"{kind}:{rid}", op="call",
+                                        times=times,
+                                        after_calls=after_steps), make)
+
+    def kill_worker(self, replica_id, times=1, after_steps=0):
+        """Real worker death: an actual SIGKILL to the chosen replica's
+        worker right before one of its step RPCs. The parent sees
+        waitpid/EOF, salvages from its shadow and respawns under the
+        restart budget (past it, the breaker opens). ``after_steps``
+        counts only the chosen replica's step RPCs."""
+        return self._signal_worker(replica_id, times, after_steps,
+                                   _signal.SIGKILL, "kill_worker")
+
+    def pause_worker(self, replica_id, times=1, after_steps=0):
+        """A hung worker: SIGSTOP the chosen replica's worker. Heartbeats
+        stop but the process is not dead, so the parent must classify it
+        as hung by heartbeat timeout (SIGTERM with grace, then SIGKILL;
+        a wedge ejection, never the breaker). A pid still stopped gets a
+        SIGCONT at :meth:`uninstall`."""
+        return self._signal_worker(replica_id, times, after_steps,
+                                   _signal.SIGSTOP, "pause_worker")
+
+    def _add_wire_hook(self, hook):
+        from ..inference import wire as _wire
+        _wire.add_fault_hook(hook)
+        self._active_wire_hooks.append(hook)
+
+    def _wire_plan(self, kind, replica_id, times, direction, after_frames,
+                   act):
+        if direction not in ("rx", "tx"):
+            raise ValueError(f"unknown wire direction {direction!r}")
+        plan = FaultPlan(f"{kind}:{replica_id}", op="call", times=times,
+                         after_calls=after_frames)
+        self.plans.append(plan)
+        rid = int(replica_id)
+        injector = self
+
+        def hook(hook_rid, hook_dir, data):
+            if hook_rid != rid or hook_dir != direction \
+                    or not injector._take_call(plan):
+                return data
+            return act(data)
+
+        self._wire_hooks.append(hook)
+        if self._installed:
+            self._add_wire_hook(hook)
+        return plan
+
+    def drop_frame(self, replica_id, times=1, direction="rx",
+                   after_frames=0):
+        """A lossy wire: the matching transport chunk vanishes (a sent
+        frame never leaves with ``direction="tx"``, a received chunk
+        never arrives with ``"rx"``). The RPC deadline and bounded
+        retransmit must absorb it; the worker's reply cache keeps the
+        retransmit exactly-once."""
+        return self._wire_plan("drop_frame", replica_id, times, direction,
+                               after_frames, lambda data: None)
+
+    def delay_frame(self, replica_id, delay_s=0.05, times=1,
+                    direction="rx", after_frames=0):
+        """A slow wire: the matching chunk is held ``delay_s`` before
+        delivery (the RPC deadline and backoff path, no bytes lost)."""
+        delay = float(delay_s)
+
+        def act(data):
+            time.sleep(delay)
+            return data
+
+        return self._wire_plan("delay_frame", replica_id, times, direction,
+                               after_frames, act)
+
+    def corrupt_frame(self, replica_id, times=1, direction="rx",
+                      after_frames=0):
+        """A corrupt wire: one byte in the middle of the matching chunk is
+        flipped. The decoder must raise a typed ``WireError`` (bad magic
+        or crc), resync, and the RPC layer retransmit: never a hang, never
+        a half-applied message."""
+        def act(data):
+            if not data:
+                return data
+            buf = bytearray(data)
+            buf[len(buf) // 2] ^= 0xFF
+            return bytes(buf)
+
+        return self._wire_plan("corrupt_frame", replica_id, times,
+                               direction, after_frames, act)
+
     def install(self):
         if self._installed:
             return self
@@ -493,6 +621,11 @@ class FaultInjector:
             self._patch_call(target, plan)
         for method, plan, make in self._targets:
             self._patch(ContinuousBatchingEngine, method, plan, make)
+        for plan, make in self._proc_targets:
+            self._patch(_proc_replica_cls(), "_step_rpc", plan, make)
+        for hook in self._wire_hooks:
+            if hook not in self._active_wire_hooks:
+                self._add_wire_hook(hook)
         return self
 
     def uninstall(self):
@@ -504,6 +637,15 @@ class FaultInjector:
         while self._patched:
             owner, attr, original = self._patched.pop()
             setattr(owner, attr, original)
+        if self._active_wire_hooks:
+            from ..inference import wire as _wire
+            while self._active_wire_hooks:
+                _wire.remove_fault_hook(self._active_wire_hooks.pop())
+        while self._paused_pids:
+            try:
+                os.kill(self._paused_pids.pop(), _signal.SIGCONT)
+            except (ProcessLookupError, OSError):
+                pass
         self._installed = False
 
     def __enter__(self):
@@ -512,6 +654,11 @@ class FaultInjector:
     def __exit__(self, *exc):
         self.uninstall()
         return False
+
+
+def _proc_replica_cls():
+    from ..inference.proc_replica import ProcReplica
+    return ProcReplica
 
 
 def _resolve_owner(dotted):

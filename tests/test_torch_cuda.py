@@ -2227,3 +2227,107 @@ def test_kernel_route_flags(cuda, flag):
         for a, b in zip(on, off):
             _assert_close(a, b, 4 * BF16_ULP * b.float().abs()
                           + 4 * BF16_ULP * b.float().abs().max() + 1e-6)
+
+
+# ---- the process half of serving on the card --------------------------------
+
+def test_proc_replica_on_the_card_serves_and_reports_its_kernels(cuda):
+    """A ProcReplica whose worker runs on the card (a Llama-1B-wide
+    layer in bf16): the worker loads the kernel library this process
+    built (it compiles nothing), its init names the card, it serves
+    greedy streams equal to an in-process engine's over a model from the
+    same seed, and its audit reports K1, K5 and K12 at 3, 1 and 1
+    launches a forward."""
+    import os
+    import time
+
+    from paddle_tpu_torch.inference import ProcReplica
+    from paddle_tpu_torch.inference.serving import ServedRequest
+    from paddle_tpu_torch.inference.worker import llama_engine
+    from paddle_tpu_torch.ops.kernels import _build
+    _build.build()
+    torch.cuda.empty_cache()
+    kw = dict(model="llama_1b", num_hidden_layers=1, seed=0,
+              dtype="bfloat16", num_slots=4, page_size=16, max_len=128,
+              decode_chunk=4, prefill_chunk=32, audit=True)
+    rng = np.random.RandomState(7)
+    specs = [(rng.randint(0, 32000, (int(n),)).astype(np.int32), 6)
+             for n in (5, 40, 17)]
+    ref = llama_engine(**kw)
+    ids = [ref.add_request(p, n) for p, n in specs]
+    by = {r.request_id: r for r in ref.run()}
+    want = [by[i].tokens for i in ids]
+    del ref
+    rep = ProcReplica(0, {"factory": "paddle_tpu_torch.inference.worker:"
+                          "llama_engine", "kwargs": kw},
+                      init_deadline_s=300.0, hb_timeout_s=10.0)
+    try:
+        reqs = []
+        for i, (p, n) in enumerate(specs):
+            req = ServedRequest(i, p, n, None)
+            req.t_arrive = time.perf_counter()
+            rep.admission.admit(req)
+            reqs.append(req)
+        for _ in range(200):
+            rep.step()
+            if all(r.finished for r in reqs):
+                break
+        assert rep.worker_device == torch.cuda.get_device_name(0)
+        assert rep.worker_pid != os.getpid()
+        assert [r.tokens for r in reqs] == want
+        a = rep.audit()
+    finally:
+        rep.close()
+    assert a["clean"] and not a["kernels_compiled"] and a["forwards"] > 0
+    assert a["launches"] == {
+        "rms_norm": 3 * a["forwards"], "swiglu": a["forwards"],
+        "ragged_paged_attention": a["forwards"],
+        "ragged_paged_attention_quant": 0}
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_kv_pages_migrate_on_the_card_bit_for_bit(cuda, kv_quant):
+    """A prefill-role engine on the card exports bf16 (or int8 + f32
+    scales) pages whose crc32s equal those computed on the CPU over the
+    same bytes of its pools; a decode-role engine on the card imports
+    them through the wire codec and holds the same bits in its pools;
+    the request completes with its budget."""
+    import json
+    import zlib
+
+    from paddle_tpu_torch.inference.disagg import (kv_payload_from_wire,
+                                                   kv_payload_to_wire)
+    rng = np.random.RandomState(8)
+    prompt = rng.randint(0, 256, (53,)).astype(np.int32)
+    pre = _card_engine(cuda, kv_quant, role="prefill")
+    dec = _card_engine(cuda, kv_quant, role="decode")
+    rid = pre.add_request(prompt, 8)
+    for _ in range(64):
+        pre.step()
+        if pre.migrations_out:
+            break
+    (req, payload), = pre.take_migrations()
+    assert payload["dtype"] == ("bfloat16" if kv_quant == "none"
+                                else "int8")
+    chain = pre._pc_match(prompt)
+    assert len(chain) == len(payload["blocks"]) == 53 // 16
+    for node, blk in zip(chain, payload["blocks"]):
+        cpu = [p[:, node.page].cpu().contiguous() for p in pre.pools]
+        raw = [t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+               for t in cpu]
+        assert blk["crc"] == [zlib.crc32(t.numpy().tobytes()) for t in raw]
+    res = dec.import_migration(req, kv_payload_from_wire(
+        json.loads(json.dumps(kv_payload_to_wire(payload)))))
+    assert res == {"imported": 3, "dedup": 0, "rejected": 0}
+    cur = dec._pc_root
+    for blk in payload["blocks"]:
+        cur = cur.children[blk["tokens"].tobytes()]
+        got = [p[:, cur.page].cpu().contiguous() for p in dec.pools]
+        got = [t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+               for t in got]
+        assert [t.numpy().tobytes() for t in got] \
+            == [np.ascontiguousarray(d).tobytes() for d in blk["data"]]
+    assert pre.release_exported(rid)
+    done = {r.request_id: r for r in dec.run()}
+    assert len(done[rid].tokens) == 8
+    dec._audit_pages("test")

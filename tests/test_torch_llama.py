@@ -4,6 +4,7 @@ steps over the same pools (logits and updated pools). Also the port's
 import hygiene and device rule."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -196,6 +197,13 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.nn.scan\n"
             "import paddle_tpu_torch.amp.debugging\n"
             "import paddle_tpu_torch.hapi.summary\n"
+            "import paddle_tpu_torch.inference.wire\n"
+            "import paddle_tpu_torch.inference.worker\n"
+            "import paddle_tpu_torch.inference.proc_replica\n"
+            "import paddle_tpu_torch.inference.disagg\n"
+            "import paddle_tpu_torch.inference.autoscaler\n"
+            "from paddle_tpu_torch.inference import (ProcReplica, "
+            "DisaggServingFleet, FleetAutoscaler, WireError)\n"
             "from paddle_tpu_torch import seed, summary\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
@@ -205,6 +213,102 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_worker_process_imports_neither_jax_nor_paddle_tpu():
+    """A real replica worker (``python -m paddle_tpu_torch.inference.
+    worker``, run through ``runpy`` so that it reports its ``sys.modules``
+    at exit) serves a request on the CPU behind a ProcReplica; its
+    interpreter never imported jax or paddle_tpu."""
+    import socket as _socket
+    import time as _time
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference import ProcReplica
+    from paddle_tpu_torch.inference.serving import ServedRequest
+    wrapper = (
+        "import atexit, runpy, sys\n"
+        "def report():\n"
+        "    bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'paddle_tpu' or "
+        "m.startswith('paddle_tpu.'))\n"
+        "    print('MODULES', 'torch' in sys.modules, bad, flush=True)\n"
+        "atexit.register(report)\n"
+        "import signal\n"
+        "signal.signal(signal.SIGTERM, lambda *a: sys.exit(0))\n"
+        "sys.argv = ['worker'] + sys.argv[1:]\n"
+        "runpy.run_module('paddle_tpu_torch.inference.worker', "
+        "run_name='__main__')\n")
+    procs = []
+
+    def spawn(replica):
+        parent, child = _socket.socketpair(_socket.AF_UNIX,
+                                           _socket.SOCK_STREAM)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", wrapper, "--fd", str(child.fileno())],
+            pass_fds=(child.fileno(),), stdout=subprocess.PIPE, text=True,
+            cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"))
+        child.close()
+        procs.append(proc)
+        return proc, parent
+
+    spec = {"factory": "paddle_tpu_torch.inference.worker:llama_engine",
+            "kwargs": dict(model="tiny", num_hidden_layers=1, seed=0,
+                           device="cpu", num_slots=2, page_size=8,
+                           max_len=32, decode_chunk=2),
+            "_spawn_fn": spawn}
+    rep = ProcReplica(0, spec, init_deadline_s=120.0,
+                      rpc_hard_deadline_s=60.0, hb_timeout_s=5.0)
+    try:
+        req = ServedRequest(0, np.arange(5, dtype=np.int32), 3, None)
+        req.t_arrive = _time.perf_counter()
+        rep.admission.admit(req)
+        for _ in range(50):
+            rep.step()
+            if req.finished:
+                break
+        assert req.finished and len(req.tokens) == 3
+    finally:
+        rep.close()
+    out, _ = procs[0].communicate(timeout=60)
+    assert "MODULES True []" in out, out
+
+
+def test_model_build_skips_the_meta_decompositions_and_keeps_the_weights():
+    """In a fresh process, building a model (meta, then materialised
+    under ``_NoMetaInit``) imports neither ``torch._dynamo`` nor sympy;
+    its parameters and buffers equal, bit for bit, those of the same
+    build with the mode replaced by a no-op (which does import both)."""
+    code = (
+        "import contextlib, sys\n"
+        "import torch\n"
+        "from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM\n"
+        "from paddle_tpu_torch.models import llama\n"
+        "heavy = lambda: sorted(m for m in ('torch._dynamo', 'sympy') "
+        "if m in sys.modules)\n"
+        "for tie in (False, True):\n"
+        "    cfg = LlamaConfig.tiny()\n"
+        "    cfg.tie_word_embeddings = tie\n"
+        "    fast = LlamaForCausalLM(cfg, device='cpu', seed=3)\n"
+        "    assert not heavy(), heavy()\n"
+        "mode = llama._NoMetaInit\n"
+        "llama._NoMetaInit = contextlib.nullcontext\n"
+        "plain = LlamaForCausalLM(cfg, device='cpu', seed=3)\n"
+        "llama._NoMetaInit = mode\n"
+        "print('PLAIN', heavy())\n"
+        "a = dict(fast.named_parameters(), **dict(fast.named_buffers()))\n"
+        "b = dict(plain.named_parameters(), **dict(plain.named_buffers()))\n"
+        "assert sorted(a) == sorted(b) and len(a) > 5, (sorted(a), sorted(b))\n"
+        "for k in a:\n"
+        "    assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k\n"
+        "print('OK', len(a))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    # the no-op build does pull both in: the check above is not vacuous
+    assert "PLAIN ['sympy', 'torch._dynamo']" in out.stdout, out.stdout
+    assert "OK" in out.stdout, out.stdout
 
 
 def test_no_source_names_jax_or_paddle_tpu_in_an_import():

@@ -406,7 +406,7 @@ def test_engine_gauges_are_documented_jax_keys(model):
 
 def test_fleet_surfaces_are_the_jax_fleets(model):
     """The port fleet's gauges() keys are the JAX fleet's, and its
-    /statusz sections too, but the autoscaler's (not ported)."""
+    /statusz sections too (the autoscaler's included)."""
     import paddle_tpu as paddle
     from paddle_tpu import inference as jinf
     from paddle_tpu.models import LlamaConfig as JLlamaConfig
@@ -422,7 +422,7 @@ def test_fleet_surfaces_are_the_jax_fleets(model):
         lambda: jinf.ContinuousBatchingEngine(jm, **kw), num_replicas=1)
     fleet = tinf.ServingFleet(_factory(model), num_replicas=1)
     assert set(fleet.gauges()) == set(jfleet.gauges())
-    assert set(fleet.statusz()) == set(jfleet.statusz()) - {"autoscaler"}
+    assert set(fleet.statusz()) == set(jfleet.statusz())
 
 
 # ---- the fleet's federation end to end -------------------------------------
