@@ -146,7 +146,7 @@ non-zero without printing a result:
 20. serve_moe: qwen2_moe_a14b at full width and half its depth (14 of
     28 layers, 60 experts, top-4, dropless) with seeded random weights through the
     engine, the serve phase's traffic, launch counters read around it;
-21. moe_train_wide: the same width at 8 layers, [4, 2049] token ids,
+21. moe_train_wide: the same width at 4 layers, [4, 2049] token ids,
     whole-layer recompute under ``dots_saveable``, the fused carry, aux
     0; forward and backward with the grads cleared (the JAX bench's MoE
     step): step time, tokens/s, activated-FLOP share, peak memory, the
@@ -156,7 +156,7 @@ non-zero without printing a result:
 23. moe_parity: the MoE bench width at depth 2 in f32 on the card
     against the CPU: greedy serving streams, a labelled forward and
     backward (dropless, recompute), and the capacity path's loss;
-24. the ``kernels`` JSON line, then the result line (after phase 42).
+24. the ``kernels`` JSON line, then the result line (after phase 43).
 
 Three more paths run between those phases, two of the serving slice
 and the training loop users run:
@@ -180,7 +180,7 @@ and the training loop users run:
     greedy agreement with serve's streams (reported); then 4 requests
     over int8 pools (K13);
 27. train_loop (after fused_parity): examples/train_gpt2.py's flow on
-    the port at Llama-1B's full width and 4 of its 16 layers in bf16
+    the port at Llama-1B's full width and 2 of its 16 layers in bf16
     (the script's time limit): AdamW (decay off
     for norms by ``apply_decay_param_fun``) under
     ``LinearWarmup(CosineAnnealingDecay(3e-4, T_max=40), 10 steps from
@@ -237,7 +237,7 @@ The model families, after moe_parity:
 The serving front door, after the decode bench on its Llama-1B (K1, K5,
 K12):
 
-34. fleet: bench.py:_cb_fleet_bench: 32 requests (the bench's 64)
+34. fleet: bench.py:_cb_fleet_bench: 24 requests (the bench's 64)
     through one engine, then through a ``ServingFleet`` of 4 replicas
     (two SLO rules, two tenants) with replica 1 killed for good after 4
     steps (the bench's 8): every request delivered, the breaker open,
@@ -295,8 +295,8 @@ is ``card_llama_engine``, the set-up's matmul settings, then
 
 39. procfleet: bench.py:_cb_procfleet_bench on the card: 4 ProcReplica
     worker processes, each a Llama-1B of 8 layers in bf16 (seed 0) with
-    the fleet geometry, the fleet's 32 requests, replica 1's worker
-    SIGKILLed 3 times (2 respawns, then its breaker); against the same
+    the fleet geometry, the fleet's 24 requests, replica 1's worker
+    SIGKILLed twice (1 respawn, then its breaker); against the same
     requests and kills through the in-process fleet. Every fleet id
     delivered once, each survivor's audit balanced, each worker's init
     naming the card, launches a forward exact in each worker; tok/s,
@@ -307,7 +307,7 @@ is ``card_llama_engine``, the set-up's matmul settings, then
 40. proc_parity: 2 workers at depth 2 in f32 (seed 1): a SIGKILL, two
     dropped and two corrupted frames, then a SIGSTOP (hung, ejected as
     wedged): every stream equal to the single engine's bit for bit;
-41. disagg: bench.py:_cb_disagg_bench's 128 long_prompt_flood requests
+41. disagg: 64 of bench.py:_cb_disagg_bench's 128 long_prompt_flood requests
     and role geometry at Llama-1B width, 8 layers, bf16: 1 prefill + 1
     decode worker against 2 colocated (migrations, pages and bytes
     moved, p99 migration ms, short-chat p99 TTFT of both legs, tok/s
@@ -320,7 +320,22 @@ is ``card_llama_engine``, the set-up's matmul settings, then
     replicas on the harness's TickClock against 3 fixed replicas: the
     scenario's attainment bar, nothing lost, a scale-up within 7 ticks
     of onset, fewer chip-seconds, every action in /statusz, launches
-    exact.
+    exact;
+43. tp: two ranks share the card through ``distributed.spawn`` (the
+    backend rule takes gloo, the collectives through host buffers; each
+    rank loads the kernels built in set-up). Three AdamW steps in f32 of
+    Llama-1B's width at depth 2 split at mp 2, at mp 2 with sequence
+    parallelism, under ZeRO stage 2 and stage 3 over sharding 2 and at
+    dp 2 (the global batch split), and of the tiny Qwen2 and DeepSeek-V2
+    at mp 2, each held to the unsharded port run of the same weights on
+    the card (losses within ``TP_F32_RTOL``); then Llama-3-8B's width at
+    4 of its 32 layers in bf16 at mp 2 ([1, 2048], the fused carry,
+    core_attn recompute, the vocab-parallel fused CE over 64128-column
+    shards), its first loss held to the unsharded run's (done first in
+    this process, its memory freed before the spawn) within
+    ``TP_BF16_RTOL``: ms a step, peak memory and K1-K11's launches a
+    rank; rank 0 holds K7-K9 at 16 query and 4 KV heads and K10/K11 at
+    the shard's chunks against their plain versions.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -2618,10 +2633,10 @@ def _first_diff(a, b):
 #: bench's TPU configuration (bench.py:_cb_fleet_bench, _cb_http_bench)
 FLEET_ENGINE = dict(num_slots=8, page_size=32, max_len=384, decode_chunk=32,
                     greedy=True, audit=True)
-#: the fleet's traffic cut to half the bench's 64 requests, and replica 1
-#: killed after 4 of its steps (the bench: 8), for the script's time
-#: limit: at 32 requests replica 1 takes fewer than 8 steps
-FLEET_REQUESTS = 32
+#: the fleet's traffic cut to 24 of the bench's 64 requests, and replica
+#: 1 killed after 4 of its steps (the bench: 8), for the script's time
+#: limit: at 24 requests replica 1 takes fewer than 8 steps
+FLEET_REQUESTS = 24
 FLEET_KILL_AFTER = 4
 #: fleet_parity's requests, and its kill after 2 of replica 1's steps
 #: (every request of 48-192 prompt tokens at chunk 32 still runs at its
@@ -2872,13 +2887,14 @@ def phase_fleet_parity(cfg1b, layers=2, dev="cuda"):
 #: the process-backed fleet (bench.py:_cb_procfleet_bench) on the card: 4
 #: worker processes, each a Llama-1B at 8 of its 16 layers (the depth the
 #: script serves Llama-1B at) with FLEET_ENGINE's geometry; replica 1's
-#: worker SIGKILLed before its 2nd, 3rd and 4th step RPCs, which spends
-#: its 2 respawns and opens its breaker (bench: the tiny CPU model)
+#: worker SIGKILLed before its 2nd step RPC twice, which spends its one
+#: respawn and opens its breaker (bench: the tiny CPU model; the script's
+#: time limit allows one respawn)
 PROC_WORKERS = 4
 PROC_MODEL = "llama_1b"          # the workers' LlamaConfig preset
 PROC_LAYERS = 8
-PROC_MAX_RESTARTS = 2
-PROC_KILLS = 3
+PROC_MAX_RESTARTS = 1
+PROC_KILLS = 2
 #: the front-door leg on the survivors (the bench's)
 PROC_HTTP_REQUESTS = 12
 PROC_HTTP_CONCURRENCY = 4
@@ -2887,11 +2903,11 @@ PROC_HTTP_CONCURRENCY = 4
 #: s, hung after hb_timeout_s of silence
 PROC_REPLICA = dict(init_deadline_s=300.0, hb_timeout_s=10.0,
                     respawn_backoff_s=0.01)
-#: disagg (bench.py:_cb_disagg_bench): its traffic uncut, its role
+#: disagg (bench.py:_cb_disagg_bench): half its 128 requests, its role
 #: geometry (bench.py:1335-1337, 1385-1395) at Llama-1B width, 8 layers;
 #: 1 prefill + 1 decode worker against 2 colocated (the bench's 2 + 2
-#: against 4, cut for the script's time limit)
-DISAGG_REQUESTS = 128
+#: against 4), cut for the script's time limit
+DISAGG_REQUESTS = 64
 DISAGG_ENGINE = dict(num_slots=2, page_size=8, max_len=64, num_pages=48,
                      decode_chunk=4, prompt_buckets=(8, 40), greedy=True)
 DISAGG_PREFILL = dict(role="prefill", decode_chunk=2, num_slots=6,
@@ -7647,6 +7663,340 @@ def phase_model_parity(dev="cuda"):
     torch.cuda.empty_cache()
 
 
+TP_STEPS = 3                     # AdamW steps of every multi-rank case
+TP_BATCH = (2, 256)              # the f32 cases' global batch (tokens)
+TP_TINY_BATCH = (4, 64)          # tiny Qwen2 / DeepSeek-V2 (64 positions)
+TP_8B_LAYERS = 4                 # Llama-3-8B's depth cut so two ranks fit
+TP_8B_IDS = (1, 2049)            # batch 1 x seq 2048 (+1 for the labels)
+# f32 against the unsharded run on the card: the first step differs by
+# the order of the sums (row-parallel partials all-reduced, the model
+# group's max and sums of the CE), some 1e-7 of a value; AdamW's
+# normalised updates carry it into the next steps' losses
+TP_F32_RTOL = (1e-5, 1e-4)
+# bf16: the sharded matmuls and the gloo sums (in f32) round in other
+# places than the unsharded ones; the first loss (about 12) may move by a
+# few bf16 roundings of the hidden state, some 1e-4 of itself
+TP_BF16_RTOL = 5e-3
+TP_CASES = (
+    # name, family, hybrid degrees, group_sharded_parallel level, fields
+    ("llama mp2", "llama", {"mp_degree": 2}, None, {}),
+    ("llama mp2 sp", "llama", {"mp_degree": 2}, None,
+     {"sequence_parallel": True}),
+    ("llama sharding2 stage2", "llama",
+     {"sharding_degree": 2, "dp_degree": 1}, "os_g", {}),
+    ("llama sharding2 stage3", "llama",
+     {"sharding_degree": 2, "dp_degree": 1}, "p_g_os", {}),
+    ("llama dp2", "llama", {"dp_degree": 2}, None, {}),
+    ("qwen2 tiny mp2", "qwen2", {"mp_degree": 2}, None, {}),
+    ("deepseek tiny mp2", "deepseek", {"mp_degree": 2}, None, {}))
+
+
+def _tp_model(family, cfg, dtype, seed=7):
+    from paddle_tpu_torch.models import (DeepseekV2ForCausalLM,
+                                         LlamaForCausalLM, Qwen2ForCausalLM)
+    cls = {"llama": LlamaForCausalLM, "qwen2": Qwen2ForCausalLM,
+           "deepseek": DeepseekV2ForCausalLM}[family]
+    return cls(cfg, device="cuda", dtype=dtype, seed=seed)
+
+
+def _tp_configs(cfg1b):
+    """Each case's config: Llama-1B's width at depth 2, the tiny Qwen2 and
+    DeepSeek-V2, tensor parallel where the family has the switch."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import DeepseekV2Config, Qwen2Config
+    llama = dataclasses.replace(cfg1b, num_hidden_layers=2)
+    return {"llama": llama,
+            "qwen2": dataclasses.replace(Qwen2Config.tiny(),
+                                         tensor_parallel=True),
+            "deepseek": dataclasses.replace(DeepseekV2Config.tiny(),
+                                            tensor_parallel=True)}
+
+
+def _tp_batches(cfg, shape, seed):
+    return [np.random.RandomState(seed + s).randint(
+        0, cfg.vocab_size, shape).astype(np.int64) for s in range(TP_STEPS)]
+
+
+def _tp_train(model, opt, batches, rep=0, n_rep=1, times=None):
+    """AdamW steps on each global batch's rows of data replica ``rep``:
+    the local losses (and each step's ms into ``times``)."""
+    import torch
+    losses = []
+    for ids in batches:
+        rows = ids.shape[0] // n_rep
+        t = torch.from_numpy(ids[rep * rows:(rep + 1) * rows]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = model(t, labels=t)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return losses
+
+
+def _tp_fleet(hybrid):
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(hybrid)
+    fleet.init(is_collective=True, strategy=strategy)
+
+
+def _tp_ce_checks(n, vc, los, rand):
+    """K10 and K11 at a vocab shard's chunk ([n, vc] logits, each ``lo``
+    of the shard's chunk grid) in bf16 against their plain versions, with
+    phase_fused_kernels' limits: m and t exact, s 2e-5 of itself, dlogits
+    one ulp of each |ref|. Returns the largest errors."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import ce_chunk as kce
+    errs = {}
+    for lo in los:
+        logits = rand(n, vc, dtype=torch.bfloat16) * 3
+        local = torch.randint(lo, vc, (n,), device="cuda",
+                              dtype=torch.int32)
+        # labels on other ranks' shards (below 0, past vc) and at the
+        # chunk's edges
+        local[:4] = torch.tensor([-64128, vc + 70000, lo, vc - 1],
+                                 dtype=torch.int32)
+        m, s_, t = kce.chunk_stats(logits, local, lo)
+        rm, rs_, rt = kce.chunk_stats_reference(logits, local, lo)
+        if not (torch.equal(m, rm) and torch.equal(t, rt)):
+            raise AssertionError(f"[tp] chunk_stats lo={lo}: max or target "
+                                 f"differs")
+        err, _ = check_close(f"[tp] chunk_stats lo={lo}", s_, rs_,
+                             2e-5 * rs_)
+        errs["chunk_stats"] = max(errs.get("chunk_stats", 0.0), err)
+        lse = rm + torch.log(rs_)
+        scale = torch.full((n,), 1.0 / n, device="cuda")
+        out = kce.chunk_dlogits(logits, lse, local, scale, lo)
+        ref = kce.chunk_dlogits_reference(logits, lse, local, scale, lo)
+        err, _ = check_close(f"[tp] chunk_dlogits lo={lo}", out, ref,
+                             BF16_ULP * ref.float().abs() + 1e-12)
+        errs["chunk_dlogits"] = max(errs.get("chunk_dlogits", 0.0), err)
+    return errs
+
+
+def _tp_shard_checks(cfg8):
+    """K7-K9 at a rank's heads of ``cfg8`` at mp 2 and K10/K11 at its
+    vocab shard's chunks, against their plain versions."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(97)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    nh = cfg8.num_attention_heads // 2
+    kvh = cfg8.num_key_value_heads // 2
+    seq = TP_8B_IDS[1] - 1
+    flash = flash_checks(1, seq, nh, kvh, cfg8.head_dim, rand)
+    out = {k: {"max_abs_err": v["max_abs_err"],
+               "shape": f"q[1,{seq},{nh},{cfg8.head_dim}] kv {kvh} heads"}
+           for k, v in flash.items()}
+    # the vocab shard's chunk grid: 64128 columns in chunks of 1024, the
+    # last one clamped back (lo 384)
+    v_local = cfg8.vocab_size // 2
+    lo_tail = 1024 * (-(-v_local // 1024) - 1) - (v_local - 1024)
+    for k, err in _tp_ce_checks(seq - 1, 1024, (0, lo_tail), rand).items():
+        out[k] = {"max_abs_err": err, "shape": f"logits[{seq - 1},1024] of "
+                  f"a {v_local}-column shard, lo 0/{lo_tail}"}
+    return out
+
+
+def tp_rank(out_dir, cfg1b, cfg8):
+    """One rank of phase tp (``distributed.spawn``): the f32 cases, then
+    Llama-3-8B's width at mp 2 in bf16; rank 0 then holds K7-K11 at the
+    shard shapes against their plain versions. Writes
+    ``out_dir/rank<r>.json``; a failure exits nonzero."""
+    global HBM_BYTES_PER_S, PEAK_BF16
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.distributed import env, fleet, get_backend
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.io import data_replicas
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import cost
+    _matmul_settings()
+    peaks = cost.device_peaks()
+    HBM_BYTES_PER_S, PEAK_BF16 = peaks.hbm_bw, peaks.flops
+    t0 = time.perf_counter()
+    env.init_parallel_env()
+    rank = env.get_rank()
+    _build.build()
+    out = {"rank": rank, "backend": get_backend(),
+           "device": str(env.current_device()), "cases": {},
+           "build_s": _build.build_seconds(), "compiled": bool(
+               _build.build_log())}
+    cfgs = _tp_configs(cfg1b)
+    for name, family, hybrid, level, fields in TP_CASES:
+        _tp_fleet(hybrid)
+        cfg = dataclasses.replace(cfgs[family], **fields)
+        model = _tp_model(family, cfg, torch.float32)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    weight_decay=0.01)
+        if level:
+            model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        else:
+            model = fleet.distributed_model(model)
+            opt = fleet.distributed_optimizer(opt)
+        n_rep, rep = data_replicas()
+        shape = TP_BATCH if family == "llama" else TP_TINY_BATCH
+        out["cases"][name] = {"rep": rep, "losses": _tp_train(
+            model, opt, _tp_batches(cfg, shape, 30), rep, n_rep)}
+        del model, opt
+        torch.cuda.empty_cache()
+    out["cases_s"] = time.perf_counter() - t0
+    _tp_fleet({"mp_degree": 2})
+    flags.set_flags({"FLAGS_fused_linear_cross_entropy": True})
+    t1 = time.perf_counter()
+    model = LlamaForCausalLM(cfg8, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        weight_decay=0.01))
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["build_8b_s"] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _counted(TRAIN_KERNELS)
+    times = []
+    out["losses_8b"] = _tp_train(model, opt, _tp_batches(cfg8, TP_8B_IDS, 0),
+                                 times=times)
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    out["ms"], out["peak_gb"] = times, torch.cuda.max_memory_allocated() / 1e9
+    flags.set_flags({"FLAGS_fused_linear_cross_entropy": False})
+    del model, opt
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["kernels"] = _tp_shard_checks(cfg8)
+    out["total_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_tp(cfg, cfg1b):
+    """Two ranks share the card through ``distributed.spawn`` (the backend
+    rule takes gloo, collectives through host buffers). First, in this
+    process, the unsharded runs the ranks are held to: each f32 case's
+    model from its seed through the same AdamW steps on the whole batch,
+    and Llama-3-8B's width at 4 layers in bf16 (fused carry, core_attn
+    recompute, the fused linear+CE) through the same steps; its memory is
+    freed before the spawn. The ranks (``tp_rank``) load the kernels built
+    here, run each f32 case split (mp 2, mp 2 with sequence parallelism,
+    ZeRO stage 2 and 3 over sharding 2, dp 2 with the batch split, tiny
+    Qwen2 and DeepSeek-V2 at mp 2) and then the 8B at mp 2 with the
+    vocab-parallel fused CE, counting K1-K11's launches; rank 0 holds
+    K7-K11 at the shard shapes against their plain versions."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    cfgs = _tp_configs(cfg1b)
+    refs = {}
+    for family, c in cfgs.items():
+        model = _tp_model(family, c, torch.float32)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    weight_decay=0.01)
+        shape = TP_BATCH if family == "llama" else TP_TINY_BATCH
+        refs[family] = _tp_train(model, opt, _tp_batches(c, shape, 30))
+        del model, opt
+    cfg8 = dataclasses.replace(cfg, num_hidden_layers=TP_8B_LAYERS,
+                               use_recompute=True,
+                               recompute_granularity="core_attn")
+    flags.set_flags({"FLAGS_fused_linear_cross_entropy": True})
+    try:
+        model = _tp_model("llama", cfg8, torch.bfloat16, seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        ref8 = _tp_train(model, opt, _tp_batches(cfg8, TP_8B_IDS, 0),
+                         times=times)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, opt
+    finally:
+        flags.set_flags({"FLAGS_fused_linear_cross_entropy": False})
+    torch.cuda.empty_cache()
+    log(f"[tp] unsharded on the card: Llama-3-8B width at {TP_8B_LAYERS} "
+        f"layers ({n_params / 1e9:.3f} B parameters), bf16, [1, 2048]: "
+        f"losses {', '.join(f'{x:.6f}' for x in ref8)}, ms a step "
+        f"{', '.join(f'{x:.1f}' for x in times)}, peak {peak:.2f} GB; "
+        f"references in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as out_dir:
+        t1 = time.perf_counter()
+        spawn(tp_rank, args=(out_dir, cfg1b, cfg8), nprocs=2, timeout=900)
+        spawn_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for rk in ranks:
+        if rk["backend"] != "gloo" or rk["compiled"]:
+            raise AssertionError(f"[tp] rank {rk['rank']}: backend "
+                                 f"{rk['backend']} (two ranks on one card "
+                                 f"take gloo), compiled {rk['compiled']} "
+                                 f"(the ranks load this process's build)")
+    worst = 0.0
+    for name, family, hybrid, level, fields in TP_CASES:
+        by_rep = {}
+        for rk in ranks:
+            by_rep.setdefault(rk["cases"][name]["rep"],
+                              rk["cases"][name]["losses"])
+        got = np.mean([by_rep[k] for k in sorted(by_rep)], axis=0)
+        want = np.asarray(refs[family])
+        rel = np.abs(got - want) / np.abs(want)
+        lim = np.array([TP_F32_RTOL[0]] + [TP_F32_RTOL[1]] * (TP_STEPS - 1))
+        worst = max(worst, float((rel / lim).max()))
+        if (rel > lim).any():
+            raise AssertionError(f"[tp] {name}: losses {got.tolist()} "
+                                 f"against the unsharded {want.tolist()}")
+        log(f"[tp] {name} ({hybrid}{', ' + str(fields) if fields else ''}"
+            f"{', level ' + level if level else ''}"
+            f"): losses {', '.join(f'{x:.7f}' for x in got)} against the "
+            f"unsharded {', '.join(f'{x:.7f}' for x in want)}, worst "
+            f"relative {rel.max():.3g} (limits {TP_F32_RTOL[0]:g} at the "
+            f"first step, {TP_F32_RTOL[1]:g} after)")
+    first = ranks[0]["losses_8b"][0]
+    rel8 = abs(first - ref8[0]) / abs(ref8[0])
+    if rel8 > TP_BF16_RTOL or ranks[1]["losses_8b"] != ranks[0]["losses_8b"]:
+        raise AssertionError(f"[tp] 8B mp2: first loss {first} against the "
+                             f"unsharded {ref8[0]} (limit {TP_BF16_RTOL}), "
+                             f"ranks {ranks[0]['losses_8b']} / "
+                             f"{ranks[1]['losses_8b']}")
+    launches = {n: sum(rk["launches"][n] for rk in ranks)
+                for n in TRAIN_KERNELS}
+    for rk in ranks:
+        log(f"[tp] rank {rk['rank']} on {rk['device']}, backend "
+            f"{rk['backend']}: Llama-3-8B width mp 2 at {TP_8B_LAYERS} "
+            f"layers ({rk['params'] / 1e9:.3f} B parameters a rank), bf16, "
+            f"[1, 2048], fused carry, core_attn recompute, vocab-parallel "
+            f"fused CE: losses {', '.join(f'{x:.6f}' for x in rk['losses_8b'])}"
+            f", ms a step {', '.join(f'{x:.1f}' for x in rk['ms'])}, peak "
+            f"{rk['peak_gb']:.2f} GB; launches in {TP_STEPS} steps "
+            f"{rk['launches']}; built in {rk['build_8b_s']:.1f} s, the f32 "
+            f"cases in {rk['cases_s']:.1f} s, the rank in "
+            f"{rk['total_s']:.1f} s")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"[tp] kernels not launched on the mp 2 path: "
+                             f"{missing}")
+    log(f"[tp] first 8B loss {first:.6f} against the unsharded "
+        f"{ref8[0]:.6f}: relative {rel8:.3g} (limit {TP_BF16_RTOL:g}); f32 "
+        f"cases worst err/limit {worst:.3g}; spawn to exit {spawn_s:.1f} s")
+    return {"launches": launches, "kernels": ranks[0]["kernels"]}
+
+
 def main():
     if sys.argv[1:2] == ["--preempt-worker"]:
         return preempt_worker(sys.argv[2])
@@ -7747,14 +8097,14 @@ def main():
     phase_fused_parity(cfg1b)
     mark("training")
     train_loop = phase_train_loop(dataclasses.replace(cfg1b,
-                                                      num_hidden_layers=4))
+                                                      num_hidden_layers=2))
     mark("train_loop")
     preempt = phase_preempt(cfg1b)
     mark("preempt")
     a14b = Qwen2MoeConfig.qwen2_moe_a14b()
     serve_moe = phase_serve_moe(a14b)
     wide = phase_moe_train("moe_train_wide", dataclasses.replace(
-        a14b, num_hidden_layers=8, moe_dropless=True, use_recompute=True,
+        a14b, num_hidden_layers=4, moe_dropless=True, use_recompute=True,
         router_aux_loss_coef=0.0))
     moe_bench = phase_moe_train("moe_bench", moe_bench_config())
     phase_moe_parity(moe_bench_config())
@@ -7771,6 +8121,10 @@ def main():
     llama70 = phase_llama70()
     phase_model_parity()
     mark("llama70, model_parity")
+    tp = phase_tp(cfg, cfg1b)
+    for name, entry in tp["kernels"].items():
+        res[name].setdefault("models", {})["llama3_8b_mp2_shard"] = entry
+    mark("tp")
     pallas = "paddle_tpu/ops/pallas/"
     gm_cu = "paddle_tpu_torch/csrc/grouped_matmul.cu"
     rms_cu = "paddle_tpu_torch/csrc/rms_norm.cu"
@@ -7825,8 +8179,9 @@ def main():
         # fleet's timed run (34), the HTTP legs (35), the
         # observability fleet's runs (37), the surviving workers of the
         # process-backed fleet (39), the disaggregated and colocated
-        # workers with the f32/int8 in-process fleets (41) and the
-        # autoscaled fleet (42); launches is their sum
+        # workers with the f32/int8 in-process fleets (41), the
+        # autoscaled fleet (42) and both ranks of the mp 2 Llama-3-8B
+        # steps (43); launches is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -7858,7 +8213,8 @@ def main():
                   "observability": observability["launches"].get(name, 0),
                   "procfleet": procfleet["launches"].get(name, 0),
                   "disagg": disagg["launches"].get(name, 0),
-                  "autoscale": autoscale["launches"].get(name, 0)}
+                  "autoscale": autoscale["launches"].get(name, 0),
+                  "tp": tp["launches"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

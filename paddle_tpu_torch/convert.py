@@ -16,6 +16,15 @@ encoder once, under ``_pre.ernie``.
 way: the port's weights, or their gradients, as f32 numpy arrays in the
 JAX package's layout (Linear weights transposed back).
 
+Tensor parallelism: a parallel layer's parameter (``distributed.
+parallel_layers``) holds this rank's shard, so ``from_numpy_state_dict``
+slices each full array to it (after the transpose), and
+``to_numpy_state_dict``/``grads_to_numpy`` all-gather the shards of every
+rank back to full shapes (collectives: every rank of the model's groups
+calls them, in the same order). A ZeRO stage-3 model
+(``GroupShardedStage3``) is gathered the same way by
+``to_numpy_state_dict``; load its weights before wrapping it.
+
 ``from_numpy_optimizer_state(model, state)`` turns a JAX optimizer's
 ``state_dict()`` (numpy arrays) into the port's, and
 ``to_numpy_optimizer_state`` goes back, so both packages can continue
@@ -45,9 +54,48 @@ def _linear_keys(model: nn.Module) -> set[str]:
             if isinstance(mod, nn.Linear)}
 
 
+def _split_modules(model: nn.Module) -> dict:
+    """``{state-dict key: (module, parameter name)}`` of the parameters a
+    parallel layer splits over its group."""
+    from .distributed.parallel_layers import is_split
+    out = {}
+    for name, mod in model.named_modules():
+        if is_split(mod):
+            for pname, dim in mod.split_dims.items():
+                if dim is not None and getattr(mod, pname, None) is not None:
+                    out[f"{name}.{pname}" if name else pname] = (mod, pname)
+    return out
+
+
+def _unwrap(model):
+    """The layer inside ``DataParallel``/fleet's AMP wrapper."""
+    from .distributed.fleet.base import AmpModelWrapper
+    from .distributed.parallel import DataParallel
+    while isinstance(model, (DataParallel, AmpModelWrapper)):
+        model = model._layers if isinstance(model, DataParallel) \
+            else model.model
+    return model
+
+
 @torch.no_grad()
-def from_numpy_state_dict(model: nn.Module,
-                          arrays: dict[str, np.ndarray]) -> nn.Module:
+def from_numpy_state_dict(model: nn.Module, arrays: dict[str, np.ndarray],
+                          hcg=None) -> nn.Module:
+    """Load full-shape JAX arrays into ``model``; a tensor-parallel
+    layer's parameters take this rank's slice (``hcg``, when given, must
+    be the fleet topology the model was built under)."""
+    from .distributed.fleet.sharding import GroupShardedStage3
+    if isinstance(model, GroupShardedStage3):
+        raise TypeError("from_numpy_state_dict: load the weights into the "
+                        "layer before wrapping it in GroupShardedStage3")
+    model = _unwrap(model)
+    split = _split_modules(model)
+    if hcg is not None:
+        world = hcg.get_model_parallel_world_size()
+        for mod, _ in split.values():
+            if mod.mp_world != world:
+                raise ValueError(f"the model is split over {mod.mp_world} "
+                                 f"ranks, the topology's model group has "
+                                 f"{world}")
     target = model.state_dict()
     missing = sorted(set(target) - set(arrays))
     unexpected = sorted(set(arrays) - set(target))
@@ -61,6 +109,10 @@ def from_numpy_state_dict(model: nn.Module,
             src = src.astype(np.float32)
         if key in linear:
             src = src.T
+        if key in split:
+            from .distributed.parallel_layers import shard_of
+            src = shard_of(*split[key], torch.from_numpy(
+                np.ascontiguousarray(src))).numpy()
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{key}: shape {tuple(src.shape)} does not "
                              f"fit {tuple(dst.shape)}")
@@ -68,28 +120,44 @@ def from_numpy_state_dict(model: nn.Module,
     return model
 
 
-def _to_numpy(tensors: dict[str, torch.Tensor],
-              linear: set[str]) -> dict[str, np.ndarray]:
+def _to_numpy(tensors: dict[str, torch.Tensor], linear: set[str],
+              split=None) -> dict[str, np.ndarray]:
     out = {}
     for key, t in tensors.items():
+        if split and key in split:
+            t = _gather(t, *split[key])
         a = t.detach().float().cpu().numpy()
         out[key] = np.ascontiguousarray(a.T) if key in linear else a
     return out
 
 
+def _gather(t, mod, pname):
+    from .distributed.parallel_layers import _all_gather
+    return _all_gather(t.detach(), mod.split_dims[pname], mod.group)
+
+
 def to_numpy_state_dict(model: nn.Module) -> dict[str, np.ndarray]:
     """The model's state dict as f32 numpy arrays in the JAX package's
-    layout: the inverse of :func:`from_numpy_state_dict`."""
-    return _to_numpy(model.state_dict(), _linear_keys(model))
+    layout, tensor-parallel and ZeRO stage-3 parameters gathered to full
+    shapes: the inverse of :func:`from_numpy_state_dict`."""
+    from .distributed.fleet.sharding import GroupShardedStage3
+    if isinstance(model, GroupShardedStage3):
+        layer = _unwrap(model._layer)
+        return _to_numpy(model.full_state_dict(), _linear_keys(layer),
+                         _split_modules(layer))
+    model = _unwrap(model)
+    return _to_numpy(model.state_dict(), _linear_keys(model),
+                     _split_modules(model))
 
 
 def grads_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
     """Each parameter's gradient (parameters without one are left out),
     as f32 numpy arrays under the state-dict keys, in the JAX package's
-    layout."""
+    layout, tensor-parallel ones gathered to full shapes."""
+    model = _unwrap(model)
     grads = {name: p.grad for name, p in model.named_parameters()
              if p.grad is not None}
-    return _to_numpy(grads, _linear_keys(model))
+    return _to_numpy(grads, _linear_keys(model), _split_modules(model))
 
 
 _SLOT = re.compile(r"param_(\d+)_(.+)")

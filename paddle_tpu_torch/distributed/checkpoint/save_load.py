@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ...utils.retry import retry_call
+from ..fleet.base import refuse_sharded_state
 from .metadata import from_numpy, to_numpy
 from .validation import (
     COMMITTED_SENTINEL, CheckpointCorruptError,
@@ -185,7 +186,10 @@ def save_state_dict(state_dict, path, unique_id=None, keep_last_n=None):
     ``unique_id`` names the staging attempt (a random one by default);
     ``keep_last_n`` garbage-collects older committed ``step_N``
     siblings and stale staging dirs after the commit. Tensors are read
-    to the host before the first file is written."""
+    to the host before the first file is written. Under a fleet whose
+    ``model`` or ``sharding`` group has more than one rank it raises:
+    multi-rank checkpoints are ROADMAP A.7's."""
+    refuse_sharded_state("distributed.checkpoint.save_state_dict")
     final = os.path.normpath(path)
     uid = str(unique_id) if unique_id is not None else uuid.uuid4().hex[:8]
     stage = f"{final}.tmp-{uid}"
@@ -261,7 +265,9 @@ def load_state_dict(state_dict, path, validate=True):
     ``validate=True`` (default) the checkpoint must be committed and
     every byte read is verified against its SHA-256: the result is
     bit-exact or an exception. ``validate=False`` skips both checks for
-    dirs saved before the sentinel existed."""
+    dirs saved before the sentinel existed. Raises under a sharded
+    fleet, as :func:`save_state_dict` does."""
+    refuse_sharded_state("distributed.checkpoint.load_state_dict")
     if validate:
         validate_checkpoint(path)
     metas = _read_metas(path)

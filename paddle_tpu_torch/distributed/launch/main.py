@@ -118,6 +118,13 @@ def _spawn(rank, world, args, extra_env=None):
     return proc, logf
 
 
+def _free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _dump_worker_log(args, local, ret, logf, tail_lines=40):
     """The failed rank's log tail on the launcher's stderr."""
     logf.flush()
@@ -257,8 +264,12 @@ def launch_main():
                     })
                     print(f"paddle_tpu_torch.launch: resuming from {ck}",
                           flush=True)
+            if not args.master and args.nnodes == 1 and world > 1:
+                # one host: each round's ranks meet at a fresh local port
+                resume_env["PADDLE_MASTER"] = f"127.0.0.1:{_free_port()}"
             for local in range(nproc):
-                extra = {"PADDLE_LOCAL_RANK": str(local)}
+                extra = {"PADDLE_LOCAL_RANK": str(local),
+                         "PADDLE_LOCAL_SIZE": str(nproc)}
                 extra.update(resume_env)
                 if hb_dir is not None:
                     extra["PADDLE_ELASTIC_HEARTBEAT_DIR"] = hb_dir

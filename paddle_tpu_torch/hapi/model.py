@@ -65,6 +65,7 @@ import torch
 
 from ..amp import auto_cast, decorate
 from ..distributed import checkpoint as dckpt
+from ..distributed.fleet.base import refuse_sharded_state
 from ..distributed.fleet.elastic import Preempted, PreemptionGuard
 from ..framework import flags
 from .. import convert
@@ -395,6 +396,9 @@ class Model:
             raise ValueError(
                 "fit(preemptible=True) needs save_dir=: an emergency "
                 "checkpoint has nowhere to commit")
+        if save_dir is not None or resume:
+            refuse_sharded_state("fit(save_dir=, resume=)", self.network,
+                                 self._optimizer)
         own_loader = not isinstance(train_data, DataLoader)
         loader = DataLoader(train_data, batch_size=batch_size,
                             shuffle=shuffle, drop_last=drop_last,
@@ -532,6 +536,7 @@ class Model:
     def save(self, path, training=True):
         """``<path>.pdparams`` (the network's state dict) and, with
         ``training``, ``<path>.pdopt`` (the optimizer's)."""
+        refuse_sharded_state("Model.save", self.network, self._optimizer)
         save_obj(self.network.state_dict(), path + ".pdparams")
         if training and self._optimizer is not None:
             save_obj(self._optimizer.state_dict(), path + ".pdopt")

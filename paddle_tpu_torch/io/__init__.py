@@ -287,12 +287,36 @@ class BatchSampler(Sampler):
         return (n + self.batch_size - 1) // self.batch_size
 
 
+def data_replicas():
+    """``(replicas, rank)`` of the data the ranks read apart: with a
+    ``fleet`` topology its ``data`` x ``sharding`` ranks (the ranks of a
+    ``model`` group read the same batch), else the process group's world;
+    without a process group the launcher's ``PADDLE_TRAINERS_NUM`` /
+    ``PADDLE_TRAINER_ID``."""
+    import sys
+    import torch.distributed as dist
+    root = __package__.rpartition(".")[0]
+    base = sys.modules.get(root + ".distributed.fleet.base")
+    hcg = base.current_hcg() if base is not None else None
+    if hcg is not None:
+        sh = hcg.get_sharding_parallel_world_size()
+        return (hcg.get_data_parallel_world_size() * sh,
+                hcg.get_data_parallel_rank() * sh
+                + hcg.get_sharding_parallel_rank())
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return (int(os.environ.get("PADDLE_TRAINERS_NUM", "1")),
+            int(os.environ.get("PADDLE_TRAINER_ID", "0")))
+
+
 class DistributedBatchSampler(BatchSampler):
     """Shards the dataset over ``num_replicas`` data-parallel ranks (the
     indices padded by wrapping to a multiple of the ranks); ``shuffle``
     permutes with ``RandomState(epoch)``, the epoch set by
     :meth:`set_epoch`. Without ``num_replicas``/``rank`` they come from
-    ``PADDLE_TRAINERS_NUM``/``PADDLE_TRAINER_ID`` (the launcher's)."""
+    the process group once one is initialised (:func:`data_replicas`),
+    else from ``PADDLE_TRAINERS_NUM``/``PADDLE_TRAINER_ID`` (the
+    launcher's)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -300,10 +324,10 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        if num_replicas is None:
-            num_replicas = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
-        if rank is None:
-            rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+        if num_replicas is None or rank is None:
+            n, r = data_replicas()
+            num_replicas = n if num_replicas is None else num_replicas
+            rank = r if rank is None else rank
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0

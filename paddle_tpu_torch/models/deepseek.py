@@ -32,8 +32,14 @@ token and layer at the published width, against 32768 for per-head k/v),
 written in place at ``pos``; every step re-expands the whole masked
 latent history through ``kv_b_proj``, as the JAX package does. There is
 no paged path: ``forward`` takes no ``tables`` and the serving engine
-refuses the model. Tensor parallelism (``tensor_parallel=True``) goes
-with ROADMAP A.7 and raises.
+refuses the model. With ``tensor_parallel=True`` under a fleet's
+``model`` group of more than one rank, the projections are the JAX
+package's parallel layers (``q_a_proj`` and ``kv_a_proj_with_mqa``
+row-split over a whole input, ``q_b_proj``/``q_proj`` and ``kv_b_proj``
+column-split by heads, ``o_proj`` row-split), each rank holding
+``num_attention_heads / mp`` heads, with the MLPs' and the shared
+experts' FFN, the embedding and the head split as in ``models.llama``;
+the routed experts are whole on every rank.
 
 The state-dict keys are the JAX package's (``layers.0.self_attn.
 kv_b_proj.weight``, ``layers.1.mlp.moe.w_gate``, ...).
@@ -52,12 +58,16 @@ from ..framework import flags
 from ..generation import GenerationMixin
 from ..incubate.distributed.models.moe import MoELayer
 from ..incubate.recompute import recompute
-from ..nn import Linear, RMSNorm
+from ..nn import RMSNorm
 from ..nn import functional as F
 from ..ops.ring_attention import chunked_attention
 from ..ops.rope import build_sin_cos, rotate
-from .llama import (_shifted_cross_entropy, kv_cache_dtype,
-                    rope_with_offset, slot_positions)
+from ..distributed.parallel_layers import c_identity
+from ..distributed.parallel_layers import embedding as tp_embedding
+from ..distributed.parallel_layers import normal_ as tp_normal_
+from .llama import (_lin, _no_split_cache_step, _shifted_cross_entropy,
+                    kv_cache_dtype, rope_with_offset, slot_positions,
+                    tied_logits, tp_degree)
 
 __all__ = ["DeepseekV2Config", "DeepseekV2ForCausalLM"]
 
@@ -94,6 +104,8 @@ class DeepseekV2Config:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     use_recompute: bool = False
+    # the tensor-parallel layers under a fleet's model group (module
+    # docstring); the plain ones without
     tensor_parallel: bool = False
 
     @classmethod
@@ -152,25 +164,34 @@ class DeepseekV2Attention(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         h, qk, rope = cfg.num_attention_heads, cfg.qk_head_dim, \
             cfg.qk_rope_head_dim
+        # this rank's heads (all of them without a model group)
+        self.mp_group, self.mp_world, _ = tp_degree(cfg)
+        self.num_heads = h // self.mp_world
+        # the JAX package's row layers over a whole input: split here
+        whole_in = dict(column=False, input_is_parallel=False, **kw)
         if cfg.q_lora_rank:
-            self.q_a_proj = Linear(cfg.hidden_size, cfg.q_lora_rank, **kw)
+            self.q_a_proj = _lin(cfg, cfg.hidden_size, cfg.q_lora_rank,
+                                 **whole_in)
             self.q_a_layernorm = RMSNorm(cfg.q_lora_rank, cfg.rms_norm_eps,
                                          device=device, dtype=dtype)
-            self.q_b_proj = Linear(cfg.q_lora_rank, h * qk, **kw)
+            self.q_b_proj = _lin(cfg, cfg.q_lora_rank, h * qk, column=True,
+                                 **kw)
         else:
-            self.q_proj = Linear(cfg.hidden_size, h * qk, **kw)
+            self.q_proj = _lin(cfg, cfg.hidden_size, h * qk, column=True,
+                               **kw)
         # the latent and the shared rope key in one projection
-        self.kv_a_proj_with_mqa = Linear(cfg.hidden_size,
-                                         cfg.kv_lora_rank + rope, **kw)
+        self.kv_a_proj_with_mqa = _lin(cfg, cfg.hidden_size,
+                                       cfg.kv_lora_rank + rope, **whole_in)
         self.kv_a_layernorm = RMSNorm(cfg.kv_lora_rank, cfg.rms_norm_eps,
                                       device=device, dtype=dtype)
-        self.kv_b_proj = Linear(
-            cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim),
-            **kw)
-        self.o_proj = Linear(h * cfg.v_head_dim, cfg.hidden_size, **kw)
+        self.kv_b_proj = _lin(
+            cfg, cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim),
+            column=True, **kw)
+        self.o_proj = _lin(cfg, h * cfg.v_head_dim, cfg.hidden_size,
+                           column=False, **kw)
 
     def _q(self, x, rope):
         cfg = self.cfg
@@ -179,7 +200,7 @@ class DeepseekV2Attention(nn.Module):
             q = self.q_b_proj(self.q_a_layernorm(self.q_a_proj(x)))
         else:
             q = self.q_proj(x)
-        q = q.view(b, s, cfg.num_attention_heads, cfg.qk_head_dim)
+        q = q.view(b, s, self.num_heads, cfg.qk_head_dim)
         q_nope, q_pe = q.split([cfg.qk_nope_head_dim,
                                 cfg.qk_rope_head_dim], dim=-1)
         return torch.cat([q_nope, rotate(q_pe, *rope)], dim=-1)
@@ -201,7 +222,11 @@ class DeepseekV2Attention(nn.Module):
         [B, T, H, nope + rope] and values [B, T, H, Dv]."""
         cfg = self.cfg
         b, t, _ = latent.shape
-        h = cfg.num_attention_heads
+        h = self.num_heads
+        if self.mp_world > 1:
+            # the shared rope key feeds this rank's heads only: its
+            # gradient is summed over the model group
+            k_pe = c_identity(k_pe, self.mp_group)
         kv = self.kv_b_proj(latent).view(b, t, h, cfg.qk_nope_head_dim
                                          + cfg.v_head_dim)
         k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
@@ -239,11 +264,12 @@ class DeepseekV2Attention(nn.Module):
 class DeepseekV2MLP(nn.Module):
     def __init__(self, cfg, device=None, dtype=None, intermediate=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         inter = intermediate or cfg.intermediate_size
-        self.gate_proj = Linear(cfg.hidden_size, inter, **kw)
-        self.up_proj = Linear(cfg.hidden_size, inter, **kw)
-        self.down_proj = Linear(inter, cfg.hidden_size, **kw)
+        self.gate_proj = _lin(cfg, cfg.hidden_size, inter, column=True, **kw)
+        self.up_proj = _lin(cfg, cfg.hidden_size, inter, column=True, **kw)
+        self.down_proj = _lin(cfg, inter, cfg.hidden_size, column=False,
+                              **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -318,25 +344,22 @@ class DeepseekV2ForCausalLM(nn.Module, GenerationMixin):
     def __init__(self, config: DeepseekV2Config, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
-        if config.tensor_parallel:
-            raise NotImplementedError(
-                "DeepseekV2ForCausalLM: tensor_parallel=True is not ported "
-                "(ROADMAP A.7, the parallel layers); build with "
-                "tensor_parallel=False")
         device = resolve_device(device)
         self.config = config
         cfg, meta = config, "meta"
+        self.mp_group, self.mp_world, _ = tp_degree(cfg)
         # built on the meta device, then materialised once
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         device=meta, dtype=dtype)
+        self.embed_tokens = tp_embedding(cfg.vocab_size, cfg.hidden_size,
+                                         device=meta, dtype=dtype,
+                                         enabled=cfg.tensor_parallel)
         self.layers = nn.ModuleList(
             [DeepseekV2DecoderLayer(cfg, i, meta, dtype)
              for i in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device=meta,
                             dtype=dtype)
-        self.lm_head = None if cfg.tie_word_embeddings else Linear(
-            cfg.hidden_size, cfg.vocab_size, bias=False, device=meta,
-            dtype=dtype)
+        self.lm_head = None if cfg.tie_word_embeddings else _lin(
+            cfg, cfg.hidden_size, cfg.vocab_size, column=True,
+            gather_output=True, device=meta, dtype=dtype)
         # RoPE tables of the rope head dim: derived, not weights
         self.register_buffer("rope_sin", torch.empty(
             cfg.max_position_embeddings, cfg.qk_rope_head_dim // 2,
@@ -355,7 +378,7 @@ class DeepseekV2ForCausalLM(nn.Module, GenerationMixin):
             if isinstance(mod, MoELayer):
                 mod.reset_parameters(gen)
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
+                tp_normal_(mod, std, gen)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
         cfg = self.config
@@ -386,7 +409,7 @@ class DeepseekV2ForCausalLM(nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:
-            return F.linear(hidden, self.embed_tokens.weight)
+            return tied_logits(hidden, self.embed_tokens, self.mp_group)
         return self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None, caches=None, pos=None):
@@ -401,6 +424,7 @@ class DeepseekV2ForCausalLM(nn.Module, GenerationMixin):
         cfg = self.config
         b, s = input_ids.shape
         if caches is not None:
+            _no_split_cache_step(self)
             with torch.no_grad():
                 x = self.embed_tokens(input_ids)
                 rope = rope_with_offset(self.rope_sin, self.rope_cos,

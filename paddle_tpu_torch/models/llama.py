@@ -48,6 +48,26 @@ set ``scan_layers=False``, and so does ``llama_2_4b``. The unrolled stack
 The serving path (caches) keeps the unfused stack, as the JAX package's
 does.
 
+Tensor parallelism: under a ``fleet`` whose ``model`` group has more than
+one rank and ``tensor_parallel`` (on by default, as in the JAX package),
+the projections, the embedding and the ``lm_head`` are the parallel
+layers of ``distributed.parallel_layers`` (``_lin``, the JAX package's):
+each rank holds ``num_attention_heads / mp`` query and
+``num_key_value_heads / mp`` KV heads, ``intermediate_size / mp`` FFN
+columns and ``vocab_size / mp`` rows of the embedding and the head, all
+drawn from the seed as the unsplit model draws them
+(``parallel_layers.normal_``), so the sharded run computes the
+single-device model. The labelled loss with
+``FLAGS_fused_linear_cross_entropy`` is the vocab-parallel fused CE.
+``sequence_parallel`` keeps the residual stream split on the sequence
+over the ``model`` group (Megatron SP: ``ScatterOp`` after the
+embedding, the sequence-parallel linears, ``GatherOp`` after the final
+norm, the norms' gradients all-reduced); it takes the unfused stack and
+no selective recompute, as in the JAX package. A degree that does not
+divide the heads, the FFN or the vocab raises; so does a cache step
+(serving, ``generate``) of a split model. Without such a group every
+layer is the plain one, and the model computes as without a fleet.
+
 Attribute names match the JAX package, so the state-dict keys do
 (``llama.layers.0.self_attn.q_proj.weight``, ...); ``torch.nn.Linear``
 holds its weight as [out, in] where Paddle holds [in, out], which
@@ -64,10 +84,15 @@ from torch import nn
 from torch.overrides import TorchFunctionMode
 
 from ..device import resolve_device
+from ..distributed.parallel_layers import (ColumnParallelLinear,
+                                           c_identity, gather_dim, mp_info)
+from ..distributed.parallel_layers import embedding as tp_embedding
+from ..distributed.parallel_layers import linear as tp_linear
+from ..distributed.parallel_layers import normal_ as tp_normal_
 from ..framework import flags
 from ..generation import GenerationMixin
 from ..incubate.recompute import recompute
-from ..nn import Linear, RMSNorm
+from ..nn import RMSNorm
 from ..nn import functional as F
 from ..nn.scan import can_scan, scan_layers
 from ..ops import paged_attention as PA
@@ -100,12 +125,14 @@ class LlamaConfig:
     core_attn_interval: int = 1
     # every k-th layer is not recomputed at all; 0 = off
     full_save_interval: int = 0
-    # the JAX package's tensor-parallel layers, which without a mesh are
-    # the plain ones: either value runs the plain layers here
+    # the tensor-parallel layers under a fleet's model group of more than
+    # one rank; the plain layers without one (either value)
     tensor_parallel: bool = True
-    # context and sequence parallelism go with ROADMAP A.7: anything but
-    # None / False raises (check_parallel)
+    # context parallelism goes with ROADMAP A.7: anything but None raises
+    # (check_parallel)
     sep_parallel: str | None = None
+    # Megatron sequence parallelism over the model group (module
+    # docstring); no effect without one
     sequence_parallel: bool = False
     # the training stack through nn.scan.scan_layers: the single-tensor
     # carry (K1/K2), whole layers recomputed in full_save_interval groups;
@@ -169,17 +196,55 @@ class LlamaConfig:
 
 
 def check_parallel(cfg):
-    """The parallel fields of the JAX configs are accepted at their no-op
-    values; the parallel layers, context and sequence parallelism are
-    ROADMAP A.7's."""
+    """Context parallelism (``sep_parallel``) is ROADMAP A.7's and
+    raises; tensor and sequence parallelism are taken."""
     if getattr(cfg, "sep_parallel", None) is not None:
         raise NotImplementedError(
             f"sep_parallel={cfg.sep_parallel!r} is not ported (ROADMAP "
             "A.7, context parallelism); build with sep_parallel=None")
-    if getattr(cfg, "sequence_parallel", False):
+
+
+def tp_degree(cfg):
+    """``(group, world, rank)`` of the model-parallel group the model
+    splits over: the fleet's when ``tensor_parallel`` is on, else none.
+    Raises for a degree that does not divide the heads, and for
+    ``sequence_parallel`` without ``tensor_parallel``."""
+    group, world, rank = mp_info()
+    if world > 1 and not getattr(cfg, "tensor_parallel", False):
+        if getattr(cfg, "sequence_parallel", False):
+            raise ValueError("sequence_parallel=True needs "
+                             "tensor_parallel=True under a model group")
+        return None, 1, 0
+    heads = [("num_attention_heads", cfg.num_attention_heads)]
+    if hasattr(cfg, "num_key_value_heads"):
+        heads.append(("num_key_value_heads", cfg.num_key_value_heads))
+    for name, n in heads:
+        if n % world:
+            raise ValueError(f"{name} ({n}) is not divisible by the "
+                             f"model-parallel degree {world}")
+    return group, world, rank
+
+
+def _lin(cfg, in_f, out_f, *, column, bias=False, gather_output=False,
+         input_is_parallel=True, device=None, dtype=None):
+    """The JAX package's ``_lin``: the plain ``Linear``, or the column or
+    row parallel layer under a model group (sequence-parallel under
+    ``sequence_parallel``, except a gathered output)."""
+    return tp_linear(in_f, out_f, column=column, bias=bias,
+                     gather_output=gather_output,
+                     input_is_parallel=input_is_parallel,
+                     sequence_parallel=getattr(cfg, "sequence_parallel",
+                                               False) and not gather_output,
+                     device=device, dtype=dtype,
+                     enabled=getattr(cfg, "tensor_parallel", False))
+
+
+def _no_split_cache_step(model):
+    if model.mp_world > 1:
         raise NotImplementedError(
-            "sequence_parallel=True is not ported (ROADMAP A.7, the "
-            "parallel layers); build with sequence_parallel=False")
+            "a cache step (serving, generate) of a tensor-parallel model "
+            "is not ported (ROADMAP A.7); build the model without a "
+            "model-parallel fleet to serve it")
 
 
 def check_weight_quant(mode):
@@ -273,21 +338,26 @@ class LlamaAttention(nn.Module):
                  qkv_bias=False):
         super().__init__()
         self.cfg = cfg
-        self.num_heads = cfg.num_attention_heads
-        self.num_kv_heads = cfg.num_key_value_heads
+        _, world, _ = tp_degree(cfg)
+        # this rank's heads (all of them without a model group)
+        self.num_heads = cfg.num_attention_heads // world
+        self.num_kv_heads = cfg.num_key_value_heads // world
         self.head_dim = cfg.head_dim
         kw = dict(device=device, dtype=dtype)
         h, d = cfg.hidden_size, self.head_dim
-        self.q_proj = Linear(h, self.num_heads * d, bias=qkv_bias, **kw)
-        self.k_proj = Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
-        self.v_proj = Linear(h, self.num_kv_heads * d, bias=qkv_bias, **kw)
-        self.o_proj = Linear(self.num_heads * d, h, bias=False, **kw)
+        nh, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.q_proj = _lin(cfg, h, nh * d, column=True, bias=qkv_bias, **kw)
+        self.k_proj = _lin(cfg, h, kvh * d, column=True, bias=qkv_bias, **kw)
+        self.v_proj = _lin(cfg, h, kvh * d, column=True, bias=qkv_bias, **kw)
+        self.o_proj = _lin(cfg, nh * d, h, column=False, **kw)
 
     def _proj(self, x):
-        b, s, _ = x.shape
-        return (self.q_proj(x).view(b, s, self.num_heads, self.head_dim),
-                self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim),
-                self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim))
+        # the sequence from the projections' output: a sequence-parallel
+        # projection gathers it
+        b = x.shape[0]
+        return (self.q_proj(x).view(b, -1, self.num_heads, self.head_dim),
+                self.k_proj(x).view(b, -1, self.num_kv_heads, self.head_dim),
+                self.v_proj(x).view(b, -1, self.num_kv_heads, self.head_dim))
 
     def forward(self, x, rope, cache, ctx, tables):
         """A cache step: over the paged pools (``tables``, per-slot
@@ -313,11 +383,11 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
                  intermediate=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         h, i = cfg.hidden_size, intermediate or cfg.intermediate_size
-        self.gate_proj = Linear(h, i, **kw)
-        self.up_proj = Linear(h, i, **kw)
-        self.down_proj = Linear(i, h, **kw)
+        self.gate_proj = _lin(cfg, h, i, column=True, **kw)
+        self.up_proj = _lin(cfg, h, i, column=True, **kw)
+        self.down_proj = _lin(cfg, i, h, column=False, **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -355,8 +425,7 @@ class LlamaDecoderLayer(nn.Module):
         return self._qkv_from(self.input_layernorm(x), rope)
 
     def _post_stage(self, x, ctx):
-        b, s, _ = x.shape
-        x = x + self.self_attn.o_proj(ctx.reshape(b, s, -1))
+        x = x + self.self_attn.o_proj(ctx.flatten(2))
         return x + self.mlp(self.post_attention_layernorm(x))
 
     def forward_core_attn_remat(self, x, rope):
@@ -395,10 +464,8 @@ class LlamaDecoderLayer(nn.Module):
         return (*self._qkv_from(y1, rope), r)
 
     def _post_stage_fused(self, ctx, r):
-        b, s, _ = r.shape
         y2, r2 = self._norm_pair(self.post_attention_layernorm,
-                                 self.self_attn.o_proj(ctx.reshape(b, s, -1)),
-                                 r)
+                                 self.self_attn.o_proj(ctx.flatten(2)), r)
         return self.mlp(y2), r2
 
     def forward_fused_core_attn_remat(self, hidden, residual, rope):
@@ -415,9 +482,12 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, device=device,
-                                         dtype=dtype)
+        self.mp_group, self.mp_world, _ = tp_degree(config)
+        self.sequence_parallel = config.sequence_parallel and \
+            self.mp_world > 1
+        self.embed_tokens = tp_embedding(
+            config.vocab_size, config.hidden_size, device=device,
+            dtype=dtype, enabled=config.tensor_parallel)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -462,6 +532,7 @@ class LlamaModel(nn.Module):
         if caches is None:
             return self._train_stack(x, (self.rope_sin[None, :s],
                                          self.rope_cos[None, :s]))
+        _no_split_cache_step(self)
         skip = frozenset(skip_layers or ())
         if tables is None:
             rope = rope_with_offset(self.rope_sin, self.rope_cos,
@@ -483,6 +554,18 @@ class LlamaModel(nn.Module):
         """The decoder stack and the final norm without caches: scanned,
         or unrolled with the fused carry or not, recomputed or not (module
         docstring)."""
+        if self.sequence_parallel:
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                GatherOp, ScatterOp)
+            if x.shape[1] % self.mp_world:
+                raise ValueError(
+                    f"sequence_parallel: the sequence ({x.shape[1]}) is "
+                    f"not divisible by the model-parallel degree "
+                    f"{self.mp_world}")
+            return GatherOp(self._stack(ScatterOp(x, 1), rope), 1)
+        return self._stack(x, rope)
+
+    def _stack(self, x, rope):
         cfg = self.config
         remat = cfg.use_recompute and self.training
         if cfg.scan_layers and can_scan(self.layers):
@@ -495,7 +578,10 @@ class LlamaModel(nn.Module):
             return self.norm(scan_layers(
                 self.layers, x, (rope,), remat=remat,
                 full_save_interval=cfg.full_save_interval))
-        selective = cfg.recompute_granularity in ("core_attn", "full_attn")
+        # as in the JAX package, sequence parallelism takes neither
+        # selective recompute nor the fused carry
+        selective = cfg.recompute_granularity in ("core_attn", "full_attn") \
+            and not self.sequence_parallel
         interval = max(int(cfg.core_attn_interval), 1)
         fs = max(int(cfg.full_save_interval), 0)
 
@@ -505,7 +591,8 @@ class LlamaModel(nn.Module):
             return "core_attn" if selective and i % interval == 0 \
                 else "full"
 
-        if flags.flag("FLAGS_fused_rmsnorm_residual"):
+        if flags.flag("FLAGS_fused_rmsnorm_residual") and \
+                not self.sequence_parallel:
             hidden, residual = x, None
             for i, layer in enumerate(self.layers):
                 mode = how(i)
@@ -576,11 +663,22 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         # default initialisation of billions of weights
         with _NoMetaInit():
             self.llama = LlamaModel(config, device="meta", dtype=dtype)
-            self.lm_head = None if config.tie_word_embeddings else Linear(
-                config.hidden_size, config.vocab_size, bias=False,
-                device="meta", dtype=dtype)
+            self.lm_head = None if config.tie_word_embeddings else _lin(
+                config, config.hidden_size, config.vocab_size, column=True,
+                gather_output=True, device="meta", dtype=dtype)
             self.to_empty(device=device)
+        self.mp_group, self.mp_world = self.llama.mp_group, \
+            self.llama.mp_world
         self.reset_parameters(seed)
+        if self.llama.sequence_parallel:
+            # the norms see this rank's rows of the sequence only
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                mark_as_sequence_parallel_parameter,
+                register_sequence_parallel_allreduce_hooks)
+            for mod in self.llama.modules():
+                if isinstance(mod, RMSNorm):
+                    mark_as_sequence_parallel_parameter(mod.weight)
+            register_sequence_parallel_allreduce_hooks(self)
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
@@ -589,7 +687,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         std = self.config.initializer_range
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
+                tp_normal_(mod, std, gen)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
         self.llama.reset_rope()
@@ -604,7 +702,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:
-            return F.linear(hidden, self.llama.embed_tokens.weight)
+            return tied_logits(hidden, self.llama.embed_tokens, self.mp_group)
         return self.lm_head(hidden)    # a WeightOnlyLinear once quantized
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
@@ -621,6 +719,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         ``lm_head`` is untied. ``skip_layers``: see
         :meth:`LlamaModel.forward` (with caches only)."""
         if caches is not None:
+            _no_split_cache_step(self)
             with torch.no_grad():
                 hidden, caches = self.llama(input_ids, caches, pos, tables,
                                             skip_layers)
@@ -629,13 +728,31 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if (labels is not None and self.lm_head is not None
                 and flags.flag("FLAGS_fused_linear_cross_entropy")):
             h2 = hidden[:, :-1].reshape(-1, self.config.hidden_size)
-            loss = fused_linear_cross_entropy(h2, self.lm_head.weight.t(),
-                                              labels[:, 1:].reshape(-1))
-            return None, loss
+            return None, fused_head_loss(h2, self.lm_head,
+                                         labels[:, 1:].reshape(-1))
         logits = self._logits(hidden)
         if labels is None:
             return logits
         return logits, _shifted_cross_entropy(logits, labels)
+
+
+def fused_head_loss(h, head, labels):
+    """The fused linear+CE of ``h [N, D]`` through ``head``'s weight:
+    vocab-parallel over a split ``ColumnParallelLinear``'s group."""
+    if isinstance(head, ColumnParallelLinear) and head.mp_world > 1:
+        return fused_linear_cross_entropy(
+            h, head.weight.t(), labels, group=head.group,
+            vocab_start=head.mp_rank * head.out_features)
+    return fused_linear_cross_entropy(h, head.weight.t(), labels)
+
+
+def tied_logits(hidden, embed, group):
+    """Logits through a tied embedding table; a vocab-split table's
+    partial logits are gathered on the vocab."""
+    if getattr(embed, "mp_world", 1) > 1:
+        return gather_dim(F.linear(c_identity(hidden, group), embed.weight),
+                          -1, group)
+    return F.linear(hidden, embed.weight)
 
 
 def _shifted_cross_entropy(logits, labels):

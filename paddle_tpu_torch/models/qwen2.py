@@ -51,10 +51,13 @@ from ..nn import Linear, RMSNorm
 from ..nn import functional as F
 from ..nn.scan import can_scan, scan_layers
 from ..ops.rope import build_sin_cos, rotate
+from ..distributed.parallel_layers import embedding as tp_embedding
+from ..distributed.parallel_layers import normal_ as tp_normal_
 from .llama import (LlamaAttention, LlamaMLP, LlamaPretrainingCriterion,
-                    _alloc_kv_caches, _shifted_cross_entropy,
-                    check_parallel, check_weight_quant, kv_cache_dtype,
-                    rope_with_offset, slot_positions)
+                    _alloc_kv_caches, _lin, _no_split_cache_step,
+                    _shifted_cross_entropy, check_parallel,
+                    check_weight_quant, kv_cache_dtype, rope_with_offset,
+                    slot_positions, tied_logits, tp_degree)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
            "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion"]
@@ -74,8 +77,9 @@ class Qwen2Config:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     use_recompute: bool = False
-    # the parallel layers and context parallelism go with ROADMAP A.7:
-    # anything but False / None raises (check_qwen2_parallel)
+    # the tensor-parallel layers under a fleet's model group of more than
+    # one rank (models.llama); context parallelism goes with ROADMAP A.7
+    # and raises (check_qwen2_parallel)
     tensor_parallel: bool = False
     sep_parallel: str | None = None
     # the dense training stack through nn.scan.scan_layers (MoE stacks
@@ -135,13 +139,7 @@ class Qwen2MoeConfig(Qwen2Config):
 
 
 def check_qwen2_parallel(cfg):
-    """``tensor_parallel`` and ``sep_parallel`` at their no-op values, or
-    a refusal naming ROADMAP A.7."""
-    if cfg.tensor_parallel:
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: tensor_parallel=True is not ported "
-            "(ROADMAP A.7, the parallel layers); build with "
-            "tensor_parallel=False")
+    """``sep_parallel`` other than None raises, naming ROADMAP A.7."""
     check_parallel(cfg)
 
 
@@ -234,17 +232,19 @@ class _Qwen2Base(nn.Module, GenerationMixin):
         self.config = config
         self._moe = moe
         cfg, meta = config, "meta"
+        self.mp_group, self.mp_world, _ = tp_degree(cfg)
         # built on the meta device, then materialised once
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         device=meta, dtype=dtype)
+        self.embed_tokens = tp_embedding(cfg.vocab_size, cfg.hidden_size,
+                                         device=meta, dtype=dtype,
+                                         enabled=cfg.tensor_parallel)
         self.layers = nn.ModuleList(
             [Qwen2DecoderLayer(cfg, moe, meta, dtype)
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device=meta,
                             dtype=dtype)
-        self.lm_head = None if cfg.tie_word_embeddings else Linear(
-            cfg.hidden_size, cfg.vocab_size, bias=False, device=meta,
-            dtype=dtype)
+        self.lm_head = None if cfg.tie_word_embeddings else _lin(
+            cfg, cfg.hidden_size, cfg.vocab_size, column=True,
+            gather_output=True, device=meta, dtype=dtype)
         # RoPE tables: derived, not weights, so outside the state dict
         self.register_buffer("rope_sin", torch.empty(
             cfg.max_position_embeddings, cfg.head_dim // 2, device=meta),
@@ -270,7 +270,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
             elif isinstance(mod, MoELayer):
                 mod.reset_parameters(gen)
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
+                tp_normal_(mod, std, gen)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
             elif isinstance(mod, RMSNorm):
@@ -291,7 +291,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:
-            return F.linear(hidden, self.embed_tokens.weight)
+            return tied_logits(hidden, self.embed_tokens, self.mp_group)
         return self.lm_head(hidden)    # a WeightOnlyLinear once quantized
 
     def forward(self, input_ids, labels=None, caches=None, pos=None,
@@ -315,6 +315,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
                 "router_aux_loss_coef=0.0 or use_recompute=False.")
         b, s = input_ids.shape
         if caches is not None:
+            _no_split_cache_step(self)
             with torch.no_grad():
                 x = self.embed_tokens(input_ids)
                 if tables is None:

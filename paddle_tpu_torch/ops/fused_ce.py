@@ -24,6 +24,17 @@ rounded once; f32 is f32.
 The weight is ``[D, V]``, the JAX package's layout; the model passes the
 transpose of its ``[V, D]`` ``lm_head.weight``, a view, and ``dw`` is
 built ``[V, D]`` and handed back transposed, so no [D, V] copy is made.
+
+**Vocab-parallel** (``group`` of more than one rank): the weight is this
+rank's columns ``[vocab_start, vocab_start + V_local)`` of the full
+vocab, as a tensor-parallel ``lm_head`` holds them (the JAX package runs
+the op on the full logical weight and lets GSPMD split it). K10 walks the
+rank's chunks; the per-row max is all-reduced (MAX), the exp-sums
+rescaled to it and all-reduced, and the target logit, which one rank
+owns, all-reduced (SUM), so every rank has the global log-sum-exp. The
+backward's K11 builds each chunk's dlogits from it, ``dw`` is the rank's
+columns, and ``dh`` (f32) is all-reduced over the group before it is
+rounded: the loss and the gradients are the unsplit op's.
 """
 
 from __future__ import annotations
@@ -108,11 +119,11 @@ def _chunks(v, cv, c):
 class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h, w, labels, ignore_index):
+    def forward(ctx, h, w, labels, ignore_index, group, vocab_start):
         n, v = h.shape[0], w.shape[1]
         cv, c = _chunk_grid(v, _resolve_chunk_v())
         valid = labels != ignore_index
-        safe = torch.where(valid, labels, 0).to(torch.int32)
+        safe = (torch.where(valid, labels, 0) - vocab_start).to(torch.int32)
         f32 = dict(dtype=torch.float32, device=h.device)
         m = torch.full((n,), float("-inf"), **f32)
         s = torch.zeros(n, **f32)
@@ -124,11 +135,14 @@ class _FusedLinearCE(torch.autograd.Function):
             s = s * torch.exp(m - m_new) + s_c * torch.exp(m_c - m_new)
             tgt = tgt + t_c
             m = m_new
+        if group is not None:
+            m, s, tgt = _combine(m, s, tgt, group)
         lse = m + torch.log(s)
         count = valid.sum().float()
         loss = torch.where(valid, lse - tgt, 0.0).sum() / count.clamp(min=1.0)
         ctx.save_for_backward(h, w, safe, valid, lse, count)
         ctx.grid = (cv, c)
+        ctx.group = group
         return loss
 
     @staticmethod
@@ -154,15 +168,36 @@ class _FusedLinearCE(torch.autograd.Function):
                 torch.matmul(dlogits[:, lo:].t(), h,
                              out=dw_t[start + lo:start + cv])
         dw = dw_t.t() if need_w else None
-        return dh.to(h.dtype), dw, None, None
+        if ctx.group is not None:
+            _all_reduce(dh, ctx.group)
+        return dh.to(h.dtype), dw, None, None, None, None
+
+
+def _all_reduce(t, group, op="sum"):
+    from ..distributed.communication import all_reduce
+    all_reduce(t, op, group)
+    return t
+
+
+def _combine(m, s, tgt, group):
+    """The global (max, exp-sum, target) of per-rank ones over ``group``:
+    the exp-sums rescaled to the global max before they are summed."""
+    m_g = _all_reduce(m.clone(), group, "max")
+    s = _all_reduce(s * torch.exp(m - m_g), group)
+    return m_g, s, _all_reduce(tgt, group)
 
 
 def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor,
                                labels: torch.Tensor,
-                               ignore_index: int = -100) -> torch.Tensor:
+                               ignore_index: int = -100, group=None,
+                               vocab_start: int = 0) -> torch.Tensor:
     """Mean cross entropy of ``h @ w`` against ``labels`` without the
     logits. ``h [N, D]`` (any float dtype), ``w [D, V]``, ``labels [N]``
     int; rows labelled ``ignore_index`` contribute nothing (an all-ignored
     batch gives a loss of 0 and zero gradients, not NaN). The loss is
-    f32."""
-    return _FusedLinearCE.apply(h, w, labels, ignore_index)
+    f32. With a ``group`` of more than one rank, ``w`` is this rank's
+    vocab columns from ``vocab_start`` (module docstring)."""
+    if group is not None and group.nranks <= 1:
+        group = None
+    return _FusedLinearCE.apply(h, w, labels, ignore_index, group,
+                                int(vocab_start))

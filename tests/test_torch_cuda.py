@@ -2331,3 +2331,83 @@ def test_kv_pages_migrate_on_the_card_bit_for_bit(cuda, kv_quant):
     done = {r.request_id: r for r in dec.run()}
     assert len(done[rid].tokens) == 8
     dec._audit_pages("test")
+
+
+def _tp_inputs():
+    rng = np.random.RandomState(0)
+    f = np.float32
+    a = {"x": rng.randn(2, 5, 8).astype(f),
+         "h": rng.randn(2, 5, 12).astype(f),
+         "w1": (rng.randn(8, 12) * 0.3).astype(f),
+         "b1": rng.randn(12).astype(f),
+         "w2": (rng.randn(12, 8) * 0.3).astype(f),
+         "b2": rng.randn(8).astype(f),
+         "dy1": rng.randn(2, 5, 12).astype(f),
+         "dy2": rng.randn(2, 5, 8).astype(f),
+         "emb": rng.randn(16, 8).astype(f),
+         "ids": rng.randint(0, 16, (2, 5)).astype(np.int64),
+         "logits": rng.randn(2, 5, 16).astype(f),
+         "labels": rng.randint(0, 16, (2, 5)).astype(np.int64)}
+    a["labels"][0, 1] = -100
+    return a
+
+
+def _two_ranks(device, path, *args):
+    from torch_dist_pool import RankPool
+    pool = RankPool(2, device=device)
+    try:
+        return pool.run(path, *args)
+    finally:
+        pool.close()
+
+
+def test_tensor_parallel_layers_on_two_ranks_sharing_the_card(cuda):
+    """Two ranks share the card (the backend rule takes gloo through host
+    buffers): every TP layer's forward and backward in f32 on the card
+    equals the same two ranks' run on the CPU (the plain versions), to
+    f32 summation order."""
+    from paddle_tpu_torch.ops.kernels import _build
+    _build.build()
+    a = _tp_inputs()
+    card = _two_ranks("cuda", "torch_dist_cases:tp_layers", a, "cuda")
+    cpu = _two_ranks("cpu", "torch_dist_cases:tp_layers", a, "cpu")
+    for r in range(2):
+        for key, ref in cpu[r].items():
+            if key == "split_shape":
+                assert card[r][key] == ref
+                continue
+            np.testing.assert_allclose(card[r][key], ref, rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{r}: {key}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vocab_parallel_fused_ce_on_two_ranks_sharing_the_card(cuda, dtype):
+    """The vocab-parallel fused CE with K10/K11 launched over each rank's
+    4096-column shard (chunks of 1024 and a clamped tail) against the
+    same ranks' plain versions on the CPU in f32: the loss, dh and dW
+    (f32 to summation order; bf16 inputs are bf16-representable, so only
+    the logits' and the dlogits' roundings part them)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    _build.build()
+    rng = np.random.RandomState(3)
+    n, d, v = 300, 64, 8000
+    a = {"h": rng.randn(n, d).astype(np.float32),
+         "w": (rng.randn(d, v) * 0.1).astype(np.float32),
+         "labels": rng.randint(0, v, n).astype(np.int64)}
+    a["labels"][:3] = (-100, v - 1, v // 2)
+    if dtype == "bfloat16":
+        for k in ("h", "w"):
+            a[k] = torch.from_numpy(a[k]).bfloat16().float().numpy()
+    card = _two_ranks("cuda", "torch_dist_cases:vocab_parallel_ce", a,
+                      1000, "cuda", dtype)
+    cpu = _two_ranks("cpu", "torch_dist_cases:vocab_parallel_ce", a, 1000)
+    rtol = 1e-5 if dtype == "float32" else 4 * BF16_ULP
+    for r in range(2):
+        assert card[r]["launches"][0] > 0 and card[r]["launches"][1] > 0
+        np.testing.assert_allclose(card[r]["loss"], cpu[r]["loss"],
+                                   rtol=rtol)
+        for key in ("dh", "dw"):
+            ref = cpu[r][key]
+            atol = rtol * np.abs(ref).max()
+            np.testing.assert_allclose(card[r][key], ref, rtol=rtol,
+                                       atol=atol, err_msg=f"{r}: {key}")

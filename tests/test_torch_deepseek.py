@@ -234,7 +234,9 @@ def test_tables_tensor_parallel_and_the_engine_are_refused():
     """No paged path: ``tables`` is a TypeError (the JAX forward has no such
     parameter either); the port's engine refuses the model when built,
     where the JAX engine quarantines each request on that TypeError;
-    tensor parallelism raises and names ROADMAP A.7."""
+    tensor parallelism is ported: without a fleet it builds the plain
+    model, bit for bit (tests/test_torch_tensor_parallel.py holds it at
+    mp 2)."""
     jm, tm = _models()
     caches = tm.init_kv_cache(1, 8)
     with pytest.raises(TypeError, match="tables"):
@@ -247,9 +249,11 @@ def test_tables_tensor_parallel_and_the_engine_are_refused():
     eng.add_request(np.arange(5, dtype=np.int32), 3)
     (req,) = eng.run()
     assert req.tokens == [] and "tables" in str(req.error)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        DeepseekV2ForCausalLM(dataclasses.replace(
-            DeepseekV2Config.tiny(), tensor_parallel=True), device="cpu")
+    tp = convert.from_numpy_state_dict(DeepseekV2ForCausalLM(
+        dataclasses.replace(DeepseekV2Config.tiny(), tensor_parallel=True),
+        device="cpu"), convert.to_numpy_state_dict(tm))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 9)))
+    assert torch.equal(tp(ids), tm(ids))
 
 
 def test_weight_bridge_round_trips_the_jax_keys():

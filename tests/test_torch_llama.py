@@ -192,6 +192,24 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.distributed.fleet.elastic.preempt\n"
             "import paddle_tpu_torch.distributed.fleet.elastic.manager\n"
             "import paddle_tpu_torch.distributed.launch.main\n"
+            "import paddle_tpu_torch.distributed.env\n"
+            "import paddle_tpu_torch.distributed.communication\n"
+            "import paddle_tpu_torch.distributed.spawn_api\n"
+            "import paddle_tpu_torch.distributed.utils\n"
+            "import paddle_tpu_torch.distributed.parallel\n"
+            "import paddle_tpu_torch.distributed.parallel_layers\n"
+            "import paddle_tpu_torch.distributed.parallelize\n"
+            "import paddle_tpu_torch.distributed.sharding\n"
+            "import paddle_tpu_torch.distributed.fleet.base\n"
+            "import paddle_tpu_torch.distributed.fleet.topology\n"
+            "import paddle_tpu_torch.distributed.fleet.hybrid_optimizer\n"
+            "import paddle_tpu_torch.distributed.fleet.sharding\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.utils\n"
+            "import paddle_tpu_torch.distributed.fleet.utils."
+            "sequence_parallel_utils\n"
+            "from paddle_tpu_torch.distributed import (fleet, spawn, "
+            "parallelize, DataParallel, all_reduce, init_parallel_env)\n"
             "import paddle_tpu_torch.framework.random\n"
             "import paddle_tpu_torch.profiler.cost\n"
             "import paddle_tpu_torch.nn.scan\n"
