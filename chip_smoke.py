@@ -270,7 +270,8 @@ The preemptible, elastic training path, after train_loop:
 38. preempt: ``python -m paddle_tpu_torch.distributed.launch
     --max_preempt_restarts 1 --max_restarts 0`` runs this script as its
     worker (``--preempt-worker DIR``): Llama-1B's width at depth 2 in
-    bf16 with AdamW, ``fit`` (the fused linear+CE) over a map-style
+    bf16 with AdamW, ``fit`` (the fused linear+CE; committed ``step_N``
+    checkpoints, ``legacy_save=False``) over a map-style
     ``io.Dataset`` of 16 windows of 1025 byte ids of the repository's
     own .py/.md text, shuffled through 2 loader workers, 2 epochs of 4
     steps; round 0 sends itself a real SIGTERM after step 7 (step 2 of
@@ -324,7 +325,7 @@ is ``card_llama_engine``, the set-up's matmul settings, then
 43. tp: two ranks share the card through ``distributed.spawn`` (the
     backend rule takes gloo, the collectives through host buffers; each
     rank loads the kernels built in set-up). Three AdamW steps in f32 of
-    Llama-1B's width at depth 2 split at mp 2, at mp 2 with sequence
+    Llama-1B's width at depth 1 split at mp 2, at mp 2 with sequence
     parallelism, under ZeRO stage 2 and stage 3 over sharding 2 and at
     dp 2 (the global batch split), and of the tiny Qwen2 and DeepSeek-V2
     at mp 2, each held to the unsharded port run of the same weights on
@@ -335,7 +336,18 @@ is ``card_llama_engine``, the set-up's matmul settings, then
     this process, its memory freed before the spawn) within
     ``TP_BF16_RTOL``: ms a step, peak memory and K1-K11's launches a
     rank; rank 0 holds K7-K9 at 16 query and 4 KV heads and K10/K11 at
-    the shard's chunks against their plain versions.
+    the shard's chunks against their plain versions. Checkpoints across
+    layouts: (a) each f32 case's ranks save model and optimizer
+    (``hapi.Model.save_checkpoint``), and this process, beside the
+    ranks, loads each into the unsharded model and takes steps 4-5,
+    held to the unsharded run's own within ``TP_F32_RTOL[1]``; (b) the
+    unsharded runs save after step 3 (the Llama's ``async_save``) and
+    the ranks of each plain mp 2 case load that at mp 2 and take steps
+    4-5, held the same; (c) the 8B's ranks save its model state
+    (``TP_8B_SAVE_OPTIMIZER``) after step 3 and take step 4, and this
+    process loads it at mp 1 and takes step 4 within ``TP_BF16_RTOL`` of
+    theirs: the bytes and seconds of each save and load, the
+    ``elastic/reshard_*`` gauges and the disk's free space.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -5777,9 +5789,12 @@ def _preempt_fit(data, out, num_workers=2, save_dir=None, resume=None,
     wrappers = _counted(TRAIN_KERNELS)
     torch.cuda.reset_peak_memory_stats()
     try:
+        # legacy_save off: the epoch's .pdparams/.pdopt (3.2 GB at this
+        # width) are train_loop's fit's to show; here only the committed
+        # step_N checkpoints that a resume reads
         m.fit(data, batch_size=PREEMPT_BATCH, epochs=2, shuffle=True,
               num_workers=num_workers, save_dir=save_dir, resume=resume,
-              log_freq=1, verbose=0)
+              log_freq=1, verbose=0, legacy_save=False)
         digest = hashlib.sha256()
         for k, v in sorted(net.state_dict().items()):
             digest.update(v.detach().contiguous().view(torch.uint8)
@@ -7664,6 +7679,13 @@ def phase_model_parity(dev="cuda"):
 
 
 TP_STEPS = 3                     # AdamW steps of every multi-rank case
+TP_RESUMED = 2                   # steps after each resume (parts a, b)
+# part (c) checkpoints the 8B's model state alone: with its f32 master
+# weights and two f32 moments the state is about 27 GB (7x the bf16
+# weights' 3.85 GB), over a minute more of writing and reading on the
+# card's host within the script's time limit; the optimizer's resharding
+# is held by parts (a) and (b), which save and load it whole
+TP_8B_SAVE_OPTIMIZER = False
 TP_BATCH = (2, 256)              # the f32 cases' global batch (tokens)
 TP_TINY_BATCH = (4, 64)          # tiny Qwen2 / DeepSeek-V2 (64 positions)
 TP_8B_LAYERS = 4                 # Llama-3-8B's depth cut so two ranks fit
@@ -7700,12 +7722,13 @@ def _tp_model(family, cfg, dtype, seed=7):
 
 
 def _tp_configs(cfg1b):
-    """Each case's config: Llama-1B's width at depth 2, the tiny Qwen2 and
-    DeepSeek-V2, tensor parallel where the family has the switch."""
+    """Each case's config: Llama-1B's width at depth 1 (2 until its
+    checkpoints came in), the tiny Qwen2 and DeepSeek-V2, tensor parallel
+    where the family has the switch."""
     import dataclasses
 
     from paddle_tpu_torch.models import DeepseekV2Config, Qwen2Config
-    llama = dataclasses.replace(cfg1b, num_hidden_layers=2)
+    llama = dataclasses.replace(cfg1b, num_hidden_layers=1)
     return {"llama": llama,
             "qwen2": dataclasses.replace(Qwen2Config.tiny(),
                                          tensor_parallel=True),
@@ -7714,8 +7737,46 @@ def _tp_configs(cfg1b):
 
 
 def _tp_batches(cfg, shape, seed):
+    """The batches of the ``TP_STEPS`` steps, then of ``TP_RESUMED``
+    more after a resume."""
     return [np.random.RandomState(seed + s).randint(
-        0, cfg.vocab_size, shape).astype(np.int64) for s in range(TP_STEPS)]
+        0, cfg.vocab_size, shape).astype(np.int64)
+        for s in range(TP_STEPS + TP_RESUMED)]
+
+
+def _tp_written(path, rank):
+    """Bytes of the shard files rank ``rank`` wrote into the committed
+    checkpoint ``path``."""
+    with open(os.path.join(path, f"meta.{rank}.json")) as f:
+        meta = json.load(f)
+    return sum(sh["nbytes"] for e in meta.values()
+               if e.get("kind") == "tensor" for sh in e["shards"])
+
+
+def _tp_resume(family, cfg, path, batches, rep=0, n_rep=1, wrap=False):
+    """A model of ``family`` from another seed (f32; split under the
+    initialised fleet when ``wrap``), ``hapi.Model.load_checkpoint(path)``
+    and the ``TP_RESUMED`` steps after it: (losses, load seconds, the
+    optimizer's step count after the load)."""
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    model = _tp_model(family, cfg, torch.float32, seed=11)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    if wrap:
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    m = Model(model)
+    m.prepare(opt)
+    t0 = time.perf_counter()
+    m.load_checkpoint(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    step0 = opt._step_count
+    losses = _tp_train(model, opt, batches[TP_STEPS:], rep, n_rep)
+    return losses, load_s, step0
 
 
 def _tp_train(model, opt, batches, rep=0, n_rep=1, times=None):
@@ -7805,18 +7866,25 @@ def _tp_shard_checks(cfg8):
     return out
 
 
-def tp_rank(out_dir, cfg1b, cfg8):
-    """One rank of phase tp (``distributed.spawn``): the f32 cases, then
-    Llama-3-8B's width at mp 2 in bf16; rank 0 then holds K7-K11 at the
-    shard shapes against their plain versions. Writes
-    ``out_dir/rank<r>.json``; a failure exits nonzero."""
+def tp_rank(out_dir, cfg1b, cfg8, ref_ck):
+    """One rank of phase tp (``distributed.spawn``): the f32 cases, each
+    saved after its steps (``hapi.Model.save_checkpoint`` into
+    ``out_dir/case<i>``; the plain mp 2 ones then resume from the
+    unsharded reference's checkpoint ``ref_ck[family]`` and take
+    ``TP_RESUMED`` steps), then Llama-3-8B's width at mp 2 in bf16, its
+    state saved into ``out_dir/ck8b`` before one step more; rank 0 then
+    holds K7-K11 at the shard shapes against their plain versions.
+    Writes ``out_dir/rank<r>.json``; a failure exits nonzero."""
     global HBM_BYTES_PER_S, PEAK_BF16
     import dataclasses
+    import shutil
 
     import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
     from paddle_tpu_torch.distributed import env, fleet, get_backend
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.io import data_replicas
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels import _build
@@ -7834,7 +7902,7 @@ def tp_rank(out_dir, cfg1b, cfg8):
            "build_s": _build.build_seconds(), "compiled": bool(
                _build.build_log())}
     cfgs = _tp_configs(cfg1b)
-    for name, family, hybrid, level, fields in TP_CASES:
+    for i, (name, family, hybrid, level, fields) in enumerate(TP_CASES):
         _tp_fleet(hybrid)
         cfg = dataclasses.replace(cfgs[family], **fields)
         model = _tp_model(family, cfg, torch.float32)
@@ -7847,10 +7915,24 @@ def tp_rank(out_dir, cfg1b, cfg8):
             opt = fleet.distributed_optimizer(opt)
         n_rep, rep = data_replicas()
         shape = TP_BATCH if family == "llama" else TP_TINY_BATCH
-        out["cases"][name] = {"rep": rep, "losses": _tp_train(
-            model, opt, _tp_batches(cfg, shape, 30), rep, n_rep)}
-        del model, opt
+        batches = _tp_batches(cfg, shape, 30)
+        case = out["cases"][name] = {"rep": rep, "losses": _tp_train(
+            model, opt, batches[:TP_STEPS], rep, n_rep)}
+        # (a) this layout's checkpoint, which the parent resumes unsharded
+        m = Model(model)
+        m.prepare(opt)
+        path = os.path.join(out_dir, f"case{i}")
+        t1 = time.perf_counter()
+        m.save_checkpoint(path, epoch=0)
+        case["save_s"] = time.perf_counter() - t1
+        case["save_bytes"] = _tp_written(path, rank)
+        del m, model, opt
         torch.cuda.empty_cache()
+        if hybrid == {"mp_degree": 2} and not fields:
+            # (b) the unsharded reference's checkpoint, resumed at mp 2
+            case["resumed"], case["load_s"], case["step0"] = _tp_resume(
+                family, cfg, ref_ck[family], batches, rep, n_rep, wrap=True)
+            torch.cuda.empty_cache()
     out["cases_s"] = time.perf_counter() - t0
     _tp_fleet({"mp_degree": 2})
     flags.set_flags({"FLAGS_fused_linear_cross_entropy": True})
@@ -7866,10 +7948,24 @@ def tp_rank(out_dir, cfg1b, cfg8):
     torch.cuda.reset_peak_memory_stats()
     wrappers = _counted(TRAIN_KERNELS)
     times = []
-    out["losses_8b"] = _tp_train(model, opt, _tp_batches(cfg8, TP_8B_IDS, 0),
+    batches8 = _tp_batches(cfg8, TP_8B_IDS, 0)
+    out["losses_8b"] = _tp_train(model, opt, batches8[:TP_STEPS],
                                  times=times)
     out["launches"] = {n: w.launches for n, w in wrappers.items()}
     out["ms"], out["peak_gb"] = times, torch.cuda.max_memory_allocated() / 1e9
+    # (c) the 8B's checkpoint, then the ranks' own next step
+    state = {"model": model.state_dict()}
+    if TP_8B_SAVE_OPTIMIZER:
+        state["optimizer"] = opt.state_dict()
+    ck8 = os.path.join(out_dir, "ck8b")
+    out["disk_free_gb"] = shutil.disk_usage(out_dir).free / 1e9
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dckpt.save_state_dict(state, ck8)
+    out["save_8b_s"] = time.perf_counter() - t1
+    out["save_8b_bytes"] = _tp_written(ck8, rank)
+    del state
+    out["losses_8b"] += _tp_train(model, opt, batches8[TP_STEPS:][:1])
     flags.set_flags({"FLAGS_fused_linear_cross_entropy": False})
     del model, opt
     torch.cuda.empty_cache()
@@ -7892,24 +7988,50 @@ def phase_tp(cfg, cfg1b):
     ZeRO stage 2 and 3 over sharding 2, dp 2 with the batch split, tiny
     Qwen2 and DeepSeek-V2 at mp 2) and then the 8B at mp 2 with the
     vocab-parallel fused CE, counting K1-K11's launches; rank 0 holds
-    K7-K11 at the shard shapes against their plain versions."""
+    K7-K11 at the shard shapes against their plain versions.
+
+    Checkpoints across layouts (``distributed.checkpoint``'s multi-rank
+    protocol): (a) each f32 case's ranks save after their steps, and this
+    process loads each checkpoint into the unsharded model and takes
+    ``TP_RESUMED`` steps, held to the reference's own next steps; (b) the
+    unsharded references save after ``TP_STEPS`` steps (the Llama's save
+    async, its writer running beside the next steps), and the ranks load
+    them at mp 2 and take the same steps; (c) the 8B's ranks save their
+    state, take one step more, and this process loads it at mp 1 and
+    takes that step in bf16."""
     import dataclasses
+    import shutil
     import tempfile
 
     import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
     from paddle_tpu_torch.distributed import spawn
     from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.optimizer import AdamW
     t0 = time.perf_counter()
     cfgs = _tp_configs(cfg1b)
-    refs = {}
+    ck_root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    refs, ref_ck, ref_save = {}, {}, {}
     for family, c in cfgs.items():
         model = _tp_model(family, c, torch.float32)
         opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
                     weight_decay=0.01)
         shape = TP_BATCH if family == "llama" else TP_TINY_BATCH
-        refs[family] = _tp_train(model, opt, _tp_batches(c, shape, 30))
-        del model, opt
+        batches = _tp_batches(c, shape, 30)
+        refs[family] = _tp_train(model, opt, batches[:TP_STEPS])
+        m = Model(model)
+        m.prepare(opt)
+        ref_ck[family] = os.path.join(ck_root, f"ref_{family}")
+        t1 = time.perf_counter()
+        dckpt.save_state_dict(m._checkpoint_state(epoch=0), ref_ck[family],
+                              async_save=family == "llama")
+        ref_save[family] = time.perf_counter() - t1
+        refs[family] += _tp_train(model, opt, batches[TP_STEPS:])
+        del m, model, opt
+    t1 = time.perf_counter()
+    dckpt.wait_async_save()
+    ref_save["llama wait"] = time.perf_counter() - t1
     cfg8 = dataclasses.replace(cfg, num_hidden_layers=TP_8B_LAYERS,
                                use_recompute=True,
                                recompute_granularity="core_attn")
@@ -7920,7 +8042,8 @@ def phase_tp(cfg, cfg1b):
                     weight_decay=0.01)
         torch.cuda.reset_peak_memory_stats()
         times = []
-        ref8 = _tp_train(model, opt, _tp_batches(cfg8, TP_8B_IDS, 0),
+        ref8 = _tp_train(model, opt,
+                         _tp_batches(cfg8, TP_8B_IDS, 0)[:TP_STEPS],
                          times=times)
         peak = torch.cuda.max_memory_allocated() / 1e9
         n_params = sum(p.numel() for p in model.parameters())
@@ -7933,14 +8056,26 @@ def phase_tp(cfg, cfg1b):
         f"losses {', '.join(f'{x:.6f}' for x in ref8)}, ms a step "
         f"{', '.join(f'{x:.1f}' for x in times)}, peak {peak:.2f} GB; "
         f"references in {time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory() as out_dir:
-        t1 = time.perf_counter()
-        spawn(tp_rank, args=(out_dir, cfg1b, cfg8), nprocs=2, timeout=900)
+    out_dir = ck_root
+    t1 = time.perf_counter()
+    procs = spawn(tp_rank, args=(out_dir, cfg1b, cfg8, ref_ck), nprocs=2,
+                  join=False)
+    try:
+        # (a) beside the ranks: each case's checkpoint as it commits
+        resumed = _tp_resumes(cfgs, out_dir, refs, procs, t1 + 900)
+        _tp_join(procs, t1 + 900)
         spawn_s = time.perf_counter() - t1
         ranks = []
         for r in range(2):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+        part_c = _tp_8b_resume(cfg8, out_dir, ranks)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(ck_root, ignore_errors=True)
     for rk in ranks:
         if rk["backend"] != "gloo" or rk["compiled"]:
             raise AssertionError(f"[tp] rank {rk['rank']}: backend "
@@ -7954,7 +8089,7 @@ def phase_tp(cfg, cfg1b):
             by_rep.setdefault(rk["cases"][name]["rep"],
                               rk["cases"][name]["losses"])
         got = np.mean([by_rep[k] for k in sorted(by_rep)], axis=0)
-        want = np.asarray(refs[family])
+        want = np.asarray(refs[family][:TP_STEPS])
         rel = np.abs(got - want) / np.abs(want)
         lim = np.array([TP_F32_RTOL[0]] + [TP_F32_RTOL[1]] * (TP_STEPS - 1))
         worst = max(worst, float((rel / lim).max()))
@@ -7967,6 +8102,8 @@ def phase_tp(cfg, cfg1b):
             f"unsharded {', '.join(f'{x:.7f}' for x in want)}, worst "
             f"relative {rel.max():.3g} (limits {TP_F32_RTOL[0]:g} at the "
             f"first step, {TP_F32_RTOL[1]:g} after)")
+    for name, family, hybrid, level, fields in TP_CASES:
+        _tp_check_resumes(name, family, ranks, resumed[name], refs)
     first = ranks[0]["losses_8b"][0]
     rel8 = abs(first - ref8[0]) / abs(ref8[0])
     if rel8 > TP_BF16_RTOL or ranks[1]["losses_8b"] != ranks[0]["losses_8b"]:
@@ -7987,6 +8124,7 @@ def phase_tp(cfg, cfg1b):
             f"{rk['launches']}; built in {rk['build_8b_s']:.1f} s, the f32 "
             f"cases in {rk['cases_s']:.1f} s, the rank in "
             f"{rk['total_s']:.1f} s")
+    _tp_log_8b(ranks, part_c)
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise AssertionError(f"[tp] kernels not launched on the mp 2 path: "
@@ -7994,7 +8132,154 @@ def phase_tp(cfg, cfg1b):
     log(f"[tp] first 8B loss {first:.6f} against the unsharded "
         f"{ref8[0]:.6f}: relative {rel8:.3g} (limit {TP_BF16_RTOL:g}); f32 "
         f"cases worst err/limit {worst:.3g}; spawn to exit {spawn_s:.1f} s")
+    log(f"[tp] (b) the unsharded references' checkpoints after step "
+        f"{TP_STEPS}: saved in "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in ref_save.items())
+        + " (the Llama's async: the call, then the wait after its next "
+        f"{TP_RESUMED} steps)")
     return {"launches": launches, "kernels": ranks[0]["kernels"]}
+
+
+def _tp_join(procs, deadline, until=None):
+    """Wait for the ranks ``procs`` to exit 0 (or, with ``until``, for
+    ``until()`` to hold while they run); raises if one exits nonzero or
+    the deadline passes."""
+    while until is None or not until():
+        bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+        if bad:
+            raise RuntimeError(f"[tp] a rank exited nonzero ({bad})")
+        if until is None and all(p.exitcode == 0 for p in procs):
+            return
+        if time.perf_counter() > deadline:
+            raise TimeoutError("[tp] the ranks did not finish in time")
+        time.sleep(0.1)
+
+
+def _tp_resumes(cfgs, out_dir, refs, procs, deadline):
+    """(a) Each case's checkpoint, once the ranks have committed it,
+    loaded into the unsharded f32 model, then ``TP_RESUMED`` steps:
+    {case: (losses, load s, step count, bytes read)}. Each checkpoint is
+    removed after its load."""
+    import shutil
+
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.distributed.checkpoint.validation import \
+        _read_metas
+    out = {}
+    for i, (name, family, hybrid, level, fields) in enumerate(TP_CASES):
+        path = os.path.join(out_dir, f"case{i}")
+        _tp_join(procs, deadline, until=lambda: dckpt.is_committed(path))
+        shape = TP_BATCH if family == "llama" else TP_TINY_BATCH
+        nbytes = sum(sh["nbytes"] for e in _read_metas(path).values()
+                     if e.get("kind") == "tensor" for sh in e["shards"])
+        losses, load_s, step0 = _tp_resume(
+            family, cfgs[family], path, _tp_batches(cfgs[family], shape, 30))
+        out[name] = (losses, load_s, step0, nbytes)
+        shutil.rmtree(path)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_check_resumes(name, family, ranks, resumed, refs):
+    """Parts (a) and (b) of one case against the reference's steps after
+    ``TP_STEPS``, within ``TP_F32_RTOL[1]``."""
+    want = np.asarray(refs[family][TP_STEPS:])
+    losses, load_s, step0, nbytes = resumed
+    parts = [("(a) unsharded from its checkpoint", np.asarray(losses),
+              step0)]
+    for rk in ranks:
+        case = rk["cases"][name]
+        if "resumed" in case:
+            parts.append((f"(b) rank {rk['rank']} from the unsharded "
+                          "checkpoint", np.asarray(case["resumed"]),
+                          case["step0"]))
+    for tag, got, s0 in parts:
+        rel = np.abs(got - want) / np.abs(want)
+        if (rel > TP_F32_RTOL[1]).any() or s0 != TP_STEPS:
+            raise AssertionError(
+                f"[tp] {name} {tag}: losses {got.tolist()} against the "
+                f"reference's {want.tolist()}, optimizer step {s0}")
+    saved = [rk["cases"][name] for rk in ranks]
+    log(f"[tp] {name}: saved by the ranks in "
+        f"{', '.join(f'{c['save_s']:.2f} s ({c['save_bytes'] / 1e9:.3f} GB)' for c in saved)}; "
+        + "; ".join(f"{tag}: steps {TP_STEPS + 1}-{TP_STEPS + TP_RESUMED} "
+                    f"losses {', '.join(f'{x:.7f}' for x in got)}, "
+                    f"optimizer step {s0} after the load"
+                    for tag, got, s0 in parts)
+        + f" against the reference's {', '.join(f'{x:.7f}' for x in want)}"
+        f" (limit {TP_F32_RTOL[1]:g}); the unsharded load read "
+        f"{nbytes / 1e9:.3f} GB in {load_s:.2f} s"
+        + "".join(f", rank {rk['rank']}'s load {rk['cases'][name]['load_s']:.2f} s"
+                  for rk in ranks if "load_s" in rk["cases"][name]))
+
+
+def _tp_8b_resume(cfg8, out_dir, ranks):
+    """(c) The 8B's mp 2 checkpoint loaded at mp 1 in bf16 and one step
+    on the batch of the ranks' step ``TP_STEPS + 1``: its loss, the load's
+    seconds and bytes, and the reshard gauges."""
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.distributed.checkpoint.validation import \
+        _read_metas
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import metrics as pmetrics
+    path = os.path.join(out_dir, "ck8b")
+    reg = pmetrics.get_registry()
+    for g in ("elastic/reshard_tensors", "elastic/reshard_ms"):
+        reg.gauge(g).set(0)
+    flags.set_flags({"FLAGS_fused_linear_cross_entropy": True})
+    try:
+        model = _tp_model("llama", cfg8, torch.bfloat16, seed=1)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01)
+        state = {"model": model.state_dict()}
+        if TP_8B_SAVE_OPTIMIZER:
+            from paddle_tpu_torch.hapi import Model
+            m = Model(model)
+            m.prepare(opt)
+            t0 = time.perf_counter()
+            m.load_checkpoint(path)
+        else:
+            t0 = time.perf_counter()
+            dckpt.load_state_dict(state, path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        nbytes = sum(sh["nbytes"] for e in _read_metas(path).values()
+                     if e.get("kind") == "tensor" for sh in e["shards"])
+        loss = _tp_train(model, opt, _tp_batches(cfg8, TP_8B_IDS, 0)[
+            TP_STEPS:][:1])[0]
+        del model, opt, state
+    finally:
+        flags.set_flags({"FLAGS_fused_linear_cross_entropy": False})
+    torch.cuda.empty_cache()
+    want = ranks[0]["losses_8b"][TP_STEPS]
+    rel = abs(loss - want) / abs(want)
+    if rel > TP_BF16_RTOL:
+        raise AssertionError(f"[tp] (c) the 8B resumed at mp 1: loss {loss} "
+                             f"against the ranks' step {TP_STEPS + 1} "
+                             f"{want} (limit {TP_BF16_RTOL})")
+    return {"loss": loss, "rel": rel, "load_s": load_s, "bytes": nbytes,
+            "reshard_tensors": reg.gauge("elastic/reshard_tensors").value,
+            "reshard_ms": reg.gauge("elastic/reshard_ms").value}
+
+
+def _tp_log_8b(ranks, part_c):
+    what = "model and optimizer" if TP_8B_SAVE_OPTIMIZER else \
+        "model (TP_8B_SAVE_OPTIMIZER off)"
+    log(f"[tp] (c) Llama-3-8B width mp 2 -> mp 1, {what} state: disk free "
+        f"before the save {ranks[0]['disk_free_gb']:.1f} GB; saved by rank "
+        + ", rank ".join(f"{rk['rank']} in {rk['save_8b_s']:.2f} s "
+                         f"({rk['save_8b_bytes'] / 1e9:.3f} GB)"
+                         for rk in ranks)
+        + f"; loaded by one process in {part_c['load_s']:.2f} s "
+        f"({part_c['bytes'] / 1e9:.3f} GB), elastic/reshard_tensors "
+        f"{part_c['reshard_tensors']}, elastic/reshard_ms "
+        f"{part_c['reshard_ms']}; step {TP_STEPS + 1} loss "
+        f"{part_c['loss']:.6f} against the ranks' "
+        f"{ranks[0]['losses_8b'][TP_STEPS]:.6f}: relative "
+        f"{part_c['rel']:.3g} (limit {TP_BF16_RTOL:g})")
 
 
 def main():

@@ -2,12 +2,13 @@
 (``env``, ``communication``, ``spawn``), the hybrid topology and
 ``fleet``, the tensor-parallel layers (``parallel_layers``) and sequence
 parallelism, ``DataParallel``, ZeRO sharding (``sharding``),
-``parallelize``, the one-process checkpoints (``checkpoint``), the
-elastic manager (``fleet.elastic``) and the launcher (``launch``).
+``parallelize``, the sharded checkpoints with their commit protocol
+across ranks and resharding on load (``checkpoint``), the elastic
+manager (``fleet.elastic``) and the launcher (``launch``).
 
 Names load at first use, so the launcher's imports stay free of torch.
-The pipeline, context and expert parallelism, multi-rank checkpoints,
-the auto-parallel API and RPC are not ported yet (ROADMAP A.7)."""
+The pipeline, context and expert parallelism, the auto-parallel API and
+RPC are not ported yet (ROADMAP A.7)."""
 
 import importlib
 

@@ -297,33 +297,3 @@ class UtilBase:
 
 _util_singleton = UtilBase()
 
-
-def refuse_sharded_state(what, model=None, optimizer=None):
-    """Raise where ``what`` would write (or resume) one rank's shard as if
-    it were the whole model: a fleet with a ``model`` or ``sharding``
-    group of more than one rank, a tensor-parallel layer, a stage-3 model
-    or a sharded optimizer. Multi-rank checkpoints are ROADMAP A.7's."""
-    import sys
-    hcg = current_hcg()
-    split = hcg is not None and (
-        hcg.get_model_parallel_world_size() > 1
-        or hcg.get_sharding_parallel_world_size() > 1)
-    if model is not None and not split:
-        from ..parallel_layers import is_split
-        split = any(is_split(m) or type(m).__name__ == "GroupShardedStage3"
-                    for m in model.modules())
-    sharding = sys.modules.get(__package__ + ".sharding")
-    opt = optimizer
-    while opt is not None and not split:
-        split = sharding is not None and isinstance(
-            opt, sharding.DygraphShardingOptimizer) or any(
-            hasattr(p, "zero3_shape")
-            for p in getattr(opt, "_parameter_list", ()) or ())
-        opt = getattr(opt, "_inner", None)
-    if split:
-        raise NotImplementedError(
-            f"{what}: this rank holds a shard of a tensor-parallel or "
-            "ZeRO-sharded model; multi-rank checkpoints are not ported "
-            "(ROADMAP A.7, item 1). Gather first: "
-            "distributed.sharding.save_group_sharded_model or "
-            "convert.to_numpy_state_dict")

@@ -51,7 +51,10 @@ class HybridParallelClipGrad:
         split = torch.zeros((), dtype=torch.float32, device=device)
         whole = torch.zeros((), dtype=torch.float32, device=device)
         for p, g in grads:
-            if getattr(p, "is_distributed", False):
+            # a flag the parallel layers set: torch's own
+            # ``Tensor.is_distributed`` is a method, truthy on every
+            # parameter they did not mark
+            if getattr(p, "is_distributed", False) is True:
                 split = split + _sq_sum(g)
             else:
                 whole = whole + _sq_sum(g)

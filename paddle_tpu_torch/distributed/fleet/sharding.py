@@ -31,13 +31,24 @@ The global-norm clip of the optimizer becomes
 ``hybrid_optimizer.HybridParallelClipGrad`` over the sharding group (a
 partition's squares summed over it). Offload is not supported: it warns
 and proceeds without, as the JAX package does.
+
+State dicts keep the unsharded model's and optimizer's keys, so a resume
+at another sharding degree finds every slot under the same key. Each
+rank's tensors carry their layouts (``distributed.checkpoint.metadata``):
+stage 1/2 optimizer state is its owner's whole tensors (varying along
+``sharding``), a stage-3 parameter or slot its flat slice. Each
+``set_state_dict`` takes this rank's part of a full (or of its own)
+state.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
+from ..checkpoint.metadata import Layout, layout_of, local_part, with_layout
 from .hybrid_optimizer import base_optimizer, hybrid_clip
 
 __all__ = ["DygraphShardingOptimizer", "group_sharded_parallel",
@@ -201,23 +212,26 @@ class DygraphShardingOptimizer:
     clear_gradients = clear_grad
 
     def state_dict(self):
-        """This rank's partition of the optimizer state."""
-        return self._inner.state_dict()
+        """This rank's partition of the optimizer state, under the
+        unsharded optimizer's keys; its tensors vary along ``sharding``."""
+        state = self._inner.state_dict()
+        for v in state.values():
+            if isinstance(v, torch.Tensor):
+                with_layout(v, (layout_of(v) or Layout()).varying(
+                    "sharding"))
+        return state
 
     def set_state_dict(self, state):
-        self._inner.set_state_dict(state)
-
-    def full_state_dict(self):
-        """Every rank's partition merged (a collective)."""
-        from ..communication import all_gather_object
-        parts = []
-        local = {k: (v.detach().cpu() if isinstance(v, torch.Tensor) else v)
-                 for k, v in self.state_dict().items()}
-        all_gather_object(parts, local, self.group)
-        merged = {}
-        for part in parts:
-            merged.update(part)
-        return merged
+        """This rank's part of ``state`` (a full state or a partition):
+        the entries of the parameters it owns, and those of none."""
+        base = base_optimizer(self._inner)
+        owned = {id(p) for p in self._owned}
+        keep = {}
+        for k, v in state.items():
+            p = base._param_of(k)
+            if p is None or id(p) in owned:
+                keep[k] = v
+        self._inner.set_state_dict(keep)
 
 
 class _GatherParam(torch.autograd.Function):
@@ -249,9 +263,9 @@ def _gather_full(shard, shape, numel, group):
 
 class GroupShardedStage3(nn.Module):
     """ZeRO stage 3 over ``layer`` (module docstring). ``parameters()``
-    are this rank's slices; ``state_dict()`` gathers the full weights
-    (every rank must call it). ``optimizer`` (built over ``layer``'s
-    parameters) is moved onto the slices, its keys kept."""
+    and ``state_dict()`` are this rank's slices (under the layer's keys);
+    ``optimizer`` (built over ``layer``'s parameters) is moved onto the
+    slices, its keys kept."""
 
     def __init__(self, layer, optimizer=None, group=None, sync_buffers=False,
                  device=None, segment_size=2 ** 20, offload=False, hcg=None):
@@ -283,6 +297,10 @@ class GroupShardedStage3(nn.Module):
                     for attr, val in vars(p).items():
                         setattr(shard, attr, val)
                     shard.zero3_shape = tuple(p.shape)
+                    tp = layout_of(p) or Layout()
+                    shard.dist_layout = dataclasses.replace(
+                        tp, flat=(me * per, (me + 1) * per,
+                                  tuple(p.shape))).varying("sharding")
                     by_param[id(p)] = shard
                     self._meta[id(shard)] = (tuple(p.shape), numel)
                     shards.append((p, shard))
@@ -349,29 +367,39 @@ class GroupShardedStage3(nn.Module):
                 mod._parameters[name] = None
             self._live.clear()
 
-    @torch.no_grad()
-    def full_state_dict(self):
-        """The layer's state dict with every parameter gathered to its
-        full shape (a collective)."""
-        full = {}
+    def state_dict(self, *args, **kwargs):
+        """The layer's state dict with this rank's slice of each
+        parameter (carrying its layout) under the layer's keys; buffers
+        as they are. No collective: ``distributed.sharding.full_state``
+        gathers."""
         for mod, name, shard in self._managed:
-            shape, numel = self._meta[id(shard)]
-            mod._parameters[name] = _gather_full(shard, shape, numel,
-                                                 self.group)
+            mod._parameters[name] = shard
         try:
-            for k, v in self._layer.state_dict().items():
-                full[k] = v.detach().clone()
+            state = self._layer.state_dict(keep_vars=True)
         finally:
             for mod, name, _ in self._managed:
                 mod._parameters[name] = None
-        return full
+        return {k: with_layout(v.detach(), layout_of(v))
+                for k, v in state.items()}
 
-    def state_dict(self, *args, **kwargs):
-        return self.full_state_dict()
+    @torch.no_grad()
+    def load_state_dict(self, state_dict, strict=True, assign=False):
+        """Load ``state_dict`` under the layer's keys: full tensors (each
+        cut to this rank's part) or this rank's slices; ``strict``
+        refuses a missing key."""
+        own = self.state_dict()
+        missing = sorted(set(own) - set(state_dict))
+        if strict and missing:
+            raise KeyError(f"GroupShardedStage3.load_state_dict: missing "
+                           f"{missing}")
+        for k, t in own.items():
+            if k in state_dict:
+                src = torch.as_tensor(state_dict[k])
+                if src.numel() != t.numel():
+                    src = local_part(src, layout_of(t))
+                t.copy_(src.reshape(t.shape))
 
-    def shards(self):
-        """``[(module, name, slice)]`` of every managed parameter."""
-        return list(self._managed)
+    set_state_dict = load_state_dict
 
     def __getattr__(self, name):
         try:

@@ -1,14 +1,19 @@
-"""``fleet.utils``: recompute and the sequence-parallel helpers."""
+"""``fleet.utils``: recompute, the sequence-parallel helpers and the
+filesystem clients (``fs``)."""
 
 from ....incubate.recompute import recompute
-from . import sequence_parallel_utils
+from . import fs, sequence_parallel_utils
+from .fs import (FSFileExistsError, FSFileNotExistsError, HDFSClient,
+                 LocalFS)
 from .sequence_parallel_utils import (
     ScatterOp, GatherOp, AllGatherOp, ReduceScatterOp,
     ColumnSequenceParallelLinear, RowSequenceParallelLinear,
     mark_as_sequence_parallel_parameter,
     register_sequence_parallel_allreduce_hooks)
 
-__all__ = ["recompute", "sequence_parallel_utils", "ScatterOp", "GatherOp",
+__all__ = ["recompute", "sequence_parallel_utils", "fs", "LocalFS",
+           "HDFSClient", "FSFileExistsError", "FSFileNotExistsError",
+           "ScatterOp", "GatherOp",
            "AllGatherOp", "ReduceScatterOp", "ColumnSequenceParallelLinear",
            "RowSequenceParallelLinear",
            "mark_as_sequence_parallel_parameter",

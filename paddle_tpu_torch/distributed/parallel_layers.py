@@ -24,9 +24,14 @@ Every layer is a ``torch.nn.Linear``/``Embedding`` of the shard's shape
 initialisers see an ordinary layer; ``split_dims`` names each parameter's
 split dim (None: replicated), and ``full_shape``/``shard_of`` let a model
 draw full weights from its seed and keep its shard (:func:`normal_`), and
-``convert`` slice or gather full arrays. Without a ``model`` group of
-more than one rank the layers compute as the plain ones; the models
-build the plain ones then (:func:`linear`).
+``convert`` slice or gather full arrays. Each split parameter carries a
+real ``is_distributed`` flag and its ``dist_layout``
+(``distributed.checkpoint.metadata.Layout``: the split dim, the rank's
+index, the parts), marked again after every ``_apply`` (``to_empty``
+makes new parameters), and ``state_dict()``'s tensors carry the layouts,
+so a checkpoint places each shard in the full tensor. Without a
+``model`` group of more than one rank the layers compute as the plain
+ones; the models build the plain ones then (:func:`linear`).
 """
 
 from __future__ import annotations
@@ -231,6 +236,42 @@ def normal_(module, std, generator, name="weight"):
     p.copy_(shard_of(module, name, full))
 
 
+def _carry_layouts(module, state, prefix, local_metadata):
+    """State-dict hook: the emitted tensors keep their parameters'
+    layouts (``state_dict()`` hands out detached tensors)."""
+    for name, p in module._parameters.items():
+        lay = getattr(p, "dist_layout", None)
+        if lay is not None and prefix + name in state:
+            state[prefix + name].dist_layout = lay
+
+
+class _SplitLayer:
+    """What the three parallel layers share: the split parameters' marks
+    (module docstring)."""
+
+    def _mark_split(self):
+        from .checkpoint.metadata import Layout
+        for name, dim in self.split_dims.items():
+            p = self._parameters.get(name)
+            if p is None:
+                continue
+            split = dim is not None and self.mp_world > 1
+            p.is_distributed = split
+            p.dist_layout = Layout(split=(dim, self.mp_rank, self.mp_world),
+                                   axes=("model",)) if split else None
+
+    def _init_split(self, group, world, rank, split_dims):
+        self.group, self.mp_world, self.mp_rank = group, world, rank
+        self.split_dims = split_dims
+        self._mark_split()
+        self._register_state_dict_hook(_carry_layouts)
+
+    def _apply(self, fn, *args, **kwargs):
+        out = super()._apply(fn, *args, **kwargs)
+        self._mark_split()
+        return out
+
+
 def _parts(n, world, what):
     if n % world:
         raise ValueError(f"{what} ({n}) is not divisible by the "
@@ -243,7 +284,7 @@ def _device(device):
     return resolve_device(device)
 
 
-class ColumnParallelLinear(Linear):
+class ColumnParallelLinear(_SplitLayer, Linear):
     """Weight [out, in] split on ``out`` over the ``model`` group; the
     output's last dim is split unless ``gather_output``."""
 
@@ -254,12 +295,8 @@ class ColumnParallelLinear(Linear):
         super().__init__(in_features, _parts(out_features, world,
                                              "out_features"),
                          bias=has_bias, device=_device(device), dtype=dtype)
-        self.group, self.mp_world, self.mp_rank = group, world, rank
+        self._init_split(group, world, rank, {"weight": 0, "bias": 0})
         self.gather_output = gather_output
-        self.split_dims = {"weight": 0, "bias": 0}
-        self.weight.is_distributed = world > 1
-        if self.bias is not None:
-            self.bias.is_distributed = world > 1
 
     def forward(self, x):
         if self.mp_world > 1:
@@ -270,7 +307,7 @@ class ColumnParallelLinear(Linear):
         return out
 
 
-class RowParallelLinear(Linear):
+class RowParallelLinear(_SplitLayer, Linear):
     """Weight [out, in] split on ``in``; the input's last dim is split
     (``input_is_parallel``) or split here; the partial outputs are
     all-reduced, then the bias (not split) is added."""
@@ -283,10 +320,8 @@ class RowParallelLinear(Linear):
         super().__init__(_parts(in_features, world, "in_features"),
                          out_features, bias=has_bias,
                          device=_device(device), dtype=dtype)
-        self.group, self.mp_world, self.mp_rank = group, world, rank
+        self._init_split(group, world, rank, {"weight": 1, "bias": None})
         self.input_is_parallel = input_is_parallel
-        self.split_dims = {"weight": 1, "bias": None}
-        self.weight.is_distributed = world > 1
 
     def forward(self, x):
         if self.mp_world == 1:
@@ -305,7 +340,7 @@ def _matmul(x, weight):
     return nn.functional.linear(x, weight)
 
 
-class VocabParallelEmbedding(nn.Embedding):
+class VocabParallelEmbedding(_SplitLayer, nn.Embedding):
     """The table [V, H] split on its rows over the ``model`` group."""
 
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
@@ -314,10 +349,8 @@ class VocabParallelEmbedding(nn.Embedding):
         per = _parts(num_embeddings, world, "num_embeddings")
         super().__init__(per, embedding_dim, device=_device(device),
                          dtype=dtype)
-        self.group, self.mp_world, self.mp_rank = group, world, rank
+        self._init_split(group, world, rank, {"weight": 0})
         self.vocab_start = rank * per
-        self.split_dims = {"weight": 0}
-        self.weight.is_distributed = world > 1
 
     def forward(self, ids):
         if self.mp_world == 1:

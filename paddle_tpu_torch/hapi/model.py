@@ -46,11 +46,25 @@ and ``restart/*`` metrics below go to the default registry.
 ``load`` reads the JAX package's ``.pdparams``/``.pdopt`` too
 (``framework.io``), through ``convert``'s layout changes.
 
+Under a fleet (tensor-parallel, data-parallel, ZeRO stage 1-3 groups)
+every rank runs ``fit``. ``save_checkpoint`` is the multi-rank commit
+protocol of ``distributed.checkpoint``: each rank writes its part of the
+model, the optimizer's slots, master weights and ``@step``, and the
+scaler, and the coordinator commits through the barrier on the
+filesystem; the emergency checkpoint bounds that barrier by the guard's
+``remaining()`` grace and runs no collective, so a dead peer leaves it
+uncommitted within the grace instead of hanging. ``load_checkpoint``
+reshards everything onto the current layout (another mp, dp or ZeRO
+degree, or one process), so ``fit(resume=True)`` continues on a smaller
+or larger layout. ``save``/``load`` write and read the ``.pdparams``/
+``.pdopt`` an unsharded model writes: the state is gathered
+(``distributed.sharding.full_state``, collectives) and the first rank
+writes; ``load`` takes this rank's part. The goodput ledger is kept by
+the first rank.
+
 Not ported yet: the device prefetcher and steps in flight (ROADMAP A.4;
 the JAX package's compiled step dispatches ahead, the port's eager step
-runs in order), and the multi-rank parts of a preemption (ROADMAP A.7:
-the commit barrier that the grace window bounds, the reshard of a resume
-onto another mesh).
+runs in order).
 """
 
 from __future__ import annotations
@@ -65,7 +79,6 @@ import torch
 
 from ..amp import auto_cast, decorate
 from ..distributed import checkpoint as dckpt
-from ..distributed.fleet.base import refuse_sharded_state
 from ..distributed.fleet.elastic import Preempted, PreemptionGuard
 from ..framework import flags
 from .. import convert
@@ -396,9 +409,6 @@ class Model:
             raise ValueError(
                 "fit(preemptible=True) needs save_dir=: an emergency "
                 "checkpoint has nowhere to commit")
-        if save_dir is not None or resume:
-            refuse_sharded_state("fit(save_dir=, resume=)", self.network,
-                                 self._optimizer)
         own_loader = not isinstance(train_data, DataLoader)
         loader = DataLoader(train_data, batch_size=batch_size,
                             shuffle=shuffle, drop_last=drop_last,
@@ -408,8 +418,8 @@ class Model:
         # restart rounds accumulate into one ledger beside the
         # checkpoints; a fresh fit into a reused save_dir starts anew
         ledger = _goodput.GoodputLedger(
-            path=f"{save_dir}/goodput.json" if save_dir else None,
-            load=bool(resume))
+            path=f"{save_dir}/goodput.json" if save_dir and _rank() == 0
+            else None, load=bool(resume))
         self._goodput = ledger
         _goodput.set_current(ledger)
         guard, own_guard = None, False
@@ -457,7 +467,7 @@ class Model:
                 if batches.preempted:
                     step = batches.last_step
                     ck = self._emergency_checkpoint(save_dir, epoch, step,
-                                                    keep_last_n)
+                                                    keep_last_n, guard)
                     _persist_ledger(ledger)
                     raise Preempted(
                         f"preempted at epoch {epoch} step {step}; "
@@ -479,20 +489,25 @@ class Model:
                     self.evaluate(eval_data, batch_size=batch_size,
                                   verbose=verbose, compiled=compiled)
 
-    def _emergency_checkpoint(self, save_dir, epoch, step, keep_last_n):
+    def _emergency_checkpoint(self, save_dir, epoch, step, keep_last_n,
+                              guard=None):
         """The preemption checkpoint at a step boundary: the loop's
         pending losses are resolved, so the state is exactly that after
         step ``step`` of ``epoch``. Returns the committed path (None
-        without ``save_dir``). One rank commits with no barrier, so the
-        grace window bounds nothing here yet."""
+        without ``save_dir``). The commit barrier gets the guard's
+        remaining grace, not the default 300 s: a multi-rank save that
+        cannot complete fails uncommitted before the SIGKILL."""
         _REG.counter("elastic/preempt_requested").inc()
         _frec.record_event("preempt_requested", epoch=epoch, step=step)
         if save_dir is None:
             return None
         t0 = time.perf_counter()
         path = f"{save_dir}/step_{epoch}"
+        bound = guard.remaining() if guard is not None else None
+        if bound is not None and not np.isfinite(bound):
+            bound = None
         self.save_checkpoint(path, epoch=epoch, keep_last_n=keep_last_n,
-                             mid_epoch_step=step)
+                             mid_epoch_step=step, barrier_timeout=bound)
         elapsed = time.perf_counter() - t0
         if self._goodput is not None:
             self._goodput.add("emergency_save", elapsed)
@@ -535,11 +550,21 @@ class Model:
 
     def save(self, path, training=True):
         """``<path>.pdparams`` (the network's state dict) and, with
-        ``training``, ``<path>.pdopt`` (the optimizer's)."""
-        refuse_sharded_state("Model.save", self.network, self._optimizer)
-        save_obj(self.network.state_dict(), path + ".pdparams")
-        if training and self._optimizer is not None:
-            save_obj(self._optimizer.state_dict(), path + ".pdopt")
+        ``training``, ``<path>.pdopt`` (the optimizer's), at the unsharded
+        model's shapes: a sharded state is gathered and the first rank
+        writes; with more than one rank every rank calls ``save`` and
+        returns once the files are there (collectives)."""
+        from ..distributed import env
+        from ..distributed.communication import barrier
+        from ..distributed.sharding import full_state
+        state, opt_state = full_state(
+            self.network, self._optimizer if training else None)
+        if _rank() == 0:
+            save_obj(state, path + ".pdparams")
+            if opt_state is not None:
+                save_obj(opt_state, path + ".pdopt")
+        if env._dist_ready() and env.get_world_size() > 1:
+            barrier()
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         """The network's and optimizer's state from ``<path>.pdparams``/
@@ -547,13 +572,20 @@ class Model:
         file goes through ``convert.from_numpy_state_dict``/
         ``from_numpy_optimizer_state``, which turn Paddle's [in, out]
         Linear weights (and their slots) into torch's [out, in]."""
+        from ..distributed.checkpoint.metadata import layout_of, local_part
+        from ..distributed.fleet.base import current_hcg
         device = self._device()
         state, origin = read_obj(path + ".pdparams",
                                  return_numpy=None, device=device)
         if origin == "jax":
-            convert.from_numpy_state_dict(self.network, state)
+            convert.from_numpy_state_dict(self.network, state,
+                                          hcg=current_hcg())
         else:
-            self.network.load_state_dict(state)
+            # this rank's part of each full tensor
+            target = self.network.state_dict()
+            self.network.load_state_dict(
+                {k: local_part(v, layout_of(target[k])) if k in target
+                 else v for k, v in state.items()})
         if not reset_optimizer and self._optimizer is not None and \
                 os.path.exists(path + ".pdopt"):
             opt, origin = read_obj(path + ".pdopt", return_numpy=None,
@@ -578,24 +610,31 @@ class Model:
         return state
 
     def save_checkpoint(self, path, epoch=None, keep_last_n=None,
-                        mid_epoch_step=None):
+                        mid_epoch_step=None, barrier_timeout=None):
         """Atomic checkpoint of :meth:`_checkpoint_state`: the directory
-        appears committed or not at all (``distributed.checkpoint``)."""
+        appears committed or not at all (``distributed.checkpoint``; every
+        rank calls it, each writing its part). ``barrier_timeout`` bounds
+        the commit barrier (the preemption grace window)."""
         dckpt.save_state_dict(self._checkpoint_state(epoch, mid_epoch_step),
-                              path, keep_last_n=keep_last_n)
+                              path, keep_last_n=keep_last_n,
+                              barrier_timeout=barrier_timeout)
 
     def load_checkpoint(self, path):
         """Validated load of a committed checkpoint (checksums verified; a
-        torn or corrupt directory raises). Returns the epoch recorded at
-        save time, or -1; a mid-epoch step lands in
-        ``self._resume_mid_step`` (None otherwise)."""
+        torn or corrupt directory raises), resharding the network, the
+        optimizer's slots, master weights and ``@step``, and the scaler
+        onto the current layout: each rank reads the shards that overlap
+        its part. Returns the epoch recorded at save time, or -1; a
+        mid-epoch step lands in ``self._resume_mid_step`` (None
+        otherwise)."""
         dckpt.load_state_dict({"model": self.network.state_dict()}, path)
         if self._optimizer is not None:
             # read, not loaded in place: the optimizer makes its slots at
             # its first step, so set_state_dict stashes what it reads
             opt_state = {}
-            for k, v in dckpt.read_state_dict(path,
-                                              prefix="optimizer").items():
+            for k, v in dckpt.read_state_dict(
+                    path, prefix="optimizer",
+                    like=_state_part(self._optimizer)).items():
                 # one nested level (LR_Scheduler); slot names may hold
                 # dots themselves
                 if k.startswith("LR_Scheduler."):
@@ -620,6 +659,38 @@ class Model:
         n_params = sum(p.numel() for p in self.network.parameters())
         print(f"Total params: {n_params}")
         return {"total_params": n_params}
+
+
+def _rank():
+    """This process's rank in the joined process group (0 without one)."""
+    from ..distributed import env
+    return env.get_rank() if env._dist_ready() else 0
+
+
+def _state_part(optimizer):
+    """``read_state_dict``'s ``like`` for ``optimizer``'s state: a slot or
+    master weight of a parameter this rank steps is read as that
+    parameter's part (its shape and layout); the state of a parameter a
+    ZeRO stage-1/2 peer owns is left out; other tensors are read
+    whole."""
+    from ..distributed.checkpoint.metadata import boxes, layout_of
+    from ..distributed.fleet.hybrid_optimizer import base_optimizer
+    from ..distributed.sharding import _sharding_optimizer
+    base = base_optimizer(optimizer)
+    zero = _sharding_optimizer(optimizer)
+    owned = None if zero is None else {id(p)
+                                       for p in zero.owned_parameters()}
+
+    def like(key, global_shape):
+        p = base._param_of(key)
+        if p is None:
+            return None
+        if owned is not None and id(p) not in owned:
+            return False
+        if tuple(boxes(p)[0]) == tuple(global_shape):
+            return tuple(p.shape), layout_of(p)
+        return None
+    return like
 
 
 def _to(batch, device):

@@ -35,7 +35,11 @@ param_name`). ``set_state_dict`` before the first step
 stashes what it cannot place yet and applies it as the slots are made.
 Values may be tensors or numpy arrays; Linear slots in the JAX
 package's [in, out] layout go through ``convert.from_numpy_optimizer_
-state`` first.
+state`` first. A slot or master weight of a parameter that holds a
+rank's part of a tensor (tensor-parallel, ZeRO stage 3) takes the
+parameter's layout in ``state_dict()`` (``distributed.checkpoint.
+metadata``), and ``set_state_dict`` cuts this rank's part from a full
+tensor.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ import math
 import numpy as np
 import torch
 
+from ..distributed.checkpoint.metadata import layout_of, local_part, \
+    with_layout
 from ..regularizer import WeightDecayRegularizer
 from .lr import LRScheduler
 
@@ -64,6 +70,15 @@ def param_name(p) -> str:
 def _tensor(v):
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(
         np.asarray(v))
+
+
+def _local(src, p, shape):
+    """A stored slot (or master weight) of ``p`` as a tensor of
+    ``shape``: this rank's part when ``src`` is the full tensor."""
+    src = _tensor(src)
+    if src.numel() != math.prod(shape):
+        src = local_part(src, layout_of(p))
+    return src.reshape(shape)
 
 
 def _scalar(v):
@@ -118,6 +133,16 @@ class Optimizer:
     def _param_key(self, p) -> str:
         return self._keys.get(id(p), str(id(p)))
 
+    def _param_of(self, key):
+        """The parameter whose state ``key`` (``<param key>_<slot>``)
+        holds, or None (``@step``, ``LR_Scheduler``)."""
+        best, width = None, -1
+        for p in self._parameter_list:
+            pk = self._param_key(p)
+            if key.startswith(pk + "_") and len(pk) > width:
+                best, width = p, len(pk)
+        return best
+
     def _pending(self, key):
         """Stashed state for ``key``, handed over once (the stash holds
         host copies of the slots until they are made)."""
@@ -135,8 +160,8 @@ class Optimizer:
                 t = torch.full(shape, fill, dtype=torch.float32,
                                device=p.device)
             else:
-                t = _tensor(src).to(device=p.device, dtype=torch.float32,
-                                    copy=True).reshape(shape)
+                t = _local(src, p, shape).to(
+                    device=p.device, dtype=torch.float32, copy=True)
             store[id(p)] = t
         return t
 
@@ -148,8 +173,9 @@ class Optimizer:
         m = self._master_weights.get(id(p))
         if m is None:
             src = self._pending(f"{self._param_key(p)}_master")
-            m = p.detach().float() if src is None else _tensor(src).to(
-                device=p.device, dtype=torch.float32, copy=True)
+            m = p.detach().float() if src is None else _local(
+                src, p, p.shape).to(device=p.device, dtype=torch.float32,
+                                    copy=True)
             self._master_weights[id(p)] = m
         return m
 
@@ -249,9 +275,15 @@ class Optimizer:
         scheduler's state) and ``@step``."""
         params = self._by_id()
         sd = {}
+
+        def placed(t, p):
+            # a slot of the parameter's shape takes its layout
+            return with_layout(t, layout_of(p)) if t.shape == p.shape \
+                else t
         for name, store in self._accumulators.items():
             for pid, t in store.items():
-                sd[f"{self._param_key(params[pid])}_{name}"] = t
+                p = params[pid]
+                sd[f"{self._param_key(p)}_{name}"] = placed(t, p)
         for pid, (b1p, b2p) in self._beta_pows.items():
             p = params[pid]
             key = self._param_key(p)
@@ -259,7 +291,8 @@ class Optimizer:
             if self._has_beta2_pow:
                 sd[f"{key}_beta2_pow"] = torch.tensor(b2p, device=p.device)
         for pid, t in self._master_weights.items():
-            sd[f"{self._param_key(params[pid])}_master"] = t
+            p = params[pid]
+            sd[f"{self._param_key(p)}_master"] = placed(t, p)
         if isinstance(self._learning_rate, LRScheduler):
             sd["LR_Scheduler"] = self._learning_rate.state_dict()
         sd["@step"] = self._step_count
@@ -279,11 +312,11 @@ class Optimizer:
             for pid, t in store.items():
                 src = state.get(f"{self._param_key(params[pid])}_{name}")
                 if src is not None:
-                    t.copy_(_tensor(src).reshape(t.shape))
+                    t.copy_(_local(src, params[pid], t.shape))
         for pid, t in self._master_weights.items():
             src = state.get(f"{self._param_key(params[pid])}_master")
             if src is not None:
-                t.copy_(_tensor(src))
+                t.copy_(_local(src, params[pid], t.shape))
         for pid, (b1p, b2p) in list(self._beta_pows.items()):
             key = self._param_key(params[pid])
             s1, s2 = (state.get(f"{key}_beta{i}_pow") for i in (1, 2))

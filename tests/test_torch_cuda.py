@@ -2411,3 +2411,40 @@ def test_vocab_parallel_fused_ce_on_two_ranks_sharing_the_card(cuda, dtype):
             atol = rtol * np.abs(ref).max()
             np.testing.assert_allclose(card[r][key], ref, rtol=rtol,
                                        atol=atol, err_msg=f"{r}: {key}")
+
+
+def test_mp2_bf16_async_checkpoint_of_two_ranks_resumes_in_one_process(
+        cuda, tmp_path):
+    """Two ranks sharing the card train Llama at mp 2 in bf16, save model
+    and optimizer with ``async_save=True`` after three AdamW steps and
+    take the fourth while the writer runs; this process loads the
+    checkpoint into the unsharded model (mp 1) and takes the fourth step:
+    its loss is within ``chip_smoke.TP_BF16_RTOL`` of the ranks' own (the
+    same weights; the bf16 sums of one rank and of two round apart)."""
+    from chip_smoke import TP_BF16_RTOL
+    from paddle_tpu_torch.ops.kernels import _build
+    _build.build()
+    fields = dict(vocab_size=1024, hidden_size=256, num_attention_heads=4,
+                  num_key_value_heads=2, intermediate_size=512,
+                  max_position_embeddings=256, scan_layers=False)
+    rng = np.random.RandomState(4)
+    batches = [rng.randint(0, 1024, (2, 129)).astype(np.int64)
+               for _ in range(4)]
+    path = str(tmp_path / "step_0")
+    ranks = _two_ranks("cuda", "torch_ckpt_cases:card_async_save", fields,
+                       batches, path)
+    assert ranks[0] == ranks[1]
+    cfg = dataclasses.replace(LlamaConfig.tiny(), **fields)
+    model = LlamaForCausalLM(cfg, device=cuda, dtype=torch.bfloat16, seed=5)
+    m = Model(model)
+    m.prepare(AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    weight_decay=0.01))
+    assert m.load_checkpoint(path) == 0
+    assert m._optimizer._step_count == 3
+    t = torch.from_numpy(batches[3]).to(cuda)
+    _, loss = model(t, labels=t)
+    loss.backward()
+    m._optimizer.step()
+    want = ranks[0][3]
+    assert abs(loss.item() - want) <= TP_BF16_RTOL * abs(want), (
+        loss.item(), want)

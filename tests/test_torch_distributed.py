@@ -8,7 +8,8 @@ The ranks are started once a module (``torch_dist_pool.RankPool``) and
 run ``torch_dist_cases``. Collectives are held to exact values (small
 integers in f32); the JAX package's ``CommunicateTopology`` is the
 oracle of the coordinates; the parallelised MLP is held to the JAX
-package's plain layers at ``rtol=1e-5``.
+package's plain layers at ``rtol=1e-5``. The checkpoint writers' case
+runs ``torch_ckpt_cases``.
 """
 
 from __future__ import annotations
@@ -256,21 +257,44 @@ def test_distributed_batch_sampler_takes_the_process_group(pools):
     assert sorted(sum(got[0][2] + got[2][2], [])) == list(range(10))
 
 
-def test_checkpoints_of_a_split_model_raise_and_convert_gathers(pools):
-    """Under mp 2: hapi.Model.save, fit(save_dir=) and distributed.
-    checkpoint.save_state_dict raise, naming ROADMAP A.7 (they would
-    write a shard as if it were the model), as does a cache step;
-    convert.to_numpy_state_dict gathers the JAX package's full shapes."""
-    got = pools(2).run("torch_dist_cases:refusals")
+def test_split_model_writers_save_and_resume_at_mp2(pools, tmp_path):
+    """Under mp 2 the checkpoint writers that refused a split model save
+    and resume it: Model.save writes the unsharded model's .pdparams
+    from the first rank (one process loads it to the JAX logits) and
+    Model.load takes each rank's slice; distributed.checkpoint's
+    save_state_dict/load_state_dict of model.state_dict() place each
+    shard; fit(save_dir=) then fit(resume=True) continues at epoch 1. A
+    cache step still raises, naming ROADMAP A.7, and
+    convert.to_numpy_state_dict gathers the JAX package's full shapes.
+    The logits after each load equal the saved model's bit for bit, the
+    JAX model's within rtol 1e-5 (the sums' order)."""
     from paddle_tpu.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.hapi import Model as TModel
+    from paddle_tpu_torch.models import LlamaConfig as TConfig
+    from paddle_tpu_torch.models import LlamaForCausalLM as TLlama
     paddle.seed(0)
-    shapes = {k: tuple(v.shape) for k, v in
-              LlamaForCausalLM(LlamaConfig.tiny()).state_dict().items()}
-    for msgs, full in got:
-        for msg in msgs[:3]:
-            assert msg is not None and "ROADMAP A.7" in msg, msgs
-        assert msgs[3] is not None and "A.7" in msgs[3]
-        assert {k: tuple(v) for k, v in full.items()} == shapes
+    jm = LlamaForCausalLM(LlamaConfig.tiny())
+    arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    ids = np.random.RandomState(3).randint(0, 256, (2, 8)).astype(np.int64)
+    want = np.asarray(jm(paddle.to_tensor(ids)).numpy())
+    got = pools(2).run("torch_ckpt_cases:split_model_writers", arrays, ids,
+                       str(tmp_path))
+    shapes = {k: v.shape for k, v in arrays.items()}
+    for res in got:
+        assert res["files"] == ["x.pdopt", "x.pdparams"]
+        np.testing.assert_allclose(res["logits"], want, rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(res["after_load"], res["logits"])
+        np.testing.assert_array_equal(res["after_ckpt"], res["logits"])
+        assert res["resumed_epochs"] == [1] and res["resumed_step"] == 2
+        assert res["cache_step"] is not None and "A.7" in res["cache_step"]
+        assert {k: tuple(v) for k, v in res["full_shapes"].items()} == shapes
+    one = TModel(TLlama(TConfig.tiny(), device="cpu", seed=9))
+    one.load(str(tmp_path / "x"))
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            one.network(torch.from_numpy(ids)).numpy(), want, rtol=1e-5,
+            atol=1e-6)
 
 
 def test_parallelize_plan_matches_the_plain_jax_mlp(pools):

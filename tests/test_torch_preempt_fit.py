@@ -1,5 +1,5 @@
-"""Preemption inside the port's ``hapi.Model.fit``: the single-device
-cases of tests/test_preempt_fit.py.
+"""Preemption inside the port's ``hapi.Model.fit``: the cases of
+tests/test_preempt_fit.py, single-device and across layouts.
 
 A guard that trips mid-epoch (``_TripAtStep``) or a real SIGTERM (the
 ``preempt`` fault plan) stops ``fit`` at the next step boundary; it
@@ -10,6 +10,17 @@ for bit, and the JAX package's uninterrupted run from the same weights
 within rtol 1e-5 / atol 1e-6 (f32; the JAX test's own tolerance), for
 momentum, Adam with a ``GradScaler``, both epoch loops, and a general
 ``Dataset`` shuffled through two loader workers.
+
+Across layouts (gloo ranks of ``torch_dist_pool.RankPool`` running
+``torch_ckpt_cases.preempt_fit``; the JAX test's mesh matrix with the
+port's layouts): dp 2 -> 1, mp 2 with dp 2 -> mp 2 with dp 1, Adam slots
+with a ``GradScaler`` at mp 2 -> mp 1, ZeRO stage 2 -> 1 rank. The guard
+trips after step 6 on every rank, the emergency checkpoint commits
+through the barrier, the smaller layout resumes with ``fit(resume=
+True)`` and its final state equals the JAX uninterrupted run's within
+the same rtol 1e-5 / atol 1e-6. The scaler's state survives the reshard
+exactly, and with a dead peer the emergency save fails uncommitted
+within the guard's grace.
 """
 
 import numpy as np
@@ -29,6 +40,7 @@ from paddle_tpu_torch.hapi import Model
 from paddle_tpu_torch.io import TensorDataset
 from paddle_tpu_torch.profiler import trace as ttrace
 from paddle_tpu_torch.testing import FaultInjector
+from torch_dist_pool import RankPool
 from torch_io_data import ArrayDataset
 
 torch.set_num_threads(1)
@@ -284,3 +296,111 @@ def test_preemptible_false_ignores_a_request(tmp_path):
         assert guard._installed
     finally:
         guard.uninstall()
+
+
+# ---- across layouts --------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pools():
+    made = {}
+
+    def get(n):
+        # a pool killed by a failed call is started again
+        if n not in made or not made[n].alive():
+            made[n] = RankPool(n)
+        return made[n]
+
+    yield get
+    for pool in made.values():
+        pool.close()
+
+
+def _preempt_on_ranks(pools, save_dir, n, hybrid, layout, opt, scaler,
+                      trip_after):
+    _, w, b = _jax_weights(0)
+    got = pools(n).run("torch_ckpt_cases:preempt_fit", hybrid, layout, w, b,
+                       X, Y, opt, scaler, str(save_dir), trip_after, {})
+    assert all(g == dict(got[0]) for g in got), got
+    return got[0]
+
+
+MESH_CASES = {
+    # name: (ranks, degrees, layout), the resume's (ranks, degrees) or
+    # None for one process, the optimizer, a GradScaler
+    "dp": ((2, {"dp_degree": 2}, None), None, "momentum", False),
+    "dp_mp": ((4, {"dp_degree": 2, "mp_degree": 2}, None),
+              (2, {"mp_degree": 2}), "momentum", False),
+    "adam_slots": ((2, {"mp_degree": 2}, None), None, "adam", True),
+    "zero2": ((2, {"sharding_degree": 2, "dp_degree": 1}, "zero2"), None,
+              "momentum", False),
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_preempt_resume_smaller_layout_matches_jax(pools, tmp_path, name):
+    """Trip after step 6 on every rank of the saving layout: the
+    emergency checkpoint commits through the barrier; the smaller layout
+    resumes and ends at the JAX uninterrupted run's state."""
+    from paddle_tpu_torch.profiler import metrics
+    (n, hybrid, layout), resume, opt, scaler = MESH_CASES[name]
+    pre = _preempt_on_ranks(pools, tmp_path, n, hybrid, layout, opt, scaler,
+                            6)
+    assert (pre["epoch"], pre["step"], pre["opt_step"]) == (1, 1, 6)
+    assert ckpt.validate_checkpoint(pre["checkpoint"])["world_size"] == n
+    if resume is None:
+        reg = metrics.get_registry()
+        reg.gauge("elastic/reshard_tensors").set(0)
+        m2 = _model(123, opt, scaler)
+        m2.fit(_data(), save_dir=str(tmp_path), resume=True,
+               **_fit_kw(False))
+        assert [s["epoch"] for s in m2._epoch_summaries] == [1, 2]
+        assert reg.gauge("elastic/reshard_tensors").value >= 2
+        got = {k: v.numpy() for k, v in _final_state(m2).items()
+               if k != "@opt_step"}
+        got["@opt_step"] = m2._optimizer._step_count
+    else:
+        rn, rhybrid = resume
+        res = pools(rn).run("torch_ckpt_cases:preempt_fit", rhybrid, None,
+                            *_jax_weights(123)[1:], X, Y, opt, scaler,
+                            str(tmp_path), None, {"resume": True})
+        assert all(r["epochs"] == [1, 2] for r in res)
+        got = res[0]
+    jref = _jax_uninterrupted(opt, scaler, False)
+    assert got["@opt_step"] == jref["@opt_step"] == EPOCHS * STEPS_PER_EPOCH
+    for k in ("weight", "bias"):
+        np.testing.assert_allclose(got[k], jref[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{name}: {k}")
+
+
+def test_preempt_scaler_state_restored_across_layouts(pools, tmp_path):
+    """The scaler's scale and good steps, ``@step`` and the mid-epoch
+    step are exact after an mp 2 emergency checkpoint is resharded into
+    one process."""
+    pre = _preempt_on_ranks(pools, tmp_path, 2, {"mp_degree": 2}, None,
+                            "adam", True, 5)
+    assert pre["scale"] > 512.0  # grew at least once (incr_every=3)
+    m2 = _model(123, "adam", scaler=True)
+    m2.load_checkpoint(pre["checkpoint"])
+    assert m2._scaler.get_loss_scaling() == pre["scale"]
+    assert m2._scaler._good_steps == pre["good"]
+    assert m2._optimizer._step_count == pre["opt_step"] == 5
+    assert m2._resume_mid_step == pre["step"]
+
+
+def test_emergency_save_bounded_by_grace(tmp_path, monkeypatch):
+    """The emergency checkpoint's commit barrier gets the guard's
+    remaining grace, not 300 s: with a dead peer (a world of 2 in which
+    rank 1 never stages) the save fails uncommitted within it."""
+    import time as _time
+
+    from paddle_tpu_torch.distributed.checkpoint import save_load
+    m = _model(0)
+    monkeypatch.setattr(save_load, "_rank_world", lambda group: (0, 2))
+    guard = _TripAtStep(m, 2)
+    guard.grace_s = 3.0
+    t0 = _time.time()
+    with pytest.raises(RuntimeError, match="barrier timed out"):
+        m.fit(_data(), batch_size=4, epochs=EPOCHS, verbose=0,
+              shuffle=False, save_dir=str(tmp_path), preemptible=guard)
+    assert _time.time() - t0 < 60.0   # nowhere near the 300 s default
+    assert ckpt.latest_valid_checkpoint(str(tmp_path)) is None

@@ -332,3 +332,18 @@ def test_hybrid_clip_at_mp_matches_the_jax_global_norm_clip(pools):
     for res in got:
         check_losses(res["losses"], losses)
     check_weights(got[0]["weights"], after)
+
+
+def test_hybrid_clip_counts_replicated_parameters_once(pools):
+    """The global norm of tiny Llama's first gradients at mp 2 equals the
+    JAX single-device gradients' norm (rtol 1e-5: the sums' order): the
+    norm weights, replicated on both ranks, count once. torch's own
+    ``Tensor.is_distributed`` is a method, truthy on every parameter, so
+    a check that read it unmarked summed them over the model group."""
+    batches = _batches(steps=1)
+    arrays, _, grads0, _ = jax_train("llama", {}, batches)
+    want = np.sqrt(sum(float(np.sum(np.square(g, dtype=np.float64)))
+                       for g in grads0.values()))
+    got = pools(2).run("torch_dist_cases:clip_global_norm", arrays,
+                       batches[0])
+    np.testing.assert_allclose(got, [want, want], rtol=1e-5)

@@ -382,38 +382,6 @@ def sampler_defaults(hybrid, n_items):
     return s.nranks, s.local_rank, [list(b) for b in s]
 
 
-def refusals():
-    """Under mp 2: the checkpoint writers raise, naming ROADMAP A.7, and
-    ``save_group_sharded_model`` / ``convert.to_numpy_state_dict``
-    gather instead."""
-    import tempfile
-
-    from paddle_tpu_torch import convert, hapi
-    from paddle_tpu_torch.distributed import checkpoint
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.optimizer import AdamW
-    _fleet({"mp_degree": env.get_world_size()})
-    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    msgs = []
-    m = hapi.Model(model)
-    m.prepare(AdamW(parameters=model.parameters()))
-    with tempfile.TemporaryDirectory() as d:
-        for fn in (lambda: m.save(f"{d}/x"),
-                   lambda: checkpoint.save_state_dict(model.state_dict(),
-                                                      f"{d}/c"),
-                   lambda: m.fit([(np.zeros((2, 4), np.int64),)],
-                                 save_dir=d),
-                   lambda: model(torch.zeros(1, 2, dtype=torch.long),
-                                 caches=model.init_kv_cache(1, 4), pos=0)):
-            try:
-                fn()
-                msgs.append(None)
-            except NotImplementedError as e:
-                msgs.append(str(e))
-    full = convert.to_numpy_state_dict(model)
-    return msgs, {k: v.shape for k, v in full.items()}
-
-
 def parallelized_mlp(a):
     """``distributed.parallelize`` over a two-layer MLP with the plan
     ``{"fc1": ColWiseParallel(), "fc2": RowWiseParallel()}`` at the model
@@ -513,3 +481,26 @@ def zero3_recompute_refused():
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+def clip_global_norm(arrays, batch):
+    """Tiny Llama at mp = world from the JAX weights ``arrays``: the
+    global gradient norm ``HybridParallelClipGrad`` computes over the
+    shards after one backward on ``batch``."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed.fleet.hybrid_optimizer import \
+        HybridParallelClipGrad
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer.clip import ClipGradByGlobalNorm
+    import dataclasses
+    hcg = _fleet({"mp_degree": env.get_world_size()})
+    model = LlamaForCausalLM(dataclasses.replace(
+        LlamaConfig.tiny(), tensor_parallel=True), device="cpu")
+    convert.from_numpy_state_dict(model, arrays, hcg=hcg)
+    t = torch.from_numpy(batch)
+    _, loss = model(t, labels=t)
+    loss.backward()
+    clip = HybridParallelClipGrad(ClipGradByGlobalNorm(1.0),
+                                  mp_group=hcg.get_model_parallel_group())
+    return float(clip.global_norm([(p, p.grad)
+                                   for p in model.parameters()]))
