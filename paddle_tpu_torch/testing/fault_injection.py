@@ -118,7 +118,9 @@ class FaultPlan:
 
 
 class _FaultFile:
-    """A file proxy that asks the injector on ``write()`` and ``read()``."""
+    """A file proxy that asks the injector on ``write()`` and ``read()``
+    (``readinto()`` too: the checkpoint's shard reader reads into one
+    buffer)."""
 
     def __init__(self, f, path, injector):
         self._f = f
@@ -154,6 +156,12 @@ class _FaultFile:
         if plan is not None:
             self._inj._act(plan, self._path)
         return self._f.read(*args)
+
+    def readinto(self, buf):
+        plan = self._inj._take(self._path, "read")
+        if plan is not None:
+            self._inj._act(plan, self._path)
+        return self._f.readinto(buf)
 
     def __enter__(self):
         return self
