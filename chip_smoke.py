@@ -248,8 +248,9 @@ K12):
     first differing token and the top-2 gap there), the idle share over
     a profiled window of the same requests on the 3 survivors;
 35. http: bench.py:_cb_http_bench: an engine-backed ``ApiServer`` driven
-    by tools/load_harness.py as a separate process (24 SSE requests, the
-    bench's 64; concurrency 24; the engines warmed on 8 others), one leg of each where the bench takes
+    by tools/load_harness.py as a separate process (16 SSE requests at
+    once, the bench's 64 at concurrency 24; the engines warmed on 8
+    others), one leg of each where the bench takes
     the best of 2 (``HTTP_REPS``: the time limit), beside the direct engine
     (``cb_http_*``); every request ok, a unary completion equal to the
     engine's tokens, /v1/models, /healthz and /statusz 200, a 429 with
@@ -308,7 +309,7 @@ is ``card_llama_engine``, the set-up's matmul settings, then
 40. proc_parity: 2 workers at depth 2 in f32 (seed 1): a SIGKILL, two
     dropped and two corrupted frames, then a SIGSTOP (hung, ejected as
     wedged): every stream equal to the single engine's bit for bit;
-41. disagg: 64 of bench.py:_cb_disagg_bench's 128 long_prompt_flood requests
+41. disagg: 48 of bench.py:_cb_disagg_bench's 128 long_prompt_flood requests
     and role geometry at Llama-1B width, 8 layers, bf16: 1 prefill + 1
     decode worker against 2 colocated (migrations, pages and bytes
     moved, p99 migration ms, short-chat p99 TTFT of both legs, tok/s
@@ -347,7 +348,22 @@ is ``card_llama_engine``, the set-up's matmul settings, then
     (``TP_8B_SAVE_OPTIMIZER``) after step 3 and take step 4, and this
     process loads it at mp 1 and takes step 4 within ``TP_BF16_RTOL`` of
     theirs: the bytes and seconds of each save and load, the
-    ``elastic/reshard_*`` gauges and the disk's free space.
+    ``elastic/reshard_*`` gauges and the disk's free space. Then the
+    same two ranks, after a second ``fleet.init`` with ``pp_degree`` 2,
+    run the pipeline (``PipelineParallel`` over ``LlamaForCausalLMPipe``,
+    each rank holding only its stage's layers, activations and
+    gradients by p2p): Llama-1B's width at depth 4 in f32 under FThenB,
+    1F1B, ZB-H1 and interleaved (V 2), ``TP_BATCH`` as 2 microbatches,
+    held to the unpartitioned run of the same seed within
+    ``TP_F32_RTOL``; the 1F1B case's checkpoint, which this process
+    loads into ``LlamaForCausalLM`` and takes steps 4-5 within
+    ``TP_F32_RTOL[1]`` of the unpartitioned run's own; the tiny
+    Qwen2-MoE pipe (dropless: K14/K15; aux loss 0) within
+    ``TP_F32_RTOL``; and Llama-3-8B's width at 4 layers in bf16 (fused
+    carry, core_attn recompute, 1F1B, ids [4, 2049] as 4 microbatches)
+    through ``PP_8B_STEPS`` AdamW steps within ``TP_BF16_RTOL`` of the
+    unpartitioned run, with ms a step, peak memory and K1-K9's launches
+    a rank (the ``pp`` entry of the kernels line).
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -378,6 +394,8 @@ BF16_ULP = 2.0 ** -7
 # sheet figures, 3.35 TB/s and 989.4 TFLOP/s)
 HBM_BYTES_PER_S = None
 PEAK_BF16 = None
+# nvidia-smi's "name, power limit": set by phase_setup
+CARD = None
 PEAK_F32_CORES = 67e12           # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
 # the design of K7-K9 at D 64 and 128 and of K14 and K15 in bf16
@@ -621,7 +639,7 @@ def check_kernel_routes():
 
 
 def phase_setup():
-    global HBM_BYTES_PER_S, PEAK_BF16
+    global HBM_BYTES_PER_S, PEAK_BF16, CARD
     import torch
     from paddle_tpu_torch.ops.kernels import _build
     check_kernel_routes()
@@ -644,7 +662,7 @@ def phase_setup():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = CARD = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; peaks from "
@@ -2915,11 +2933,12 @@ PROC_HTTP_CONCURRENCY = 4
 #: s, hung after hb_timeout_s of silence
 PROC_REPLICA = dict(init_deadline_s=300.0, hb_timeout_s=10.0,
                     respawn_backoff_s=0.01)
-#: disagg (bench.py:_cb_disagg_bench): half its 128 requests, its role
+#: disagg (bench.py:_cb_disagg_bench): 48 of its 128 requests, its role
 #: geometry (bench.py:1335-1337, 1385-1395) at Llama-1B width, 8 layers;
 #: 1 prefill + 1 decode worker against 2 colocated (the bench's 2 + 2
-#: against 4), cut for the script's time limit
-DISAGG_REQUESTS = 64
+#: against 4), cut for the script's time limit (64 until the pipeline's
+#: cases came in)
+DISAGG_REQUESTS = 48
 DISAGG_ENGINE = dict(num_slots=2, page_size=8, max_len=64, num_pages=48,
                      decode_chunk=4, prompt_buckets=(8, 40), greedy=True)
 DISAGG_PREFILL = dict(role="prefill", decode_chunk=2, num_slots=6,
@@ -3608,9 +3627,9 @@ def phase_autoscale(cfg1b, layers=PROC_LAYERS, dev="cuda"):
 #: its budget, so it runs one of each
 HTTP_REPS = 1
 #: the HTTP phase's requests: the bench's 64 at concurrency 24 took about
-#: 90 s of the script's time limit; 24 still fill the harness's
-#: concurrency, three times the engine's 8 slots
-HTTP_REQUESTS = 24
+#: 90 s of the script's time limit; 16 (24 until the pipeline's cases
+#: came in) all at once, twice the engine's 8 slots
+HTTP_REQUESTS = 16
 #: the warm-up's requests, drawn apart from the timed ones
 HTTP_WARM_REQUESTS = 8
 
@@ -3622,7 +3641,7 @@ def phase_http(model, reps=HTTP_REPS, dev="cuda"):
     chunks of 32 tokens), warmed on ``HTTP_WARM_REQUESTS`` requests of
     their own, driven by tools/load_harness.py as a separate
     process with the bench's flags but ``HTTP_REQUESTS`` requests (its
-    64; concurrency 24, closed
+    64) at once (its concurrency 24), closed
     loop, prompts of 3-5 tokens, 128-192 new, a quarter sharing a
     4-token prefix, two tenants, seed 44), best of ``reps`` (the bench's
     2; ``HTTP_REPS``) interleaved with the same requests pushed straight
@@ -3638,7 +3657,8 @@ def phase_http(model, reps=HTTP_REPS, dev="cuda"):
     from paddle_tpu_torch.inference import (AdmissionController, ApiServer,
                                             ContinuousBatchingEngine)
     cfg = model.config
-    n_req, conc, new_lo, new_hi, sse_chunk = HTTP_REQUESTS, 24, 128, 192, 32
+    n_req, new_lo, new_hi, sse_chunk = HTTP_REQUESTS, 128, 192, 32
+    conc = min(24, n_req)
 
     def factory():
         return ContinuousBatchingEngine(
@@ -7971,6 +7991,7 @@ def tp_rank(out_dir, cfg1b, cfg8, ref_ck):
     torch.cuda.empty_cache()
     if rank == 0:
         out["kernels"] = _tp_shard_checks(cfg8)
+    out["pp"] = pp_rank(out_dir, cfg1b, cfg8)
     out["total_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -8056,6 +8077,7 @@ def phase_tp(cfg, cfg1b):
         f"losses {', '.join(f'{x:.6f}' for x in ref8)}, ms a step "
         f"{', '.join(f'{x:.1f}' for x in times)}, peak {peak:.2f} GB; "
         f"references in {time.perf_counter() - t0:.1f} s")
+    pp_refs = _pp_references(cfg1b, cfg8)
     out_dir = ck_root
     t1 = time.perf_counter()
     procs = spawn(tp_rank, args=(out_dir, cfg1b, cfg8, ref_ck), nprocs=2,
@@ -8070,6 +8092,7 @@ def phase_tp(cfg, cfg1b):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
         part_c = _tp_8b_resume(cfg8, out_dir, ranks)
+        pp_resumed = _pp_resume(cfg1b, out_dir)
     finally:
         for p in procs:
             if p.is_alive():
@@ -8137,7 +8160,9 @@ def phase_tp(cfg, cfg1b):
         + ", ".join(f"{k} {v:.2f} s" for k, v in ref_save.items())
         + " (the Llama's async: the call, then the wait after its next "
         f"{TP_RESUMED} steps)")
-    return {"launches": launches, "kernels": ranks[0]["kernels"]}
+    pp_launches = _pp_check([rk["pp"] for rk in ranks], pp_refs, pp_resumed)
+    return {"launches": launches, "launches_pp": pp_launches,
+            "kernels": ranks[0]["kernels"]}
 
 
 def _tp_join(procs, deadline, until=None):
@@ -8280,6 +8305,288 @@ def _tp_log_8b(ranks, part_c):
         f"{part_c['loss']:.6f} against the ranks' "
         f"{ranks[0]['losses_8b'][TP_STEPS]:.6f}: relative "
         f"{part_c['rel']:.3g} (limit {TP_BF16_RTOL:g})")
+
+
+PP_SCHEDULES = (("FThenB", None), ("1F1B", None), ("ZB-H1", None),
+                ("interleaved", 2))
+PP_LAYERS = 4                    # Llama-1B's width: 2 layers a stage
+PP_8B_IDS = (4, 2049)            # 4 microbatches of [1, 2048]
+PP_8B_STEPS = 2
+
+
+def _pp_configs(cfg1b):
+    """The f32 Llama (Llama-1B's width at ``PP_LAYERS``) and the tiny
+    Qwen2-MoE (dropless, so K14/K15 run; aux loss 0, as the pipe folds
+    it out) of the pp cases."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import Qwen2MoeConfig
+    return (dataclasses.replace(cfg1b, num_hidden_layers=PP_LAYERS),
+            dataclasses.replace(Qwen2MoeConfig.tiny(), num_hidden_layers=4,
+                                moe_dropless=True, router_aux_loss_coef=0.0))
+
+
+def _pp_references(cfg1b, cfg8):
+    """The unpartitioned runs the pp ranks are held to, in this process
+    before the spawn (their memory freed after): the f32 Llama from seed
+    7 through ``TP_STEPS + TP_RESUMED`` AdamW steps, the tiny Qwen2-MoE
+    through ``TP_STEPS``, and the 8B width in bf16 from seed 0 through
+    ``PP_8B_STEPS`` on ``PP_8B_IDS``."""
+    import torch
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    llama, moe = _pp_configs(cfg1b)
+    out = {}
+    for name, model, shape in (
+            ("llama", _tp_model("llama", llama, torch.float32), TP_BATCH),
+            ("moe", Qwen2MoeForCausalLM(moe, device="cuda", seed=7),
+             TP_TINY_BATCH)):
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    weight_decay=0.01)
+        batches = _tp_batches(model.config, shape, 30)
+        out[name] = _tp_train(model, opt, batches if name == "llama"
+                              else batches[:TP_STEPS])
+        del model, opt
+    model = _tp_model("llama", cfg8, torch.bfloat16, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    out["8b"] = _tp_train(model, opt, _tp_batches(cfg8, PP_8B_IDS, 0)[
+        :PP_8B_STEPS], times=times)
+    out["8b_ms"], out["8b_peak_gb"] = times, \
+        torch.cuda.max_memory_allocated() / 1e9
+    del model, opt
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _pp_fleet(schedule, micro, virtual=None):
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(pp_degree=2, dp_degree=1)
+    strategy.pipeline_configs.update(
+        schedule_mode=schedule, accumulate_steps=micro,
+        num_virtual_pipeline_stages=virtual)
+    fleet.init(is_collective=True, strategy=strategy)
+
+
+def _pp_steps(model, opt, batches, times=None):
+    """``train_batch`` on each batch: the mean losses (and ms a step)."""
+    import torch
+    losses = []
+    for ids in batches:
+        t = torch.from_numpy(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(model.train_batch((t, t), opt)))
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return losses
+
+
+def pp_rank(out_dir, cfg1b, cfg8):
+    """The pp cases on one rank of phase tp, after its mp cases, with
+    every kernel count at 0 first: a second ``fleet.init`` (pp 2) for
+    each, the f32 Llama under each of ``PP_SCHEDULES`` (the 1F1B case
+    saved into ``out_dir/pp_1f1b`` after its steps), the Qwen2-MoE pipe,
+    then the 8B width in bf16. Returns the losses, launches, ms, peak
+    memory and parameter counts."""
+    import torch
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (LlamaForCausalLMPipe,
+                                         Qwen2MoeForCausalLMPipe)
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    rank = env.get_rank()
+    wrappers = _counted(TRAIN_KERNELS + MOE_KERNELS)
+    llama, moe = _pp_configs(cfg1b)
+    out = {"cases": {}}
+
+    def build(make, cfg, lr, **kw):
+        layer = make(cfg, device="cuda", **kw)
+        opt = fleet.distributed_optimizer(AdamW(
+            learning_rate=lr, parameters=layer.parameters(),
+            weight_decay=0.01))
+        return layer, fleet.distributed_model(layer), opt
+
+    batches = _tp_batches(llama, TP_BATCH, 30)
+    for schedule, virtual in PP_SCHEDULES:
+        _pp_fleet(schedule, TP_BATCH[0], virtual)
+        layer, model, opt = build(LlamaForCausalLMPipe, llama, 1e-3, seed=7,
+                                  num_virtual_pipeline_stages=virtual)
+        case = out["cases"][schedule] = {
+            "losses": _pp_steps(model, opt, batches[:TP_STEPS]),
+            "peak_live": model.peak_live,
+            "params": sum(p.numel() for p in layer.parameters()),
+            "by_stage": [sum(p.numel() for p in ps)
+                         for ps in layer.parameters_by_stage]}
+        if schedule == "1F1B":
+            m = Model(layer)
+            m.prepare(opt)
+            path = os.path.join(out_dir, "pp_1f1b")
+            t1 = time.perf_counter()
+            m.save_checkpoint(path, epoch=0)
+            case["save_s"] = time.perf_counter() - t1
+            case["save_bytes"] = _tp_written(path, rank)
+            del m
+        del layer, model, opt
+        torch.cuda.empty_cache()
+    _pp_fleet("1F1B", 2)
+    layer, model, opt = build(Qwen2MoeForCausalLMPipe, moe, 1e-3, seed=7)
+    out["moe_losses"] = _pp_steps(model, opt, _tp_batches(
+        moe, TP_TINY_BATCH, 30)[:TP_STEPS])
+    del layer, model, opt
+    torch.cuda.empty_cache()
+    out["f32_s"] = time.perf_counter() - t0
+    _pp_fleet("1F1B", PP_8B_IDS[0])
+    t1 = time.perf_counter()
+    layer, model, opt = build(LlamaForCausalLMPipe, cfg8, 1e-4,
+                              dtype=torch.bfloat16, seed=0)
+    out["build_8b_s"] = time.perf_counter() - t1
+    out["params_8b"] = sum(p.numel() for p in layer.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: w.launches for n, w in wrappers.items()}
+    times = []
+    out["losses_8b"] = _pp_steps(model, opt, _tp_batches(
+        cfg8, PP_8B_IDS, 0)[:PP_8B_STEPS], times)
+    out["launches_8b"] = {n: w.launches - before[n]
+                          for n, w in wrappers.items()}
+    out["ms_8b"] = times
+    out["peak_gb_8b"] = torch.cuda.max_memory_allocated() / 1e9
+    del layer, model, opt
+    torch.cuda.empty_cache()
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    out["stage"] = fleet.get_hybrid_communicate_group().get_stage_id()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _pp_resume(cfg1b, out_dir):
+    """The 1F1B case's pp 2 checkpoint loaded into ``LlamaForCausalLM``
+    (f32, another seed; the layer's keys through ``pipe_key``, the
+    optimizer's keys the same at every pp degree), then ``TP_RESUMED``
+    steps: (losses, load seconds, the optimizer's step count)."""
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.models.llama import pipe_key
+    from paddle_tpu_torch.optimizer import AdamW
+    llama, _ = _pp_configs(cfg1b)
+    path = os.path.join(out_dir, "pp_1f1b")
+    model = _tp_model("llama", llama, torch.float32, seed=11)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    t0 = time.perf_counter()
+    dckpt.load_state_dict({"model": {
+        pipe_key(PP_LAYERS, "llama.", k): v
+        for k, v in model.state_dict().items()}}, path)
+    opt.set_state_dict(dckpt.read_state_dict(path, prefix="optimizer"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    step0 = opt._step_count
+    losses = _tp_train(model, opt, _tp_batches(llama, TP_BATCH, 30)[
+        TP_STEPS:])
+    del model, opt
+    torch.cuda.empty_cache()
+    return losses, load_s, step0
+
+
+def _pp_check(ranks, refs, resumed):
+    """The pp cases of both ranks against the unpartitioned runs, logged
+    beside the card's name and power limit; returns the launches of the
+    pp path summed over the ranks (K1-K9 and K14/K15 must be there)."""
+    def rel(got, want):
+        return np.abs(np.asarray(got) - np.asarray(want)) / \
+            np.abs(np.asarray(want))
+
+    lim = np.array([TP_F32_RTOL[0]] + [TP_F32_RTOL[1]] * (TP_STEPS - 1))
+    want = refs["llama"][:TP_STEPS]
+    for schedule, _ in PP_SCHEDULES:
+        for rk in ranks:
+            case = rk["cases"][schedule]
+            r = rel(case["losses"], want)
+            if (r > lim).any() or case["params"] != \
+                    case["by_stage"][rk["stage"]]:
+                raise AssertionError(
+                    f"[pp] {schedule} stage {rk['stage']}: losses "
+                    f"{case['losses']} against the unpartitioned {want}, "
+                    f"{case['params']} parameters held, by stage "
+                    f"{case['by_stage']}")
+        log(f"[pp] Llama-1B width at {PP_LAYERS} layers f32, pp 2, "
+            f"{schedule}, {TP_BATCH[0]} microbatches: losses "
+            f"{', '.join(f'{x:.7f}' for x in ranks[0]['cases'][schedule]['losses'])}"
+            f" against the unpartitioned "
+            f"{', '.join(f'{x:.7f}' for x in want)}: worst relative "
+            f"{max(rel(rk['cases'][schedule]['losses'], want).max() for rk in ranks):.3g}"
+            f" (limits {TP_F32_RTOL[0]:g} first, {TP_F32_RTOL[1]:g} after); "
+            f"parameters a stage {ranks[0]['cases'][schedule]['by_stage']}; "
+            f"peak live microbatches "
+            f"{[rk['cases'][schedule]['peak_live'] for rk in ranks]}")
+    losses, load_s, step0 = resumed
+    want_r = refs["llama"][TP_STEPS:]
+    r = rel(losses, want_r)
+    saved = [rk["cases"]["1F1B"] for rk in ranks]
+    if (r > TP_F32_RTOL[1]).any() or step0 != TP_STEPS:
+        raise AssertionError(f"[pp] the 1F1B checkpoint resumed "
+                             f"unpartitioned: losses {losses} against "
+                             f"{want_r}, optimizer step {step0}")
+    log(f"[pp] the 1F1B ranks' checkpoint (saved in "
+        + ", ".join(f"{c['save_s']:.2f} s ({c['save_bytes'] / 1e9:.3f} GB)"
+                    for c in saved)
+        + f") loaded into LlamaForCausalLM in {load_s:.2f} s: steps "
+        f"{TP_STEPS + 1}-{TP_STEPS + TP_RESUMED} losses "
+        f"{', '.join(f'{x:.7f}' for x in losses)} against the "
+        f"unpartitioned {', '.join(f'{x:.7f}' for x in want_r)}, worst "
+        f"relative {r.max():.3g} (limit {TP_F32_RTOL[1]:g})")
+    want_m = refs["moe"]
+    for rk in ranks:
+        r = rel(rk["moe_losses"], want_m)
+        if (r > lim).any():
+            raise AssertionError(f"[pp] Qwen2-MoE pipe: losses "
+                                 f"{rk['moe_losses']} against {want_m}")
+    log(f"[pp] tiny Qwen2-MoE pipe (dropless, aux 0), pp 2, 1F1B: losses "
+        f"{', '.join(f'{x:.7f}' for x in ranks[0]['moe_losses'])} against "
+        f"the unpartitioned {', '.join(f'{x:.7f}' for x in want_m)}")
+    want8 = refs["8b"]
+    for rk in ranks:
+        r = rel(rk["losses_8b"], want8)
+        if (r > TP_BF16_RTOL).any():
+            raise AssertionError(f"[pp] 8B width pp 2: losses "
+                                 f"{rk['losses_8b']} against the "
+                                 f"unpartitioned {want8} (limit "
+                                 f"{TP_BF16_RTOL})")
+    for rk in ranks:
+        per = {n: c // PP_8B_STEPS for n, c in rk["launches_8b"].items()
+               if c}
+        log(f"[pp] {CARD}: Llama-3-8B width at {TP_8B_LAYERS} layers, "
+            f"bf16, pp 2 stage {rk['stage']} "
+            f"({rk['params_8b'] / 1e9:.3f} B parameters), 1F1B, ids "
+            f"{list(PP_8B_IDS)} as {PP_8B_IDS[0]} microbatches, fused "
+            f"carry, core_attn recompute: losses "
+            f"{', '.join(f'{x:.6f}' for x in rk['losses_8b'])} against the "
+            f"unpartitioned {', '.join(f'{x:.6f}' for x in want8)} (limit "
+            f"{TP_BF16_RTOL:g}); ms a step "
+            f"{', '.join(f'{x:.1f}' for x in rk['ms_8b'])}, peak "
+            f"{rk['peak_gb_8b']:.2f} GB; launches a step {per}; built in "
+            f"{rk['build_8b_s']:.1f} s; the rank's pp cases in "
+            f"{rk['s']:.1f} s (f32 {rk['f32_s']:.1f} s)")
+    log(f"[pp] {CARD}: the unpartitioned 8B width, one process: ms a step "
+        f"{', '.join(f'{x:.1f}' for x in refs['8b_ms'])}, peak "
+        f"{refs['8b_peak_gb']:.2f} GB; the references in {refs['s']:.1f} s")
+    launches = {n: sum(rk["launches"][n] for rk in ranks)
+                for n in ranks[0]["launches"]}
+    needed = [n for n in TRAIN_KERNELS + MOE_KERNELS
+              if n not in ("chunk_stats", "chunk_dlogits")]
+    missing = [n for n in needed if not launches[n]]
+    if missing:
+        raise AssertionError(f"[pp] kernels not launched on the pp path: "
+                             f"{missing}")
+    return launches
 
 
 def main():
@@ -8465,8 +8772,9 @@ def main():
         # observability fleet's runs (37), the surviving workers of the
         # process-backed fleet (39), the disaggregated and colocated
         # workers with the f32/int8 in-process fleets (41), the
-        # autoscaled fleet (42) and both ranks of the mp 2 Llama-3-8B
-        # steps (43); launches is their sum
+        # autoscaled fleet (42), both ranks of the mp 2 Llama-3-8B
+        # steps (43) and both ranks' pp cases (43, pp); launches is
+        # their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -8499,7 +8807,8 @@ def main():
                   "procfleet": procfleet["launches"].get(name, 0),
                   "disagg": disagg["launches"].get(name, 0),
                   "autoscale": autoscale["launches"].get(name, 0),
-                  "tp": tp["launches"].get(name, 0)}
+                  "tp": tp["launches"].get(name, 0),
+                  "pp": tp["launches_pp"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

@@ -26,6 +26,17 @@ rank calls them, in the same order). A ZeRO stage-3 model
 (``GroupShardedStage3``) is gathered the same way by
 ``to_numpy_state_dict``; load its weights before wrapping it.
 
+Pipeline parallelism: a ``PipelineLayer`` at ``pp_degree > 1`` holds
+only its stage's layers, under the JAX ``PipelineLayer``'s keys
+(``run_function.<i>.…``). ``from_numpy_state_dict`` takes the whole
+model's dict, keyed so or, for a ``*Pipe`` model of ``models``, by the
+unpartitioned ``*ForCausalLM``'s keys (the layer's ``key_map``), and
+loads this stage's keys: the other stages' keys are not unexpected, but
+a missing key of this stage raises. ``to_numpy_state_dict`` (through
+``distributed.sharding.full_state``) and ``grads_to_numpy`` gather every
+stage's arrays over the ``pipe`` group (a collective: every rank calls
+them), so they return the whole model.
+
 ``from_numpy_optimizer_state(model, state)`` turns a JAX optimizer's
 ``state_dict()`` (numpy arrays) into the port's, and
 ``to_numpy_optimizer_state`` goes back, so both packages can continue
@@ -51,18 +62,41 @@ __all__ = ["from_numpy_state_dict", "to_numpy_state_dict", "grads_to_numpy",
 
 
 def _linear_keys(model: nn.Module) -> set[str]:
+    """The keys of Linear weights; a ``PipelineLayer``'s of every stage."""
+    from .distributed.fleet.meta_parallel import PipelineLayer
+    if isinstance(model, PipelineLayer):
+        return {f"run_function.{i}.{name}.weight"
+                for i, layer in model._global_params()
+                for name, mod in layer.named_modules()
+                if isinstance(mod, nn.Linear)}
     return {f"{name}.weight" for name, mod in model.named_modules()
             if isinstance(mod, nn.Linear)}
 
 
 def _unwrap(model):
-    """The layer inside ``DataParallel``/fleet's AMP wrapper."""
+    """The layer inside ``DataParallel``/``PipelineParallel``/fleet's AMP
+    wrapper."""
     from .distributed.fleet.base import AmpModelWrapper
+    from .distributed.fleet.meta_parallel import PipelineParallel
     from .distributed.parallel import DataParallel
-    while isinstance(model, (DataParallel, AmpModelWrapper)):
-        model = model._layers if isinstance(model, DataParallel) \
-            else model.model
+    while isinstance(model, (DataParallel, AmpModelWrapper,
+                             PipelineParallel)):
+        model = model.model if isinstance(model, AmpModelWrapper) \
+            else model._layers
     return model
+
+
+def _other_stages(model, arrays):
+    """``arrays`` under ``model``'s keys (a ``*Pipe`` model's
+    ``key_map`` applied), and the keys of the pipeline stages it does not
+    hold."""
+    from .distributed.fleet.meta_parallel import PipelineLayer
+    key_map = getattr(model, "key_map", None)
+    if key_map is not None:
+        arrays = {key_map(k): v for k, v in arrays.items()}
+    if not isinstance(model, PipelineLayer) or model._stage is None:
+        return arrays, set()
+    return arrays, set(model.global_state_keys())
 
 
 @torch.no_grad()
@@ -78,6 +112,7 @@ def from_numpy_state_dict(model: nn.Module, arrays: dict[str, np.ndarray],
                         "layer before wrapping it in GroupShardedStage3")
     model = _unwrap(model)
     target = model.state_dict()
+    arrays, elsewhere = _other_stages(model, arrays)
     if hcg is not None:
         world = hcg.get_model_parallel_world_size()
         for dst in target.values():
@@ -87,7 +122,7 @@ def from_numpy_state_dict(model: nn.Module, arrays: dict[str, np.ndarray],
                                  f"ranks, the topology's model group has "
                                  f"{world}")
     missing = sorted(set(target) - set(arrays))
-    unexpected = sorted(set(arrays) - set(target))
+    unexpected = sorted(set(arrays) - set(target) - elsewhere)
     if missing or unexpected:
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
@@ -137,13 +172,13 @@ def grads_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
     layout, tensor-parallel ones gathered to full shapes."""
     from .distributed.checkpoint.metadata import layout_of
     from .distributed.fleet.base import current_hcg
-    from .distributed.sharding import gather_full
+    from .distributed.sharding import _all_stages, gather_full
     model = _unwrap(model)
     hcg = current_hcg()
     mp = hcg.get_model_parallel_group() if hcg is not None else None
     grads = {name: gather_full(p.grad, layout_of(p), mp, None)
              for name, p in model.named_parameters() if p.grad is not None}
-    return _to_numpy(grads, _linear_keys(model))
+    return _to_numpy(_all_stages(model, grads), _linear_keys(model))
 
 
 _SLOT = re.compile(r"param_(\d+)_(.+)")

@@ -1,14 +1,16 @@
 """``distributed`` of the port: the process group and its collectives
 (``env``, ``communication``, ``spawn``), the hybrid topology and
 ``fleet``, the tensor-parallel layers (``parallel_layers``) and sequence
-parallelism, ``DataParallel``, ZeRO sharding (``sharding``),
-``parallelize``, the sharded checkpoints with their commit protocol
-across ranks and resharding on load (``checkpoint``), the elastic
-manager (``fleet.elastic``) and the launcher (``launch``).
+parallelism, ``DataParallel``, ZeRO sharding (``sharding``), the
+pipeline's schedule tables (``zero_bubble``, ``pipeline``; the engine is
+``fleet.meta_parallel.PipelineParallel``), ``parallelize``, the sharded
+checkpoints with their commit protocol across ranks and resharding on
+load (``checkpoint``), the elastic manager (``fleet.elastic``) and the
+launcher (``launch``).
 
 Names load at first use, so the launcher's imports stay free of torch.
-The pipeline, context and expert parallelism, the auto-parallel API and
-RPC are not ported yet (ROADMAP A.7)."""
+Context and expert parallelism, the auto-parallel API and RPC are not
+ported yet (ROADMAP A.7, A.5)."""
 
 import importlib
 
@@ -31,7 +33,8 @@ _NAMES = {
                      "PrepareLayerInput", "PrepareLayerOutput"),
 }
 _MODULES = ("checkpoint", "fleet", "launch", "sharding", "utils", "env",
-            "communication", "parallel", "parallel_layers", "spawn_api")
+            "communication", "parallel", "parallel_layers", "spawn_api",
+            "zero_bubble", "pipeline")
 _LAZY = {name: mod for mod, names in _NAMES.items() for name in names}
 
 __all__ = sorted(set(_LAZY) | set(_MODULES) | {"gloo_barrier"})

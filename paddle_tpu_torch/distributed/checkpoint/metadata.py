@@ -27,7 +27,8 @@ it from an array's ``NamedSharding``. A port tensor is a plain
 
 ``axes`` names the fleet axes along which the rank's part differs; the
 ranks that agree with this one on them hold the same part
-(:func:`replica_index`). :func:`boxes` maps a tensor to its global shape
+(:func:`replica_index`), and under the pipeline only those of the same
+stage. :func:`boxes` maps a tensor to its global shape
 and the boxes it covers (a flat range is at most ``2 * ndim - 1`` boxes:
 a partial row, whole rows, a partial row, recursively);
 :func:`placement_of` writes the JAX descriptor (the hybrid topology's
@@ -214,11 +215,17 @@ def placement_of(t):
 def replica_index(layout, rank, world, hcg=None):
     """``(index, count)``: this rank's place among the ``count`` ranks
     that hold the same part as it does under ``layout``: under a fleet,
-    the ranks agreeing with it on the layout's axes; without one, every
-    rank for a replicated tensor and this rank alone for any other."""
+    the ranks agreeing with it on the layout's axes, and on the ``pipe``
+    axis when it has more than one stage (a stage's tensors are its own,
+    whatever their layout: a tensor more than one stage holds, such as a
+    shared weight, is written by each, the copies alike); without one,
+    every rank for a replicated tensor and this rank alone for any
+    other."""
     axes = layout.axes if layout is not None else ()
     if hcg is None:
         return (0, 1) if axes else (rank, world)
+    if hcg.get_pipe_parallel_world_size() > 1 and "pipe" not in axes:
+        axes = axes + ("pipe",)
     topo = hcg.topology()
     me = topo.get_coord(rank)
     holders = [r for r in range(topo.world_size())

@@ -6,15 +6,20 @@ counts the hybrid degrees against the world size (the JAX package counts
 devices; each rank here is one process) and builds the topology and its
 groups (``HybridCommunicateGroup``). ``dp_degree`` -1 (or 0) fills what
 the other degrees leave; degrees whose product is not the world size
-raise. Pipeline (``pp_degree``), context (``sep_degree``) and expert
-(``ep_degree``) parallelism above 1 raise, naming the ROADMAP item that
-ports them. The ``fleet/init`` event goes through the profiler's tracer
-and names the backend (``env.backend_rule``).
+raise. Context (``sep_degree``) and expert (``ep_degree``) parallelism
+above 1 raise, naming the ROADMAP item that ports them. The
+``fleet/init`` event goes through the profiler's tracer and names the
+backend (``env.backend_rule``).
 
-``distributed_model`` wraps a model in ``DataParallel`` over the
-``data`` group when ``dp_degree > 1``, and runs its forward under
-``amp.auto_cast`` when the strategy's ``amp`` is on; tensor-parallel
-layers need no wrapper (their collectives are in their forward).
+``distributed_model`` returns ``meta_parallel.PipelineParallel`` for a
+``PipelineLayer`` at ``pp_degree > 1`` (``accumulate_steps``,
+``schedule_mode`` and ``num_virtual_pipeline_stages`` from the strategy's
+``pipeline_configs``; the strategy's ``amp`` is not applied to it, with
+the JAX package's warning). Any other model it wraps in ``DataParallel``
+over the ``data`` group when ``dp_degree > 1``, and runs its forward
+under ``amp.auto_cast`` when the strategy's ``amp`` is on;
+tensor-parallel layers need no wrapper (their collectives are in their
+forward).
 ``distributed_optimizer`` wraps the optimizer in
 ``DygraphShardingOptimizer`` when ``sharding_degree > 1``, then in
 ``HybridParallelOptimizer`` (the global-norm clip across groups).
@@ -31,8 +36,7 @@ __all__ = ["DistributedStrategy", "Fleet", "fleet", "init", "worker_num",
            "UserDefinedRoleMaker", "UtilBase"]
 
 #: the ROADMAP items that port the degrees fleet.init refuses above 1
-_NOT_PORTED = {"pp_degree": "ROADMAP A.7, the pipeline",
-               "sep_degree": "ROADMAP A.7, context parallelism",
+_NOT_PORTED = {"sep_degree": "ROADMAP A.7, context parallelism (item 2)",
                "ep_degree": "ROADMAP A.5, expert parallelism"}
 
 
@@ -41,7 +45,10 @@ class DistributedStrategy:
     dp_degree / mp_degree / pp_degree / sharding_degree / sep_degree /
     ep_degree, dp_degree -1 filling the ranks the others leave;
     ``sharding_configs["stage"]`` picks ZeRO stage 1 (default) or 2 for
-    ``distributed_optimizer``."""
+    ``distributed_optimizer``; ``pipeline_configs`` holds the pipeline's
+    ``accumulate_steps`` (microbatches a step), ``schedule_mode``
+    (``FThenB``, ``1F1B``, ``ZB-H1`` or ``interleaved``) and
+    ``num_virtual_pipeline_stages``."""
 
     def __init__(self):
         self.hybrid_configs = {
@@ -60,7 +67,8 @@ class DistributedStrategy:
         self.sharding_configs = {}
         self.pipeline = False
         self.pipeline_configs = {"accumulate_steps": 1,
-                                 "schedule_mode": "FThenB"}
+                                 "schedule_mode": "FThenB",
+                                 "num_virtual_pipeline_stages": None}
         self.gradient_merge = False
         self.gradient_merge_configs = {}
         self.tensor_parallel = False
@@ -169,6 +177,21 @@ class Fleet:
     def distributed_model(self, model):
         if self._hcg is None:
             self.init()
+        from .meta_parallel.pp_layers import PipelineLayer
+        if isinstance(model, PipelineLayer) and \
+                self._hcg.get_pipe_parallel_world_size() > 1:
+            from .meta_parallel.pipeline_parallel import PipelineParallel
+            if self._strategy.amp:
+                import warnings
+                warnings.warn(
+                    "strategy.amp is not applied to pipeline models: the "
+                    "pipeline engine runs each stage's layers itself. Cast "
+                    "the model (build it with dtype=torch.bfloat16) or use "
+                    "auto_cast inside the loss/layers instead.", UserWarning)
+            return PipelineParallel(
+                model, self._hcg,
+                self._strategy.pipeline_configs.get("accumulate_steps", 1),
+                strategy=self._strategy)
         if self._hcg.get_data_parallel_world_size() > 1:
             from ..parallel import DataParallel
             model = DataParallel(

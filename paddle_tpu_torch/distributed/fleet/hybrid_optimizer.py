@@ -7,9 +7,11 @@ squares itself: those of parameters split over the ``model`` group
 (``is_distributed``) are summed over that group, those of replicated
 parameters count once, and where the optimizer steps only this rank's
 partition (ZeRO, ``sharding_group``) the total is summed over the
-sharding group. The global norm, and so the scale, equals
-``ClipGradByGlobalNorm``'s on the unsplit model (up to the order of the
-f32 sums).
+sharding group. Under the pipeline each stage holds other parameters,
+so the total is summed over the ``pipe`` group too (``pp_group``); a
+shared weight's later holder (``pipe_duplicate``) leaves its copy out.
+The global norm, and so the scale, equals ``ClipGradByGlobalNorm``'s on
+the unsplit model (up to the order of the f32 sums).
 """
 
 from __future__ import annotations
@@ -31,14 +33,16 @@ def base_optimizer(opt):
 
 class HybridParallelClipGrad:
     """``clip`` (a ``ClipGradByGlobalNorm``) with its norm summed over
-    ``mp_group`` for split parameters and over ``sharding_group`` for a
-    partition."""
+    ``mp_group`` for split parameters, over ``sharding_group`` for a
+    partition and over ``pp_group`` for a pipeline stage."""
 
-    def __init__(self, clip, mp_group=None, sharding_group=None):
+    def __init__(self, clip, mp_group=None, sharding_group=None,
+                 pp_group=None):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self.mp_group = mp_group
         self.sharding_group = sharding_group
+        self.pp_group = pp_group
 
     @torch.no_grad()
     def global_norm(self, params_grads, device=None):
@@ -51,6 +55,8 @@ class HybridParallelClipGrad:
         split = torch.zeros((), dtype=torch.float32, device=device)
         whole = torch.zeros((), dtype=torch.float32, device=device)
         for p, g in grads:
+            if getattr(p, "pipe_duplicate", False):
+                continue        # its first holder counts it
             # a flag the parallel layers set: torch's own
             # ``Tensor.is_distributed`` is a method, truthy on every
             # parameter they did not mark
@@ -64,6 +70,8 @@ class HybridParallelClipGrad:
         if self.sharding_group is not None and \
                 self.sharding_group.nranks > 1:
             all_reduce(total, group=self.sharding_group)
+        if self.pp_group is not None and self.pp_group.nranks > 1:
+            all_reduce(total, group=self.pp_group)
         return torch.sqrt(total)
 
     @torch.no_grad()
@@ -74,7 +82,7 @@ class HybridParallelClipGrad:
                 for p, g in params_grads]
 
 
-def hybrid_clip(opt, mp_group=None, sharding_group=None):
+def hybrid_clip(opt, mp_group=None, sharding_group=None, pp_group=None):
     """Make ``opt``'s global-norm clip (if any) span the groups given;
     a clip already made hybrid gains the groups it lacked."""
     base = base_optimizer(opt)
@@ -82,9 +90,17 @@ def hybrid_clip(opt, mp_group=None, sharding_group=None):
     if isinstance(clip, HybridParallelClipGrad):
         clip.mp_group = clip.mp_group or mp_group
         clip.sharding_group = clip.sharding_group or sharding_group
+        clip.pp_group = clip.pp_group or pp_group
     elif isinstance(clip, ClipGradByGlobalNorm):
         base._grad_clip = HybridParallelClipGrad(clip, mp_group,
-                                                 sharding_group)
+                                                 sharding_group, pp_group)
+
+
+def pipe_group(hcg):
+    """The ``pipe`` group of ``hcg`` when it has more than one stage."""
+    if hcg is not None and hcg.get_pipe_parallel_world_size() > 1:
+        return hcg.get_pipe_parallel_group()
+    return None
 
 
 class HybridParallelOptimizer:
@@ -92,8 +108,10 @@ class HybridParallelOptimizer:
         self._inner = optimizer
         self._hcg = hcg
         self._strategy = strategy
-        if hcg is not None and hcg.get_model_parallel_world_size() > 1:
-            hybrid_clip(optimizer, mp_group=hcg.get_model_parallel_group())
+        if hcg is not None and (hcg.get_model_parallel_world_size() > 1
+                                or pipe_group(hcg) is not None):
+            hybrid_clip(optimizer, mp_group=hcg.get_model_parallel_group(),
+                        pp_group=pipe_group(hcg))
 
     def __getattr__(self, name):
         return getattr(self._inner, name)

@@ -29,7 +29,10 @@ sharding group, whose ranks each take their own part of the batch:
 
 The global-norm clip of the optimizer becomes
 ``hybrid_optimizer.HybridParallelClipGrad`` over the sharding group (a
-partition's squares summed over it). Offload is not supported: it warns
+partition's squares summed over it) and, under the pipeline, the
+``pipe`` group. Stages 1 and 2 compose with the pipeline: a rank's
+sharding group is the one at its own pipe coordinate, so it partitions
+that stage's parameters only. Stage 3 under the pipeline raises. Offload is not supported: it warns
 and proceeds without, as the JAX package does.
 
 State dicts keep the unsharded model's and optimizer's keys, so a resume
@@ -49,7 +52,7 @@ import torch
 from torch import nn
 
 from ..checkpoint.metadata import Layout, layout_of, local_part, with_layout
-from .hybrid_optimizer import base_optimizer, hybrid_clip
+from .hybrid_optimizer import base_optimizer, hybrid_clip, pipe_group
 
 __all__ = ["DygraphShardingOptimizer", "group_sharded_parallel",
            "GroupShardedStage3", "partition_parameters"]
@@ -78,10 +81,13 @@ def _sharding_group(hcg, group):
     return get_group(0)
 
 
+def _current_hcg():
+    from .base import current_hcg
+    return current_hcg()
+
+
 def _mp_group(hcg):
-    if hcg is None:
-        from .base import current_hcg
-        hcg = current_hcg()
+    hcg = hcg or _current_hcg()
     return None if hcg is None else hcg.get_model_parallel_group()
 
 
@@ -116,7 +122,8 @@ class DygraphShardingOptimizer:
         self._owned = [p for p, o in zip(self._params, self._owners)
                        if o == me]
         hybrid_clip(optimizer, mp_group=_mp_group(hcg),
-                    sharding_group=self.group)
+                    sharding_group=self.group,
+                    pp_group=pipe_group(hcg or _current_hcg()))
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -427,6 +434,12 @@ def group_sharded_parallel(model, optimizer, level="p_g_os", scaler=None,
         opt = DygraphShardingOptimizer(optimizer, hcg, group,
                                        stage=1 if level == "os" else 2)
         return model, opt, scaler
+    if pipe_group(hcg) is not None:
+        raise NotImplementedError(
+            "ZeRO stage 3 (level 'p_g_os') under the pipeline is not "
+            "ported (ROADMAP A.7): a stage rank runs its layers chunk by "
+            "chunk, outside the wrapper that gathers their parameters; use "
+            "level 'os' or 'os_g'")
     model = GroupShardedStage3(model, optimizer, group=group,
                                offload=offload, hcg=hcg)
     return model, optimizer, scaler

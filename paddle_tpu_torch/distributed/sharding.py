@@ -47,12 +47,30 @@ def gather_full(t, layout, mp_group, sharding_group):
     return t
 
 
+def _all_stages(model, state):
+    """``state`` merged with the other pipeline stages' (host copies,
+    gathered over the ``pipe`` group) when ``model`` is a
+    ``PipelineLayer`` split over stages."""
+    from .fleet.meta_parallel.pp_layers import PipelineLayer
+    if not isinstance(model, PipelineLayer) or model._stage is None:
+        return state
+    from .communication import all_gather_object
+    parts = []
+    all_gather_object(parts, {k: v.detach().cpu() if isinstance(
+        v, torch.Tensor) else v for k, v in state.items()},
+        model._hcg.get_pipe_parallel_group())
+    merged = {}
+    for part in parts:
+        merged.update(part)
+    return merged
+
+
 def full_state(model, optimizer=None):
     """``(model state, optimizer state or None)`` with every tensor at the
     unsharded model's full shape, under the unsharded keys: tensor-parallel
-    shards and stage-3 slices all-gathered, stage-1/2 partitions merged.
-    Collectives over the fleet's groups: every rank calls it, in the same
-    order."""
+    shards and stage-3 slices all-gathered, stage-1/2 partitions merged,
+    a pipeline's stages merged (host tensors then). Collectives over the
+    fleet's groups: every rank calls it, in the same order."""
     from .checkpoint.metadata import layout_of
     from .fleet.base import current_hcg
     from .fleet.hybrid_optimizer import base_optimizer
@@ -61,8 +79,9 @@ def full_state(model, optimizer=None):
     sharding_group = hcg.get_sharding_parallel_group() if hcg else None
     if isinstance(model, GroupShardedStage3):
         sharding_group = model.group
-    state = {k: gather_full(v, layout_of(v), mp_group, sharding_group)
-             for k, v in model.state_dict().items()}
+    state = _all_stages(model, {
+        k: gather_full(v, layout_of(v), mp_group, sharding_group)
+        for k, v in model.state_dict().items()})
     if optimizer is None:
         return state, None
     base = base_optimizer(optimizer)
@@ -86,7 +105,7 @@ def full_state(model, optimizer=None):
             v = gather_full(v.to(p.device) if lay is not None else v, lay,
                             mp_group, sharding_group)
         full[k] = v
-    return state, full
+    return state, _all_stages(model, full)
 
 
 def save_group_sharded_model(model, output, optimizer=None):

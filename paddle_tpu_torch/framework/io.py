@@ -87,6 +87,11 @@ class _Array:
         if not isinstance(raw, (bytes, bytearray)):
             raise pickle.UnpicklingError("load: object arrays are refused")
         foreign = isinstance(dtype, _ForeignDtype)
+        # the array owns writable memory: immutable ``bytes`` are copied
+        # once into a bytearray (a Fortran-order array is copied into C
+        # order instead, which makes it writable too)
+        if isinstance(raw, bytes) and not fortran:
+            raw = bytearray(raw)
         arr = np.frombuffer(raw, dtype=dtype.carrier if foreign else dtype)
         arr = np.ascontiguousarray(
             arr.reshape(tuple(shape), order="F" if fortran else "C"))

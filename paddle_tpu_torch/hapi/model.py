@@ -581,11 +581,14 @@ class Model:
             convert.from_numpy_state_dict(self.network, state,
                                           hcg=current_hcg())
         else:
-            # this rank's part of each full tensor
+            # this rank's part of each full tensor; a pipeline stage's
+            # keys only (the others are its peers')
             target = self.network.state_dict()
+            others = set(getattr(self.network, "global_state_keys",
+                                 lambda: ())()) - set(target)
             self.network.load_state_dict(
                 {k: local_part(v, layout_of(target[k])) if k in target
-                 else v for k, v in state.items()})
+                 else v for k, v in state.items() if k not in others})
         if not reset_optimizer and self._optimizer is not None and \
                 os.path.exists(path + ".pdopt"):
             opt, origin = read_obj(path + ".pdopt", return_numpy=None,

@@ -68,6 +68,14 @@ divide the heads, the FFN or the vocab raises; so does a cache step
 (serving, ``generate``) of a split model. Without such a group every
 layer is the plain one, and the model computes as without a fleet.
 
+The pipeline (``fleet.meta_parallel``): ``LlamaForCausalLMPipe`` is the
+JAX package's ``PipelineLayer`` of ``LlamaEmbeddingPipe``, one
+``LlamaDecoderLayerPipe`` a decoder layer (the unrolled stack's layer,
+the fused carry's ``(hidden, residual)`` pair handed on from layer to
+layer and stage to stage) and ``LlamaHeadPipe``; a stage rank builds
+only its own layers, with the weights the same seed gives
+``LlamaForCausalLM``.
+
 Attribute names match the JAX package, so the state-dict keys do
 (``llama.layers.0.self_attn.q_proj.weight``, ...); ``torch.nn.Linear``
 holds its weight as [out, in] where Paddle holds [in, out], which
@@ -76,6 +84,8 @@ holds its weight as [out, in] where Paddle holds [in, out], which
 
 from __future__ import annotations
 
+import functools
+import re
 import warnings
 from dataclasses import dataclass
 
@@ -100,7 +110,9 @@ from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rope import build_sin_cos, rotate
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
-           "LlamaPretrainingCriterion", "rope_with_offset"]
+           "LlamaPretrainingCriterion", "rope_with_offset",
+           "LlamaEmbeddingPipe", "LlamaDecoderLayerPipe", "LlamaHeadPipe",
+           "LlamaForCausalLMPipe"]
 
 
 @dataclass
@@ -582,14 +594,9 @@ class LlamaModel(nn.Module):
         # selective recompute nor the fused carry
         selective = cfg.recompute_granularity in ("core_attn", "full_attn") \
             and not self.sequence_parallel
-        interval = max(int(cfg.core_attn_interval), 1)
-        fs = max(int(cfg.full_save_interval), 0)
 
         def how(i):
-            if not remat or (fs and i % fs == fs - 1):
-                return "plain"
-            return "core_attn" if selective and i % interval == 0 \
-                else "full"
+            return recompute_mode(cfg, i, remat, selective)
 
         if flags.flag("FLAGS_fused_rmsnorm_residual") and \
                 not self.sequence_parallel:
@@ -621,6 +628,18 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
+def recompute_mode(cfg, i, remat, selective):
+    """How the unrolled stack runs decoder layer ``i``: ``"plain"`` (not
+    recomputed: no ``remat``, or every ``full_save_interval``-th layer),
+    ``"core_attn"`` (``selective``, every ``core_attn_interval``-th layer)
+    or ``"full"``."""
+    fs = max(int(cfg.full_save_interval), 0)
+    if not remat or (fs and i % fs == fs - 1):
+        return "plain"
+    interval = max(int(cfg.core_attn_interval), 1)
+    return "core_attn" if selective and i % interval == 0 else "full"
+
+
 class _NoMetaInit(TorchFunctionMode):
     """Building on the meta device and materialising, without torch's
     Python meta decompositions: the modules' default initialisers do
@@ -644,6 +663,18 @@ class _NoMetaInit(TorchFunctionMode):
                     device=kwargs.get("device") or t.device,
                     requires_grad=kwargs.get("requires_grad", False))
         return func(*args, **kwargs)
+
+
+@torch.no_grad()
+def init_llama_weights(module, gen, std):
+    """Every weight under ``module`` from ``gen``, in ``modules()`` order:
+    N(0, std) for projections and embeddings (a split layer's full
+    tensor, then its shard), ones for norms."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)):
+            tp_normal_(mod, std, gen)
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
 
 
 class LlamaForCausalLM(nn.Module, GenerationMixin):
@@ -684,12 +715,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     def reset_parameters(self, seed=0):
         dev = self.llama.embed_tokens.weight.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        std = self.config.initializer_range
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                tp_normal_(mod, std, gen)
-            elif isinstance(mod, RMSNorm):
-                mod.weight.fill_(1.0)
+        init_llama_weights(self, gen, self.config.initializer_range)
         self.llama.reset_rope()
 
     def init_kv_cache(self, batch_size, max_length, dtype=None):
@@ -778,3 +804,169 @@ class LlamaPretrainingCriterion(nn.Module):
 
     def forward(self, logits, labels):
         return _shifted_cross_entropy(logits, labels)
+
+
+# ---- the pipeline (fleet.meta_parallel.PipelineLayer) ------------------------
+# The JAX package's LlamaForCausalLMPipe: the embedding, the decoder layers
+# and the norm with the head, one layer description each, so a stage rank
+# holds only its own.
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_tables(max_pos, head_dim, theta, device):
+    """The RoPE (sin, cos) tables ``LlamaModel`` keeps as buffers, once a
+    device (``device`` as a string)."""
+    return build_sin_cos(max_pos, head_dim, theta, device=device)
+
+
+def pipe_rope(cfg, x):
+    """(sin, cos) [1, S, D/2] at positions 0..S-1 for the activation
+    ``x`` [B, S, H]: ``LlamaModel``'s tables, sliced as it slices them."""
+    sin, cos = _rope_tables(cfg.max_position_embeddings, cfg.head_dim,
+                            cfg.rope_theta, str(x.device))
+    s = x.shape[1]
+    return sin[None, :s], cos[None, :s]
+
+
+class LlamaEmbeddingPipe(nn.Module):
+    """The pipeline's prologue: the token embedding (vocab-parallel under
+    a model group)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.embed_tokens = tp_embedding(
+            cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype,
+            enabled=cfg.tensor_parallel)
+
+    def forward(self, input_ids):
+        return self.embed_tokens(input_ids)
+
+
+class LlamaDecoderLayerPipe(LlamaDecoderLayer):
+    """Decoder layer ``layer_idx`` of the pipeline over one tensor, or the
+    ``(hidden, residual)`` pair of the fused carry, which it hands on
+    (stage to stage too): the unpartitioned stack's layer ``layer_idx``,
+    fused or not and recomputed or not as ``LlamaModel`` runs it (so it
+    recomputes itself, ``handles_recompute``)."""
+
+    handles_recompute = True
+
+    def __init__(self, cfg: LlamaConfig, layer_idx, device=None, dtype=None):
+        super().__init__(cfg, device, dtype)
+        self.cfg = cfg
+        self.layer_idx = layer_idx
+
+    def _unfused(self, x, rope):
+        return LlamaDecoderLayer.forward(self, x, rope)
+
+    def forward(self, x):
+        cfg = self.cfg
+        hidden, residual = x if isinstance(x, tuple) else (x, None)
+        rope = pipe_rope(cfg, hidden)
+        # the scanned stack takes the unfused layer and whole-layer remat
+        selective = cfg.recompute_granularity in ("core_attn", "full_attn") \
+            and not cfg.scan_layers
+        mode = recompute_mode(cfg, self.layer_idx,
+                              cfg.use_recompute and self.training, selective)
+        if flags.flag("FLAGS_fused_rmsnorm_residual") and not cfg.scan_layers:
+            if mode == "plain":
+                return self.forward_fused(hidden, residual, rope)
+            if mode == "core_attn":
+                return self.forward_fused_core_attn_remat(hidden, residual,
+                                                          rope)
+            return recompute(self.forward_fused, hidden, residual, rope,
+                             n_outputs=2)
+        if residual is not None:
+            hidden = hidden + residual
+        if mode == "plain":
+            return self._unfused(hidden, rope)
+        if mode == "core_attn":
+            return self.forward_core_attn_remat(hidden, rope)
+        return recompute(self._unfused, hidden, rope)
+
+
+class LlamaHeadPipe(nn.Module):
+    """The pipeline's epilogue: the final RMSNorm (fused with the carry's
+    last add) and the LM head (column-parallel, gathered, under a model
+    group) -> logits."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                            device=device, dtype=dtype)
+        self.lm_head = _lin(cfg, cfg.hidden_size, cfg.vocab_size,
+                            column=True, gather_output=True, device=device,
+                            dtype=dtype)
+
+    def forward(self, x):
+        if isinstance(x, tuple):
+            h = F.fused_rms_norm_residual(x[0], x[1], self.norm.weight,
+                                          self.norm.epsilon)[0]
+        else:
+            h = self.norm(x)
+        return self.lm_head(h)
+
+
+def pipe_key(n_layers, prefix, key):
+    """The ``PipelineLayer`` key of an unpartitioned causal LM's state-dict
+    ``key`` (its stack under ``prefix``; the head ``lm_head``): the
+    embedding is layer 0, decoder layer ``i`` layer ``i + 1``, the norm
+    and the head layer ``n_layers + 1``. Other keys pass unchanged."""
+    if not key.startswith(prefix) and not key.startswith("lm_head."):
+        return key
+    rest = key[len(prefix):] if key.startswith(prefix) else key
+    m = re.fullmatch(r"layers\.(\d+)\.(.+)", rest)
+    if m:
+        return f"run_function.{int(m.group(1)) + 1}.{m.group(2)}"
+    if rest.startswith("embed_tokens."):
+        return "run_function.0." + rest
+    if rest.startswith(("norm.", "lm_head.")):
+        return f"run_function.{n_layers + 1}.{rest}"
+    return key
+
+
+def check_pipe(config):
+    """What the pipelined models do not take: a tied head, sequence and
+    context parallelism (ROADMAP A.7)."""
+    check_parallel(config)
+    if getattr(config, "tie_word_embeddings", False):
+        raise NotImplementedError(
+            "tie_word_embeddings in a *Pipe model is not ported: its head "
+            "is a layer of its own, as in the JAX package; tie it through "
+            "a SharedLayerDesc")
+    if getattr(config, "sequence_parallel", False):
+        raise NotImplementedError(
+            "sequence_parallel under the pipeline is not ported (ROADMAP "
+            "A.7, 'Also waiting'); build the *Pipe model without it")
+
+
+def LlamaForCausalLMPipe(config: LlamaConfig, device=None,
+                         dtype=torch.float32, seed=0, **pipeline_kwargs):
+    """The pipelined Llama as a ``PipelineLayer``: the embedding, the
+    decoder layers and the norm with the head, each stage rank building
+    only its own, on ``device`` (``cuda`` unless given) in ``dtype``. The
+    weights come from ``seed`` as ``LlamaForCausalLM(config, seed=seed)``
+    draws them (``PipelineLayer.reset_parameters`` walks the layers a rank
+    lacks through scratch buffers). ``loss_fn`` defaults to
+    ``LlamaPretrainingCriterion``, ``recompute_interval`` to 1 under
+    ``use_recompute`` (the decoder layers recompute as the unpartitioned
+    stack does) and ``seg_method`` to ``layer:LlamaDecoderLayer`` (stages
+    cut at decoder layers, as PaddleNLP's pipe model cuts them). The
+    layer's ``key_map`` maps ``LlamaForCausalLM``'s state-dict keys to
+    its own."""
+    from ..distributed.fleet.meta_parallel import LayerDesc, PipelineLayer
+    check_pipe(config)
+    n = config.num_hidden_layers
+    descs = [LayerDesc(LlamaEmbeddingPipe, config)] + \
+        [LayerDesc(LlamaDecoderLayerPipe, config, i) for i in range(n)] + \
+        [LayerDesc(LlamaHeadPipe, config)]
+    pipeline_kwargs.setdefault("loss_fn", LlamaPretrainingCriterion(config))
+    pipeline_kwargs.setdefault(
+        "recompute_interval", 1 if config.use_recompute else 0)
+    pipeline_kwargs.setdefault("seg_method", "layer:LlamaDecoderLayer")
+    pipe = PipelineLayer(descs, device=device, dtype=dtype,
+                         **pipeline_kwargs)
+    pipe.key_map = functools.partial(pipe_key, n, "llama.")
+    pipe.reset_parameters(seed, functools.partial(
+        init_llama_weights, std=config.initializer_range))
+    return pipe

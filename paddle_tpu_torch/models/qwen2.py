@@ -9,7 +9,9 @@ Port of ``paddle_tpu/models/qwen2.py``: ``Qwen2Config`` (``qwen2_7b``,
 aux loss, ``Qwen2ForCausalLM``, ``Qwen2MoeForCausalLM`` and
 ``Qwen2MoePretrainingCriterion``, and ``init_kv_cache`` with the dense
 cache branch of the forward (``generate``, through
-``generation.GenerationMixin``). The pipeline variants are not ported.
+``generation.GenerationMixin``), and the pipelined
+``Qwen2MoeForCausalLMPipe`` (``Qwen2MoeDecoderLayerPipe`` between the
+Llama pipe's embedding and head) at ``ep_degree == 1``.
 
 Training (no caches): neox RoPE and flash attention (K7-K9); the
 input norm is RMSNorm (K1/K2); under ``FLAGS_fused_rmsnorm_residual``
@@ -38,6 +40,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import functools
+
 import torch
 from torch import nn
 
@@ -53,14 +57,16 @@ from ..nn.scan import can_scan, scan_layers
 from ..ops.rope import build_sin_cos, rotate
 from ..distributed.parallel_layers import embedding as tp_embedding
 from ..distributed.parallel_layers import normal_ as tp_normal_
-from .llama import (LlamaAttention, LlamaMLP, LlamaPretrainingCriterion,
-                    _alloc_kv_caches, _lin, _no_split_cache_step,
-                    _shifted_cross_entropy, check_parallel,
-                    check_weight_quant, kv_cache_dtype, rope_with_offset,
+from .llama import (LlamaAttention, LlamaEmbeddingPipe, LlamaHeadPipe,
+                    LlamaMLP, LlamaPretrainingCriterion, _alloc_kv_caches,
+                    _lin, _no_split_cache_step, _shifted_cross_entropy,
+                    check_parallel, check_pipe, check_weight_quant,
+                    kv_cache_dtype, pipe_key, pipe_rope, rope_with_offset,
                     slot_positions, tied_logits, tp_degree)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
-           "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion"]
+           "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion",
+           "Qwen2MoeDecoderLayerPipe", "Qwen2MoeForCausalLMPipe"]
 
 
 @dataclass
@@ -216,6 +222,29 @@ class Qwen2DecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
+@torch.no_grad()
+def init_qwen2_weights(module, gen, std):
+    """Every weight under ``module`` from ``gen``, in ``modules()`` order,
+    as the JAX package draws them (``_Qwen2Base``'s docstring)."""
+    mods = list(module.modules())
+    # the shared-expert gate keeps nn.Linear's default init in the JAX
+    # package: XavierNormal over its [H, 1] weight
+    gates = {id(m.shared_expert_gate) for m in mods
+             if isinstance(m, Qwen2MoeBlock)}
+    for mod in mods:
+        if id(mod) in gates:
+            mod.weight.normal_(0.0, xavier_normal_std(
+                mod.weight.shape[::-1]), generator=gen)
+        elif isinstance(mod, MoELayer):
+            mod.reset_parameters(gen)
+        elif isinstance(mod, (nn.Linear, nn.Embedding)):
+            tp_normal_(mod, std, gen)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
+
+
 class _Qwen2Base(nn.Module, GenerationMixin):
     """The decoder stack with the LM head. Built on ``device`` (``cuda``
     unless given; raises with no GPU and no device) in ``dtype``, with
@@ -258,23 +287,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
     def reset_parameters(self, seed=0):
         gen = torch.Generator(device=self.embed_tokens.weight.device)
         gen.manual_seed(int(seed))
-        std = self.config.initializer_range
-        # the shared-expert gate keeps nn.Linear's default init in the JAX
-        # package: XavierNormal over its [H, 1] weight
-        gates = {id(m.shared_expert_gate) for m in self.modules()
-                 if isinstance(m, Qwen2MoeBlock)}
-        for mod in self.modules():
-            if id(mod) in gates:
-                mod.weight.normal_(0.0, xavier_normal_std(
-                    mod.weight.shape[::-1]), generator=gen)
-            elif isinstance(mod, MoELayer):
-                mod.reset_parameters(gen)
-            elif isinstance(mod, (nn.Linear, nn.Embedding)):
-                tp_normal_(mod, std, gen)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, RMSNorm):
-                mod.weight.fill_(1.0)
+        init_qwen2_weights(self, gen, self.config.initializer_range)
         sin, cos = build_sin_cos(self.config.max_position_embeddings,
                                  self.config.head_dim, self.config.rope_theta,
                                  device=self.rope_sin.device)
@@ -376,3 +389,62 @@ class Qwen2MoeForCausalLM(_Qwen2Base):
 
 # the shifted next-token CE, as the JAX package aliases the Llama one
 Qwen2MoePretrainingCriterion = LlamaPretrainingCriterion
+
+
+# ---- the pipeline: the JAX package's Qwen2-MoE pipe model ------------------
+# The prologue and epilogue are the Llama pipe's (they read only fields
+# Qwen2MoeConfig shares with LlamaConfig); the loss is the plain shifted
+# cross entropy: the router's aux loss, an attribute of each MoE layer,
+# does not cross a stage, so a pipelined MoE trains with it folded out
+# (router_aux_loss_coef 0; load balance still trains through the
+# dispatch gradient), as in the JAX package.
+
+
+class Qwen2MoeDecoderLayerPipe(Qwen2DecoderLayer):
+    """MoE decoder layer ``layer_idx`` of the pipeline over one tensor;
+    under ``use_recompute`` it recomputes whole, as the unpartitioned
+    stack does (``handles_recompute``)."""
+
+    handles_recompute = True
+
+    def __init__(self, cfg, layer_idx, device=None, dtype=None):
+        super().__init__(cfg, True, device, dtype)
+        self.config = cfg
+        self.layer_idx = layer_idx
+
+    def _layer(self, x, rope):
+        return Qwen2DecoderLayer.forward(self, x, rope)
+
+    def forward(self, x):
+        cfg = self.config
+        rope = pipe_rope(cfg, x)
+        fs = max(int(cfg.full_save_interval), 0)
+        if cfg.use_recompute and self.training and not (
+                fs and self.layer_idx % fs == fs - 1):
+            return recompute(self._layer, x, rope)
+        return self._layer(x, rope)
+
+
+def Qwen2MoeForCausalLMPipe(config, device=None, dtype=torch.float32, seed=0,
+                            **pipeline_kwargs):
+    """The pipelined Qwen2-MoE as a ``PipelineLayer`` (the embedding, the
+    MoE decoder layers, the norm with the head), at ``ep_degree == 1``;
+    weights from ``seed`` as ``Qwen2MoeForCausalLM(config, seed=seed)``
+    draws them; ``key_map`` maps its state-dict keys to the layer's."""
+    from ..distributed.fleet.meta_parallel import LayerDesc, PipelineLayer
+    check_pipe(config)
+    n = config.num_hidden_layers
+    descs = [LayerDesc(LlamaEmbeddingPipe, config)] + \
+        [LayerDesc(Qwen2MoeDecoderLayerPipe, config, i) for i in range(n)] \
+        + [LayerDesc(LlamaHeadPipe, config)]
+    pipeline_kwargs.setdefault("loss_fn",
+                               Qwen2MoePretrainingCriterion(config))
+    pipeline_kwargs.setdefault(
+        "recompute_interval", 1 if config.use_recompute else 0)
+    pipeline_kwargs.setdefault("seg_method", "layer:Qwen2DecoderLayer")
+    pipe = PipelineLayer(descs, device=device, dtype=dtype,
+                         **pipeline_kwargs)
+    pipe.key_map = functools.partial(pipe_key, n, "")
+    pipe.reset_parameters(seed, functools.partial(
+        init_qwen2_weights, std=config.initializer_range))
+    return pipe

@@ -2448,3 +2448,52 @@ def test_mp2_bf16_async_checkpoint_of_two_ranks_resumes_in_one_process(
     want = ranks[0][3]
     assert abs(loss.item() - want) <= TP_BF16_RTOL * abs(want), (
         loss.item(), want)
+
+
+@pytest.mark.parametrize("schedule", ["1F1B", "ZB-H1"])
+def test_pp2_on_two_ranks_sharing_the_card_equals_the_pp1_run(cuda,
+                                                              schedule):
+    """Two ranks share the card as the stages of a pp 2 f32 tiny Llama
+    (4 layers, the fused carry crossing the stages as the ``(hidden,
+    residual)`` pair, 2 microbatches) through three AdamW steps: the
+    losses and the first step's gradients, gathered over the stages,
+    equal the same model's pp 1 run on the card (``LlamaForCausalLM`` on
+    the whole batch): losses rtol 1e-5 at the first step and 1e-4 after
+    (the microbatches' sums run in another order), gradients rtol 1e-4,
+    atol 1e-6."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models.llama import pipe_key
+    from paddle_tpu_torch.ops.kernels import _build
+    _build.build()
+    fields = {"num_hidden_layers": 4, "scan_layers": False}
+    cfg = dataclasses.replace(LlamaConfig.tiny(), **fields)
+    model = LlamaForCausalLM(cfg, device=cuda, seed=0)
+    arrays = {k: v.copy() for k, v in
+              convert.to_numpy_state_dict(model).items()}
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    rng = np.random.RandomState(6)
+    batches = [rng.randint(0, 256, (4, 16)).astype(np.int64)
+               for _ in range(3)]
+    losses, grads0 = [], None
+    for step, ids in enumerate(batches):
+        t = torch.from_numpy(ids).to(cuda)
+        _, loss = model(t, labels=t)
+        loss.backward()
+        if step == 0:
+            grads0 = convert.grads_to_numpy(model)
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    ranks = _two_ranks("cuda", "torch_pipe_cases:card_pipe", fields, arrays,
+                       batches, {"pp_degree": 2, "dp_degree": 1},
+                       {"schedule_mode": schedule, "accumulate_steps": 2})
+    n = cfg.num_hidden_layers
+    for res in ranks:
+        assert res["device"].startswith("cuda")
+        np.testing.assert_allclose(res["losses"][0], losses[0], rtol=1e-5)
+        np.testing.assert_allclose(res["losses"], losses, rtol=1e-4)
+        for k, g in grads0.items():
+            np.testing.assert_allclose(res["grads0"][pipe_key(n, "llama.",
+                                                              k)],
+                                       g, rtol=1e-4, atol=1e-6, err_msg=k)

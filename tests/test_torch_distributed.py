@@ -197,8 +197,9 @@ def test_hybrid_degrees_arithmetic_and_errors():
         deg({"dp_degree": 2, "mp_degree": 4}, 4)
     with pytest.raises(ValueError, match="do not use the world size 8"):
         deg({"dp_degree": 1, "mp_degree": 2}, 8)
-    for key, item in (("pp_degree", "A.7, the pipeline"),
-                      ("sep_degree", "A.7, context parallelism"),
+    assert deg({"pp_degree": 2}, 4) == (2, 1, 2, 1, 1, 1)
+    assert deg({"pp_degree": 2, "mp_degree": 2}, 4) == (1, 1, 2, 1, 2, 1)
+    for key, item in (("sep_degree", "A.7, context parallelism"),
                       ("ep_degree", "A.5, expert parallelism")):
         with pytest.raises(NotImplementedError, match=item):
             deg({key: 2}, 4)
@@ -212,13 +213,15 @@ def test_fleet_init_builds_the_groups_of_each_axis(pools):
                {"dp_degree": -1, "sharding_degree": 2, "mp_degree": 2},
                {"dp_degree": -1, "mp_degree": 4},
                {"dp_degree": 4, "mp_degree": 2},
-               {"pp_degree": 2}]
+               {"pp_degree": 2, "sep_degree": 2},
+               {"pp_degree": 2, "mp_degree": 2}]
     got = pools(4).run("torch_dist_cases:fleet_degrees", configs)
     names = ("data", "sharding", "pipe", "sep", "model", "expert")
-    want_dims = [(2, 1, 1, 1, 2, 1), (1, 2, 1, 1, 2, 1), (1, 1, 1, 1, 4, 1)]
-    modes = ["hybrid", "hybrid", "hybrid"]
+    # config index -> its degrees (every mode is "hybrid")
+    want_dims = {0: (2, 1, 1, 1, 2, 1), 1: (1, 2, 1, 1, 2, 1),
+                 2: (1, 1, 1, 1, 4, 1), 5: (1, 1, 2, 1, 2, 1)}
     for rank, res in enumerate(got):
-        for i, dims in enumerate(want_dims):
+        for i, dims in want_dims.items():
             status, got_dims, coord, groups, mode = res[i]
             topo = JTopology(names, dims)
             assert status == "ok" and got_dims == list(dims)
@@ -226,7 +229,7 @@ def test_fleet_init_builds_the_groups_of_each_axis(pools):
             for name in names:
                 mine = [g for g in topo.get_comm_list(name) if rank in g][0]
                 assert groups[name] == mine, (name, groups[name], mine)
-            assert mode == modes[i]
+            assert mode == "hybrid"
         assert res[3][:2] == ("error", "ValueError")
         assert res[4][:2] == ("error", "NotImplementedError")
         assert "ROADMAP A.7" in res[4][2]

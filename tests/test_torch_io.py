@@ -298,9 +298,13 @@ def test_persistent_workers_are_reused():
     try:
         pids1 = {int(p) for _, pid in loader for p in pid}
         pool = loader._pool
+        own = {w.pid for w in pool.workers}
         pids2 = {int(p) for _, pid in loader for p in pid}
         assert pool is not None and loader._pool is pool
-        assert pids2 <= pids1
+        # both epochs ran in the pool's own workers, whichever worker took
+        # which batch
+        assert pids1 <= own and pids2 <= own
+        assert {w.pid for w in loader._pool.workers} == own
         both = list(zip(loader, loader))   # a second live iterator
         assert [int(a[0][0, 0]) for a, _ in both] == [0, 4, 8, 12]
         assert [int(b[0][0, 0]) for _, b in both] == [0, 4, 8, 12]

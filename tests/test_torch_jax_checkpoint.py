@@ -144,6 +144,48 @@ def test_io_load_reads_jax_arrays_and_bf16_bits(jax_files):
     np.testing.assert_array_equal(back[key], bf16[key].astype(np.float32))
 
 
+def test_io_load_gives_writable_tensors_over_their_own_bytes(tmp_path,
+                                                           monkeypatch):
+    """``framework.io.load(..., device="cpu")`` of a two-tensor dict (f32
+    and bf16: an ml_dtypes array in the JAX file, the uint16 view in the
+    port's) hands every tensor writable memory of its own: no array
+    reaches ``torch.from_numpy`` read-only (numpy over the pickle's
+    immutable bytes), no ``UserWarning`` is raised, and an in-place
+    ``add_`` leaves what the next load reads unchanged."""
+    import warnings
+
+    import jax.numpy as jnp
+    rng = np.random.RandomState(4)
+    f32 = rng.randn(3, 5).astype(np.float32)
+    b16 = jnp.asarray(rng.randn(4, 2), jnp.bfloat16)
+    jax_path = str(tmp_path / "jax.pdparams")
+    paddle.save({"w": paddle.to_tensor(f32), "b": paddle.Tensor(b16)},
+                jax_path)
+    port_path = str(tmp_path / "port.pdparams")
+    tio.save({"w": torch.from_numpy(f32),
+              "b": torch.from_numpy(np.array(b16).view(np.uint16))
+              .view(torch.bfloat16)}, port_path)
+    real = torch.from_numpy
+
+    def writable_only(arr):
+        assert arr.flags.writeable, "a read-only array reached from_numpy"
+        return real(arr)
+
+    monkeypatch.setattr(torch, "from_numpy", writable_only)
+    for path in (jax_path, port_path):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)
+            obj = tio.load(path, device="cpu")
+            before = {k: v.clone() for k, v in obj.items()}
+            assert obj["b"].dtype == torch.bfloat16
+            for t in obj.values():
+                t.add_(1)
+            again = tio.load(path, device="cpu")
+        for k in obj:
+            assert torch.equal(again[k], before[k]), (path, k)
+            assert torch.equal(obj[k], before[k] + 1), (path, k)
+
+
 def test_the_optimizer_state_crosses_and_the_next_step_agrees(jax_files):
     """After ``Model.load`` the port's AdamW continues the JAX run: the
     next step's loss within 1e-5 (relative) and its weights within rtol

@@ -208,6 +208,16 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.distributed.fleet.utils\n"
             "import paddle_tpu_torch.distributed.fleet.utils."
             "sequence_parallel_utils\n"
+            "import paddle_tpu_torch.distributed.zero_bubble\n"
+            "import paddle_tpu_torch.distributed.pipeline\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "pp_layers\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "pipeline_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "pp_utils.p2p_communication\n"
+            "from paddle_tpu_torch.models import (LlamaForCausalLMPipe, "
+            "Qwen2MoeForCausalLMPipe)\n"
             "from paddle_tpu_torch.distributed import (fleet, spawn, "
             "parallelize, DataParallel, all_reduce, init_parallel_env)\n"
             "import paddle_tpu_torch.framework.random\n"
