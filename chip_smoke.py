@@ -2665,9 +2665,12 @@ FLEET_ENGINE = dict(num_slots=8, page_size=32, max_len=384, decode_chunk=32,
                     greedy=True, audit=True)
 #: the fleet's traffic cut to 24 of the bench's 64 requests, and replica
 #: 1 killed after 4 of its steps (the bench: 8), for the script's time
-#: limit: at 24 requests replica 1 takes fewer than 8 steps
+#: limit: at 24 requests replica 1 takes fewer than 8 steps. Phase fleet
+#: runs 16 of them with the kill after 2 steps (fleet_parity's geometry),
+#: the process-backed phases all 24
 FLEET_REQUESTS = 24
-FLEET_KILL_AFTER = 4
+FLEET_KILL_AFTER = 2
+FLEET_TIMED_REQUESTS = 16
 #: fleet_parity's requests, and its kill after 2 of replica 1's steps
 #: (every request of 48-192 prompt tokens at chunk 32 still runs at its
 #: third), cut for the script's time limit
@@ -2723,7 +2726,7 @@ def _delivered(tag, fleet, done, fids):
 def phase_fleet(model, dev="cuda"):
     """The JAX bench's fleet section (bench.py:_cb_fleet_bench) on the
     port: Llama-1B bf16, engines of 8 slots, page 32, prefill and
-    decode chunk 32, max_len 384; ``FLEET_REQUESTS`` requests (the
+    decode chunk 32, max_len 384; ``FLEET_TIMED_REQUESTS`` requests (the
     bench's 64; RandomState(44), prompts of 48-192 tokens, 16-48 new)
     through one engine (the A/B
     denominator), then through a ``ServingFleet`` of 4 replicas sharing
@@ -2742,7 +2745,7 @@ def phase_fleet(model, dev="cuda"):
     from paddle_tpu_torch.profiler.slo import SLORule
     from paddle_tpu_torch.testing import FaultInjector
     cfg = model.config
-    specs = _fleet_specs(cfg.vocab_size)
+    specs = _fleet_specs(cfg.vocab_size, n_req=FLEET_TIMED_REQUESTS)
     single = _fleet_factory(model, dev)()
     single.add_request(*specs[0])
     single.run()                       # cuBLAS handles, off the clock
@@ -4618,7 +4621,7 @@ def _twin(template, name):
     return copy.deepcopy(template).to(name)
 
 
-def phase_train_parity(cfg1b, layers=2, seq=300, lr=1e-3, dev="cuda"):
+def phase_train_parity(cfg1b, layers=1, seq=300, lr=1e-3, dev="cuda"):
     """One forward + backward + AdamW step at Llama-1B width (depth
     ``layers``, f32, batch 1, ``seq`` tokens, not a tile multiple) from
     the same weights on the card (kernels) and on the CPU (plain
@@ -5242,7 +5245,7 @@ def phase_fit(cfg1b, batch=8, seq=1024, n_batches=12, dev="cuda"):
                 launches=launches, tails=tails, profile=prof)
 
 
-def phase_fused_parity(cfg1b, layers=2, seq=300, dev="cuda"):
+def phase_fused_parity(cfg1b, layers=1, seq=300, dev="cuda"):
     """Llama-1B width at depth ``layers`` in f32, the card (kernels)
     against the CPU (plain versions) from the same weights: (a) a
     labelled forward and backward with the fused residual carry and
@@ -5540,8 +5543,8 @@ def phase_train_loop(cfg1b, batch=8, seq=1024, steps=40, save_at=30,
             f"(the first step's {losses[0]:.4f})")
         del model, opt, sched, m, held
         torch.cuda.empty_cache()
-        fit_res = _train_loop_fit(cfg, tmp, dev)
-        amp_res = _train_loop_amp(cfg, dev)
+        fit_res = _train_loop_fit(cfg, tmp, dev, layers=L)
+        amp_res = _train_loop_amp(cfg, dev, layers=L)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(losses=losses, step_ms=step_ms, parts=dict(
@@ -5714,6 +5717,8 @@ PREEMPT_BATCH = 4
 PREEMPT_AT = 7             # the SIGTERM after optimizer step 7: step 2 of
                            # epoch 1, not an epoch boundary
 PREEMPT_SEQ = 1025
+PREEMPT_LAYERS = 1         # Llama-1B's width at depth 1 (2 until the sep
+                           # cases came in: PERF.md section 4)
 
 
 def byte_stream(root, n_bytes):
@@ -5763,9 +5768,9 @@ def _cuda_settings():
 
 def _preempt_fit(data, out, num_workers=2, save_dir=None, resume=None,
                  sigterm_after=None):
-    """Llama-1B's width at depth 2 in bf16 with AdamW, fit for 2 epochs
-    over ``data`` (shuffled, ``num_workers`` loader workers, the fused
-    linear+CE); every loss read at its step (``log_freq=1``). Returns
+    """Llama-1B's width at ``PREEMPT_LAYERS`` in bf16 with AdamW, fit for 2
+    epochs over ``data`` (shuffled, ``num_workers`` loader workers, the
+    fused linear+CE); every loss read at its step (``log_freq=1``). Returns
     the record of the run (written to ``out`` too, also when ``fit``
     raises): per-step losses with their times, launches of the training
     kernels, epoch summaries, peak memory, the final weights' digest.
@@ -5782,7 +5787,8 @@ def _preempt_fit(data, out, num_workers=2, save_dir=None, resume=None,
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.profiler import metrics as pmetrics
     from paddle_tpu_torch.utils import monitor
-    cfg = dataclasses.replace(LlamaConfig.llama_1b(), num_hidden_layers=2,
+    cfg = dataclasses.replace(LlamaConfig.llama_1b(),
+                              num_hidden_layers=PREEMPT_LAYERS,
                               scan_layers=False)
     net = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     m = Model(net)
@@ -5883,7 +5889,7 @@ def _per_step(tag, rec, want):
 
 def phase_preempt(cfg1b):
     """Phase preempt: the elastic launcher runs a preemptible fit at
-    Llama-1B's width (depth 2) over a map-style dataset of the
+    Llama-1B's width (``PREEMPT_LAYERS``) over a map-style dataset of the
     repository's text through two loader workers; a real SIGTERM mid
     epoch 1, the emergency checkpoint, exit 75, the relaunch that
     resumes it; held bit for bit against an uninterrupted run."""
@@ -5896,7 +5902,7 @@ def phase_preempt(cfg1b):
         stream = byte_stream(repo, PREEMPT_WINDOWS * PREEMPT_SEQ)
         np.save(os.path.join(tmp, "stream.npy"), stream)
         data = ByteWindows(stream, PREEMPT_SEQ)
-        L = 2
+        L = PREEMPT_LAYERS
         chunks = -(-cfg1b.vocab_size // 1024)
         want = {"rms_norm": 1, "rms_norm_dx": 1,
                 "rms_norm_residual": 2 * L, "rms_norm_residual_dh": 2 * L,
@@ -5970,7 +5976,8 @@ def phase_preempt(cfg1b):
         shutil.rmtree(tmp, ignore_errors=True)
     recover_s = r1["loss_t"][0] - r0["t_sigterm"]
     good = r1["goodput"]
-    log(f"[preempt] Llama-1B width, depth 2, bf16, AdamW, {len(data)} "
+    log(f"[preempt] Llama-1B width, depth {PREEMPT_LAYERS}, bf16, AdamW, "
+        f"{len(data)} "
         f"windows of {PREEMPT_SEQ} byte ids of the repository's .py/.md "
         f"text, batch {PREEMPT_BATCH}, shuffled through 2 loader workers; "
         f"the launcher ran {launch_s:.1f} s: round 0 {r0['t_end'] - r0['t_start']:.1f} s "
@@ -7886,7 +7893,7 @@ def _tp_shard_checks(cfg8):
     return out
 
 
-def tp_rank(out_dir, cfg1b, cfg8, ref_ck):
+def tp_rank(out_dir, cfg1b, cfg8, ref_ck, cfg_sep):
     """One rank of phase tp (``distributed.spawn``): the f32 cases, each
     saved after its steps (``hapi.Model.save_checkpoint`` into
     ``out_dir/case<i>``; the plain mp 2 ones then resume from the
@@ -7992,6 +7999,7 @@ def tp_rank(out_dir, cfg1b, cfg8, ref_ck):
     if rank == 0:
         out["kernels"] = _tp_shard_checks(cfg8)
     out["pp"] = pp_rank(out_dir, cfg1b, cfg8)
+    out["sep"] = sep_rank(out_dir, cfg1b, cfg_sep)
     out["total_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -8019,7 +8027,12 @@ def phase_tp(cfg, cfg1b):
     async, its writer running beside the next steps), and the ranks load
     them at mp 2 and take the same steps; (c) the 8B's ranks save their
     state, take one step more, and this process loads it at mp 1 and
-    takes that step in bf16."""
+    takes that step in bf16.
+
+    Then the pp cases (``pp_rank``) and the sep cases (``sep_rank``: a
+    third ``fleet.init`` at sep 2 on the same two ranks, held to
+    ``_sep_references``' unpartitioned runs). pp 2 x sep 2 needs four
+    ranks, so it runs in the CPU tests only."""
     import dataclasses
     import shutil
     import tempfile
@@ -8078,10 +8091,11 @@ def phase_tp(cfg, cfg1b):
         f"{', '.join(f'{x:.1f}' for x in times)}, peak {peak:.2f} GB; "
         f"references in {time.perf_counter() - t0:.1f} s")
     pp_refs = _pp_references(cfg1b, cfg8)
+    sep_refs = _sep_references(cfg1b, cfg)
     out_dir = ck_root
     t1 = time.perf_counter()
-    procs = spawn(tp_rank, args=(out_dir, cfg1b, cfg8, ref_ck), nprocs=2,
-                  join=False)
+    procs = spawn(tp_rank, args=(out_dir, cfg1b, cfg8, ref_ck, cfg),
+                  nprocs=2, join=False)
     try:
         # (a) beside the ranks: each case's checkpoint as it commits
         resumed = _tp_resumes(cfgs, out_dir, refs, procs, t1 + 900)
@@ -8161,8 +8175,12 @@ def phase_tp(cfg, cfg1b):
         + " (the Llama's async: the call, then the wait after its next "
         f"{TP_RESUMED} steps)")
     pp_launches = _pp_check([rk["pp"] for rk in ranks], pp_refs, pp_resumed)
+    sep_launches = _sep_check([rk["sep"] for rk in ranks], sep_refs, refs)
+    kernels = dict(ranks[0]["kernels"])
+    for name, entry in ranks[0]["sep"]["kernels"].items():
+        kernels[name + " sep2"] = entry
     return {"launches": launches, "launches_pp": pp_launches,
-            "kernels": ranks[0]["kernels"]}
+            "launches_sep": sep_launches, "kernels": kernels}
 
 
 def _tp_join(procs, deadline, until=None):
@@ -8589,6 +8607,295 @@ def _pp_check(ranks, refs, resumed):
     return launches
 
 
+# ---- phase tp, context parallelism (sep) ------------------------------------
+
+SEP_IMPLS = ("ring", "ulysses", "allgather")
+SEP_SGD_LR = 0.1                 # SGD shows a mis-scaled sep gradient
+SEP_8B_LAYERS = 2                # Llama-3-8B's width at 2 of its 32 layers
+SEP_8B_IDS = (1, 4096)           # 2048 tokens a rank at sep 2
+# the kernels of the sep path: the unfused stack (K1/K2, K5/K6, no K3/K4),
+# Ulysses' local attention (K7-K9) and the fused linear+CE (K10/K11)
+SEP_KERNELS = ("rms_norm", "rms_norm_dx", "swiglu", "swiglu_bwd",
+               "flash_attention_fwd", "flash_attention_dkv",
+               "flash_attention_dq", "chunk_stats", "chunk_dlogits")
+
+
+def _sep_fleet():
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(sep_degree=2, dp_degree=1)
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet.get_hybrid_communicate_group()
+
+
+def _sep_train(model, opt, batches, group=None, times=None):
+    """A step on each global batch, this rank on its sep rank's slice of
+    the sequence (all of it without ``group``): the losses (and ms a
+    step into ``times``)."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        split_inputs_sequence_dim
+    losses = []
+    for ids in batches:
+        t = torch.from_numpy(ids)
+        if group is not None:
+            t = split_inputs_sequence_dim(t, rank=group.rank, degree=2)
+        t = t.cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = model(t, labels=t)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return losses
+
+
+def _sep_8b_config(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, num_hidden_layers=SEP_8B_LAYERS)
+
+
+def _sep_references(cfg1b, cfg):
+    """The unpartitioned runs the sep ranks are held to, beside phase tp's
+    AdamW run of the f32 Llama (``_tp_configs``' depth 1): that Llama with
+    SGD at ``SEP_SGD_LR``, and a step of the 8B width at
+    ``SEP_8B_LAYERS`` layers in bf16 with the fused linear+CE and SGD on
+    ``SEP_8B_IDS`` (its ms and peak)."""
+    import torch
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.optimizer import SGD
+    t0 = time.perf_counter()
+    llama = _tp_configs(cfg1b)["llama"]
+    out = {}
+    model = _tp_model("llama", llama, torch.float32)
+    opt = SGD(learning_rate=SEP_SGD_LR, parameters=model.parameters())
+    out["sgd"] = _sep_train(model, opt, _tp_batches(llama, TP_BATCH, 30)[
+        :TP_STEPS])
+    del model, opt
+    flags.set_flags({"FLAGS_fused_linear_cross_entropy": True})
+    try:
+        model = _tp_model("llama", _sep_8b_config(cfg), torch.bfloat16,
+                          seed=0)
+        opt = SGD(learning_rate=SEP_SGD_LR, parameters=model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        out["8b"] = _sep_train(model, opt, _tp_batches(
+            model.config, SEP_8B_IDS, 0)[:1], times=times)
+        out["8b_ms"], out["8b_peak_gb"] = times[0], \
+            torch.cuda.max_memory_allocated() / 1e9
+        out["8b_params"] = sum(p.numel() for p in model.parameters())
+        del model, opt
+    finally:
+        flags.set_flags({"FLAGS_fused_linear_cross_entropy": False})
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _sep_runs(cfg, dtype, seed, cases, group, batches, wrappers):
+    """One model of ``cfg`` (built and broadcast over the data x sep ranks
+    once), then for each ``(name, impl, make_optimizer)`` of ``cases``:
+    the initial weights restored (from a host copy), ``sep_parallel`` set
+    to ``impl`` (the layers read it at each forward), a fresh optimizer,
+    and a step on each batch. Returns {name: losses, ms, peak GB, the
+    run's launches}."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    model = _tp_model("llama", dataclasses.replace(
+        cfg, sep_parallel=cases[0][1]), dtype, seed=seed)
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    net = fleet.distributed_model(model)
+    out = {}
+    for name, impl, make in cases:
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(init[k])
+        model.config.sep_parallel = impl
+        opt = fleet.distributed_optimizer(make(model.parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {n: w.launches for n, w in wrappers.items()}
+        times = []
+        losses = _sep_train(net, opt, batches, group, times)
+        out[name] = {"losses": losses, "ms": times,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {n: w.launches - before[n]
+                                  for n, w in wrappers.items()}}
+        del opt
+    del net, model, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sep_zigzag_check(llama, group):
+    """The ring at the zigzag placement at the f32 Llama's attention
+    shape ([2, 256] tokens, its heads): q, k, v from a seed, reordered,
+    this rank's slice through ``ring_flash_attention(placement=
+    "zigzag")``, gathered and restored, against full attention on the
+    whole sequence (the model path is contiguous, as in the JAX
+    package). Returns the max abs error."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        gather_outputs_sequence_dim, ring_flash_attention,
+        split_inputs_sequence_dim)
+    from paddle_tpu_torch.ops.ring_attention import chunked_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s = TP_BATCH
+    q, k, v = (torch.randn(b, s, h, llama.head_dim, device="cuda",
+                           generator=gen)
+               for h in (llama.num_attention_heads,
+                         llama.num_key_value_heads,
+                         llama.num_key_value_heads))
+    local = split_inputs_sequence_dim([q, k, v], rank=group.rank, degree=2,
+                                      zigzag=True)
+    out = gather_outputs_sequence_dim(ring_flash_attention(
+        *local, causal=True, placement="zigzag"), zigzag=True)
+    ref = chunked_attention(q, k, v, causal=True, chunk=s)
+    err = (out - ref).abs().max().item()
+    if not err <= 2e-5:
+        raise AssertionError(f"[sep] the zigzag ring: max abs err {err} "
+                             f"against full attention (limit 2e-5)")
+    return err
+
+
+def sep_rank(out_dir, cfg1b, cfg):
+    """The sep cases on one rank of phase tp, after its pp cases, with
+    every kernel count at 0 first: a third ``fleet.init`` (sep 2), the f32
+    Llama of the mp cases (``_tp_configs``) under each implementation
+    through ``TP_STEPS`` AdamW steps and Ulysses with SGD, the zigzag ring
+    at its attention shape, then a step of the 8B width in bf16 under each
+    implementation (the fused linear+CE, SGD), counting each run's
+    launches; rank 0 then holds K7-K9 at Ulysses' local shape. Returns
+    the losses, ms a step, peak memory and launches."""
+    import torch
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    t0 = time.perf_counter()
+    wrappers = _counted(TRAIN_KERNELS)
+    group = _sep_fleet().get_sep_parallel_group()
+    llama = _tp_configs(cfg1b)["llama"]
+
+    def adamw(params):
+        return AdamW(learning_rate=1e-3, parameters=params,
+                     weight_decay=0.01)
+
+    def sgd(params):
+        return SGD(learning_rate=SEP_SGD_LR, parameters=params)
+
+    out = {"rank": group.rank, "f32": _sep_runs(
+        llama, torch.float32, 7,
+        [(impl, impl, adamw) for impl in SEP_IMPLS]
+        + [("ulysses sgd", "ulysses", sgd)], group,
+        _tp_batches(llama, TP_BATCH, 30)[:TP_STEPS], wrappers)}
+    out["zigzag_err"] = _sep_zigzag_check(llama, group)
+    out["f32_s"] = time.perf_counter() - t0
+    cfg8 = _sep_8b_config(cfg)
+    flags.set_flags({"FLAGS_fused_linear_cross_entropy": True})
+    try:
+        out["8b"] = _sep_runs(
+            cfg8, torch.bfloat16, 0, [(i, i, sgd) for i in SEP_IMPLS], group,
+            _tp_batches(cfg8, SEP_8B_IDS, 0)[:1], wrappers)
+    finally:
+        flags.set_flags({"FLAGS_fused_linear_cross_entropy": False})
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    if group.rank == 0:
+        gen = torch.Generator(device="cuda").manual_seed(98)
+
+        def rand(*shape, dtype=torch.bfloat16):
+            return torch.randn(*shape, device="cuda",
+                               generator=gen).to(dtype)
+
+        nh = cfg8.num_attention_heads // 2
+        flash = flash_checks(1, SEP_8B_IDS[1], nh, nh, cfg8.head_dim, rand)
+        out["kernels"] = {
+            k: {"max_abs_err": v["max_abs_err"],
+                "shape": f"q, kv [1,{SEP_8B_IDS[1]},{nh},{cfg8.head_dim}] "
+                         "(Ulysses at sep 2, kv heads repeated)"}
+            for k, v in flash.items()}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _sep_check(ranks, refs, tp_refs):
+    """The sep cases of both ranks against the unpartitioned runs (phase
+    tp's f32 Llama and ``_sep_references``), logged beside the card's
+    name and power limit; returns the launches of the sep path summed
+    over the ranks (K1/K2, K5-K11 must be there, K3/K4 not: the unfused
+    stack; Ulysses' step launches K7, K8 and K9 once a layer)."""
+    def rel(got, want):
+        return np.abs(np.asarray(got) - np.asarray(want)) / \
+            np.abs(np.asarray(want))
+
+    lim = np.array([TP_F32_RTOL[0]] + [TP_F32_RTOL[1]] * (TP_STEPS - 1))
+    for impl in SEP_IMPLS + ("ulysses sgd",):
+        want = refs["sgd"] if "sgd" in impl else tp_refs["llama"][:TP_STEPS]
+        got = [rk["f32"][impl]["losses"] for rk in ranks]
+        if any((rel(g, want) > lim).any() for g in got):
+            raise AssertionError(f"[sep] {impl}: the ranks' losses {got} "
+                                 f"against the unpartitioned {want}")
+        log(f"[sep] Llama-1B width at depth 1, f32, sep 2, {impl}"
+            f"{' (lr ' + str(SEP_SGD_LR) + ')' if 'sgd' in impl else ''}, "
+            f"{list(TP_BATCH)} as {TP_BATCH[1] // 2} tokens a rank: losses "
+            f"{', '.join(f'{x:.7f}' for x in got[0])} against the "
+            f"unpartitioned {', '.join(f'{x:.7f}' for x in want)}: worst "
+            f"relative {max(rel(g, want).max() for g in got):.3g} (limits "
+            f"{TP_F32_RTOL[0]:g} first, {TP_F32_RTOL[1]:g} after); ms a step "
+            f"{', '.join(f'{x:.1f}' for x in ranks[0]['f32'][impl]['ms'])}")
+    log(f"[sep] the ring at the zigzag placement, q {list(TP_BATCH)} "
+        f"tokens at Llama-1B's heads, f32: max abs err "
+        f"{max(rk['zigzag_err'] for rk in ranks):.3g} against full "
+        f"attention (limit 2e-5)")
+    want8 = refs["8b"][0]
+    flash = ("flash_attention_fwd", "flash_attention_dkv",
+             "flash_attention_dq")
+    for impl in SEP_IMPLS:
+        want_flash = SEP_8B_LAYERS if impl == "ulysses" else 0
+        for rk in ranks:
+            case = rk["8b"][impl]
+            r = abs(case["losses"][0] - want8) / abs(want8)
+            if r > TP_BF16_RTOL:
+                raise AssertionError(
+                    f"[sep] 8B width {impl}: rank {rk['rank']}'s loss "
+                    f"{case['losses'][0]} against the unpartitioned "
+                    f"{want8} (limit {TP_BF16_RTOL})")
+            per = {n: c for n, c in case["launches"].items() if c}
+            if any(case["launches"][n] != want_flash for n in flash) or \
+                    case["launches"]["rms_norm_residual"] or \
+                    case["launches"]["rms_norm_residual_dh"]:
+                raise AssertionError(
+                    f"[sep] 8B width {impl}: launches in the step {per}: "
+                    f"K7/K8/K9 {want_flash} each (Ulysses' local "
+                    f"attention, one a layer), K3/K4 none")
+            log(f"[sep] {CARD}: Llama-3-8B width at {SEP_8B_LAYERS} "
+                f"layers, bf16, sep 2 rank {rk['rank']}, {impl}, ids "
+                f"{list(SEP_8B_IDS)} as {SEP_8B_IDS[1] // 2} tokens a rank, "
+                f"fused linear+CE, SGD: loss {case['losses'][0]:.6f} "
+                f"against the unpartitioned {want8:.6f} (relative "
+                f"{r:.3g}, limit {TP_BF16_RTOL:g}); the step "
+                f"{case['ms'][0]:.1f} ms, peak {case['peak_gb']:.2f} GB; "
+                f"launches in the step {per}")
+    log(f"[sep] {CARD}: the unpartitioned 8B width ("
+        f"{refs['8b_params'] / 1e9:.3f} B parameters), one process: the "
+        f"step {refs['8b_ms']:.1f} ms, peak {refs['8b_peak_gb']:.2f} GB; "
+        f"the references in {refs['s']:.1f} s; the ranks' sep cases in "
+        f"{', '.join(f'{rk['s']:.1f}' for rk in ranks)} s (f32 "
+        f"{', '.join(f'{rk['f32_s']:.1f}' for rk in ranks)} s)")
+    launches = {n: sum(rk["launches"][n] for rk in ranks)
+                for n in ranks[0]["launches"]}
+    missing = [n for n in SEP_KERNELS if not launches[n]]
+    if missing:
+        raise AssertionError(f"[sep] kernels not launched on the sep path: "
+                             f"{missing}")
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--preempt-worker"]:
         return preempt_worker(sys.argv[2])
@@ -8689,7 +8996,7 @@ def main():
     phase_fused_parity(cfg1b)
     mark("training")
     train_loop = phase_train_loop(dataclasses.replace(cfg1b,
-                                                      num_hidden_layers=2))
+                                                      num_hidden_layers=1))
     mark("train_loop")
     preempt = phase_preempt(cfg1b)
     mark("preempt")
@@ -8715,7 +9022,9 @@ def main():
     mark("llama70, model_parity")
     tp = phase_tp(cfg, cfg1b)
     for name, entry in tp["kernels"].items():
-        res[name].setdefault("models", {})["llama3_8b_mp2_shard"] = entry
+        kernel, _, sep = name.partition(" ")
+        res[kernel].setdefault("models", {})[
+            "llama3_8b_sep2_ulysses" if sep else "llama3_8b_mp2_shard"] = entry
     mark("tp")
     pallas = "paddle_tpu/ops/pallas/"
     gm_cu = "paddle_tpu_torch/csrc/grouped_matmul.cu"
@@ -8773,7 +9082,8 @@ def main():
         # process-backed fleet (39), the disaggregated and colocated
         # workers with the f32/int8 in-process fleets (41), the
         # autoscaled fleet (42), both ranks of the mp 2 Llama-3-8B
-        # steps (43) and both ranks' pp cases (43, pp); launches is
+        # steps (43), both ranks' pp cases (43, pp) and both ranks' sep
+        # cases (43, sep: the f32 Llama and the 8B width); launches is
         # their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
@@ -8808,7 +9118,8 @@ def main():
                   "disagg": disagg["launches"].get(name, 0),
                   "autoscale": autoscale["launches"].get(name, 0),
                   "tp": tp["launches"].get(name, 0),
-                  "pp": tp["launches_pp"].get(name, 0)}
+                  "pp": tp["launches_pp"].get(name, 0),
+                  "sep": tp["launches_sep"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

@@ -28,7 +28,11 @@ it from an array's ``NamedSharding``. A port tensor is a plain
 ``axes`` names the fleet axes along which the rank's part differs; the
 ranks that agree with this one on them hold the same part
 (:func:`replica_index`), and under the pipeline only those of the same
-stage. :func:`boxes` maps a tensor to its global shape
+stage. No layout names ``sep``: context parallelism splits the sequence,
+not the weights, so the ranks of a ``sep`` group are replicas of every
+tensor (and of the data ranks' parts), each writing its share of the
+boxes once, and a checkpoint crosses sep degrees as it crosses data
+degrees. :func:`boxes` maps a tensor to its global shape
 and the boxes it covers (a flat range is at most ``2 * ndim - 1`` boxes:
 a partial row, whole rows, a partial row, recursively);
 :func:`placement_of` writes the JAX descriptor (the hybrid topology's
@@ -218,9 +222,10 @@ def replica_index(layout, rank, world, hcg=None):
     the ranks agreeing with it on the layout's axes, and on the ``pipe``
     axis when it has more than one stage (a stage's tensors are its own,
     whatever their layout: a tensor more than one stage holds, such as a
-    shared weight, is written by each, the copies alike); without one,
-    every rank for a replicated tensor and this rank alone for any
-    other."""
+    shared weight, is written by each, the copies alike; the ``data``,
+    ``sep`` and ``sharding`` ranks of a replicated part are its holders);
+    without one, every rank for a replicated tensor and this rank alone
+    for any other."""
     axes = layout.axes if layout is not None else ()
     if hcg is None:
         return (0, 1) if axes else (rank, world)

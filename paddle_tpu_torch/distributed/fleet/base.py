@@ -6,8 +6,8 @@ counts the hybrid degrees against the world size (the JAX package counts
 devices; each rank here is one process) and builds the topology and its
 groups (``HybridCommunicateGroup``). ``dp_degree`` -1 (or 0) fills what
 the other degrees leave; degrees whose product is not the world size
-raise. Context (``sep_degree``) and expert (``ep_degree``) parallelism
-above 1 raise, naming the ROADMAP item that ports them. The
+raise. Expert parallelism (``ep_degree``) above 1 raises, naming the
+ROADMAP item that ports it. The
 ``fleet/init`` event goes through the profiler's tracer and names the
 backend (``env.backend_rule``).
 
@@ -16,8 +16,12 @@ backend (``env.backend_rule``).
 ``schedule_mode`` and ``num_virtual_pipeline_stages`` from the strategy's
 ``pipeline_configs``; the strategy's ``amp`` is not applied to it, with
 the JAX package's warning). Any other model it wraps in ``DataParallel``
-over the ``data`` group when ``dp_degree > 1``, and runs its forward
-under ``amp.auto_cast`` when the strategy's ``amp`` is on;
+over the ``data`` group when ``dp_degree > 1``, over the data x sep ranks
+(``get_dp_sep_parallel_group``) when ``sep_degree > 1``: the parameters
+are replicated over both, and the context-parallel loss's backward seeds
+each sep rank's part with the group's count (``context_parallel.
+sep_sum``), so the average is the unpartitioned gradient. It runs its
+forward under ``amp.auto_cast`` when the strategy's ``amp`` is on;
 tensor-parallel layers need no wrapper (their collectives are in their
 forward).
 ``distributed_optimizer`` wraps the optimizer in
@@ -36,8 +40,7 @@ __all__ = ["DistributedStrategy", "Fleet", "fleet", "init", "worker_num",
            "UserDefinedRoleMaker", "UtilBase"]
 
 #: the ROADMAP items that port the degrees fleet.init refuses above 1
-_NOT_PORTED = {"sep_degree": "ROADMAP A.7, context parallelism (item 2)",
-               "ep_degree": "ROADMAP A.5, expert parallelism"}
+_NOT_PORTED = {"ep_degree": "ROADMAP A.5, expert parallelism"}
 
 
 class DistributedStrategy:
@@ -192,10 +195,10 @@ class Fleet:
                 model, self._hcg,
                 self._strategy.pipeline_configs.get("accumulate_steps", 1),
                 strategy=self._strategy)
-        if self._hcg.get_data_parallel_world_size() > 1:
+        if self._hcg.get_dp_sep_parallel_world_size() > 1:
             from ..parallel import DataParallel
             model = DataParallel(
-                model, group=self._hcg.get_data_parallel_group(),
+                model, group=self._hcg.get_dp_sep_parallel_group(),
                 find_unused_parameters=self._strategy.find_unused_parameters)
         if self._strategy.amp:
             model = AmpModelWrapper(model, self._strategy.amp_configs)

@@ -7,6 +7,12 @@ before SIGKILL. The contract:
 - :class:`PreemptionGuard` turns the signal into a flag that a training
   loop polls at step boundaries. The handler only records the time and
   counts (async-signal-safe); the loop drains at its next boundary.
+  Under a process group of more than one rank the loop polls
+  :meth:`PreemptionGuard.requested_anywhere`: the flag all-reduced (MAX)
+  over the world, one small collective a step boundary, so a signal that
+  reaches the ranks at different step boundaries stops every rank after
+  the same step (a rank that stopped alone would leave the others in the
+  next step's collectives).
 - The loop commits a bounded-time **emergency checkpoint** and raises
   :class:`Preempted`.
 - The trainer exits :data:`PREEMPTED_EXIT_CODE` (``os.EX_TEMPFAIL`` =
@@ -14,7 +20,8 @@ before SIGKILL. The contract:
   a clean preemption, relaunched on its own budget, not as a crash.
 
 A third SIGTERM while draining exits at once (``os._exit``). Standard
-library only.
+library only at import: ``torch`` is imported by the agreement alone,
+once a process group exists.
 """
 
 from __future__ import annotations
@@ -115,8 +122,32 @@ class PreemptionGuard:
         return self
 
     def requested(self) -> bool:
-        """Polled at step boundaries: has a preemption been signalled?"""
+        """Has a preemption been signalled to this process?"""
         return self._requested_at is not None
+
+    def requested_anywhere(self) -> bool:
+        """Polled at step boundaries: has a preemption been signalled to
+        any rank? :meth:`requested` without a process group of more than
+        one rank; with one, this rank's flag all-reduced (MAX) over the
+        world (every rank must poll at the same step boundary). A rank
+        that learns of it this way marks itself requested (its grace
+        window starts now)."""
+        mine = self.requested()
+        dist = sys.modules.get("torch.distributed")
+        if dist is None or not dist.is_available() or \
+                not dist.is_initialized() or dist.get_world_size() <= 1:
+            return mine
+        import torch
+
+        from ...communication import ReduceOp, all_reduce
+        from ...env import current_device
+        flag = torch.tensor([1.0 if mine else 0.0],
+                            device=current_device() or "cpu")
+        all_reduce(flag, ReduceOp.MAX)
+        agreed = bool(flag.item())
+        if agreed and self._requested_at is None:
+            self._requested_at = time.time()
+        return agreed
 
     def remaining(self) -> float:
         """Seconds left of the grace window: ``inf`` before a signal, at

@@ -10,6 +10,12 @@ partition (ZeRO, ``sharding_group``) the total is summed over the
 sharding group. Under the pipeline each stage holds other parameters,
 so the total is summed over the ``pipe`` group too (``pp_group``); a
 shared weight's later holder (``pipe_duplicate``) leaves its copy out.
+Context parallelism splits the sequence, not the weights: every
+parameter is replicated over the ``sep`` group and holds the same
+gradient there once ``distributed_model`` (or the pipeline) has averaged
+it over the data x sep ranks, so nothing is summed over ``sep`` and a
+parameter counts once, not once a sep rank; the ``pipe`` and ``model``
+groups hold ranks of one sep index.
 The global norm, and so the scale, equals ``ClipGradByGlobalNorm``'s on
 the unsplit model (up to the order of the f32 sums).
 """

@@ -39,9 +39,19 @@ reduces its own in the optimizer's ``step``. ``train_batch`` and
 (broadcast from the last stage). At ``pp_degree == 1`` ``train_batch`` is
 the eager microbatch loop.
 
-Context and expert parallelism under the pipeline are not ported: pp
-with ``sep_degree > 1`` or ``ep_degree > 1`` raises, naming ROADMAP A.7
-item 2 or A.5.
+Context parallelism (``sep_degree > 1``, stage layers with
+``sep_parallel``): every rank passes its own chunk of the sequence
+(``context_parallel.split_inputs_sequence_dim``), so the microbatch
+stream is split over ``sep``; a stage rank's pipe peers are the stage
+ranks of its sep index (``get_rank_from_stage``), and the sep ranks of a
+stage walk the same row, so the attention's collectives over ``sep``
+meet in the same order. The last stage's loss is the criterion's over
+the whole sequence (``sep_shifted_cross_entropy``), and the gradients
+are averaged over the data x sep ranks. ``ring`` under 1F1B or ZB-H1
+raises, as in the JAX package (its tick engine broke the ring's
+rotation; this host loop could lift the refusal, ROADMAP A.7).
+Expert parallelism is not ported: pp with ``ep_degree > 1`` raises,
+naming ROADMAP A.5.
 """
 
 from __future__ import annotations
@@ -119,10 +129,17 @@ class PipelineParallel:
                     "explicit schedules (1F1B/ZB-H1) do not support "
                     "virtual pipeline stages; use schedule_mode="
                     "'interleaved' or num_virtual_pipeline_stages=1")
-            if hcg.get_sep_parallel_world_size() > 1:
-                raise NotImplementedError(
-                    "pipeline parallelism with sep_degree > 1 is not "
-                    "ported (ROADMAP A.7 item 2, context parallelism)")
+            if self._schedule not in _SCAN_SCHEDULES and \
+                    self._sep_impl() == "ring" and \
+                    hcg.get_sep_parallel_world_size() > 1:
+                raise ValueError(
+                    "ring context parallelism under the explicit "
+                    "1F1B/ZB-H1 schedules is not supported (the JAX "
+                    "package's refusal: its tick engine broke the ring's "
+                    "rotation). Use sep_parallel='allgather' or "
+                    "'ulysses' (degree <= num_heads), both supported "
+                    "under every schedule, or the FThenB/interleaved "
+                    "schedules for ring")
             if hcg.get_expert_parallel_world_size() > 1:
                 raise NotImplementedError(
                     "pipeline parallelism with ep_degree > 1 is not ported "
@@ -138,15 +155,26 @@ class PipelineParallel:
         #: the most microbatch graphs a step kept alive on this rank
         self.peak_live = 0
 
+    def _sep_impl(self):
+        """The layers' ``sep_parallel`` (``ring``, ``ulysses``,
+        ``allgather``), or None: read from every layer's description (a
+        config among its arguments), the same on every stage rank."""
+        for d in getattr(self._layers, "_descs", ()):
+            for a in tuple(d.inputs) + tuple(d.kwargs.values()):
+                impl = getattr(a, "sep_parallel", None)
+                if impl is not None:
+                    return impl
+        return None
+
     def _init_stage(self):
         hcg = self._hcg
         S = self._pp_degree
         self._stage = hcg.get_stage_id()
         self._group = hcg.get_pipe_parallel_group()
         self._ranks = [hcg.get_rank_from_stage(s) for s in range(S)]
-        if hcg.get_data_parallel_world_size() > 1:
+        if hcg.get_dp_sep_parallel_world_size() > 1:
             from ...parallel import broadcast_module
-            broadcast_module(self._layers, hcg.get_data_parallel_group())
+            broadcast_module(self._layers, hcg.get_dp_sep_parallel_group())
         self._tables = {}
 
     def __getattr__(self, name):
@@ -309,10 +337,10 @@ class PipelineParallel:
 
     def _sync_grads(self):
         self._layers.allreduce_shared_weight_gradients()
-        if self._hcg.get_data_parallel_world_size() > 1:
+        if self._hcg.get_dp_sep_parallel_world_size() > 1:
             from ...parallel import average_grads
             average_grads(list(self._layers.parameters()),
-                          self._hcg.get_data_parallel_group())
+                          self._hcg.get_dp_sep_parallel_group())
 
     def _mean_loss(self, losses):
         """The mean of the last stage's losses, on every stage rank."""
@@ -328,8 +356,8 @@ class PipelineParallel:
     def forward_backward_pipeline(self, data, scaler=None):
         """One step's forward and backward over ``accumulate_steps``
         microbatches, the gradients summed between shared weights' holders
-        and averaged over the ``data`` group: the mean loss on every rank
-        (no optimizer step)."""
+        and averaged over the data (x sep) ranks: the mean loss on every
+        rank (no optimizer step)."""
         inputs, labels = data
         self._layers.train()
         scale = scaler._scale if scaler is not None and \

@@ -8,6 +8,10 @@ more than one rank, every list of ranks that differ only along it becomes
 a group (``communication.new_group``, called by every rank in the same
 order), and this rank keeps the one it belongs to. Axes are taken in the
 JAX order ``("data", "sharding", "pipe", "sep", "model", "expert")``.
+With ``sep`` above 1 the ranks that differ only along ``data`` and
+``sep`` make one more group (``get_dp_sep_parallel_group``, Paddle's
+name): the parameters are replicated over both, so their gradients are
+averaged over it.
 """
 
 from __future__ import annotations
@@ -60,6 +64,15 @@ class CommunicateTopology:
         moved = np.moveaxis(self._rank_arr, ax, -1)
         return moved.reshape(-1, self._dims[ax]).tolist()
 
+    def get_fused_comm_list(self, axis_names):
+        """The rank-groups whose ranks differ only along ``axis_names``
+        (one per coordinate of the other axes), each in rank order."""
+        axes = [self._names.index(a) for a in axis_names]
+        moved = np.moveaxis(self._rank_arr, axes,
+                            range(-len(axes), 0))
+        size = int(np.prod([self._dims[a] for a in axes]))
+        return [sorted(g) for g in moved.reshape(-1, size).tolist()]
+
 
 class HybridCommunicateGroup:
     """This rank's coordinates in ``topology`` and its group along each
@@ -96,6 +109,17 @@ class HybridCommunicateGroup:
             else:
                 mine = Group(-1, [self.global_rank], None, name)
             self._groups[name] = mine
+        self._dp_sep = self._groups.get("data")
+        names = topology.get_hybrid_group_names()
+        if "data" in names and "sep" in names and \
+                topology.get_dim("sep") > 1:
+            if topology.get_dim("data") == 1:
+                self._dp_sep = self._groups["sep"]
+            else:
+                for ranks in topology.get_fused_comm_list(("data", "sep")):
+                    g = new_group(ranks, axis_name="data_sep")
+                    if self.global_rank in ranks:
+                        self._dp_sep = g
 
     def topology(self):
         return self._topo
@@ -180,6 +204,14 @@ class HybridCommunicateGroup:
 
     def get_sep_parallel_group(self) -> Group:
         return self._groups["sep"]
+
+    def get_dp_sep_parallel_group(self) -> Group:
+        """The ranks that differ only along ``data`` and ``sep`` (the
+        ``data`` group at sep degree 1)."""
+        return self._dp_sep
+
+    def get_dp_sep_parallel_world_size(self):
+        return self._dp_sep.nranks
 
     # expert parallel
     def get_expert_parallel_rank(self):

@@ -158,6 +158,44 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _PsumAllReduce(torch.autograd.Function):
+    """Forward an all-reduce, backward an all-reduce: the transpose of
+    JAX's ``psum`` for a value every rank then uses (each rank's seed
+    summed over the group; context parallelism's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _all_to_all(x, split_dim, concat_dim, group):
+    from .communication import alltoall
+    parts = [p.contiguous() for p in x.chunk(group.nranks, dim=split_dim)]
+    return torch.cat(alltoall([], parts, group), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Forward: ``split_dim`` cut into one part a rank, each rank's parts
+    concatenated on ``concat_dim`` in rank order; backward: the reverse
+    all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, \
+            None
+
+
 class _ReduceScatter(torch.autograd.Function):
     """Forward a reduce-scatter along ``dim``, backward an all-gather."""
 
@@ -193,6 +231,14 @@ def all_gather_dim(x, dim, group):
 
 def reduce_scatter_dim(x, dim, group):
     return _ReduceScatter.apply(x, dim, group)
+
+
+def psum(x, group):
+    return _PsumAllReduce.apply(x, group)
+
+
+def all_to_all_dim(x, split_dim, concat_dim, group):
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
 
 
 # ---- the shards ----------------------------------------------------------

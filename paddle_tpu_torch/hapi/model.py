@@ -132,8 +132,9 @@ class _Batches:
     batch)`` from ``skip_to`` on (the earlier batches of a mid-epoch
     resume are fetched and dropped), adds the time each ``next()`` on
     the loader blocked to ``wait_s``, and stops at the step boundary
-    where ``guard`` reports a preemption (``preempted``). ``last_step``
-    is the last step handed out."""
+    where ``guard`` reports a preemption on any rank (``preempted``;
+    ``PreemptionGuard.requested_anywhere``). ``last_step`` is the last
+    step handed out."""
 
     def __init__(self, loader, guard, skip_to):
         self._loader = loader
@@ -155,7 +156,8 @@ class _Batches:
                     return
                 finally:
                     self.wait_s += time.perf_counter() - t0
-                if self._guard is not None and self._guard.requested():
+                if self._guard is not None and \
+                        self._guard.requested_anywhere():
                     self.preempted = True
                     return
                 if step >= self._skip_to:

@@ -68,6 +68,21 @@ divide the heads, the FFN or the vocab raises; so does a cache step
 (serving, ``generate``) of a split model. Without such a group every
 layer is the plain one, and the model computes as without a fleet.
 
+Context parallelism: with ``sep_parallel`` (``ring``, ``ulysses`` or
+``allgather``) under a fleet whose ``sep`` group has more than one rank,
+each rank runs its own chunk of the sequence
+(``fleet.meta_parallel.split_inputs_sequence_dim``, contiguous): RoPE at
+the chunk's global positions, the attention through
+``context_parallel.sep_attention`` (Ulysses' local attention is the
+flash kernels), and with ``labels`` the loss of the unpartitioned model,
+the shifted mean over the whole sequence
+(``context_parallel.sep_shifted_cross_entropy``: each rank's rows with
+the next rank's first label, summed over the group; the head's work and
+its logits stay at S_local a rank, which an all-gather of the hidden
+states would multiply by the degree). As in the JAX package the stack is
+then the unfused one with no selective recompute (no K3/K4), set by the
+config whatever the degree; a cache step under such a group raises.
+
 The pipeline (``fleet.meta_parallel``): ``LlamaForCausalLMPipe`` is the
 JAX package's ``PipelineLayer`` of ``LlamaEmbeddingPipe``, one
 ``LlamaDecoderLayerPipe`` a decoder layer (the unrolled stack's layer,
@@ -140,8 +155,8 @@ class LlamaConfig:
     # the tensor-parallel layers under a fleet's model group of more than
     # one rank; the plain layers without one (either value)
     tensor_parallel: bool = True
-    # context parallelism goes with ROADMAP A.7: anything but None raises
-    # (check_parallel)
+    # context parallelism over the fleet's sep group: None | "ring" |
+    # "ulysses" | "allgather" (check_parallel); the stack is then unfused
     sep_parallel: str | None = None
     # Megatron sequence parallelism over the model group (module
     # docstring); no effect without one
@@ -208,12 +223,65 @@ class LlamaConfig:
 
 
 def check_parallel(cfg):
-    """Context parallelism (``sep_parallel``) is ROADMAP A.7's and
-    raises; tensor and sequence parallelism are taken."""
-    if getattr(cfg, "sep_parallel", None) is not None:
-        raise NotImplementedError(
-            f"sep_parallel={cfg.sep_parallel!r} is not ported (ROADMAP "
-            "A.7, context parallelism); build with sep_parallel=None")
+    """``sep_parallel`` is None or one of the context-parallel
+    implementations (``ring``, ``ulysses``, ``allgather``); another name
+    raises, as the JAX package's ``sep_attention`` does."""
+    impl = getattr(cfg, "sep_parallel", None)
+    if impl is None:
+        return
+    from ..distributed.fleet.meta_parallel.context_parallel import SEP_IMPLS
+    if impl not in SEP_IMPLS:
+        raise ValueError(f"unknown sep impl {impl!r}: sep_parallel is "
+                         f"None or one of {SEP_IMPLS}")
+
+
+def sep_of(cfg):
+    """The fleet's ``sep`` group when ``cfg.sep_parallel`` is set and the
+    group has more than one rank, else None (full attention)."""
+    if getattr(cfg, "sep_parallel", None) is None:
+        return None
+    from ..distributed.fleet.meta_parallel.context_parallel import \
+        sep_group
+    return sep_group()
+
+
+def sep_rope_of(cfg, sin_tab, cos_tab, s, device):
+    """(sin, cos) [1, s, D/2] of a training forward over ``s`` tokens:
+    positions 0..s-1, or under a sep group the rank's global positions
+    (tables of the global length built where ``sin_tab`` is shorter)."""
+    group = sep_of(cfg)
+    if group is None:
+        return sin_tab[None, :s], cos_tab[None, :s]
+    from ..distributed.fleet.meta_parallel.context_parallel import sep_rope
+    return sep_rope(sin_tab, cos_tab, s, group, build=lambda n: _rope_tables(
+        n, cfg.head_dim, cfg.rope_theta, str(device)))
+
+
+def sep_attend(cfg, q, k, v):
+    """Causal attention of the training path: ``_attend``, or under a sep
+    group ``context_parallel.sep_attention`` by ``cfg.sep_parallel``."""
+    if sep_of(cfg) is None:
+        return _attend(q, k, v)
+    from ..distributed.fleet.meta_parallel.context_parallel import \
+        sep_attention
+    return sep_attention(q, k, v, causal=True, impl=cfg.sep_parallel)
+
+
+def sep_loss(cfg, logits, labels, extras=()):
+    """The shifted cross entropy plus each of ``extras`` in turn: over
+    the whole sequence under a sep group (``sep_shifted_cross_entropy``,
+    the extras' sum averaged over the group), else over the given
+    one."""
+    group = sep_of(cfg)
+    if group is None:
+        loss = _shifted_cross_entropy(logits, labels)
+        for e in extras:
+            loss = loss + e
+        return loss
+    from ..distributed.fleet.meta_parallel.context_parallel import \
+        sep_shifted_cross_entropy
+    return sep_shifted_cross_entropy(logits, labels, group,
+                                     extra=sum(extras) if extras else None)
 
 
 def tp_degree(cfg):
@@ -257,6 +325,12 @@ def _no_split_cache_step(model):
             "a cache step (serving, generate) of a tensor-parallel model "
             "is not ported (ROADMAP A.7); build the model without a "
             "model-parallel fleet to serve it")
+    if sep_of(model.config) is not None:
+        raise NotImplementedError(
+            "a cache step (serving, generate) under context parallelism "
+            "(sep_parallel with a sep group of more than one rank): the "
+            "JAX package has no such path (ROADMAP A.7); serve the model "
+            "without a sep fleet")
 
 
 def check_weight_quant(mode):
@@ -423,7 +497,8 @@ class LlamaDecoderLayer(nn.Module):
             x = x + self.self_attn(self.input_layernorm(x), rope, cache, ctx,
                                    tables)
             return x + self.mlp(self.post_attention_layernorm(x))
-        return self._post_stage(x, _attend(*self._qkv_stage(x, rope)))
+        return self._post_stage(x, sep_attend(self.self_attn.cfg,
+                                              *self._qkv_stage(x, rope)))
 
     # ---- the unfused stages and core_attn recompute over them ----------
     def _qkv_from(self, h, rope):
@@ -542,8 +617,8 @@ class LlamaModel(nn.Module):
                              "(serving) path")
         x = self.embed_tokens(input_ids)
         if caches is None:
-            return self._train_stack(x, (self.rope_sin[None, :s],
-                                         self.rope_cos[None, :s]))
+            return self._train_stack(x, sep_rope_of(
+                self.config, self.rope_sin, self.rope_cos, s, x.device))
         _no_split_cache_step(self)
         skip = frozenset(skip_layers or ())
         if tables is None:
@@ -590,16 +665,16 @@ class LlamaModel(nn.Module):
             return self.norm(scan_layers(
                 self.layers, x, (rope,), remat=remat,
                 full_save_interval=cfg.full_save_interval))
-        # as in the JAX package, sequence parallelism takes neither
-        # selective recompute nor the fused carry
+        # as in the JAX package, sequence and context parallelism take
+        # neither selective recompute nor the fused carry
+        plain = self.sequence_parallel or cfg.sep_parallel is not None
         selective = cfg.recompute_granularity in ("core_attn", "full_attn") \
-            and not self.sequence_parallel
+            and not plain
 
         def how(i):
             return recompute_mode(cfg, i, remat, selective)
 
-        if flags.flag("FLAGS_fused_rmsnorm_residual") and \
-                not self.sequence_parallel:
+        if flags.flag("FLAGS_fused_rmsnorm_residual") and not plain:
             hidden, residual = x, None
             for i, layer in enumerate(self.layers):
                 mode = how(i)
@@ -753,13 +828,29 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         hidden = self.llama(input_ids, skip_layers=skip_layers)
         if (labels is not None and self.lm_head is not None
                 and flags.flag("FLAGS_fused_linear_cross_entropy")):
-            h2 = hidden[:, :-1].reshape(-1, self.config.hidden_size)
-            return None, fused_head_loss(h2, self.lm_head,
-                                         labels[:, 1:].reshape(-1))
+            return None, self._fused_loss(hidden, labels)
         logits = self._logits(hidden)
         if labels is None:
             return logits
-        return logits, _shifted_cross_entropy(logits, labels)
+        return logits, sep_loss(self.config, logits, labels)
+
+    def _fused_loss(self, hidden, labels):
+        """The fused linear+CE of the shifted rows; under a sep group each
+        rank's mean weighted by its labelled rows over the global count,
+        summed over the group (``sep_shifted_cross_entropy``'s rule)."""
+        hs = self.config.hidden_size
+        group = sep_of(self.config)
+        if group is None:
+            return fused_head_loss(hidden[:, :-1].reshape(-1, hs),
+                                   self.lm_head, labels[:, 1:].reshape(-1))
+        from ..distributed.fleet.meta_parallel.context_parallel import (
+            sep_loss_parts, sep_sum)
+        targets, keep_last, count = sep_loss_parts(labels, group)
+        h = hidden if keep_last else hidden[:, :-1]
+        mean = fused_head_loss(h.reshape(-1, hs), self.lm_head,
+                               targets.reshape(-1))
+        valid = (targets != -100).sum()
+        return sep_sum(mean * valid / count.clamp(min=1), group)
 
 
 def fused_head_loss(h, head, labels):
@@ -789,7 +880,9 @@ def _shifted_cross_entropy(logits, labels):
 
 class LlamaPretrainingCriterion(nn.Module):
     """Shifted next-token cross entropy: ``criterion(model(ids), ids)``
-    equals the loss of ``model(ids, labels=ids)``.
+    equals the loss of ``model(ids, labels=ids)`` (under a sep group, with
+    the config's ``sep_parallel``, over the whole sequence from each
+    rank's chunk).
 
     ``fuses_with_network_loss`` certifies that contract to
     ``hapi.Model``, whose compiled fit then passes the labels into the
@@ -801,9 +894,10 @@ class LlamaPretrainingCriterion(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.vocab_size = config.vocab_size
+        self.config = config
 
     def forward(self, logits, labels):
-        return _shifted_cross_entropy(logits, labels)
+        return sep_loss(self.config, logits, labels)
 
 
 # ---- the pipeline (fleet.meta_parallel.PipelineLayer) ------------------------
@@ -820,12 +914,12 @@ def _rope_tables(max_pos, head_dim, theta, device):
 
 
 def pipe_rope(cfg, x):
-    """(sin, cos) [1, S, D/2] at positions 0..S-1 for the activation
-    ``x`` [B, S, H]: ``LlamaModel``'s tables, sliced as it slices them."""
+    """(sin, cos) [1, S, D/2] for the activation ``x`` [B, S, H]:
+    ``LlamaModel``'s tables, sliced as it slices them (at the rank's
+    global positions under a sep group)."""
     sin, cos = _rope_tables(cfg.max_position_embeddings, cfg.head_dim,
                             cfg.rope_theta, str(x.device))
-    s = x.shape[1]
-    return sin[None, :s], cos[None, :s]
+    return sep_rope_of(cfg, sin, cos, x.shape[1], x.device)
 
 
 class LlamaEmbeddingPipe(nn.Module):
@@ -863,12 +957,14 @@ class LlamaDecoderLayerPipe(LlamaDecoderLayer):
         cfg = self.cfg
         hidden, residual = x if isinstance(x, tuple) else (x, None)
         rope = pipe_rope(cfg, hidden)
-        # the scanned stack takes the unfused layer and whole-layer remat
+        # the scanned stack takes the unfused layer and whole-layer remat,
+        # and so does context parallelism
+        plain = cfg.scan_layers or cfg.sep_parallel is not None
         selective = cfg.recompute_granularity in ("core_attn", "full_attn") \
-            and not cfg.scan_layers
+            and not plain
         mode = recompute_mode(cfg, self.layer_idx,
                               cfg.use_recompute and self.training, selective)
-        if flags.flag("FLAGS_fused_rmsnorm_residual") and not cfg.scan_layers:
+        if flags.flag("FLAGS_fused_rmsnorm_residual") and not plain:
             if mode == "plain":
                 return self.forward_fused(hidden, residual, rope)
             if mode == "core_attn":
@@ -926,8 +1022,8 @@ def pipe_key(n_layers, prefix, key):
 
 
 def check_pipe(config):
-    """What the pipelined models do not take: a tied head, sequence and
-    context parallelism (ROADMAP A.7)."""
+    """What the pipelined models do not take: a tied head and sequence
+    parallelism (ROADMAP A.7); context parallelism is taken."""
     check_parallel(config)
     if getattr(config, "tie_word_embeddings", False):
         raise NotImplementedError(

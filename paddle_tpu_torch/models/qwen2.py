@@ -27,6 +27,16 @@ recomputes whole layers, every ``full_save_interval``-th one excepted
 package's warning). The loss is over the full shifted logits, plus
 ``router_aux_loss_coef`` times each MoE layer's aux loss.
 
+Context parallelism (``sep_parallel`` under a fleet's ``sep`` group of
+more than one rank) is Llama's (``models.llama``): each rank's chunk at
+its global RoPE positions, attention through ``context_parallel``, the
+shifted loss over the whole sequence. The MoE block runs unchanged on
+the rank's tokens (routing is per token); its aux loss and a capacity
+dispatch's capacity are over the rank's tokens, as over a pipeline
+microbatch's, so the unpartitioned run is matched with dropless dispatch
+and the aux loss folded out (the rank's aux losses are averaged over the
+group otherwise).
+
 Serving (caches, ``tables``): the paged step of ``models.llama`` (K12,
 or K13 over quantized pools), the unfused stack. ``generate`` (caches,
 no ``tables``): the same stack over dense caches, attention through
@@ -59,9 +69,9 @@ from ..distributed.parallel_layers import embedding as tp_embedding
 from ..distributed.parallel_layers import normal_ as tp_normal_
 from .llama import (LlamaAttention, LlamaEmbeddingPipe, LlamaHeadPipe,
                     LlamaMLP, LlamaPretrainingCriterion, _alloc_kv_caches,
-                    _lin, _no_split_cache_step, _shifted_cross_entropy,
-                    check_parallel, check_pipe, check_weight_quant,
-                    kv_cache_dtype, pipe_key, pipe_rope, rope_with_offset,
+                    _lin, _no_split_cache_step, check_parallel, check_pipe,
+                    check_weight_quant, kv_cache_dtype, pipe_key, pipe_rope,
+                    rope_with_offset, sep_attend, sep_loss, sep_rope_of,
                     slot_positions, tied_logits, tp_degree)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
@@ -145,7 +155,8 @@ class Qwen2MoeConfig(Qwen2Config):
 
 
 def check_qwen2_parallel(cfg):
-    """``sep_parallel`` other than None raises, naming ROADMAP A.7."""
+    """``sep_parallel`` is None, ``ring``, ``ulysses`` or ``allgather``;
+    another name raises ``ValueError``."""
     check_parallel(cfg)
 
 
@@ -208,8 +219,8 @@ class Qwen2DecoderLayer(nn.Module):
         b, s, _ = x.shape
         q, k, v = self.self_attn._proj(self.input_layernorm(x))
         sin, cos = rope
-        ctx_ = F.scaled_dot_product_attention(
-            rotate(q, sin, cos), rotate(k, sin, cos), v, is_causal=True)
+        ctx_ = sep_attend(self.self_attn.cfg, rotate(q, sin, cos),
+                          rotate(k, sin, cos), v)
         attn = self.self_attn.o_proj(ctx_.reshape(b, s, -1))
         if flags.flag("FLAGS_fused_rmsnorm_residual"):
             # the attention residual add and the post-attention norm as one
@@ -349,7 +360,7 @@ class _Qwen2Base(nn.Module, GenerationMixin):
                               ctx, tables)
                 return self._logits(self.norm(x)), caches
         x = self.embed_tokens(input_ids)
-        rope = (self.rope_sin[None, :s], self.rope_cos[None, :s])
+        rope = sep_rope_of(cfg, self.rope_sin, self.rope_cos, s, x.device)
         remat = cfg.use_recompute and self.training
         # MoE stacks never scan: each layer's aux loss is read after the
         # stack, as in the JAX package
@@ -366,13 +377,13 @@ class _Qwen2Base(nn.Module, GenerationMixin):
         logits = self._logits(self.norm(x))
         if labels is None:
             return logits
-        loss = _shifted_cross_entropy(logits, labels)
+        extras = []
         if self._moe and cfg.router_aux_loss_coef:
             for layer in self.layers:
                 aux = layer.mlp.aux_loss
                 if aux is not None:
-                    loss = loss + cfg.router_aux_loss_coef * aux
-        return logits, loss
+                    extras.append(cfg.router_aux_loss_coef * aux)
+        return logits, sep_loss(cfg, logits, labels, extras)
 
 
 class Qwen2ForCausalLM(_Qwen2Base):

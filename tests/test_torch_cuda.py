@@ -2497,3 +2497,81 @@ def test_pp2_on_two_ranks_sharing_the_card_equals_the_pp1_run(cuda,
             np.testing.assert_allclose(res["grads0"][pipe_key(n, "llama.",
                                                               k)],
                                        g, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+# ---- context parallelism: Ulysses' local attention ---------------------------
+
+def _flash_counts():
+    return (kfa.flash_attention_fwd.launches,
+            kfa.flash_attention_dkv.launches,
+            kfa.flash_attention_dq.launches)
+
+
+def test_ulysses_local_attention_at_the_8b_sep2_shard_shape(cuda):
+    """Ulysses' local attention on Llama-3-8B at sep 2, the shape after
+    its all-to-all: q, k, v [1, 4096, 16, 128] bf16 (32 heads over 2
+    ranks, the 8 kv heads repeated first), causal. Through
+    ``ring_attention.ulysses_attention`` (a group of one: the all-to-all
+    is the identity) it launches K7 once and K8/K9 once each in the
+    backward, with the bits of the kernels called directly; the kernels
+    match the plain versions within ``test_flash_attention_kernels``'
+    bf16 limits (the backward from the same saved lse and delta)."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    q, k, v, go = _attention_inputs(cuda, torch.bfloat16, 1, 4096, 4096, 16,
+                                    16, 128)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = _flash_counts()
+    out = ra.ulysses_attention(*leaves, None, causal=True)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_flash_counts(), before)] == [1, 1, 1]
+    out_k, lse_k = kfa.flash_attention_fwd(q, k, v, True)
+    assert torch.equal(out, out_k)
+    for leaf, g in zip(leaves, kfa.flash_attention_bwd(q, k, v, out_k,
+                                                       lse_k, go, True)):
+        assert torch.equal(leaf.grad, g)
+    ref, ref_lse = kfa.flash_attention_fwd_reference(q, k, v, True)
+    a = kfa.flash_attention_fwd_reference(q.float(), k.float(),
+                                          v.float().abs(), True)[0]
+    _assert_close(out, ref, 1.01 * (2 ** -7 * a + BF16_ULP
+                                    * ref.float().abs()) + 1e-6)
+    delta = kfa._delta(ref, go)
+    dk, dv = kfa.flash_attention_dkv(q, k, v, go, ref_lse, delta, True)
+    dq = kfa.flash_attention_dq(q, k, v, go, ref_lse, delta, True)
+    want = kfa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, go, True)
+    scales = attention_scales(q, k, v, go, ref_lse, delta, True)
+    for got, w, sc in zip((dq, dk, dv), want, scales):
+        _assert_close(got, w, (2 ** -8 + 1e-5) * sc
+                      + BF16_ULP * w.float().abs() + 1e-6)
+
+
+def test_ulysses_raises_where_k7_refuses_the_shape(cuda):
+    """A head dim K7 does not take (48) raises on the card: Ulysses never
+    falls back to the plain attention for a CUDA tensor."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    q = torch.randn(1, 64, 4, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not taken"):
+        ra.ulysses_attention(q, q, q, None, causal=True)
+
+
+def test_sep2_llama_on_two_ranks_sharing_the_card(cuda):
+    """Tiny Llama (f32) at sep 2 on two ranks sharing the card, under
+    Ulysses (the flash kernels on the card) and the ring: three AdamW
+    steps' losses equal the same ranks' CPU run within 1e-5 at the first
+    step and 1e-4 after."""
+    arrays = convert.to_numpy_state_dict(
+        LlamaForCausalLM(LlamaConfig.tiny(), device="cpu", seed=0))
+    rng = np.random.RandomState(8)
+    batches = [rng.randint(0, 256, (2, 32)).astype(np.int64)
+               for _ in range(3)]
+    for impl in ("ulysses", "ring"):
+        fields = {"sep_parallel": impl}
+        args = ("llama", fields, arrays, batches,
+                {"sep_degree": 2, "dp_degree": 1}, "adamw", 1e-3, 0.01,
+                None, None, None)
+        card = _two_ranks("cuda", "torch_cp_cases:sep_train", *args, None)
+        cpu = _two_ranks("cpu", "torch_cp_cases:sep_train", *args, "cpu")
+        for c, h in zip(card, cpu):
+            np.testing.assert_allclose(c["losses"][0], h["losses"][0],
+                                       rtol=1e-5)
+            np.testing.assert_allclose(c["losses"], h["losses"], rtol=1e-4)

@@ -186,8 +186,8 @@ def test_communicate_topology_matches_jax(names, dims):
 
 def test_hybrid_degrees_arithmetic_and_errors():
     """The JAX arithmetic (dp -1 fills) against the world size; a product
-    other than the world size raises; pp, sep and ep above 1 raise,
-    naming their ROADMAP items."""
+    other than the world size raises; pp and sep above 1 are taken, ep
+    above 1 raises, naming its ROADMAP item."""
     deg = tbase.hybrid_degrees
     assert deg({"dp_degree": -1, "mp_degree": 2}, 8) == (4, 1, 1, 1, 2, 1)
     assert deg({"dp_degree": 0, "sharding_degree": 2, "mp_degree": 2},
@@ -199,10 +199,11 @@ def test_hybrid_degrees_arithmetic_and_errors():
         deg({"dp_degree": 1, "mp_degree": 2}, 8)
     assert deg({"pp_degree": 2}, 4) == (2, 1, 2, 1, 1, 1)
     assert deg({"pp_degree": 2, "mp_degree": 2}, 4) == (1, 1, 2, 1, 2, 1)
-    for key, item in (("sep_degree", "A.7, context parallelism"),
-                      ("ep_degree", "A.5, expert parallelism")):
-        with pytest.raises(NotImplementedError, match=item):
-            deg({key: 2}, 4)
+    # context parallelism is taken; expert parallelism is not
+    assert deg({"sep_degree": 2}, 4) == (2, 1, 1, 2, 1, 1)
+    assert deg({"sep_degree": 4, "dp_degree": 1}, 4) == (1, 1, 1, 4, 1, 1)
+    with pytest.raises(NotImplementedError, match="A.5, expert parallelism"):
+        deg({"ep_degree": 2}, 4)
 
 
 def test_fleet_init_builds_the_groups_of_each_axis(pools):
@@ -214,12 +215,14 @@ def test_fleet_init_builds_the_groups_of_each_axis(pools):
                {"dp_degree": -1, "mp_degree": 4},
                {"dp_degree": 4, "mp_degree": 2},
                {"pp_degree": 2, "sep_degree": 2},
-               {"pp_degree": 2, "mp_degree": 2}]
+               {"pp_degree": 2, "mp_degree": 2},
+               {"ep_degree": 2}]
     got = pools(4).run("torch_dist_cases:fleet_degrees", configs)
     names = ("data", "sharding", "pipe", "sep", "model", "expert")
     # config index -> its degrees (every mode is "hybrid")
     want_dims = {0: (2, 1, 1, 1, 2, 1), 1: (1, 2, 1, 1, 2, 1),
-                 2: (1, 1, 1, 1, 4, 1), 5: (1, 1, 2, 1, 2, 1)}
+                 2: (1, 1, 1, 1, 4, 1), 4: (1, 1, 2, 2, 1, 1),
+                 5: (1, 1, 2, 1, 2, 1)}
     for rank, res in enumerate(got):
         for i, dims in want_dims.items():
             status, got_dims, coord, groups, mode = res[i]
@@ -231,8 +234,8 @@ def test_fleet_init_builds_the_groups_of_each_axis(pools):
                 assert groups[name] == mine, (name, groups[name], mine)
             assert mode == "hybrid"
         assert res[3][:2] == ("error", "ValueError")
-        assert res[4][:2] == ("error", "NotImplementedError")
-        assert "ROADMAP A.7" in res[4][2]
+        assert res[6][:2] == ("error", "NotImplementedError")
+        assert "ROADMAP A.5" in res[6][2]
 
 
 def test_world_size_one_is_the_plain_model_bit_for_bit(pools):

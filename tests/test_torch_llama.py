@@ -216,6 +216,8 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "pipeline_parallel\n"
             "import paddle_tpu_torch.distributed.fleet.meta_parallel."
             "pp_utils.p2p_communication\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "context_parallel\n"
             "from paddle_tpu_torch.models import (LlamaForCausalLMPipe, "
             "Qwen2MoeForCausalLMPipe)\n"
             "from paddle_tpu_torch.distributed import (fleet, spawn, "

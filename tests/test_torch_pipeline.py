@@ -534,9 +534,9 @@ def test_model_save_writes_every_stage_and_loads_at_pp2(pools, tmp_path):
 def test_the_refusals(pools):
     """An unknown schedule, interleaved without virtual stages, an
     explicit schedule with them, a virtual count that conflicts with the
-    layer's, pp with sep or ep (naming ROADMAP A.7 item 2 and A.5),
-    degrees that do not make the world, and ZeRO 3 under pp each raise,
-    with the JAX package's meaning."""
+    layer's, pp with ep (naming ROADMAP A.5), degrees that do not make
+    the world (pp 2 x sep 2 over 2 ranks: pp x sep itself is taken) and
+    ZeRO 3 under pp each raise, with the JAX package's meaning."""
     got = pools(2).run("torch_pipe_cases:pipe_errors")
     for res in got:
         assert res["unknown"][0] == "ValueError"
@@ -547,8 +547,8 @@ def test_the_refusals(pools):
         assert "do not support virtual" in res["explicit_with_v"][1]
         assert res["conflicting_v"][0] == "ValueError"
         assert "conflicts" in res["conflicting_v"][1]
-        assert res["sep"][0] == "NotImplementedError"
-        assert "A.7" in res["sep"][1] and "item 2" in res["sep"][1]
+        assert res["sep"][0] == "ValueError"
+        assert "exceed the world size 2" in res["sep"][1]
         assert res["ep"][0] == "NotImplementedError"
         assert "A.5" in res["ep"][1]
         assert res["degrees"][0] == "ValueError"

@@ -387,6 +387,40 @@ def test_preempt_scaler_state_restored_across_layouts(pools, tmp_path):
     assert m2._resume_mid_step == pre["step"]
 
 
+def test_ranks_signalled_a_step_apart_stop_at_the_same_step(pools,
+                                                           tmp_path):
+    """Under dp 2 the guard trips on rank 0 after step 6 and on rank 1
+    only after step 7: the flag is all-reduced at every step boundary, so
+    both ranks stop after step 6 (a rank that went on would sit in step
+    7's gradient all-reduce while the other saved), the emergency
+    checkpoint commits through the barrier, and the resumed dp 2 run ends
+    bit for bit at the uninterrupted dp 2 run's weights, step count and
+    last epoch's mean loss."""
+    _, w, b = _jax_weights(0)
+    hybrid = {"dp_degree": 2}
+    pre = pools(2).run("torch_ckpt_cases:preempt_fit", hybrid, None, w, b,
+                       X, Y, "momentum", False, str(tmp_path / "run"),
+                       [6, 7], {})
+    for res in pre:
+        assert (res["epoch"], res["step"], res["opt_step"]) == (1, 1, 6)
+        assert res["checkpoint"] == pre[0]["checkpoint"]
+    assert ckpt.validate_checkpoint(pre[0]["checkpoint"])["world_size"] == 2
+    w2, b2 = _jax_weights(123)[1:]
+    resumed = pools(2).run("torch_ckpt_cases:preempt_fit", hybrid, None, w2,
+                           b2, X, Y, "momentum", False,
+                           str(tmp_path / "run"), None, {"resume": True})
+    full = pools(2).run("torch_ckpt_cases:preempt_fit", hybrid, None, w, b,
+                        X, Y, "momentum", False, str(tmp_path / "full"),
+                        None, {})
+    for got, want in zip(resumed, full):
+        assert got["epochs"] == [1, 2] and want["epochs"] == [0, 1, 2]
+        assert got["@opt_step"] == want["@opt_step"] == \
+            EPOCHS * STEPS_PER_EPOCH
+        assert got["mean_losses"][-1] == want["mean_losses"][-1]
+        for k in ("weight", "bias"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_emergency_save_bounded_by_grace(tmp_path, monkeypatch):
     """The emergency checkpoint's commit barrier gets the guard's
     remaining grace, not 300 s: with a dead peer (a world of 2 in which

@@ -85,21 +85,23 @@ def test_the_jax_bench_constructions_build():
     (tqwen2.Qwen2Config, "tensor_parallel", True),
     (tqwen2.Qwen2MoeConfig, "sep_parallel", "ulysses")])
 def test_parallel_fields_raise_naming_a7(cls, field, value):
-    """Context parallelism (``sep_parallel``) raises, naming A.7; tensor
-    and sequence parallelism are ported, and without a fleet the model
-    they build is the plain one, bit for bit."""
+    """Context, tensor and sequence parallelism are ported (only an
+    unknown ``sep_parallel`` name raises, ``ValueError`` as the JAX
+    ``sep_attention``'s), and without a fleet the model they build is the
+    plain one, bit for bit."""
     model_cls = {tllama.LlamaConfig: tllama.LlamaForCausalLM,
                  tqwen2.Qwen2Config: tqwen2.Qwen2ForCausalLM,
                  tqwen2.Qwen2MoeConfig: tqwen2.Qwen2MoeForCausalLM}[cls]
     cfg = cls.tiny()
     setattr(cfg, field, value)
     if field == "sep_parallel":
-        with pytest.raises(NotImplementedError, match="A.7"):
-            cls(**{field: value})
+        with pytest.raises(ValueError, match="unknown sep impl"):
+            cls(**{field: "ringg"})
         # set after construction, the model refuses it
-        with pytest.raises(NotImplementedError, match="A.7"):
-            model_cls(cfg, device="cpu")
-        return
+        bad = cls.tiny()
+        bad.sep_parallel = "ringg"
+        with pytest.raises(ValueError, match="unknown sep impl"):
+            model_cls(bad, device="cpu")
     cls(**{field: value})
     ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 9)))
     got = model_cls(cfg, device="cpu")(ids)

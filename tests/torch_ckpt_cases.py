@@ -343,10 +343,11 @@ def _trip_guard(m, trip_after, grace_s=None):
 def preempt_fit(hybrid, layout, w, b, x, y, opt_name, scaler, save_dir,
                 trip_after, fit_kw):
     """Fit until the guard trips after ``trip_after`` steps (on every
-    rank), or to the end when ``trip_after`` is None (a resume: ``fit_kw``
-    has ``resume=True``). Returns the ``Preempted``'s epoch, step and
-    checkpoint with the scaler's state and the step count at the
-    preemption, or the final weights gathered and the step count."""
+    rank; a list gives each rank its own count), or to the end when
+    ``trip_after`` is None (a resume when ``fit_kw`` has ``resume=True``).
+    Returns the ``Preempted``'s epoch, step and checkpoint with the
+    scaler's state and the step count at the preemption, or the final
+    weights gathered, the step count and each epoch's mean loss."""
     from paddle_tpu_torch.distributed.fleet.elastic import Preempted
     from paddle_tpu_torch.distributed.sharding import full_state
     from paddle_tpu_torch.io import TensorDataset
@@ -354,6 +355,8 @@ def preempt_fit(hybrid, layout, w, b, x, y, opt_name, scaler, save_dir,
     data = TensorDataset([torch.from_numpy(x), torch.from_numpy(y)])
     kw = dict(batch_size=4, epochs=3, verbose=0, shuffle=False,
               save_dir=save_dir, **fit_kw)
+    if isinstance(trip_after, (list, tuple)):
+        trip_after = trip_after[env.get_rank()]
     if trip_after is not None:
         try:
             m.fit(data, preemptible=_trip_guard(m, trip_after), **kw)
@@ -369,7 +372,8 @@ def preempt_fit(hybrid, layout, w, b, x, y, opt_name, scaler, save_dir,
     state, _ = full_state(m.network)
     return {"weight": _np(state["weight"]), "bias": _np(state["bias"]),
             "@opt_step": m._optimizer._step_count,
-            "epochs": [s["epoch"] for s in m._epoch_summaries]}
+            "epochs": [s["epoch"] for s in m._epoch_summaries],
+            "mean_losses": [s["mean_loss"] for s in m._epoch_summaries]}
 
 
 def card_async_save(fields, batches, path):

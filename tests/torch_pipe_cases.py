@@ -245,8 +245,9 @@ def pipe_ckpt_resume(batches, hybrid, pipeline, path, fields=None):
 def pipe_errors():
     """Each refusal's type and message: an unknown schedule, interleaved
     without virtual stages, an explicit schedule with them, a virtual
-    count that conflicts with the layer's, pp with sep or ep, degrees
-    that do not make the world, ZeRO 3 under pp."""
+    count that conflicts with the layer's, pp with sep beyond the world
+    (pp x sep is taken where the ranks make it), pp with ep, degrees that
+    do not make the world, ZeRO 3 under pp."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.optimizer import AdamW
