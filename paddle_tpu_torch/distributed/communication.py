@@ -21,7 +21,11 @@ buffers, runs the gloo op and copies the result back. Ops gloo lacks are
 built from ops it has: ``reduce_scatter`` is an ``all_reduce`` and the
 rank's slice, ``alltoall``/``alltoall_single`` an ``all_gather`` and the
 rank's column, ``AVG`` a ``SUM`` divided by the group's size. This path
-is for correctness when ranks share one card, not for speed. Under
+is for correctness when ranks share one card, not for speed; two rules
+halve the bytes of bf16/f16 tensors, which gloo would carry widened to
+f32: ``broadcast`` moves their bytes as they are, and a ``SUM``/``AVG``
+over a group of two swaps the two tensors' bytes and adds them in f32
+on each rank (:func:`_pair_reduce`, the bits of the widened sum). Under
 ``nccl`` every op is the native one on the device.
 """
 
@@ -189,6 +193,43 @@ def _back(t, buf):
     return t
 
 
+def _bytes_of(t):
+    """A low-precision tensor's bytes as a flat uint8 host buffer (a
+    copy when ``t`` is on the card or not contiguous)."""
+    flat = t.detach().reshape(-1).view(torch.uint8)
+    return flat.cpu() if flat.is_cuda else flat.contiguous()
+
+
+#: elements a step of :func:`_pair_reduce`'s f32 sum (its temporaries)
+_PAIR_STEP = 1 << 24
+
+
+def _pair_reduce(g, tensor, avg):
+    """``SUM`` (``AVG`` with ``avg``) of a bf16/f16 tensor over a gloo
+    group of two: the ranks all-gather the tensor's bytes (half the bytes
+    gloo's sum of the f32-widened tensors moves) and each adds its own
+    and the other's in f32 on the tensor's device, halves it for the
+    mean and rounds once. A sum of two f32 terms is the same either way
+    round, so every rank gets the widened path's bits."""
+    dist = _dist()
+    mine = _bytes_of(tensor)
+    both = [torch.empty_like(mine) for _ in range(2)]
+    dist.all_gather(both, mine, group=_pg(g))
+    other = both[1 - g.rank].to(tensor.device).view(tensor.dtype)
+    out = tensor.detach().reshape(-1)
+    if not out.is_contiguous() or out.data_ptr() != tensor.data_ptr():
+        out = out.clone()
+    for at in range(0, out.numel(), _PAIR_STEP):
+        part = out[at:at + _PAIR_STEP]
+        total = part.float() + other[at:at + _PAIR_STEP].float()
+        if avg:
+            total.div_(2)
+        part.copy_(total)
+    if out.data_ptr() != tensor.data_ptr():
+        tensor.copy_(out.view_as(tensor))
+    return tensor
+
+
 class _Work:
     """A finished (or staged) op's handle: ``wait`` waits for the torch
     work, then copies a staged receive back onto its device."""
@@ -219,8 +260,14 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     if not _active(g):
         return _done(sync_op)
     dist = _dist()
+    gloo = (g.backend or "gloo") == "gloo"
+    if (gloo and g.nranks == 2 and tensor.dtype in _LOW
+            and op in (ReduceOp.SUM, ReduceOp.AVG)):
+        with torch.no_grad():
+            _pair_reduce(g, tensor, op == ReduceOp.AVG)
+        return _done(sync_op)
     buf = _host(g, tensor)
-    if op == ReduceOp.AVG and (g.backend or "gloo") == "gloo":
+    if op == ReduceOp.AVG and gloo:
         dist.all_reduce(buf, dist.ReduceOp.SUM, group=_pg(g))
         buf.div_(g.nranks)
     else:
@@ -348,6 +395,14 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
     """``tensor`` takes global rank ``src``'s value on every member."""
     g = _resolve(group)
     if not _active(g):
+        return _done(sync_op)
+    if tensor.dtype in _LOW and (g.backend or "gloo") == "gloo":
+        # no arithmetic: the bytes as they are, not widened
+        buf = _bytes_of(tensor)
+        _dist().broadcast(buf, src=src, group=_pg(g))
+        with torch.no_grad():
+            tensor.copy_(buf.to(tensor.device).view(tensor.dtype)
+                         .view(tensor.shape))
         return _done(sync_op)
     buf = _host(g, tensor)
     _dist().broadcast(buf, src=src, group=_pg(g))

@@ -14,9 +14,10 @@ given, as the JAX ones do.
 The model path (``models.llama``/``models.qwen2`` with ``sep_parallel``)
 rotates q and k at their global positions (:func:`sep_positions`,
 contiguous placement) and takes the loss through
-:func:`sep_shifted_cross_entropy`: each rank's shifted cross entropy over
-its own rows, with the first label of the next rank's chunk for its last
-row, summed over the group and divided by the global count. The sum's
+:func:`sep_shifted_cross_entropy` (or the fused linear+CE): each rank's
+shifted cross entropy summed over its own rows, with the first label of
+the next rank's chunk for its last row, divided by the global count and
+summed over the group (:func:`sep_mean`, the one rule of both). The sum's
 backward is the sum of the ranks' seeds (the JAX ``psum``'s transpose),
 so averaging the replicated parameters' gradients over the data x sep
 ranks (``fleet.distributed_model``) gives the unpartitioned step.
@@ -33,7 +34,7 @@ __all__ = ["RingFlashAttention", "ring_flash_attention", "ulysses_attention",
            "sep_attention", "sep_attention_manual", "sep_axis_is_manual",
            "split_inputs_sequence_dim", "gather_outputs_sequence_dim",
            "sep_positions", "sep_group", "sep_shifted_cross_entropy",
-           "sep_sum", "SEP_IMPLS"]
+           "sep_sum", "sep_mean", "sep_shifted_targets", "SEP_IMPLS"]
 
 #: the names ``sep_parallel`` and ``sep_attention(impl=)`` take
 SEP_IMPLS = ("ring", "ulysses", "allgather")
@@ -239,18 +240,29 @@ def _next_first_labels(labels, group):
     return firsts[(r + 1) * b:(r + 2) * b]
 
 
-def sep_loss_parts(labels, group, ignore_index=-100):
-    """``(targets, keep_last, count)``: this rank's shifted targets (its
-    labels from position 1 on, then the next rank's first label; the
-    last rank has no label for its last row, ``keep_last`` False) and
-    the count of labelled rows over the group (f32 0-d)."""
+def sep_shifted_targets(labels, group):
+    """``(targets, keep_last)``: this rank's shifted targets (its labels
+    from position 1 on, then the next rank's first label; the last rank
+    has no label for its last row, ``keep_last`` False)."""
     nxt = _next_first_labels(labels, group)
     targets = labels[:, 1:] if nxt is None else \
         torch.cat([labels[:, 1:], nxt.to(labels.dtype)], dim=1)
-    local = (targets != ignore_index).sum().float()
+    return targets, nxt is not None
+
+
+def sep_mean(rank_sum, targets, group, ignore_index=-100, extra=None):
+    """The group's loss from this rank's: ``rank_sum`` (its rows' summed
+    loss against ``targets``) over the count of labelled rows of the
+    whole group, plus ``extra / n`` (a per-rank term averaged over the
+    group, such as a router aux loss), summed over ``group``
+    (:func:`sep_sum`). The one weighting rule of every sep loss."""
     from ...parallel_layers import _all_reduce
+    local = (targets != ignore_index).sum().float()
     count = _all_reduce(local.reshape(1), group)[0]
-    return targets, nxt is not None, count
+    part = rank_sum / count.clamp(min=1)
+    if extra is not None:
+        part = part + extra / group.nranks
+    return sep_sum(part, group)
 
 
 def sep_shifted_cross_entropy(logits, labels, group, ignore_index=-100,
@@ -258,17 +270,13 @@ def sep_shifted_cross_entropy(logits, labels, group, ignore_index=-100,
     """The unpartitioned model's shifted next-token cross entropy (the
     mean over the labelled rows of the whole sequence) from this rank's
     chunk: logits [B, S_local, V], labels [B, S_local]. Each rank sums
-    its rows' cross entropy (log-softmax in f32), divides by the global
-    count, adds ``extra / n`` (a per-rank term averaged over the group,
-    such as a router aux loss) and the parts are summed over ``group``
-    (:func:`sep_sum`)."""
-    targets, keep_last, count = sep_loss_parts(labels, group, ignore_index)
+    its rows' cross entropy (log-softmax in f32) and :func:`sep_mean`
+    makes the group's loss of the sums."""
+    targets, keep_last = sep_shifted_targets(labels, group)
     rows = logits if keep_last else logits[:, :-1]
     lf = torch.log_softmax(rows.reshape(-1, rows.shape[-1]).float(), dim=-1)
     idx = targets.reshape(-1).long()
     mask = idx != ignore_index
     nll = -lf.gather(-1, torch.where(mask, idx, 0)[:, None])[:, 0]
-    part = torch.where(mask, nll, 0.0).sum() / count.clamp(min=1)
-    if extra is not None:
-        part = part + extra / group.nranks
-    return sep_sum(part, group)
+    return sep_mean(torch.where(mask, nll, 0.0).sum(), targets, group,
+                    ignore_index, extra)

@@ -835,22 +835,21 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         return logits, sep_loss(self.config, logits, labels)
 
     def _fused_loss(self, hidden, labels):
-        """The fused linear+CE of the shifted rows; under a sep group each
-        rank's mean weighted by its labelled rows over the global count,
-        summed over the group (``sep_shifted_cross_entropy``'s rule)."""
+        """The fused linear+CE of the shifted rows; under a sep group this
+        rank's summed loss goes through ``sep_mean``, the rule of
+        ``sep_shifted_cross_entropy``."""
         hs = self.config.hidden_size
         group = sep_of(self.config)
         if group is None:
             return fused_head_loss(hidden[:, :-1].reshape(-1, hs),
                                    self.lm_head, labels[:, 1:].reshape(-1))
         from ..distributed.fleet.meta_parallel.context_parallel import (
-            sep_loss_parts, sep_sum)
-        targets, keep_last, count = sep_loss_parts(labels, group)
+            sep_mean, sep_shifted_targets)
+        targets, keep_last = sep_shifted_targets(labels, group)
         h = hidden if keep_last else hidden[:, :-1]
         mean = fused_head_loss(h.reshape(-1, hs), self.lm_head,
                                targets.reshape(-1))
-        valid = (targets != -100).sum()
-        return sep_sum(mean * valid / count.clamp(min=1), group)
+        return sep_mean(mean * (targets != -100).sum(), targets, group)
 
 
 def fused_head_loss(h, head, labels):

@@ -1,31 +1,23 @@
-"""Context parallelism of the port (``ops.ring_attention``'s ring,
-Ulysses and all-gather attention over a ``sep`` group,
-``fleet.meta_parallel.context_parallel``, Llama and Qwen2 with
-``sep_parallel``, pp x sep) over 2, 4 and 8 gloo ranks on the CPU,
-against the JAX package.
+"""Context parallelism of the port at the op level
+(``ops.ring_attention``'s ring, Ulysses and all-gather attention over a
+``sep`` group, ``fleet.meta_parallel.context_parallel``'s wrappers) over
+2, 4 and 8 gloo ranks on the CPU, against the JAX package. The models
+under ``sep_parallel`` and pp x sep are in
+``tests/test_torch_context_parallel_{models,qwen2,pipe}.py``.
 
-Op level: the same q, k, v (numpy from a seed) through the JAX functions
-under ``shard_map`` over the conftest's CPU devices, at every degree
+The same q, k, v (numpy from a seed) go through the JAX functions under
+``shard_map`` over the conftest's CPU devices, at every degree
 ``tests/test_context_parallel.py`` uses, and through the port on that
 many ranks (``torch_dist_pool.RankPool`` running ``torch_cp_cases``),
 each rank on its contiguous slice of the sequence; the slices are put
-back together here. Model level: the JAX single-device eager model
-(the oracle of ``tests/test_sep_e2e.py`` and ``tests/test_pipeline_
-parallel.py``) on the same weights, one step a batch, against the ranks,
-each on its slice of the sequence.
+back together here.
 
 Tolerances: f32 outputs ``rtol=atol=2e-5`` and gradients ``rtol=atol=
 1e-4`` (the JAX tests' own against dense attention); bf16 outputs
 ``rtol=atol=1e-2`` (about one bf16 rounding of a value near 1; the JAX
-test's is 3e-2 against dense); f32 losses ``rtol=1e-5`` at the first
-step and ``1e-4`` after AdamW steps (the pipeline tests'), SGD losses
-``rtol=1e-4``; first-step gradients ``rtol=1e-4, atol=1e-6``, final
-weights and the clip's global norm ``rtol=atol=1e-4``.
+test's is 3e-2 against dense).
 """
-
 from __future__ import annotations
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -42,21 +34,16 @@ except ImportError:                                  # jax <= 0.4.x
 import paddle_tpu as paddle
 from paddle_tpu.distributed.fleet.meta_parallel import context_parallel \
     as jcp
-from paddle_tpu.models import llama as jllama
-from paddle_tpu.models import qwen2 as jqwen2
 from paddle_tpu.ops import ring_attention as jra
 from paddle_tpu.ops.pallas.flash_attention import flash_attention_reference
 
 from paddle_tpu_torch.distributed.fleet.meta_parallel import context_parallel \
     as tcp
-from paddle_tpu_torch.models.llama import pipe_key
 from paddle_tpu_torch.ops import ring_attention as tra
 
 from torch_dist_pool import RankPool
 
 torch.set_num_threads(1)
-
-LR, WD = 1e-3, 0.01
 
 
 @pytest.fixture(scope="module")
@@ -332,341 +319,3 @@ def test_fleet_wrappers_at_degree_2_and_1(pools):
         _close(g["single_ulysses"], want_u, 2e-5)
         assert "only supported with impl='ring'" in g["zigzag_refused"]
     np.testing.assert_array_equal(got[1]["split"], np.arange(8, 16)[None])
-
-
-# ---- the models: the JAX oracle -------------------------------------------------------
-
-def _batches(steps=3, shape=(2, 32), vocab=256, seed=40):
-    return [np.random.RandomState(seed + s).randint(0, vocab, shape)
-            .astype(np.int64) for s in range(steps)]
-
-
-_JAX = {}
-
-
-def jax_oracle(family, fields, batches, opt_name="adamw", lr=LR, clip=None):
-    """The JAX single-device eager run from seed 0, one step a batch:
-    (weights before, losses, first gradients, global norms, weights
-    after)."""
-    # the oracle runs the whole sequence with sep off: one run serves
-    # every implementation
-    fields = {k: v for k, v in fields.items() if k != "sep_parallel"}
-    key = (family, tuple(sorted(fields.items())), opt_name, lr, clip,
-           tuple(b.tobytes() for b in batches))
-    if key in _JAX:
-        return _JAX[key]
-    cfg_cls, make = {"llama": (jllama.LlamaConfig, jllama.LlamaForCausalLM),
-                     "qwen2": (jqwen2.Qwen2Config, jqwen2.Qwen2ForCausalLM),
-                     "qwen2_moe": (jqwen2.Qwen2MoeConfig,
-                                   jqwen2.Qwen2MoeForCausalLM)}[family]
-    cfg = dataclasses.replace(cfg_cls.tiny(), **fields)
-    cfg.tensor_parallel = False
-    paddle.seed(0)
-    jm = make(cfg)
-    jm.train()
-    before = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
-    grad_clip = None if clip is None else paddle.nn.ClipGradByGlobalNorm(clip)
-    if opt_name == "sgd":
-        opt = paddle.optimizer.SGD(learning_rate=lr,
-                                   parameters=jm.parameters(),
-                                   grad_clip=grad_clip)
-    else:
-        opt = paddle.optimizer.AdamW(learning_rate=lr,
-                                     parameters=jm.parameters(),
-                                     weight_decay=WD, grad_clip=grad_clip)
-    losses, grads0, norms = [], None, []
-    for step, ids in enumerate(batches):
-        t = paddle.to_tensor(ids)
-        _, loss = jm(t, labels=t)
-        loss.backward()
-        grads = {n: np.asarray(p.grad.numpy())
-                 for n, p in jm.named_parameters() if p.grad is not None}
-        if step == 0:
-            grads0 = grads
-        norms.append(float(np.sqrt(sum((g.astype(np.float64) ** 2).sum()
-                                       for g in grads.values()))))
-        opt.step()
-        opt.clear_grad()
-        losses.append(float(loss.numpy()))
-    after = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
-    _JAX[key] = before, losses, grads0, norms, after
-    return _JAX[key]
-
-
-def check_losses(got, want, first=1e-5, later=1e-4):
-    np.testing.assert_allclose(got[0], want[0], rtol=first)
-    np.testing.assert_allclose(got, want, rtol=later)
-
-
-def check_arrays(got, want, rtol, atol):
-    assert set(got) == set(want)
-    for key in want:
-        np.testing.assert_allclose(got[key], want[key], rtol=rtol,
-                                   atol=atol, err_msg=key)
-
-
-def _sep_run(pools, n, family, fields, hybrid, steps=3, opt_name="adamw",
-             lr=LR, clip=None, **kw):
-    batches = _batches(steps)
-    before, losses, grads0, norms, after = jax_oracle(
-        family, fields, batches, opt_name, lr, clip)
-    got = pools(n).run("torch_cp_cases:sep_train", family, fields, before,
-                       batches, hybrid, opt_name, lr, WD, clip,
-                       kw.get("save"), kw.get("load"))
-    return got, (losses, grads0, norms, after)
-
-
-# ---- the models at degree 2 ----------------------------------------------------------
-
-@pytest.mark.parametrize("impl", ["ring", "ulysses", "allgather"])
-@pytest.mark.parametrize("scan", [True, False])
-def test_llama_at_sep2_matches_the_jax_run(pools, impl, scan):
-    """Tiny Llama at sep 2 (each rank 16 of the 32 tokens) under each
-    implementation, the scanned and the unrolled stack (the unfused one
-    either way): three AdamW steps' losses on every rank, the first
-    step's gradients (averaged over the sep ranks) and the final weights
-    against the JAX eager run on the whole sequence."""
-    fields = {"sep_parallel": impl, "scan_layers": scan}
-    got, (losses, grads0, _, after) = _sep_run(
-        pools, 2, "llama", fields, {"sep_degree": 2, "dp_degree": 1})
-    for res in got:
-        check_losses(res["losses"], losses)
-    check_arrays(got[0]["grads0"], grads0, rtol=1e-4, atol=1e-6)
-    check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-def test_a_4_step_adamw_run_at_sep2(pools):
-    """Four AdamW steps at sep 2 with the ring: the losses, within 1e-5
-    at the first step and 1e-4 after, and the weights."""
-    fields = {"sep_parallel": "ring"}
-    got, (losses, _, _, after) = _sep_run(
-        pools, 2, "llama", fields, {"sep_degree": 2, "dp_degree": 1},
-        steps=4)
-    for res in got:
-        check_losses(res["losses"], losses)
-    check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-def test_sgd_shows_no_mis_scaled_sep_gradient(pools):
-    """Plain SGD at lr 0.1 (AdamW's update hides a uniform factor), sep 2
-    under Ulysses: the losses within 1e-4 of the JAX run, so the
-    gradients of the replicated weights are neither summed nor halved
-    over the sep ranks."""
-    fields = {"sep_parallel": "ulysses"}
-    got, (losses, grads0, _, after) = _sep_run(
-        pools, 2, "llama", fields, {"sep_degree": 2, "dp_degree": 1},
-        opt_name="sgd", lr=0.1)
-    for res in got:
-        np.testing.assert_allclose(res["losses"], losses, rtol=1e-4)
-    check_arrays(got[0]["grads0"], grads0, rtol=1e-4, atol=1e-6)
-    check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("family,fields", [
-    ("qwen2", {"sep_parallel": "ring"}),
-    ("qwen2", {"sep_parallel": "ulysses", "scan_layers": False}),
-    ("qwen2_moe", {"sep_parallel": "allgather", "moe_dropless": True,
-                   "router_aux_loss_coef": 0.0})])
-def test_qwen2_and_the_moe_at_sep2(pools, family, fields):
-    """Tiny Qwen2 (QKV bias, the fused post-attention norm) and the tiny
-    Qwen2-MoE (the MoE block unchanged on each rank's tokens: dropless,
-    the aux loss folded out, as over a pipeline microbatch) at sep 2:
-    losses and weights against the JAX run."""
-    got, (losses, _, _, after) = _sep_run(
-        pools, 2, family, fields, {"sep_degree": 2, "dp_degree": 1})
-    for res in got:
-        check_losses(res["losses"], losses)
-    check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-def test_the_clip_at_sep2_is_the_unpartitioned_clip(pools):
-    """``ClipGradByGlobalNorm(0.05)`` (it clips every step) at sep 2: each
-    replicated parameter counts once, so the global norm each step and
-    the losses and weights equal the JAX clip's on one device."""
-    fields = {"sep_parallel": "ring"}
-    got, (losses, _, norms, after) = _sep_run(
-        pools, 2, "llama", fields, {"sep_degree": 2, "dp_degree": 1},
-        clip=0.05)
-    for res in got:
-        np.testing.assert_allclose(res["norms"], norms, rtol=1e-4,
-                                   atol=1e-4)
-        check_losses(res["losses"], losses)
-    check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-def test_a_sep2_checkpoint_resumes_at_sep1_and_back(pools, tmp_path):
-    """The ranks at sep 2 save (``hapi.Model.save_checkpoint``) after two
-    steps: the sep ranks are replicas, so each writes part of every
-    tensor once; ``LlamaForCausalLM`` at sep 1 loads it and takes the
-    third step, equal to the ranks' third. Then the unpartitioned model's
-    checkpoint after two steps resumes at sep 2 for the third."""
-    from paddle_tpu_torch import convert
-    from paddle_tpu_torch.distributed import checkpoint as dckpt
-    from paddle_tpu_torch.hapi import Model
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.optimizer import AdamW
-    fields = {"sep_parallel": "ulysses"}
-    batches = _batches()
-    before, losses, _, _, _ = jax_oracle("llama", fields, batches)
-    path = str(tmp_path / "sep2")
-    got = pools(2).run("torch_cp_cases:sep_train", "llama", fields, before,
-                       batches, {"sep_degree": 2, "dp_degree": 1}, "adamw",
-                       LR, WD, None, path, None)
-    assert dckpt.validate_checkpoint(path)["world_size"] == 2
-    cfg = dataclasses.replace(LlamaConfig.tiny(), **fields)
-    model = LlamaForCausalLM(cfg, device="cpu", seed=11)
-    opt = AdamW(learning_rate=LR, parameters=model.parameters(),
-                weight_decay=WD)
-    m = Model(model)
-    m.prepare(opt)
-    m.load_checkpoint(path)
-    assert opt._step_count == 2
-    t = torch.from_numpy(batches[2])
-    _, loss = model(t, labels=t)
-    np.testing.assert_allclose(loss.item(), got[0]["losses"][2], rtol=1e-5)
-    check_losses(got[0]["losses"], losses)
-    # the reverse: sep 1 saves, sep 2 resumes
-    model = LlamaForCausalLM(cfg, device="cpu", seed=3)
-    convert.from_numpy_state_dict(model, before)
-    opt = AdamW(learning_rate=LR, parameters=model.parameters(),
-                weight_decay=WD)
-    for ids in batches[:2]:
-        t = torch.from_numpy(ids)
-        _, loss = model(t, labels=t)
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-    m = Model(model)
-    m.prepare(opt)
-    path1 = str(tmp_path / "sep1")
-    m.save_checkpoint(path1, epoch=0)
-    t = torch.from_numpy(batches[2])
-    _, want = model(t, labels=t)
-    res = pools(2).run("torch_cp_cases:sep_train", "llama", fields, before,
-                       batches[2:], {"sep_degree": 2, "dp_degree": 1},
-                       "adamw", LR, WD, None, None, path1)
-    for r in res:
-        assert r["step0"] == 2
-        np.testing.assert_allclose(r["losses"][0], want.item(), rtol=1e-5)
-
-
-def test_a_cache_step_under_sep_raises(pools):
-    """``generate`` (a cache step) of a sep model under a sep group raises
-    ``NotImplementedError`` naming ROADMAP A.7: the JAX package has no
-    such path."""
-    for res in pools(2).run("torch_cp_cases:cache_step_refused",
-                            {"sep_parallel": "ring"}):
-        assert res[0] == "NotImplementedError" and "A.7" in res[1]
-
-
-# ---- the models at degree 4 --------------------------------------------------------
-
-@pytest.mark.parametrize("impl", ["ring", "ulysses", "allgather"])
-def test_llama_at_sep4_matches_the_jax_run(pools, impl):
-    """Tiny Llama at sep 4 (8 tokens a rank; Ulysses at its bound, 4
-    heads over 4 ranks): losses and weights against the JAX run."""
-    fields = {"sep_parallel": impl}
-    got, (losses, _, _, after) = _sep_run(
-        pools, 4, "llama", fields, {"sep_degree": 4, "dp_degree": 1})
-    for res in got:
-        check_losses(res["losses"], losses)
-    check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-def test_sep2_with_dp2_and_with_mp2(pools):
-    """sep 2 composed with dp 2 (the gradients averaged over the data x sep
-    ranks, each data replica on its rows) and with mp 2 (Ulysses over the
-    rank's 2 heads; the clip over the model group), 4 ranks: losses and
-    weights against the JAX run on the whole batch."""
-    fields = {"sep_parallel": "ulysses"}
-    for hybrid, clip in (({"sep_degree": 2, "dp_degree": 2}, None),
-                         ({"sep_degree": 2, "mp_degree": 2,
-                           "dp_degree": 1}, 0.05)):
-        got, (losses, _, norms, after) = _sep_run(
-            pools, 4, "llama", fields, hybrid, clip=clip)
-        by_rep = {}
-        for res in got:
-            by_rep.setdefault(res["rep"], res["losses"])
-            if clip is not None:
-                np.testing.assert_allclose(res["norms"], norms, rtol=1e-4,
-                                           atol=1e-4)
-        check_losses(np.mean([by_rep[r] for r in sorted(by_rep)], axis=0),
-                     losses)
-        check_arrays(got[0]["weights"], after, rtol=1e-4, atol=1e-4)
-
-
-# ---- pp x sep (4 ranks) -------------------------------------------------------------
-
-def _piped(arrays, n_layers):
-    return {pipe_key(n_layers, "llama.", k): v for k, v in arrays.items()}
-
-
-def _pipe_run(pools, n, fields, hybrid, schedule, V=None, opt_name="adamw",
-              lr=LR):
-    # the pipeline tests' batches (tests/test_torch_pipeline.py:_batches)
-    batches = _batches(3, shape=(4, 16))
-    before, losses, grads0, _, after = jax_oracle("llama", fields, batches,
-                                                  opt_name, lr)
-    pipeline = {"schedule_mode": schedule, "accumulate_steps": 2}
-    if V:
-        pipeline["num_virtual_pipeline_stages"] = V
-    L = fields["num_hidden_layers"]
-    got = pools(n).run("torch_cp_cases:sep_pipe_train", "llama", fields,
-                       before, batches, hybrid, pipeline, opt_name, lr, WD)
-    for res in got:
-        check_losses(res["losses"], losses)
-    check_arrays(got[0]["grads0"], _piped(grads0, L), rtol=1e-4, atol=1e-6)
-    check_arrays(got[0]["weights"], _piped(after, L), rtol=1e-4, atol=1e-4)
-    return got
-
-
-@pytest.mark.parametrize("schedule,V,impl", [
-    ("FThenB", None, "ring"), ("interleaved", 2, "ring"),
-    ("1F1B", None, "ulysses"), ("ZB-H1", None, "ulysses"),
-    ("1F1B", None, "allgather"), ("ZB-H1", None, "allgather")])
-def test_pp2_sep2_matches_the_jax_run(pools, schedule, V, impl):
-    """pp 2 x sep 2 over 4 ranks, 2 microbatches of each rank's slice of
-    the sequence (the JAX package's matrix: the ring under the scan
-    schedules, Ulysses and all-gather under 1F1B and ZB-H1): losses, the
-    first step's gradients gathered over the stages and the final
-    weights against the JAX run."""
-    fields = {"num_hidden_layers": 4, "scan_layers": False,
-              "sep_parallel": impl}
-    _pipe_run(pools, 4, fields, {"pp_degree": 2, "sep_degree": 2,
-                                 "dp_degree": 1}, schedule, V)
-
-
-def test_pp2_sep2_sgd_under_1f1b(pools):
-    """SGD at lr 0.1 through pp 2 x sep 2 under 1F1B with Ulysses (the JAX
-    package's sensitivity test): a sep-scaled gradient would move the
-    second loss far outside the tolerance."""
-    fields = {"num_hidden_layers": 4, "sep_parallel": "ulysses"}
-    _pipe_run(pools, 4, fields, {"pp_degree": 2, "sep_degree": 2,
-                                 "dp_degree": 1}, "1F1B", opt_name="sgd",
-              lr=0.1)
-
-
-def test_ring_is_refused_under_1f1b_and_zb_h1(pools):
-    """Ring context parallelism under the explicit schedules raises
-    ``ValueError`` naming the ring, as in the JAX package; the scan
-    schedules take it."""
-    for res in pools(4).run("torch_cp_cases:pipe_ring_refused",
-                            ["1F1B", "ZB-H1", "FThenB"]):
-        for schedule in ("1F1B", "ZB-H1"):
-            assert res[schedule][0] == "ValueError"
-            assert "ring" in res[schedule][1]
-        assert res["FThenB"] is None
-
-
-# ---- 8 ranks --------------------------------------------------------------------------
-
-def test_pp2_mp2_sep2_over_8_ranks(pools):
-    """pp 2 x mp 2 x sep 2 over 8 ranks (``tests/test_pipeline_parallel.py:
-    474``'s hybrid, without sequence parallelism, which the port's pipe
-    models refuse): FThenB with the ring over each stage's sep pair, the
-    layers split over the model group; losses, first gradients and
-    weights against the JAX run."""
-    fields = {"num_hidden_layers": 4, "scan_layers": False,
-              "sep_parallel": "ring"}
-    _pipe_run(pools, 8, fields, {"pp_degree": 2, "mp_degree": 2,
-                                 "sep_degree": 2, "dp_degree": 1}, "FThenB")

@@ -2361,6 +2361,17 @@ def _two_ranks(device, path, *args):
         pool.close()
 
 
+def test_low_precision_gloo_collectives_on_two_ranks_sharing_the_card(cuda):
+    """bf16/f16 sums and means of two ranks sharing the card (their bytes
+    swapped, added in f32 on the card) equal the f32 sum of the widened
+    values rounded once, bit for bit; a broadcast moves the bytes."""
+    res = _two_ranks("cuda", "torch_dist_cases:low_precision_collectives",
+                     "cuda")
+    for r in range(2):
+        for key, (got, want) in res[r].items():
+            np.testing.assert_array_equal(got, want, err_msg=f"{r}: {key}")
+
+
 def test_tensor_parallel_layers_on_two_ranks_sharing_the_card(cuda):
     """Two ranks share the card (the backend rule takes gloo through host
     buffers): every TP layer's forward and backward in f32 on the card

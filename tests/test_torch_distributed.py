@@ -123,6 +123,20 @@ def test_every_collective_at_2_and_4_ranks(pools, n, staged):
             _same(res[key], val, f"rank {r}: {key}")
 
 
+def test_low_precision_sums_of_two_ranks_keep_the_widened_bits(pools):
+    """bf16/f16 sums and means over two gloo ranks (the tensors' bytes
+    swapped and added in f32 on each rank, contiguous or strided) equal
+    the f32 sum of the widened values rounded once, bit for bit; a bf16
+    or f16 broadcast moves the bytes unchanged."""
+    got = pools(2).run("torch_dist_cases:low_precision_collectives")
+    for r in range(2):
+        assert len(got[r]) == 10
+        for key, (res, want) in got[r].items():
+            np.testing.assert_array_equal(res, want, err_msg=f"{r}: {key}")
+    for key in got[0]:
+        np.testing.assert_array_equal(got[0][key][0], got[1][key][0])
+
+
 def test_backend_rule(monkeypatch):
     """gloo on the CPU and where ranks share a card, nccl with a card a
     rank; nccl asked for with more ranks than cards (or on the CPU)

@@ -109,6 +109,30 @@ def collectives(staged=False):
     return out
 
 
+def low_precision_collectives(device="cpu"):
+    """bf16/f16 ``all_reduce`` (sum, avg) over the two ranks, on
+    contiguous and strided tensors (on ``device``), beside the f32 sum of
+    the widened values rounded once (the widened path's bits), and a
+    ``broadcast`` from rank 1 moving the bytes as they are. Returns
+    {case: (got, want)} as f32 numpy."""
+    r = env.get_rank()
+    gen = torch.Generator().manual_seed(11 + r)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        x = (torch.randn(3, 7, generator=gen) * 100).to(dtype).to(device)
+        for op in ("sum", "avg"):
+            for tag, t in (("contiguous", x.clone()),
+                           ("strided", x.clone().t())):
+                want = t.float()
+                C.all_reduce(want, op)
+                C.all_reduce(t, op)
+                out[f"{op} {tag} {dtype}"] = (_np(t), _np(want.to(dtype)))
+        t = x.clone()
+        C.broadcast(t, src=1)
+        out[f"broadcast {dtype}"] = (_np(t), _np(C.all_gather([], x)[1]))
+    return out
+
+
 def fleet_degrees(configs):
     """``fleet.init`` over each of ``configs`` (hybrid_configs dicts):
     the degrees and this rank's coordinates, or the error's type and
