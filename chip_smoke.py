@@ -363,7 +363,17 @@ is ``card_llama_engine``, the set-up's matmul settings, then
     carry, core_attn recompute, 1F1B, ids [4, 2049] as 4 microbatches)
     through ``PP_8B_STEPS`` AdamW steps within ``TP_BF16_RTOL`` of the
     unpartitioned run, with ms a step, peak memory and K1-K9's launches
-    a rank (the ``pp`` entry of the kernels line).
+    a rank (the ``pp`` entry of the kernels line). Then a third
+    ``fleet.init`` at sep 2 (``sep_rank``, the ``sep`` entry) and a
+    fourth at ep 2 (``ep_rank``, the ``ep`` entry): the f32 narrow
+    Qwen2-MoE and tiny DeepSeek-V2 with E/ep experts a rank through 3
+    AdamW steps and one SGD step at lr 0.1, held to the unpartitioned run
+    within ``TP_F32_RTOL``, the Qwen2-MoE's ep 2 checkpoint resumed
+    unpartitioned, the drop case (cf 2.0) held to the ranks' run on CPU
+    tensors (the same kept slots), and ``qwen2_moe_a14b``'s width at 2
+    layers in bf16 (cf 15, one SGD step and the next batch's loss within
+    ``TP_BF16_RTOL``): ms a step, the all-to-alls' bytes and seconds,
+    the banks' and peak GB and K1-K9's launches a rank.
 
 It imports neither JAX nor the JAX package, has no CPU fallback and
 needs one GPU.
@@ -8005,6 +8015,7 @@ def tp_rank(out_dir, cfg1b, cfg8, ref_ck, cfg_sep):
         out["kernels"] = _tp_shard_checks(cfg8)
     out["pp"] = pp_rank(out_dir, cfg1b, cfg8)
     out["sep"] = sep_rank(out_dir, cfg1b, cfg_sep)
+    out["ep"] = ep_rank(out_dir)
     out["total_s"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -8034,10 +8045,13 @@ def phase_tp(cfg, cfg1b):
     state, take one step more, and this process loads it at mp 1 and
     takes that step in bf16.
 
-    Then the pp cases (``pp_rank``) and the sep cases (``sep_rank``: a
+    Then the pp cases (``pp_rank``), the sep cases (``sep_rank``: a
     third ``fleet.init`` at sep 2 on the same two ranks, held to
-    ``_sep_references``' unpartitioned runs). pp 2 x sep 2 needs four
-    ranks, so it runs in the CPU tests only."""
+    ``_sep_references``' unpartitioned runs) and the ep cases
+    (``ep_rank``: a fourth at ep 2, held to ``_ep_references``; the f32
+    Qwen2-MoE's ep 2 checkpoint resumed unpartitioned here,
+    ``_ep_resume``). pp 2 x sep 2, pp 2 x ep 2 and ep 2 with mp 2 or dp 2
+    need four ranks, so they run in the CPU tests only."""
     import dataclasses
     import shutil
     import tempfile
@@ -8097,6 +8111,7 @@ def phase_tp(cfg, cfg1b):
         f"references in {time.perf_counter() - t0:.1f} s")
     pp_refs = _pp_references(cfg1b, cfg8)
     sep_refs = _sep_references(cfg1b, cfg)
+    ep_refs = _ep_references()
     out_dir = ck_root
     t1 = time.perf_counter()
     procs = spawn(tp_rank, args=(out_dir, cfg1b, cfg8, ref_ck, cfg),
@@ -8112,6 +8127,7 @@ def phase_tp(cfg, cfg1b):
                 ranks.append(json.load(f))
         part_c = _tp_8b_resume(cfg8, out_dir, ranks)
         pp_resumed = _pp_resume(cfg1b, out_dir)
+        ep_resumed = _ep_resume(out_dir)
     finally:
         for p in procs:
             if p.is_alive():
@@ -8181,11 +8197,13 @@ def phase_tp(cfg, cfg1b):
         f"{TP_RESUMED} steps)")
     pp_launches = _pp_check([rk["pp"] for rk in ranks], pp_refs, pp_resumed)
     sep_launches = _sep_check([rk["sep"] for rk in ranks], sep_refs, refs)
+    ep_launches = _ep_check([rk["ep"] for rk in ranks], ep_refs, ep_resumed)
     kernels = dict(ranks[0]["kernels"])
     for name, entry in ranks[0]["sep"]["kernels"].items():
         kernels[name + " sep2"] = entry
     return {"launches": launches, "launches_pp": pp_launches,
-            "launches_sep": sep_launches, "kernels": kernels}
+            "launches_sep": sep_launches, "launches_ep": ep_launches,
+            "kernels": kernels}
 
 
 def _tp_join(procs, deadline, until=None):
@@ -8923,6 +8941,427 @@ def _sep_check(ranks, refs, tp_refs):
     return launches
 
 
+# ---- phase tp, expert parallelism (ep) ------------------------------------
+
+EP_CF = 4.0                      # E / k of the f32 cases: no token drops
+EP_DROP_CF = 2.0                 # Qwen2MoeConfig's own: tokens drop
+EP_DROP_STEPS = 2                # AdamW steps of the drop case, card and CPU
+EP_WIDE_LAYERS = 2               # qwen2_moe_a14b's width at 2 of 28 layers
+EP_WIDE_IDS = (1, 2048)          # one sequence, 1024 tokens a rank at ep 2
+EP_WIDE_CF = 15.0                # 60 experts / top-4: no token drops
+# the kernels of the ep path: K1/K2, the fused carry K3/K4, the shared
+# expert's K5/K6 and the attention's K7-K9 (Qwen2-MoE's loss is the plain
+# shifted CE: no K10/K11); the experts' FFN is torch.bmm (XLA einsums in
+# the JAX package's moe_ffn_grouped, no Pallas kernel)
+EP_KERNELS = tuple(n for n in TRAIN_KERNELS
+                   if n not in ("chunk_stats", "chunk_dlogits"))
+
+
+def _ep_configs():
+    """The f32 cases' configs: Qwen2-MoE at a narrow width (1024 wide, 16
+    heads of 64, 4 kv heads, 8 experts top-2 of width 512, a shared
+    expert of 2048, depth 2) and the tiny DeepSeek-V2, the aux loss
+    folded out (each rank's aux is over its own tokens) and a capacity
+    factor of E/k."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import DeepseekV2Config, Qwen2MoeConfig
+    narrow = dataclasses.replace(
+        Qwen2MoeConfig.tiny(), vocab_size=32000, hidden_size=1024,
+        num_attention_heads=16, num_key_value_heads=4,
+        moe_intermediate_size=512, shared_expert_intermediate_size=2048,
+        max_position_embeddings=512, rope_theta=1000000.0,
+        capacity_factor=EP_CF, router_aux_loss_coef=0.0)
+    deepseek = dataclasses.replace(DeepseekV2Config.tiny(),
+                                   router_aux_loss_coef=0.0)
+    return {"qwen2_moe": narrow, "deepseek": deepseek}
+
+
+def _ep_wide_config():
+    import dataclasses
+
+    from paddle_tpu_torch.models import Qwen2MoeConfig
+    return dataclasses.replace(Qwen2MoeConfig.qwen2_moe_a14b(),
+                               num_hidden_layers=EP_WIDE_LAYERS,
+                               capacity_factor=EP_WIDE_CF)
+
+
+def _ep_model(family, cfg, dtype, seed, device="cuda"):
+    """``_tp_model``'s model with every MoE layer at the config's
+    capacity factor (DeepSeek's config has no field: E/k)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.models import (DeepseekV2ForCausalLM,
+                                         Qwen2MoeForCausalLM)
+    cls = {"qwen2_moe": Qwen2MoeForCausalLM,
+           "deepseek": DeepseekV2ForCausalLM}[family]
+    model = cls(cfg, device=device, dtype=dtype, seed=seed)
+    for m in model.modules():
+        if isinstance(m, MoELayer):
+            m.gate.capacity_factor = getattr(cfg, "capacity_factor", EP_CF)
+    return model
+
+
+def _ep_batches(family, cfg):
+    return _tp_batches(cfg, TP_BATCH if family == "qwen2_moe"
+                       else TP_TINY_BATCH, 50)
+
+
+def _ep_fleet():
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(ep_degree=2, dp_degree=1)
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet.get_hybrid_communicate_group()
+
+
+def _ep_cases(model, family, cfg, make_opt, sgd, steps, times=None,
+              save=None):
+    """From the model's weights as built: ``steps`` AdamW steps (with
+    ``save``, its checkpoint then), then from the same weights again one
+    SGD step at ``SEP_SGD_LR`` and the next batch's loss after it.
+    Returns {"adamw": losses, "sgd": [the step's, the probe's]}."""
+    import torch
+    from paddle_tpu_torch.hapi import Model
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    batches = _ep_batches(family, cfg)
+    opt = make_opt(model.parameters())
+    out = {"adamw": _sep_train(model, opt, batches[:steps], times=times)}
+    if save is not None:
+        m = Model(model)
+        m.prepare(opt)
+        m.save_checkpoint(save, epoch=0)
+        del m
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(init[k])
+    opt = sgd(model.parameters())
+    out["sgd"] = _sep_train(model, opt, batches[:1], probe=batches[1])
+    return out
+
+
+def _ep_adamw(params):
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=1e-3, parameters=params, weight_decay=0.01)
+
+
+def _ep_sgd(params):
+    from paddle_tpu_torch.optimizer import SGD
+    return SGD(learning_rate=SEP_SGD_LR, parameters=params)
+
+
+def _ep_references():
+    """The unpartitioned runs the ep ranks are held to: each f32 case
+    through ``_ep_cases`` (its AdamW run on to ``TP_STEPS + TP_RESUMED``
+    steps, which the ep 2 checkpoint's resume is held to), and the full
+    width in bf16: one SGD step and the next batch's loss after it (its
+    ms and peak, the banks' bytes)."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for family, cfg in _ep_configs().items():
+        model = _ep_model(family, cfg, torch.float32, 7)
+        out[family] = _ep_cases(model, family, cfg, _ep_adamw, _ep_sgd,
+                                TP_STEPS + TP_RESUMED)
+        del model
+    torch.cuda.empty_cache()
+    model = _ep_model("qwen2_moe", _ep_wide_config(), torch.bfloat16, 0)
+    opt = _ep_sgd(model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    b = _tp_batches(model.config, EP_WIDE_IDS, 0)
+    out["wide"] = _sep_train(model, opt, b[:1], times=times, probe=b[1])
+    out["wide_ms"] = times[0]
+    out["wide_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wide_params"] = sum(p.numel() for p in model.parameters())
+    out["wide_bank_gb"] = _ep_bank_bytes(model) / 1e9
+    del model, opt
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _ep_bank_bytes(model):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    return sum(p.numel() * p.element_size() for m in model.modules()
+               if isinstance(m, MoELayer) for p in m._banks())
+
+
+class _EpRouting:
+    """Records each MoE forward's kept assignments (``keep`` of the
+    routing) and, when ``timed``, the bytes a rank hands to the
+    all-to-alls and their seconds on the host clock (each call
+    synchronised on both sides), while installed."""
+
+    def __init__(self, timed=False):
+        self.keeps, self.a2a_bytes, self.a2a_s, self.a2a_calls = [], 0, 0.0, 0
+        self.timed = timed
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed import parallel_layers as pl
+        from paddle_tpu_torch.ops import moe as moe_ops
+        self._gating, self._a2a = moe_ops.top_k_gating_idx, pl._all_to_all
+
+        def gating(*a, **kw):
+            res = self._gating(*a, **kw)
+            self.keeps.append(res[3].detach().cpu())
+            return res
+
+        def a2a(x, *a):
+            import torch
+            if self.timed and x.is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._a2a(x, *a)
+            if self.timed and x.is_cuda:
+                torch.cuda.synchronize()
+            self.a2a_s += time.perf_counter() - t0
+            self.a2a_bytes += x.numel() * x.element_size()
+            self.a2a_calls += 1
+            return out
+
+        moe_ops.top_k_gating_idx, pl._all_to_all = gating, a2a
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.distributed import parallel_layers as pl
+        from paddle_tpu_torch.ops import moe as moe_ops
+        moe_ops.top_k_gating_idx, pl._all_to_all = self._gating, self._a2a
+
+
+def _ep_drop_case(cfg):
+    """The narrow Qwen2-MoE at its config's own capacity factor (2.0:
+    tokens drop) and aux loss (0.001), ``EP_DROP_STEPS`` AdamW steps at ep
+    2 on the card, then the same steps from the same weights on CPU
+    tensors (the kernels' plain versions, gloo on host memory): the
+    losses of both and whether every forward kept the same assignments,
+    with the count it dropped."""
+    import dataclasses
+
+    import torch
+    cfg = dataclasses.replace(cfg, capacity_factor=EP_DROP_CF,
+                              router_aux_loss_coef=0.001)
+    batches = _ep_batches("qwen2_moe", cfg)[:EP_DROP_STEPS]
+    model = _ep_model("qwen2_moe", cfg, torch.float32, 7)
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    with _EpRouting() as card:
+        losses = _sep_train(model, _ep_adamw(model.parameters()), batches)
+    del model
+    torch.cuda.empty_cache()
+    model = _ep_model("qwen2_moe", cfg, torch.float32, 7, device="cpu")
+    model.load_state_dict(init)
+    cpu_losses = []
+    with _EpRouting() as cpu:
+        opt = _ep_adamw(model.parameters())
+        for ids in batches:
+            t = torch.from_numpy(ids)
+            _, loss = model(t, labels=t)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            cpu_losses.append(loss.item())
+    same = len(card.keeps) == len(cpu.keeps) and all(
+        torch.equal(a, b) for a, b in zip(card.keeps, cpu.keeps))
+    return {"losses": losses, "cpu_losses": cpu_losses, "same_keep": same,
+            "forwards": len(card.keeps),
+            "dropped": int(sum((~k).sum() for k in card.keeps)),
+            "assignments": int(sum(k.numel() for k in card.keeps))}
+
+
+def ep_rank(out_dir):
+    """The ep cases on one rank of phase tp, after its sep cases, with
+    every kernel count at 0 first: a fourth ``fleet.init`` (ep 2), each
+    f32 case of ``_ep_configs`` through ``_ep_cases`` (the Qwen2-MoE's
+    AdamW run saved into ``out_dir/ep_ck``), the drop case, then the full
+    width in bf16 through one SGD step and the next batch's forward.
+    Returns the losses, ms a step, peak memory, bank shapes, the
+    all-to-alls' bytes and seconds and the launches."""
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    t0 = time.perf_counter()
+    wrappers = _counted(TRAIN_KERNELS)
+    group = _ep_fleet().get_expert_parallel_group()
+    out = {"rank": group.rank, "f32": {}}
+    for family, cfg in _ep_configs().items():
+        model = _ep_model(family, cfg, torch.float32, 7)
+        net = fleet.distributed_model(model)
+        times = []
+        case = out["f32"][family] = _ep_cases(
+            net, family, cfg,
+            lambda ps: fleet.distributed_optimizer(_ep_adamw(ps)),
+            lambda ps: fleet.distributed_optimizer(_ep_sgd(ps)), TP_STEPS,
+            times, os.path.join(out_dir, "ep_ck") if family == "qwen2_moe"
+            else None)
+        case["ms"] = times
+        case["banks"] = sorted({tuple(p.shape) for n, p in
+                                model.named_parameters()
+                                if n.endswith(("w_gate", "w_up", "w_down"))})
+        del net, model
+    out["drop"] = _ep_drop_case(_ep_configs()["qwen2_moe"])
+    torch.cuda.empty_cache()
+    out["f32_s"] = time.perf_counter() - t0
+    model = _ep_model("qwen2_moe", _ep_wide_config(), torch.bfloat16, 0)
+    opt = fleet.distributed_optimizer(_ep_sgd(model.parameters()))
+    out["wide_params"] = sum(p.numel() for p in model.parameters())
+    out["wide_bank_gb"] = _ep_bank_bytes(model) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: w.launches for n, w in wrappers.items()}
+    times = []
+    b = _tp_batches(model.config, EP_WIDE_IDS, 0)
+    with _EpRouting(timed=True) as route:
+        out["wide"] = _sep_train(model, opt, b[:1], times=times)
+        step = (route.a2a_bytes, route.a2a_s, route.a2a_calls)
+        out["wide"] += _sep_train(model, opt, [], probe=b[1])
+    out["wide_launches"] = {n: w.launches - before[n]
+                            for n, w in wrappers.items()}
+    out["wide_ms"] = times[0]
+    out["wide_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wide_a2a"] = {"bytes": step[0], "s": step[1], "calls": step[2]}
+    out["wide_dropped"] = int(sum((~k).sum() for k in route.keeps))
+    del model, opt
+    torch.cuda.empty_cache()
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    fleet.fleet._reset()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _ep_resume(out_dir):
+    """The narrow Qwen2-MoE's ep 2 checkpoint loaded into the
+    unpartitioned model (f32, another seed) through
+    ``hapi.Model.load_checkpoint``, then ``TP_RESUMED`` AdamW steps:
+    (losses, the optimizer's step count)."""
+    import torch
+    from paddle_tpu_torch.hapi import Model
+    cfg = _ep_configs()["qwen2_moe"]
+    model = _ep_model("qwen2_moe", cfg, torch.float32, 11)
+    opt = _ep_adamw(model.parameters())
+    m = Model(model)
+    m.prepare(opt)
+    m.load_checkpoint(os.path.join(out_dir, "ep_ck"))
+    step0 = opt._step_count
+    losses = _sep_train(model, opt, _ep_batches("qwen2_moe", cfg)[
+        TP_STEPS:])
+    del m, model, opt
+    torch.cuda.empty_cache()
+    return losses, step0
+
+
+def _ep_check(ranks, refs, resumed):
+    """The ep cases of both ranks against the unpartitioned runs (and the
+    drop case against the ranks' CPU run), logged beside the card's name
+    and power limit; returns the launches of the ep path summed over the
+    ranks (K1-K9 must be there)."""
+    def rel(got, want):
+        return np.abs(np.asarray(got) - np.asarray(want)) / \
+            np.abs(np.asarray(want))
+
+    lim = np.array([TP_F32_RTOL[0]] + [TP_F32_RTOL[1]] * (TP_STEPS - 1))
+    for family in _ep_configs():
+        want = refs[family]
+        for rk in ranks:
+            case = rk["f32"][family]
+            got, sgd = case["adamw"], case["sgd"]
+            r = rel(got, want["adamw"][:TP_STEPS])
+            r_sgd = rel(sgd, want["sgd"])
+            if (r > lim).any() or (r_sgd > TP_F32_RTOL[0]).any():
+                raise AssertionError(
+                    f"[ep] {family} f32 ep 2 rank {rk['rank']}: AdamW losses "
+                    f"{got}, SGD {sgd} against the unpartitioned "
+                    f"{want['adamw'][:TP_STEPS]}, {want['sgd']}")
+            banks = case["banks"]
+            if any(b[0] != 4 for b in banks):
+                raise AssertionError(f"[ep] {family}: rank {rk['rank']} "
+                                     f"holds banks {banks}, not 4 of 8 "
+                                     "experts")
+        r0 = ranks[0]["f32"][family]
+        worst = max(rel(rk["f32"][family]["adamw"],
+                        want["adamw"][:TP_STEPS]).max() for rk in ranks)
+        worst_sgd = max(rel(rk["f32"][family]["sgd"], want["sgd"]).max()
+                        for rk in ranks)
+        log(f"[ep] {family} f32 ep 2 (cf {EP_CF:g}, no drop): AdamW losses "
+            f"{', '.join(f'{x:.7f}' for x in r0['adamw'])} against the "
+            f"unpartitioned "
+            f"{', '.join(f'{x:.7f}' for x in want['adamw'][:TP_STEPS])} "
+            f"(worst relative {worst:.3g}, limits {TP_F32_RTOL[0]:g} first, "
+            f"{TP_F32_RTOL[1]:g} after); SGD lr {SEP_SGD_LR}: the step's and "
+            f"the next batch's {', '.join(f'{x:.7f}' for x in r0['sgd'])} "
+            f"against {', '.join(f'{x:.7f}' for x in want['sgd'])} (worst "
+            f"relative {worst_sgd:.3g}, limit {TP_F32_RTOL[0]:g}); banks a "
+            f"rank {r0['banks']}; ms a step "
+            f"{', '.join(f'{x:.1f}' for x in r0['ms'])}")
+    losses, step0 = resumed
+    want = refs["qwen2_moe"]["adamw"][TP_STEPS:]
+    r = rel(losses, want)
+    if step0 != TP_STEPS or (r > TP_F32_RTOL[1]).any():
+        raise AssertionError(f"[ep] the ep 2 checkpoint resumed at ep 1: "
+                             f"step {step0}, losses {losses} against the "
+                             f"unpartitioned run's {want}")
+    log(f"[ep] the narrow Qwen2-MoE's ep 2 checkpoint (after {TP_STEPS} "
+        f"steps) resumed unpartitioned at step {step0}: losses "
+        f"{', '.join(f'{x:.7f}' for x in losses)} against the unpartitioned "
+        f"run's {', '.join(f'{x:.7f}' for x in want)} (worst relative "
+        f"{r.max():.3g}, limit {TP_F32_RTOL[1]:g})")
+    for rk in ranks:
+        d = rk["drop"]
+        r = rel(d["losses"], d["cpu_losses"])
+        if not d["same_keep"] or not d["dropped"] or \
+                (r > TP_F32_RTOL[1]).any():
+            raise AssertionError(
+                f"[ep] drop case rank {rk['rank']}: same kept slots "
+                f"{d['same_keep']}, {d['dropped']} dropped, losses "
+                f"{d['losses']} against the CPU run's {d['cpu_losses']}")
+        log(f"[ep] narrow Qwen2-MoE at cf {EP_DROP_CF:g} (aux 0.001), ep 2 "
+            f"rank {rk['rank']}: {d['dropped']} of {d['assignments']} "
+            f"assignments dropped over {d['forwards']} forwards, the same "
+            f"kept slots as the ranks' run on CPU tensors; losses "
+            f"{', '.join(f'{x:.7f}' for x in d['losses'])} against the "
+            f"CPU's {', '.join(f'{x:.7f}' for x in d['cpu_losses'])} (worst "
+            f"relative {r.max():.3g}, limit {TP_F32_RTOL[1]:g})")
+    want = refs["wide"]
+    for rk in ranks:
+        r = rel(rk["wide"], want)
+        if len(rk["wide"]) != 2 or not (r <= TP_BF16_RTOL).all() or \
+                rk["wide_dropped"]:
+            raise AssertionError(
+                f"[ep] full width rank {rk['rank']}: losses {rk['wide']} "
+                f"(the step's, then the next batch's after it) against the "
+                f"unpartitioned {want} (limit {TP_BF16_RTOL}), "
+                f"{rk['wide_dropped']} dropped")
+        a2a = rk["wide_a2a"]
+        per = {n: c for n, c in rk["wide_launches"].items() if c}
+        log(f"[ep] {CARD}: qwen2_moe_a14b width at {EP_WIDE_LAYERS} layers "
+            f"({rk['wide_params'] / 1e9:.3f} B parameters a rank, the banks "
+            f"{rk['wide_bank_gb']:.3f} GB against "
+            f"{refs['wide_bank_gb']:.3f} unpartitioned), bf16, ep 2 rank "
+            f"{rk['rank']}, ids {list(EP_WIDE_IDS)} as "
+            f"{EP_WIDE_IDS[1] // 2} tokens a rank, cf {EP_WIDE_CF:g}, SGD: "
+            f"the step's loss {rk['wide'][0]:.6f} and "
+            f"the next batch's after it {rk['wide'][1]:.6f} against the "
+            f"unpartitioned {want[0]:.6f}, {want[1]:.6f} (worst relative "
+            f"{r.max():.3g}, limit {TP_BF16_RTOL:g}); the step "
+            f"{rk['wide_ms']:.1f} ms, of it the {a2a['calls']} all-to-alls "
+            f"{a2a['s'] * 1e3:.1f} ms ({a2a['bytes'] / 1e9:.3f} GB handed to "
+            f"them), peak {rk['wide_peak_gb']:.2f} GB; launches in the step "
+            f"and the forward after it {per}")
+    log(f"[ep] {CARD}: the unpartitioned full width "
+        f"({refs['wide_params'] / 1e9:.3f} B parameters), one process: the "
+        f"step {refs['wide_ms']:.1f} ms, peak {refs['wide_peak_gb']:.2f} GB;"
+        f" the references in {refs['s']:.1f} s; the ranks' ep cases in "
+        f"{', '.join(f'{rk['s']:.1f}' for rk in ranks)} s (f32 "
+        f"{', '.join(f'{rk['f32_s']:.1f}' for rk in ranks)} s)")
+    launches = {n: sum(rk["launches"][n] for rk in ranks)
+                for n in ranks[0]["launches"]}
+    missing = [n for n in EP_KERNELS if not launches[n]]
+    if missing:
+        raise AssertionError(f"[ep] kernels not launched on the ep path: "
+                             f"{missing}")
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--preempt-worker"]:
         return preempt_worker(sys.argv[2])
@@ -9109,9 +9548,10 @@ def main():
         # process-backed fleet (39), the disaggregated and colocated
         # workers with the f32/int8 in-process fleets (41), the
         # autoscaled fleet (42), both ranks of the mp 2 Llama-3-8B
-        # steps (43), both ranks' pp cases (43, pp) and both ranks' sep
-        # cases (43, sep: the f32 Llama and the 8B width); launches is
-        # their sum
+        # steps (43), both ranks' pp cases (43, pp), both ranks' sep
+        # cases (43, sep: the f32 Llama and the 8B width) and both ranks'
+        # ep cases (43, ep: the f32 Qwen2-MoE and DeepSeek-V2, the drop
+        # case and qwen2_moe_a14b's width); launches is their sum
         counts = {"serve": serve["launches"].get(name, 0),
                   "serve_quant": sum(sq["launches"].get(name, 0)
                                      for sq in serve_quant.values()),
@@ -9146,7 +9586,8 @@ def main():
                   "autoscale": autoscale["launches"].get(name, 0),
                   "tp": tp["launches"].get(name, 0),
                   "pp": tp["launches_pp"].get(name, 0),
-                  "sep": tp["launches_sep"].get(name, 0)}
+                  "sep": tp["launches_sep"].get(name, 0),
+                  "ep": tp["launches_ep"].get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(counts.values()),

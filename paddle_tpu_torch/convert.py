@@ -26,6 +26,11 @@ rank calls them, in the same order). A ZeRO stage-3 model
 (``GroupShardedStage3``) is gathered the same way by
 ``to_numpy_state_dict``; load its weights before wrapping it.
 
+Expert parallelism: a MoE layer's banks hold this rank's block of
+experts (their layout names ``expert``): ``from_numpy_state_dict`` gives
+each rank its block of the JAX model's full banks, and the gathers put
+the blocks of the ``expert`` group back together.
+
 Pipeline parallelism: a ``PipelineLayer`` at ``pp_degree > 1`` holds
 only its stage's layers, under the JAX ``PipelineLayer``'s keys
 (``run_function.<i>.…``). ``from_numpy_state_dict`` takes the whole
@@ -114,13 +119,15 @@ def from_numpy_state_dict(model: nn.Module, arrays: dict[str, np.ndarray],
     target = model.state_dict()
     arrays, elsewhere = _other_stages(model, arrays)
     if hcg is not None:
-        world = hcg.get_model_parallel_world_size()
+        worlds = {"model": hcg.get_model_parallel_world_size(),
+                  "expert": hcg.get_expert_parallel_world_size()}
         for dst in target.values():
             lay = layout_of(dst)
-            if lay is not None and lay.split and lay.split[2] != world:
+            if lay is not None and lay.split and \
+                    lay.split[2] != worlds[lay.split_axis]:
                 raise ValueError(f"the model is split over {lay.split[2]} "
-                                 f"ranks, the topology's model group has "
-                                 f"{world}")
+                                 f"ranks, the topology's {lay.split_axis} "
+                                 f"group has {worlds[lay.split_axis]}")
     missing = sorted(set(target) - set(arrays))
     unexpected = sorted(set(arrays) - set(target) - elsewhere)
     if missing or unexpected:
@@ -176,7 +183,8 @@ def grads_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
     model = _unwrap(model)
     hcg = current_hcg()
     mp = hcg.get_model_parallel_group() if hcg is not None else None
-    grads = {name: gather_full(p.grad, layout_of(p), mp, None)
+    ep = hcg.get_expert_parallel_group() if hcg is not None else None
+    grads = {name: gather_full(p.grad, layout_of(p), mp, None, ep)
              for name, p in model.named_parameters() if p.grad is not None}
     return _to_numpy(_all_stages(model, grads), _linear_keys(model))
 

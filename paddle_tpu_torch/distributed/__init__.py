@@ -9,8 +9,10 @@ load (``checkpoint``), the elastic manager (``fleet.elastic``) and the
 launcher (``launch``).
 
 Names load at first use, so the launcher's imports stay free of torch.
-Context and expert parallelism, the auto-parallel API and RPC are not
-ported yet (ROADMAP A.7, A.5)."""
+Context parallelism is ``ops.ring_attention`` with
+``fleet.meta_parallel.context_parallel``; expert parallelism is
+``incubate.distributed.models.moe.MoELayer`` over the ``expert`` group.
+The auto-parallel API and RPC are not ported yet (ROADMAP A.7)."""
 
 import importlib
 

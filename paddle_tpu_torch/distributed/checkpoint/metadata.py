@@ -14,7 +14,9 @@ it from an array's ``NamedSharding``. A port tensor is a plain
 
 - a tensor-parallel parameter (``parallel_layers``, ``split_dims``):
   ``split = (dim, index, parts)`` from the rank's coordinate in the
-  ``model`` group;
+  ``model`` group; an expert bank (``MoELayer`` under ep > 1): ``split =
+  (0, index, ep)`` from its coordinate in the ``expert`` group, with
+  ``axes=("expert",)``;
 - a ZeRO stage-3 slice (``fleet.sharding.GroupShardedStage3``,
   ``zero3_shape``): ``flat = (lo, hi, shape)``, the range ``[lo, hi)`` of
   the row-major flattening of its (tensor-parallel) parameter of
@@ -86,6 +88,12 @@ class Layout:
     split: tuple | None = None      # (dim, index, parts)
     flat: tuple | None = None       # (lo, hi, shape)
     axes: tuple = ()                # fleet axes the part varies along
+
+    @property
+    def split_axis(self) -> str:
+        """The fleet axis ``split`` runs over: ``expert`` for an expert
+        bank, else ``model``."""
+        return "expert" if "expert" in self.axes else "model"
 
     def varying(self, *axes) -> "Layout":
         """The same part, varying along ``axes`` too."""
@@ -196,7 +204,8 @@ def placement_of(t):
     """The JAX package's placement descriptor of this rank's tensor ``t``
     under the initialised fleet: ``mesh_shape``/``mesh_axes`` of the
     hybrid topology in fleet's axis order and ``spec`` naming the split
-    axis of each dim (``"model"`` or None); a stage-3 slice adds
+    axis of each dim (``"model"``, ``"expert"`` for an expert bank, or
+    None); a stage-3 slice adds
     ``"flat": "sharding"``. None without a fleet of more than one rank
     (what a single-device JAX array records)."""
     hcg = spanning_hcg()
@@ -208,7 +217,7 @@ def placement_of(t):
     ndim = len(lay.flat[2]) if lay.flat is not None else t.dim()
     spec = [None] * ndim
     if lay.split is not None:
-        spec[lay.split[0]] = "model"
+        spec[lay.split[0]] = lay.split_axis
     desc = {"mesh_shape": [int(topo.get_dim(n)) for n in names],
             "mesh_axes": names, "spec": spec}
     if lay.flat is not None:

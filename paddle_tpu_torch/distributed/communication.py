@@ -19,13 +19,15 @@ as the JAX package's eager mode is.
 under ``gloo`` a collective over CUDA tensors copies them to host
 buffers, runs the gloo op and copies the result back. Ops gloo lacks are
 built from ops it has: ``reduce_scatter`` is an ``all_reduce`` and the
-rank's slice, ``alltoall``/``alltoall_single`` an ``all_gather`` and the
-rank's column, ``AVG`` a ``SUM`` divided by the group's size. This path
-is for correctness when ranks share one card, not for speed; two rules
-halve the bytes of bf16/f16 tensors, which gloo would carry widened to
-f32: ``broadcast`` moves their bytes as they are, and a ``SUM``/``AVG``
-over a group of two swaps the two tensors' bytes and adds them in f32
-on each rank (:func:`_pair_reduce`, the bits of the widened sum). Under
+rank's slice, ``alltoall`` an ``isend``/``irecv`` pair with each other
+member (:func:`_pair_exchange`: only the parts a rank needs, their bytes
+as they are), ``alltoall_single`` an ``all_gather`` and the rank's
+column, ``AVG`` a ``SUM`` divided by the group's size. This path is for
+correctness when ranks share one card, not for speed; two rules halve
+the bytes of bf16/f16 tensors, which gloo would carry widened to f32:
+``broadcast`` moves their bytes as they are, and a ``SUM``/``AVG`` over
+a group of two swaps the two tensors' bytes and adds them in f32 on
+each rank (:func:`_pair_reduce`, the bits of the widened sum). Under
 ``nccl`` every op is the native one on the device.
 """
 
@@ -230,6 +232,29 @@ def _pair_reduce(g, tensor, avg):
     return tensor
 
 
+def _pair_exchange(g, parts):
+    """gloo's all-to-all: part ``j`` to member ``j`` and member ``j``'s
+    part for this rank back, each by one ``isend``/``irecv`` pair of the
+    parts' bytes (nothing is summed, so nothing is widened; a rank moves
+    only the parts others need). Returns the received parts in group
+    order, on the parts' device."""
+    dist = _dist()
+    mine = [_bytes_of(t.contiguous()) for t in parts]
+    got, works = list(mine), []
+    for j, peer in enumerate(g.ranks):
+        if j == g.rank:
+            continue
+        got[j] = torch.empty_like(mine[j])
+        works.append(dist.isend(mine[j], dst=peer, group=_pg(g)))
+        works.append(dist.irecv(got[j], src=peer, group=_pg(g)))
+    for w in works:
+        w.wait()
+    t = parts[g.rank]
+    return [parts[j] if j == g.rank else
+            got[j].to(t.device).view(t.dtype).view(t.shape)
+            for j in range(g.nranks)]
+
+
 class _Work:
     """A finished (or staged) op's handle: ``wait`` waits for the torch
     work, then copies a staged receive back onto its device."""
@@ -341,9 +366,7 @@ def alltoall(out_tensor_list, in_tensor_list, group=None, sync_op=True):
         return out_tensor_list
     dist = _dist()
     if (g.backend or "gloo") == "gloo":
-        mine = torch.stack(list(in_tensor_list))
-        rows = all_gather([], mine, g)           # [src][dst]
-        out_tensor_list.extend(r[g.rank] for r in rows)
+        out_tensor_list.extend(_pair_exchange(g, list(in_tensor_list)))
         return out_tensor_list
     outs = [torch.empty_like(t) for t in in_tensor_list]
     dist.all_to_all(outs, [t.contiguous() for t in in_tensor_list],

@@ -6,10 +6,11 @@ counts the hybrid degrees against the world size (the JAX package counts
 devices; each rank here is one process) and builds the topology and its
 groups (``HybridCommunicateGroup``). ``dp_degree`` -1 (or 0) fills what
 the other degrees leave; degrees whose product is not the world size
-raise. Expert parallelism (``ep_degree``) above 1 raises, naming the
-ROADMAP item that ports it. The
-``fleet/init`` event goes through the profiler's tracer and names the
-backend (``env.backend_rule``).
+raise. Expert parallelism (``ep_degree``) is taken, its ``expert`` group
+built as every other axis's; ep with ZeRO (``sharding_degree > 1``)
+raises, naming the ROADMAP item that would port it. The
+``fleet/init`` event goes through the profiler's tracer, names every
+degree and the backend (``env.backend_rule``).
 
 ``distributed_model`` returns ``meta_parallel.PipelineParallel`` for a
 ``PipelineLayer`` at ``pp_degree > 1`` (``accumulate_steps``,
@@ -20,7 +21,11 @@ over the ``data`` group when ``dp_degree > 1``, over the data x sep ranks
 (``get_dp_sep_parallel_group``) when ``sep_degree > 1``: the parameters
 are replicated over both, and the context-parallel loss's backward seeds
 each sep rank's part with the group's count (``context_parallel.
-sep_sum``), so the average is the unpartitioned gradient. It runs its
+sep_sum``), so the average is the unpartitioned gradient. The ranks of an
+``expert`` group hold the same batch and the same replicated parameters,
+so nothing is averaged over ``expert``: a MoE layer's collectives sum the
+router's gradient there and leave each rank its own bank block's. It runs
+its
 forward under ``amp.auto_cast`` when the strategy's ``amp`` is on;
 tensor-parallel layers need no wrapper (their collectives are in their
 forward).
@@ -38,10 +43,6 @@ from .topology import CommunicateTopology, HybridCommunicateGroup
 __all__ = ["DistributedStrategy", "Fleet", "fleet", "init", "worker_num",
            "worker_index", "is_first_worker", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker", "UtilBase"]
-
-#: the ROADMAP items that port the degrees fleet.init refuses above 1
-_NOT_PORTED = {"ep_degree": "ROADMAP A.5, expert parallelism"}
-
 
 class DistributedStrategy:
     """Parallelism knobs (the JAX package's fields). ``hybrid_configs``:
@@ -98,17 +99,18 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
 def hybrid_degrees(hybrid_configs, world):
     """``(dp, sharding, pp, sep, mp, ep)`` for ``world`` ranks: the JAX
     package's arithmetic (``dp`` -1 or 0 fills), counted against the
-    world size; raises if the product is not the world size, or for a
-    degree above 1 that is not ported."""
+    world size; raises if the product is not the world size, or for ep
+    with ZeRO (not ported)."""
     hc = hybrid_configs
     deg = {k: max(int(hc.get(k, 1)), 1) for k in
            ("mp_degree", "pp_degree", "sharding_degree", "sep_degree",
             "ep_degree")}
-    for key, item in _NOT_PORTED.items():
-        if deg[key] > 1:
-            raise NotImplementedError(
-                f"{key}={deg[key]} is not ported ({item}); build the "
-                f"strategy with {key}=1")
+    if deg["ep_degree"] > 1 and deg["sharding_degree"] > 1:
+        raise NotImplementedError(
+            f"ep_degree={deg['ep_degree']} with sharding_degree="
+            f"{deg['sharding_degree']} (ZeRO over expert-split banks) is "
+            "not ported (ROADMAP A.7, expert parallelism x ZeRO); build "
+            "the strategy with one of them at 1")
     mp, pp, sh = deg["mp_degree"], deg["pp_degree"], deg["sharding_degree"]
     sep, ep = deg["sep_degree"], deg["ep_degree"]
     dp = int(hc.get("dp_degree", -1))

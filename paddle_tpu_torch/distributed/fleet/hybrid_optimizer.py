@@ -15,7 +15,10 @@ parameter is replicated over the ``sep`` group and holds the same
 gradient there once ``distributed_model`` (or the pipeline) has averaged
 it over the data x sep ranks, so nothing is summed over ``sep`` and a
 parameter counts once, not once a sep rank; the ``pipe`` and ``model``
-groups hold ranks of one sep index.
+groups hold ranks of one sep index. Expert parallelism splits the MoE
+banks over the ``expert`` group (``_ep_shard_dim``): their squares are
+summed over that group; every other parameter is replicated over it with
+the same gradient on each rank, and counts once.
 The global norm, and so the scale, equals ``ClipGradByGlobalNorm``'s on
 the unsplit model (up to the order of the f32 sums).
 """
@@ -39,16 +42,18 @@ def base_optimizer(opt):
 
 class HybridParallelClipGrad:
     """``clip`` (a ``ClipGradByGlobalNorm``) with its norm summed over
-    ``mp_group`` for split parameters, over ``sharding_group`` for a
-    partition and over ``pp_group`` for a pipeline stage."""
+    ``mp_group`` for split parameters, over ``ep_group`` for expert banks,
+    over ``sharding_group`` for a partition and over ``pp_group`` for a
+    pipeline stage."""
 
     def __init__(self, clip, mp_group=None, sharding_group=None,
-                 pp_group=None):
+                 pp_group=None, ep_group=None):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self.mp_group = mp_group
         self.sharding_group = sharding_group
         self.pp_group = pp_group
+        self.ep_group = ep_group
 
     @torch.no_grad()
     def global_norm(self, params_grads, device=None):
@@ -59,6 +64,7 @@ class HybridParallelClipGrad:
             device = grads[0][1].device if grads else \
                 (current_device() or torch.device("cpu"))
         split = torch.zeros((), dtype=torch.float32, device=device)
+        expert = torch.zeros((), dtype=torch.float32, device=device)
         whole = torch.zeros((), dtype=torch.float32, device=device)
         for p, g in grads:
             if getattr(p, "pipe_duplicate", False):
@@ -68,11 +74,15 @@ class HybridParallelClipGrad:
             # parameter they did not mark
             if getattr(p, "is_distributed", False) is True:
                 split = split + _sq_sum(g)
+            elif getattr(p, "_ep_shard_dim", None) is not None:
+                expert = expert + _sq_sum(g)
             else:
                 whole = whole + _sq_sum(g)
         if self.mp_group is not None and self.mp_group.nranks > 1:
             all_reduce(split, group=self.mp_group)
-        total = split + whole
+        if self.ep_group is not None and self.ep_group.nranks > 1:
+            all_reduce(expert, group=self.ep_group)
+        total = split + expert + whole
         if self.sharding_group is not None and \
                 self.sharding_group.nranks > 1:
             all_reduce(total, group=self.sharding_group)
@@ -88,7 +98,8 @@ class HybridParallelClipGrad:
                 for p, g in params_grads]
 
 
-def hybrid_clip(opt, mp_group=None, sharding_group=None, pp_group=None):
+def hybrid_clip(opt, mp_group=None, sharding_group=None, pp_group=None,
+                ep_group=None):
     """Make ``opt``'s global-norm clip (if any) span the groups given;
     a clip already made hybrid gains the groups it lacked."""
     base = base_optimizer(opt)
@@ -97,9 +108,11 @@ def hybrid_clip(opt, mp_group=None, sharding_group=None, pp_group=None):
         clip.mp_group = clip.mp_group or mp_group
         clip.sharding_group = clip.sharding_group or sharding_group
         clip.pp_group = clip.pp_group or pp_group
+        clip.ep_group = clip.ep_group or ep_group
     elif isinstance(clip, ClipGradByGlobalNorm):
         base._grad_clip = HybridParallelClipGrad(clip, mp_group,
-                                                 sharding_group, pp_group)
+                                                 sharding_group, pp_group,
+                                                 ep_group)
 
 
 def pipe_group(hcg):
@@ -115,9 +128,11 @@ class HybridParallelOptimizer:
         self._hcg = hcg
         self._strategy = strategy
         if hcg is not None and (hcg.get_model_parallel_world_size() > 1
-                                or pipe_group(hcg) is not None):
+                                or pipe_group(hcg) is not None
+                                or hcg.get_expert_parallel_world_size() > 1):
             hybrid_clip(optimizer, mp_group=hcg.get_model_parallel_group(),
-                        pp_group=pipe_group(hcg))
+                        pp_group=pipe_group(hcg),
+                        ep_group=hcg.get_expert_parallel_group())
 
     def __getattr__(self, name):
         return getattr(self._inner, name)

@@ -50,8 +50,12 @@ the whole sequence (``sep_shifted_cross_entropy``), and the gradients
 are averaged over the data x sep ranks. ``ring`` under 1F1B or ZB-H1
 raises, as in the JAX package (its tick engine broke the ring's
 rotation; this host loop could lift the refusal, ROADMAP A.7).
-Expert parallelism is not ported: pp with ``ep_degree > 1`` raises,
-naming ROADMAP A.5.
+Expert parallelism (``ep_degree > 1``): the ranks of a stage's
+``expert`` group hold the same microbatches and walk the same row, so
+the MoE layers' all-to-alls over that group meet in the same order; each
+stage rank keeps its own block of each bank (and its optimizer state),
+and the gradients are averaged over ``data`` only, as without the
+pipeline.
 """
 
 from __future__ import annotations
@@ -140,10 +144,6 @@ class PipelineParallel:
                     "'ulysses' (degree <= num_heads), both supported "
                     "under every schedule, or the FThenB/interleaved "
                     "schedules for ring")
-            if hcg.get_expert_parallel_world_size() > 1:
-                raise NotImplementedError(
-                    "pipeline parallelism with ep_degree > 1 is not ported "
-                    "(ROADMAP A.5, expert parallelism)")
             if self._num_virtual != v_layer:
                 # each rank built its chunks at construction
                 raise ValueError(

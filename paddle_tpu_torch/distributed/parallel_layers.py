@@ -173,6 +173,22 @@ class _PsumAllReduce(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
+class _Mean(torch.autograd.Function):
+    """JAX's ``pmean`` of a per-rank value that every rank then uses:
+    forward the group's mean, backward each rank's ``1/n`` share of the
+    gradient (the ranks' shares make the whole; an all-reduce would
+    count it n times)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = group.nranks
+        return _all_reduce(x, group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 def _all_to_all(x, split_dim, concat_dim, group):
     from .communication import alltoall
     parts = [p.contiguous() for p in x.chunk(group.nranks, dim=split_dim)]
@@ -235,6 +251,10 @@ def reduce_scatter_dim(x, dim, group):
 
 def psum(x, group):
     return _PsumAllReduce.apply(x, group)
+
+
+def pmean(x, group):
+    return _Mean.apply(x, group)
 
 
 def all_to_all_dim(x, split_dim, concat_dim, group):

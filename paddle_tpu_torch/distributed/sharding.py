@@ -23,10 +23,12 @@ def _sharding_optimizer(opt):
     return opt
 
 
-def gather_full(t, layout, mp_group, sharding_group):
+def gather_full(t, layout, mp_group, sharding_group, ep_group=None):
     """The full tensor of this rank's part ``t`` under ``layout`` (a
     collective over the groups it is split over: ``mp_group`` for a
-    tensor-parallel split, ``sharding_group`` for a stage-3 flat range)."""
+    tensor-parallel split, ``ep_group`` for an expert bank's, whose
+    layout names ``expert``, ``sharding_group`` for a stage-3 flat
+    range)."""
     from .parallel_layers import _all_gather
 
     def spans(group):
@@ -40,10 +42,12 @@ def gather_full(t, layout, mp_group, sharding_group):
             flat = _all_gather(flat, 0, sharding_group)
         t = flat[:math.prod(layout.flat[2])].view(layout.flat[2])
     if layout.split is not None and layout.split[2] > 1:
-        if not spans(mp_group):
+        axis = layout.split_axis
+        group = ep_group if axis == "expert" else mp_group
+        if not spans(group):
             raise ValueError(f"a tensor split over {layout.split[2]} ranks "
-                             "needs their model group to be gathered")
-        t = _all_gather(t, layout.split[0], mp_group)
+                             f"needs their {axis} group to be gathered")
+        t = _all_gather(t, layout.split[0], group)
     return t
 
 
@@ -76,11 +80,12 @@ def full_state(model, optimizer=None):
     from .fleet.hybrid_optimizer import base_optimizer
     hcg = current_hcg()
     mp_group = hcg.get_model_parallel_group() if hcg else None
+    ep_group = hcg.get_expert_parallel_group() if hcg else None
     sharding_group = hcg.get_sharding_parallel_group() if hcg else None
     if isinstance(model, GroupShardedStage3):
         sharding_group = model.group
     state = _all_stages(model, {
-        k: gather_full(v, layout_of(v), mp_group, sharding_group)
+        k: gather_full(v, layout_of(v), mp_group, sharding_group, ep_group)
         for k, v in model.state_dict().items()})
     if optimizer is None:
         return state, None
@@ -103,7 +108,7 @@ def full_state(model, optimizer=None):
             lay = layout_of(p) if p is not None and v.shape == p.shape \
                 else None
             v = gather_full(v.to(p.device) if lay is not None else v, lay,
-                            mp_group, sharding_group)
+                            mp_group, sharding_group, ep_group)
         full[k] = v
     return state, _all_stages(model, full)
 

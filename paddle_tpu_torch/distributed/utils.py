@@ -15,11 +15,16 @@ def get_available_device():
 
 def global_scatter(x, local_count, global_count, group=None):
     raise NotImplementedError(
-        "utils.global_scatter is the expert-parallel dispatch primitive: "
-        "ROADMAP A.5 (expert parallelism) ports it")
+        "utils.global_scatter is the GPU MoE dispatch primitive of "
+        "Paddle's count-based expert parallelism, which neither this "
+        "package nor the JAX one has; use MoELayer under fleet "
+        "ep_degree > 1 (or ops.moe.moe_forward_ep over an expert group): "
+        "its capacity all-to-all dispatches the tokens")
 
 
 def global_gather(x, local_count, global_count, group=None):
     raise NotImplementedError(
-        "utils.global_gather is the expert-parallel combine primitive: "
-        "ROADMAP A.5 (expert parallelism) ports it")
+        "utils.global_gather is the GPU MoE combine primitive of Paddle's "
+        "count-based expert parallelism, which neither this package nor "
+        "the JAX one has; use MoELayer under fleet ep_degree > 1 (or "
+        "ops.moe.moe_forward_ep over an expert group)")

@@ -290,7 +290,8 @@ class BatchSampler(Sampler):
 def data_replicas():
     """``(replicas, rank)`` of the data the ranks read apart: with a
     ``fleet`` topology its ``data`` x ``sharding`` ranks (the ranks of a
-    ``model`` group read the same batch), else the process group's world;
+    ``model``, ``sep``, ``pipe`` or ``expert`` group read the same batch),
+    else the process group's world;
     without a process group the launcher's ``PADDLE_TRAINERS_NUM`` /
     ``PADDLE_TRAINER_ID``."""
     import sys

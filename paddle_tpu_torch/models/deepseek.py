@@ -39,7 +39,11 @@ row-split over a whole input, ``q_b_proj``/``q_proj`` and ``kv_b_proj``
 column-split by heads, ``o_proj`` row-split), each rank holding
 ``num_attention_heads / mp`` heads, with the MLPs' and the shared
 experts' FFN, the embedding and the head split as in ``models.llama``;
-the routed experts are whole on every rank.
+the routed experts are whole on every rank of the ``model`` group. Under
+a fleet's ``expert`` group of more than one rank each rank holds its
+block of the routed experts (``MoELayer``, the output scaled by
+``routed_scaling_factor`` after the dispatch); the shared experts stay
+replicated. A cache step of a model built so raises (ROADMAP A.7).
 
 The state-dict keys are the JAX package's (``layers.0.self_attn.
 kv_b_proj.weight``, ``layers.1.mlp.moe.w_gate``, ...).
@@ -66,7 +70,7 @@ from ..distributed.parallel_layers import c_identity
 from ..distributed.parallel_layers import embedding as tp_embedding
 from ..distributed.parallel_layers import normal_ as tp_normal_
 from .llama import (_lin, _no_split_cache_step, _shifted_cross_entropy,
-                    kv_cache_dtype, rope_with_offset, slot_positions,
+                    ep_world, kv_cache_dtype, rope_with_offset, slot_positions,
                     tied_logits, tp_degree)
 
 __all__ = ["DeepseekV2Config", "DeepseekV2ForCausalLM"]
@@ -361,6 +365,8 @@ class DeepseekV2ForCausalLM(nn.Module, GenerationMixin):
             cfg, cfg.hidden_size, cfg.vocab_size, column=True,
             gather_output=True, device=meta, dtype=dtype)
         # RoPE tables of the rope head dim: derived, not weights
+        # a cache step raises under expert parallelism (llama.ep_world)
+        self.ep_world = ep_world(self)
         self.register_buffer("rope_sin", torch.empty(
             cfg.max_position_embeddings, cfg.qk_rope_head_dim // 2,
             device=meta), persistent=False)

@@ -319,7 +319,21 @@ def _lin(cfg, in_f, out_f, *, column, bias=False, gather_output=False,
                      enabled=getattr(cfg, "tensor_parallel", False))
 
 
+def ep_world(model) -> int:
+    """The largest expert-parallel degree of ``model``'s MoE layers (1
+    without any)."""
+    from ..incubate.distributed.models.moe import MoELayer
+    return max((m.ep for m in model.modules() if isinstance(m, MoELayer)),
+               default=1)
+
+
 def _no_split_cache_step(model):
+    if getattr(model, "ep_world", 1) > 1:
+        raise NotImplementedError(
+            "a cache step (serving, generate) of a model built under "
+            "expert parallelism (ep_degree > 1) is not ported: the JAX "
+            "engine serves one device (ROADMAP A.7); build the model "
+            "without an ep fleet to serve it")
     if model.mp_world > 1:
         raise NotImplementedError(
             "a cache step (serving, generate) of a tensor-parallel model "

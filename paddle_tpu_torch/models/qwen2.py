@@ -11,7 +11,7 @@ aux loss, ``Qwen2ForCausalLM``, ``Qwen2MoeForCausalLM`` and
 cache branch of the forward (``generate``, through
 ``generation.GenerationMixin``), and the pipelined
 ``Qwen2MoeForCausalLMPipe`` (``Qwen2MoeDecoderLayerPipe`` between the
-Llama pipe's embedding and head) at ``ep_degree == 1``.
+Llama pipe's embedding and head).
 
 Training (no caches): neox RoPE and flash attention (K7-K9); the
 input norm is RMSNorm (K1/K2); under ``FLAGS_fused_rmsnorm_residual``
@@ -36,6 +36,13 @@ dispatch's capacity are over the rank's tokens, as over a pipeline
 microbatch's, so the unpartitioned run is matched with dropless dispatch
 and the aux loss folded out (the rank's aux losses are averaged over the
 group otherwise).
+
+Expert parallelism (a fleet's ``expert`` group of more than one rank,
+alone or with ``model``, ``data`` or ``pipe``): each MoE layer holds its
+rank's block of experts and dispatches over the group
+(``MoELayer``); everything else, the shared expert and its gate
+included, is replicated over ``expert``. A cache step (serving,
+``generate``) of a model built so raises (ROADMAP A.7).
 
 Serving (caches, ``tables``): the paged step of ``models.llama`` (K12,
 or K13 over quantized pools), the unfused stack. ``generate`` (caches,
@@ -70,9 +77,9 @@ from ..distributed.parallel_layers import normal_ as tp_normal_
 from .llama import (LlamaAttention, LlamaEmbeddingPipe, LlamaHeadPipe,
                     LlamaMLP, LlamaPretrainingCriterion, _alloc_kv_caches,
                     _lin, _no_split_cache_step, check_parallel, check_pipe,
-                    check_weight_quant, kv_cache_dtype, pipe_key, pipe_rope,
-                    rope_with_offset, sep_attend, sep_loss, sep_rope_of,
-                    slot_positions, tied_logits, tp_degree)
+                    check_weight_quant, ep_world, kv_cache_dtype, pipe_key,
+                    pipe_rope, rope_with_offset, sep_attend, sep_loss,
+                    sep_rope_of, slot_positions, tied_logits, tp_degree)
 
 __all__ = ["Qwen2Config", "Qwen2MoeConfig", "Qwen2ForCausalLM",
            "Qwen2MoeForCausalLM", "Qwen2MoePretrainingCriterion",
@@ -286,6 +293,8 @@ class _Qwen2Base(nn.Module, GenerationMixin):
             cfg, cfg.hidden_size, cfg.vocab_size, column=True,
             gather_output=True, device=meta, dtype=dtype)
         # RoPE tables: derived, not weights, so outside the state dict
+        # a cache step raises under expert parallelism (llama.ep_world)
+        self.ep_world = ep_world(self)
         self.register_buffer("rope_sin", torch.empty(
             cfg.max_position_embeddings, cfg.head_dim // 2, device=meta),
             persistent=False)
@@ -439,9 +448,10 @@ class Qwen2MoeDecoderLayerPipe(Qwen2DecoderLayer):
 def Qwen2MoeForCausalLMPipe(config, device=None, dtype=torch.float32, seed=0,
                             **pipeline_kwargs):
     """The pipelined Qwen2-MoE as a ``PipelineLayer`` (the embedding, the
-    MoE decoder layers, the norm with the head), at ``ep_degree == 1``;
-    weights from ``seed`` as ``Qwen2MoeForCausalLM(config, seed=seed)``
-    draws them; ``key_map`` maps its state-dict keys to the layer's."""
+    MoE decoder layers, the norm with the head; under ep > 1 each stage
+    rank's MoE layers hold its block of experts); weights from ``seed``
+    as ``Qwen2MoeForCausalLM(config, seed=seed)`` draws them;
+    ``key_map`` maps its state-dict keys to the layer's."""
     from ..distributed.fleet.meta_parallel import LayerDesc, PipelineLayer
     check_pipe(config)
     n = config.num_hidden_layers

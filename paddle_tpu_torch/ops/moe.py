@@ -4,9 +4,9 @@ dropless path over the grouped-matmul kernels.
 Port of ``paddle_tpu/ops/moe.py``: ``top_k_gating``, ``top_k_gating_idx``,
 ``_dispatch_gather``, ``_combine_gather``, ``moe_dispatch_combine``,
 ``moe_ffn_grouped``, ``moe_forward`` (the capacity path),
-``sort_rows_by_expert`` and ``moe_forward_dropless``. The expert-parallel
-``moe_forward_ep`` and the ablation harness (``moe_ablation``) are not
-ported.
+``sort_rows_by_expert``, ``moe_forward_dropless`` and the expert-parallel
+``moe_forward_ep`` (over a process ``Group`` where the JAX function names
+a mesh axis). The ablation harness (``moe_ablation``) is not ported.
 
 The semantics are the JAX package's: the router runs in f32; the queue
 priority of an expert is row-major over (token, rank); capacity is
@@ -24,7 +24,7 @@ from .kernels.grouped_matmul import GroupedMatmulFunction
 
 __all__ = ["top_k_gating", "top_k_gating_idx", "moe_dispatch_combine",
            "moe_ffn_grouped", "moe_forward", "sort_rows_by_expert",
-           "moe_forward_dropless"]
+           "moe_forward_dropless", "moe_forward_ep"]
 
 
 def _router_stats(logits, probs, gate_idx, k):
@@ -239,3 +239,34 @@ def moe_forward_dropless(x, router_w, w_gate, w_up, w_down, k=2,
     y_k = _Combine.apply(y_p, perm).reshape(T, k, d)
     w = gate_vals.to(y_k.dtype)[..., None]
     return (y_k * w).sum(1).to(x.dtype), aux, z
+
+
+def moe_forward_ep(x, router_w, expert_fn_local, group, k=2,
+                   capacity_factor=1.25, norm_topk_prob=True):
+    """Expert-parallel MoE block over the ranks of ``group`` (the JAX
+    function's ``axis_name``).
+
+    x [T_local, d]: this rank's tokens; router_w [d, E], the same on every
+    rank. ``expert_fn_local([E/ep, ep * C, d])`` runs this rank's block of
+    experts on every rank's slots. The capacity is this rank's,
+    ``max(int(cf * k * T_local / E), 1)``. An all-to-all sends each block
+    of ``E/ep`` experts' slots to its owner and a second brings the
+    outputs back (their backwards are each other); ``aux`` and ``z`` are
+    averaged over the group, each rank's gradient a ``1/ep`` share.
+    Returns (out [T_local, d], aux, z)."""
+    from ..distributed.parallel_layers import all_to_all_dim, pmean
+    ep = group.nranks
+    T = x.shape[0]
+    E = router_w.shape[1]
+    if E % ep:
+        raise ValueError(f"num_experts {E} not divisible by ep degree {ep}")
+    capacity = max(int(capacity_factor * k * T / E), 1)
+    logits = x.float() @ router_w.float()
+    gate_idx, gate_vals, pos, keep, aux, z = top_k_gating_idx(
+        logits, k, capacity, norm_topk_prob)
+    xd, slot = _dispatch_gather(x, gate_idx, pos, keep, E, capacity)
+    # [E, C, d] -> [E/ep, ep*C, d]: each block of experts to its owner
+    xd = all_to_all_dim(xd, 0, 1, group)
+    out = all_to_all_dim(expert_fn_local(xd), 1, 0, group)   # [E, C, d]
+    y = _combine_gather(out, slot, gate_vals, keep, x.dtype)
+    return y, pmean(aux, group), pmean(z, group)

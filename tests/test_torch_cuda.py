@@ -2364,7 +2364,8 @@ def _two_ranks(device, path, *args):
 def test_low_precision_gloo_collectives_on_two_ranks_sharing_the_card(cuda):
     """bf16/f16 sums and means of two ranks sharing the card (their bytes
     swapped, added in f32 on the card) equal the f32 sum of the widened
-    values rounded once, bit for bit; a broadcast moves the bytes."""
+    values rounded once, bit for bit; a broadcast and an all-to-all move
+    the bytes."""
     res = _two_ranks("cuda", "torch_dist_cases:low_precision_collectives",
                      "cuda")
     for r in range(2):

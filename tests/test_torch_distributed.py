@@ -67,6 +67,9 @@ def _expected(n):
                  [sum(2 * r + i + 100 * k for k in range(n))
                   for i in range(2)], np.float32),
              "alltoall": [np.full(2, 10.0 * k + r) for k in range(n)],
+             "alltoall_bf16": [["torch.bfloat16", (2, 3),
+                                np.full((2, 3), 10.0 * k + r + 0.5)]
+                               for k in range(n)],
              "alltoall_single": np.array([10.0 * k + r for k in range(n)]),
              "broadcast": np.full(2, n - 1.0),
              "broadcast_object_list": ["from1", 1],
@@ -109,8 +112,9 @@ def _same(got, want, what):
                                       (4, True)])
 def test_every_collective_at_2_and_4_ranks(pools, n, staged):
     """all_reduce (each op, and a strided tensor), all_gather(_object),
-    reduce_scatter (sum and mean, the gloo build), alltoall and
-    alltoall_single (even and uneven splits, the gloo build), broadcast
+    reduce_scatter (sum and mean, the gloo build), alltoall (f32 and
+    bf16, the gloo build's pairwise exchange) and alltoall_single (even
+    and uneven splits, the gloo build), broadcast
     (_object_list), reduce, scatter(_object_list), gather, send/recv,
     batch_isend_irecv and a subgroup: exact values on every rank.
     ``staged`` runs them through the backend rule's host buffers, as gloo
@@ -127,14 +131,15 @@ def test_low_precision_sums_of_two_ranks_keep_the_widened_bits(pools):
     """bf16/f16 sums and means over two gloo ranks (the tensors' bytes
     swapped and added in f32 on each rank, contiguous or strided) equal
     the f32 sum of the widened values rounded once, bit for bit; a bf16
-    or f16 broadcast moves the bytes unchanged."""
+    or f16 broadcast and all-to-all move the bytes unchanged."""
     got = pools(2).run("torch_dist_cases:low_precision_collectives")
     for r in range(2):
-        assert len(got[r]) == 10
+        assert len(got[r]) == 14
         for key, (res, want) in got[r].items():
             np.testing.assert_array_equal(res, want, err_msg=f"{r}: {key}")
     for key in got[0]:
-        np.testing.assert_array_equal(got[0][key][0], got[1][key][0])
+        if not key.startswith("alltoall"):     # the same on both ranks
+            np.testing.assert_array_equal(got[0][key][0], got[1][key][0])
 
 
 def test_backend_rule(monkeypatch):
@@ -200,8 +205,8 @@ def test_communicate_topology_matches_jax(names, dims):
 
 def test_hybrid_degrees_arithmetic_and_errors():
     """The JAX arithmetic (dp -1 fills) against the world size; a product
-    other than the world size raises; pp and sep above 1 are taken, ep
-    above 1 raises, naming its ROADMAP item."""
+    other than the world size raises; pp, sep and ep above 1 are taken;
+    ep with ZeRO raises, naming its ROADMAP item."""
     deg = tbase.hybrid_degrees
     assert deg({"dp_degree": -1, "mp_degree": 2}, 8) == (4, 1, 1, 1, 2, 1)
     assert deg({"dp_degree": 0, "sharding_degree": 2, "mp_degree": 2},
@@ -213,11 +218,15 @@ def test_hybrid_degrees_arithmetic_and_errors():
         deg({"dp_degree": 1, "mp_degree": 2}, 8)
     assert deg({"pp_degree": 2}, 4) == (2, 1, 2, 1, 1, 1)
     assert deg({"pp_degree": 2, "mp_degree": 2}, 4) == (1, 1, 2, 1, 2, 1)
-    # context parallelism is taken; expert parallelism is not
+    # context and expert parallelism are taken; ep with ZeRO is not
     assert deg({"sep_degree": 2}, 4) == (2, 1, 1, 2, 1, 1)
     assert deg({"sep_degree": 4, "dp_degree": 1}, 4) == (1, 1, 1, 4, 1, 1)
-    with pytest.raises(NotImplementedError, match="A.5, expert parallelism"):
-        deg({"ep_degree": 2}, 4)
+    assert deg({"ep_degree": 2}, 4) == (2, 1, 1, 1, 1, 2)
+    assert deg({"ep_degree": 2, "dp_degree": 1}, 2) == (1, 1, 1, 1, 1, 2)
+    assert deg({"ep_degree": 2, "mp_degree": 2}, 4) == (1, 1, 1, 1, 2, 2)
+    with pytest.raises(NotImplementedError, match="A.7, expert parallelism "
+                       "x ZeRO"):
+        deg({"ep_degree": 2, "sharding_degree": 2}, 4)
 
 
 def test_fleet_init_builds_the_groups_of_each_axis(pools):
@@ -230,13 +239,15 @@ def test_fleet_init_builds_the_groups_of_each_axis(pools):
                {"dp_degree": 4, "mp_degree": 2},
                {"pp_degree": 2, "sep_degree": 2},
                {"pp_degree": 2, "mp_degree": 2},
-               {"ep_degree": 2}]
+               {"ep_degree": 2},
+               {"ep_degree": 2, "sharding_degree": 2, "dp_degree": 1}]
     got = pools(4).run("torch_dist_cases:fleet_degrees", configs)
     names = ("data", "sharding", "pipe", "sep", "model", "expert")
-    # config index -> its degrees (every mode is "hybrid")
+    # config index -> its degrees (every mode is "hybrid" but ep's:
+    # data, as in the JAX package)
     want_dims = {0: (2, 1, 1, 1, 2, 1), 1: (1, 2, 1, 1, 2, 1),
                  2: (1, 1, 1, 1, 4, 1), 4: (1, 1, 2, 2, 1, 1),
-                 5: (1, 1, 2, 1, 2, 1)}
+                 5: (1, 1, 2, 1, 2, 1), 6: (2, 1, 1, 1, 1, 2)}
     for rank, res in enumerate(got):
         for i, dims in want_dims.items():
             status, got_dims, coord, groups, mode = res[i]
@@ -246,10 +257,10 @@ def test_fleet_init_builds_the_groups_of_each_axis(pools):
             for name in names:
                 mine = [g for g in topo.get_comm_list(name) if rank in g][0]
                 assert groups[name] == mine, (name, groups[name], mine)
-            assert mode == "hybrid"
+            assert mode == ("data" if i == 6 else "hybrid")
         assert res[3][:2] == ("error", "ValueError")
-        assert res[6][:2] == ("error", "NotImplementedError")
-        assert "ROADMAP A.5" in res[6][2]
+        assert res[7][:2] == ("error", "NotImplementedError")
+        assert "ROADMAP A.7" in res[7][2]
 
 
 def test_world_size_one_is_the_plain_model_bit_for_bit(pools):

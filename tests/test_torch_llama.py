@@ -235,6 +235,12 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "from paddle_tpu_torch.inference import (ProcReplica, "
             "DisaggServingFleet, FleetAutoscaler, WireError)\n"
             "from paddle_tpu_torch import seed, summary\n"
+            "from paddle_tpu_torch.ops.moe import moe_forward_ep\n"
+            "from paddle_tpu_torch.incubate.distributed.models.moe."
+            "moe_layer import ep_info\n"
+            "from paddle_tpu_torch.distributed.parallel_layers import "
+            "pmean, all_to_all_dim\n"
+            "from paddle_tpu_torch.models.llama import ep_world\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

@@ -179,9 +179,44 @@ def test_moe_layer_matches(dropless):
             _np(p.grad.numpy()), rtol=1e-4, atol=1e-6, err_msg=name)
 
 
-def test_moe_layer_refuses_expert_parallelism():
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        MoELayer(16, 24, 4, ep_degree=2)
+def test_moe_layer_refuses_expert_parallelism(monkeypatch):
+    """Expert parallelism is taken now; what the layer refuses is an
+    expert count its fleet's ep degree does not divide. Under a fleet
+    whose expert group has 2 ranks (a stand-in topology: building makes
+    no collective) the layer holds its block of E/2 experts, drawn whole
+    from the generator, so its block equals that of the unsplit layer
+    from the same seed; the router is whole. The forward over real
+    ranks is in ``tests/test_torch_expert_parallel.py``."""
+    from paddle_tpu_torch.distributed.communication import Group
+    from paddle_tpu_torch.distributed.fleet import base
+
+    class Hcg:      # this process is the second of two expert ranks
+        def get_expert_parallel_world_size(self):
+            return 2
+
+        def get_expert_parallel_group(self):
+            return Group(-1, [1, 0], None, "expert")
+
+        def get_sep_parallel_world_size(self):
+            return 1
+
+    whole = MoELayer(16, 24, 4, device="cpu")
+    whole.reset_parameters(torch.Generator().manual_seed(5))
+    monkeypatch.setattr(base.fleet, "_hcg", Hcg())
+    layer = MoELayer(16, 24, 4, device="cpu")
+    layer.reset_parameters(torch.Generator().manual_seed(5))
+    assert layer.ep == 2 and layer.ep_rank == 1
+    assert layer.router_weight.shape == (16, 4)
+    assert torch.equal(layer.router_weight, whole.router_weight)
+    for name in ("w_gate", "w_up", "w_down"):
+        p = getattr(layer, name)
+        assert torch.equal(p, getattr(whole, name)[2:]), name
+        assert p.dist_layout.split == (0, 1, 2) and p._ep_shard_dim == 0
+        assert layer.state_dict()[name].dist_layout == p.dist_layout
+    assert whole.w_gate.dist_layout is None
+    with pytest.raises(ValueError,
+                       match="num_experts 5 not divisible by ep degree 2"):
+        MoELayer(16, 24, 5, device="cpu")
 
 
 @pytest.mark.parametrize("build", [lambda: MoELayer(16, 24, 4),

@@ -534,9 +534,11 @@ def test_model_save_writes_every_stage_and_loads_at_pp2(pools, tmp_path):
 def test_the_refusals(pools):
     """An unknown schedule, interleaved without virtual stages, an
     explicit schedule with them, a virtual count that conflicts with the
-    layer's, pp with ep (naming ROADMAP A.5), degrees that do not make
-    the world (pp 2 x sep 2 over 2 ranks: pp x sep itself is taken) and
-    ZeRO 3 under pp each raise, with the JAX package's meaning."""
+    layer's, degrees that do not make the world (pp 2 x sep 2 and pp 2 x
+    ep 2 over 2 ranks: pp x sep and pp x ep themselves are taken, in
+    ``tests/test_torch_context_parallel_pipe.py`` and
+    ``tests/test_torch_expert_parallel_pipe.py``) and ZeRO 3 under pp
+    each raise, with the JAX package's meaning."""
     got = pools(2).run("torch_pipe_cases:pipe_errors")
     for res in got:
         assert res["unknown"][0] == "ValueError"
@@ -549,8 +551,8 @@ def test_the_refusals(pools):
         assert "conflicts" in res["conflicting_v"][1]
         assert res["sep"][0] == "ValueError"
         assert "exceed the world size 2" in res["sep"][1]
-        assert res["ep"][0] == "NotImplementedError"
-        assert "A.5" in res["ep"][1]
+        assert res["ep"][0] == "ValueError"
+        assert "exceed the world size 2" in res["ep"][1]
         assert res["degrees"][0] == "ValueError"
         assert "world size" in res["degrees"][1]
         assert res["zero3"][0] == "NotImplementedError"

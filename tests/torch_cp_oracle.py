@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 import paddle_tpu as paddle
+from paddle_tpu.models import deepseek as jdeepseek
 from paddle_tpu.models import llama as jllama
 from paddle_tpu.models import qwen2 as jqwen2
 
@@ -48,26 +49,34 @@ def batches_of(steps=3, shape=(2, 32), vocab=256, seed=40):
 _JAX = {}
 
 
-def jax_oracle(family, fields, batches, opt_name="adamw", lr=LR, clip=None):
+def jax_oracle(family, fields, batches, opt_name="adamw", lr=LR, clip=None,
+               cf=None):
     """The JAX single-device eager run from seed 0, one step a batch:
     (weights before, losses, first gradients, global norms, weights
-    after)."""
+    after). ``cf`` sets every MoE layer's capacity factor."""
     # the oracle runs the whole sequence with sep off: one run serves
     # every implementation
     fields = {k: v for k, v in fields.items() if k != "sep_parallel"}
-    key = (family, tuple(sorted(fields.items())), opt_name, lr, clip,
+    key = (family, tuple(sorted(fields.items())), opt_name, lr, clip, cf,
            tuple(b.tobytes() for b in batches))
     if key in _JAX:
         return _JAX[key]
     cfg_cls, make = {"llama": (jllama.LlamaConfig, jllama.LlamaForCausalLM),
                      "qwen2": (jqwen2.Qwen2Config, jqwen2.Qwen2ForCausalLM),
                      "qwen2_moe": (jqwen2.Qwen2MoeConfig,
-                                   jqwen2.Qwen2MoeForCausalLM)}[family]
+                                   jqwen2.Qwen2MoeForCausalLM),
+                     "deepseek": (jdeepseek.DeepseekV2Config,
+                                  jdeepseek.DeepseekV2ForCausalLM)}[family]
     cfg = dataclasses.replace(cfg_cls.tiny(), **fields)
     cfg.tensor_parallel = False
     paddle.seed(0)
     jm = make(cfg)
     jm.train()
+    if cf is not None:
+        from paddle_tpu.incubate.distributed.models.moe import MoELayer
+        for layer in jm.sublayers(include_self=True):
+            if isinstance(layer, MoELayer):
+                layer.gate.capacity_factor = cf
     before = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     grad_clip = None if clip is None else paddle.nn.ClipGradByGlobalNorm(clip)
     if opt_name == "sgd":

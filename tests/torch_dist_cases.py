@@ -49,6 +49,12 @@ def collectives(staged=False):
     out["reduce_scatter_avg"] = _np(dst)
     ins = [torch.full((2,), float(10 * r + j)) for j in range(n)]
     out["alltoall"] = [_np(p) for p in C.alltoall([], ins)]
+    # bf16 parts of two rows (their bytes move as they are)
+    ins = [torch.full((2, 3), 10 * r + j + 0.5, dtype=torch.bfloat16)
+           for j in range(n)]
+    got_bf16 = C.alltoall([], ins)
+    out["alltoall_bf16"] = [(str(p.dtype), tuple(p.shape), _np(p))
+                            for p in got_bf16]
     single = torch.arange(float(n)) + 10 * r
     got = torch.empty(n)
     C.alltoall_single(got, single)
@@ -112,8 +118,9 @@ def collectives(staged=False):
 def low_precision_collectives(device="cpu"):
     """bf16/f16 ``all_reduce`` (sum, avg) over the two ranks, on
     contiguous and strided tensors (on ``device``), beside the f32 sum of
-    the widened values rounded once (the widened path's bits), and a
-    ``broadcast`` from rank 1 moving the bytes as they are. Returns
+    the widened values rounded once (the widened path's bits), a
+    ``broadcast`` from rank 1 and an ``alltoall`` moving the bytes as
+    they are. Returns
     {case: (got, want)} as f32 numpy."""
     r = env.get_rank()
     gen = torch.Generator().manual_seed(11 + r)
@@ -130,6 +137,11 @@ def low_precision_collectives(device="cpu"):
         t = x.clone()
         C.broadcast(t, src=1)
         out[f"broadcast {dtype}"] = (_np(t), _np(C.all_gather([], x)[1]))
+        # the all-to-all exchanges the parts' bytes: rank k's part r
+        parts = [x * (j + 1) for j in range(2)]
+        cols = [C.all_gather([], p) for p in parts]
+        for k, got in enumerate(C.alltoall([], parts)):
+            out[f"alltoall {dtype} from {k}"] = (_np(got), _np(cols[r][k]))
     return out
 
 

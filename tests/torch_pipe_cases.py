@@ -51,7 +51,8 @@ def pipe_train(family, fields, arrays, batches, hybrid, pipeline, lr=1e-3,
     through ``train_batch``; ``eval_batch`` before the first. Returns the
     losses, the eval loss, the first gradients, the final weights (rank
     0), the replica, this rank's parameter count, ``parameters_by_stage``'s
-    counts, the table's bound and the peak of live microbatch graphs."""
+    counts, the table's bound, the peak of live microbatch graphs and the
+    MoE banks' and their optimizer state's shapes on this rank."""
     from paddle_tpu_torch import convert
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.io import data_replicas
@@ -91,13 +92,15 @@ def pipe_train(family, fields, arrays, batches, hybrid, pipeline, lr=1e-3,
     by_stage = [int(sum(p.numel() for p in ps))
                 for ps in layer.parameters_by_stage]
     M = model.accumulate_steps
+    from torch_ep_cases import bank_state
     return {"losses": losses, "eval": eval_loss, "grads0": grads0,
             "weights": weights if env.get_rank() == 0 else None,
             "rep": rep, "stage": hcg.get_stage_id(),
             "param_numel": int(sum(p.numel() for p in layer.parameters())),
             "by_stage": by_stage, "peak_live": max(peaks),
             "bound": model._row(M, True)[1],
-            "n_layers_held": len(layer.run_function)}
+            "n_layers_held": len(layer.run_function),
+            "banks": bank_state(layer, opt)}
 
 
 def pipe_seed(family, fields, seed, hybrid, pipeline=None):
@@ -279,7 +282,7 @@ def pipe_errors():
     attempt("sep", lambda: pipe_fleet({"pp_degree": 2, "sep_degree": 2,
                                        "dp_degree": -1}))
     attempt("ep", lambda: pipe_fleet({"pp_degree": 2, "ep_degree": 2,
-                                      "dp_degree": -1}))
+                                      "dp_degree": -1}))    # 4 ranks
     attempt("degrees", lambda: pipe_fleet({"pp_degree": 2, "mp_degree": 2,
                                            "dp_degree": 2}))
 
