@@ -2587,3 +2587,36 @@ def test_sep2_llama_on_two_ranks_sharing_the_card(cuda):
             np.testing.assert_allclose(c["losses"][0], h["losses"][0],
                                        rtol=1e-5)
             np.testing.assert_allclose(c["losses"], h["losses"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("family,cf,aux", [("qwen2_moe", 4.0, 0.0),
+                                           ("qwen2_moe", 1.25, 0.001),
+                                           ("deepseek", 4.0, 0.0)])
+def test_ep2_moe_models_on_two_ranks_sharing_the_card(cuda, family, cf,
+                                                      aux):
+    """Tiny Qwen2-MoE and DeepSeek-V2 (f32) at ep 2 on two ranks sharing
+    the card (E/2 experts a rank, the all-to-alls through gloo's host
+    buffers, K1-K9 on the card), at a capacity that keeps every token
+    (E/k) and at one that drops with the aux loss on: three AdamW steps'
+    losses equal the same ranks' CPU run within 1e-5 at the first step
+    and 1e-4 after, and both ranks hold 4 of the 8 experts."""
+    from paddle_tpu_torch.models import (DeepseekV2Config,
+                                         DeepseekV2ForCausalLM,
+                                         Qwen2MoeConfig, Qwen2MoeForCausalLM)
+    make = {"qwen2_moe": (Qwen2MoeConfig, Qwen2MoeForCausalLM),
+            "deepseek": (DeepseekV2Config, DeepseekV2ForCausalLM)}[family]
+    arrays = convert.to_numpy_state_dict(
+        make[1](make[0].tiny(), device="cpu", seed=0))
+    rng = np.random.RandomState(9)
+    batches = [rng.randint(0, 256, (2, 32)).astype(np.int64)
+               for _ in range(3)]
+    args = (family, {"router_aux_loss_coef": aux}, arrays, batches,
+            {"ep_degree": 2, "dp_degree": 1}, "adamw", 1e-3, 0.01, None, cf,
+            None, None)
+    card = _two_ranks("cuda", "torch_ep_cases:ep_train", *args, None)
+    cpu = _two_ranks("cpu", "torch_ep_cases:ep_train", *args, "cpu")
+    for c, h in zip(card, cpu):
+        np.testing.assert_allclose(c["losses"][0], h["losses"][0],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(c["losses"], h["losses"], rtol=1e-4)
+        assert all(shape[0] == 4 for shape, _ in c["banks"].values())
